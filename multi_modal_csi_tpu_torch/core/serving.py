@@ -1,0 +1,97 @@
+"""Serving CSI models: the JAX package's serving contract
+(``core/export.py:99-107``, ``:151-189``; ``train/loop.py:238-242``) around
+an eager PyTorch model.
+
+- Every float32 parameter and persistent buffer (BatchNorm running stats
+  included) is cast once to the serving dtype.
+- The input is cast to the serving dtype in the forward.
+- Logits come back as float32.
+- A request of any number of windows is split into batches of the serving
+  batch; the last is zero-padded, and the padding is cut from the output
+  along the model's output batch axis (from the model table, never guessed
+  from sizes).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..runners.csi import CSI_MODELS
+from .config import resolve_serving_batch, resolve_serving_dtype
+from .device import resolve_device
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@torch.no_grad()
+def cast_for_serving(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast every float32 parameter and persistent buffer to ``dtype`` in
+    place. Non-persistent buffers (constants such as GaussianPosition's
+    position index) stay as they are, as the JAX package computes them
+    in the forward."""
+    for module in model.modules():
+        for param in module.parameters(recurse=False):
+            if param.dtype == torch.float32:
+                param.data = param.data.to(dtype)
+        for name, buf in module.named_buffers(recurse=False):
+            if (buf.dtype == torch.float32
+                    and name not in module._non_persistent_buffers_set):
+                setattr(module, name, buf.to(dtype))
+    return model
+
+
+class CSIServer:
+    """Answers ragged requests of CSI windows with one model.
+
+    ``model`` is a port model for ``model_key`` (from
+    ``runners.csi.build_model`` or with carried-over weights); the server
+    moves it to ``device`` (the card unless told otherwise), casts it, and
+    puts it in eval mode.
+    """
+
+    def __init__(self, model_key: str, model: nn.Module, *,
+                 batch: Optional[int] = None, dtype: str = "auto",
+                 device: Optional[Union[str, torch.device]] = None):
+        if model_key not in CSI_MODELS:
+            raise KeyError(f"unknown model {model_key!r}; ported: "
+                           f"{sorted(CSI_MODELS)}")
+        self.model_key = model_key
+        self.device = resolve_device(device)
+        self.dtype = _DTYPES[resolve_serving_dtype(dtype, model_key)]
+        self.batch = resolve_serving_batch(model_key, batch)
+        self.batch_axis = CSI_MODELS[model_key].batch_axis
+        self.model = cast_for_serving(model.to(self.device).eval(),
+                                      self.dtype)
+
+    @torch.no_grad()
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """One batch on the server's device: cast in, f32 logits out."""
+        return self.model(x.to(self.device).to(self.dtype)).float()
+
+    @torch.no_grad()
+    def __call__(self, windows: Union[np.ndarray, torch.Tensor]
+                 ) -> torch.Tensor:
+        """Logits for ``windows`` (n, length, channels), any n >= 1, as a
+        float32 tensor on the server's device with n along the batch
+        axis."""
+        if isinstance(windows, np.ndarray):
+            windows = torch.from_numpy(windows)
+        if windows.dim() != 3 or windows.shape[0] == 0:
+            raise ValueError("a request is a non-empty (n, length, channels)"
+                             f" array of windows, got {tuple(windows.shape)}")
+        outs = []
+        for start in range(0, windows.shape[0], self.batch):
+            chunk = windows[start:start + self.batch].to(self.device)
+            pad = self.batch - chunk.shape[0]
+            if pad:
+                chunk = torch.cat([chunk, chunk.new_zeros(
+                    (pad,) + tuple(chunk.shape[1:]))])
+            out = self.forward(chunk)
+            if pad:
+                out = out.narrow(self.batch_axis, 0, self.batch - pad)
+            outs.append(out)
+        return torch.cat(outs, dim=self.batch_axis)

@@ -1,0 +1,172 @@
+"""Carry weights from the JAX package's variables to the port.
+
+``state_dict_from_jax(model_key, variables)`` takes a JAX model's
+``{"params": ..., "batch_stats": ...}`` tree as nested dicts of arrays and
+returns the port model's state dict, for ``load_state_dict(strict=True)``.
+It is the inverse of the JAX package's ``core/torch_import.py`` per-layer
+maps (which read the same reference torch layout the port's parameters are
+named after):
+
+- Linear ``kernel`` (in, out) -> ``weight`` (out, in);
+- Conv1d ``conv/kernel`` (k, in/groups, out) -> ``weight`` (out, in/groups, k);
+- BatchNorm ``bn/scale, bias`` + stats ``bn/mean, var`` -> ``weight, bias,
+  running_mean, running_var``;
+- LayerNorm ``ln/scale, bias`` -> ``weight, bias``;
+- attention ``in_proj_weight`` and ``out_proj_weight`` transposed;
+- GaussianPosition ``embedding, mu, sigma`` -> ``var_embedding, var_mu,
+  var_sigma``.
+
+The weight-shared decoder layer is written under every
+``decoder_layers.{i}`` index, as the port's state dict repeats it.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from .config import NNConfig
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def _linear(sd: StateDict, p, pre: str) -> None:
+    sd[f"{pre}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        sd[f"{pre}.bias"] = _t(p["bias"])
+
+
+def _conv1d(sd: StateDict, p, pre: str) -> None:
+    c = p["conv"]
+    sd[f"{pre}.weight"] = _t(np.transpose(np.asarray(c["kernel"]), (2, 1, 0)))
+    if "bias" in c:
+        sd[f"{pre}.bias"] = _t(c["bias"])
+
+
+def _bn(sd: StateDict, p, s, pre: str) -> None:
+    sd[f"{pre}.weight"] = _t(p["bn"]["scale"])
+    sd[f"{pre}.bias"] = _t(p["bn"]["bias"])
+    sd[f"{pre}.running_mean"] = _t(s["bn"]["mean"])
+    sd[f"{pre}.running_var"] = _t(s["bn"]["var"])
+
+
+def _ln(sd: StateDict, p, pre: str) -> None:
+    sd[f"{pre}.weight"] = _t(p["ln"]["scale"])
+    sd[f"{pre}.bias"] = _t(p["ln"]["bias"])
+
+
+def _mha(sd: StateDict, p, pre: str) -> None:
+    sd[f"{pre}.in_proj_weight"] = _t(np.asarray(p["in_proj_weight"]).T)
+    sd[f"{pre}.in_proj_bias"] = _t(p["in_proj_bias"])
+    sd[f"{pre}.out_proj.weight"] = _t(np.asarray(p["out_proj_weight"]).T)
+    sd[f"{pre}.out_proj.bias"] = _t(p["out_proj_bias"])
+
+
+def _gaussian(sd: StateDict, p, pre: str) -> None:
+    sd[f"{pre}.var_embedding"] = _t(p["embedding"])
+    sd[f"{pre}.var_mu"] = _t(p["mu"])
+    sd[f"{pre}.var_sigma"] = _t(p["sigma"])
+
+
+def _encoder_block(sd: StateDict, p, s, pre: str, n_convs: int) -> None:
+    _ln(sd, p["norm_0"], f"{pre}.layer_norm_0")
+    _mha(sd, p["attn"], f"{pre}.layer_attention")
+    _ln(sd, p["norm_1"], f"{pre}.layer_norm_1")
+    for i in range(n_convs):
+        _conv1d(sd, p[f"cnn_{i}"], f"{pre}.layer_cnn.{i}.0")
+        _bn(sd, p[f"cnn_bn_{i}"], s[f"cnn_bn_{i}"], f"{pre}.layer_cnn.{i}.1")
+
+
+def _that_trunk(sd: StateDict, p, s) -> None:
+    tp, ts = p["trunk"], s["trunk"]
+    _gaussian(sd, tp["gaussian"], "layer_left_gaussian")
+    for i in range(4):
+        _encoder_block(sd, tp[f"left_encoder_{i}"], ts[f"left_encoder_{i}"],
+                       f"layer_left_encoder.{i}", 3)
+    _ln(sd, tp["left_norm"], "layer_left_norm")
+    _conv1d(sd, tp["left_cnn_0"], "layer_left_cnn_0")
+    _conv1d(sd, tp["left_cnn_1"], "layer_left_cnn_1")
+    _encoder_block(sd, tp["right_encoder_0"], ts["right_encoder_0"],
+                   "layer_right_encoder.0", 3)
+    _ln(sd, tp["right_norm"], "layer_right_norm")
+    _conv1d(sd, tp["right_cnn_0"], "layer_right_cnn_0")
+    _conv1d(sd, tp["right_cnn_1"], "layer_right_cnn_1")
+
+
+def _that(sd: StateDict, p, s, layers: int) -> None:
+    _that_trunk(sd, p, s)
+    _linear(sd, p["head"], "layer_output")
+
+
+def _that_multi_head(sd: StateDict, p, s, layers: int) -> None:
+    _that_trunk(sd, p, s)
+    heads = sorted((k for k in p if k.startswith("head_")),
+                   key=lambda k: int(k.split("_")[1]))
+    for i, key in enumerate(heads):
+        _linear(sd, p[key], f"layer_output.{i}")
+
+
+def _detr(sd: StateDict, p, s, layers: int) -> None:
+    fp, fs = p["feature_extractor"], s["feature_extractor"]
+    _conv1d(sd, fp["initial_conv"]["depthwise"],
+            "feature_extractor.initial_conv.depthwise")
+    _conv1d(sd, fp["initial_conv"]["pointwise"],
+            "feature_extractor.initial_conv.pointwise")
+    for i in range(4):
+        _conv1d(sd, fp[f"dilated_{i}"]["conv"],
+                f"feature_extractor.dilated_blocks.{i}.conv")
+        _bn(sd, fp[f"dilated_{i}"]["bn"], fs[f"dilated_{i}"]["bn"],
+            f"feature_extractor.dilated_blocks.{i}.bn")
+    _conv1d(sd, fp["final_conv"], "feature_extractor.final_conv")
+
+    ep, es = p["encoder"], s["encoder"]
+    _gaussian(sd, ep["gaussian"], "encoder.layer_embedding_gaussian")
+    for i in range(4):
+        _encoder_block(sd, ep[f"encoder_{i}"], es[f"encoder_{i}"],
+                       f"encoder.layer_embedding_encoder.{i}", 1)
+    _ln(sd, ep["norm"], "encoder.layer_embedding_norm")
+
+    dp = p["decoder"]
+    sd["decoder.query_embed"] = _t(dp["query_embed"])
+    lp = dp["shared_layer"]
+    layer: StateDict = {}
+    _mha(layer, lp["self_attn"], "self_attn")
+    _mha(layer, lp["cross_attn"], "cross_attn")
+    for norm in ("norm1", "norm2", "norm3"):
+        _ln(layer, lp[norm], norm)
+    _linear(layer, lp["ffn_up"], "ffn.0")
+    _linear(layer, lp["ffn_down"], "ffn.3")
+    for i in range(layers):
+        for key, value in layer.items():
+            sd[f"decoder.decoder_layers.{i}.{key}"] = value
+    _linear(sd, dp["class_embed"], "decoder.class_embed")
+
+
+_EXPORTERS = {
+    "THAT": _that,
+    "THAT_MULTI_HEAD": _that_multi_head,
+    "THAT_COUNT": _that,
+    "THAT_COUNT_CONSTRAINED": _that,
+    "DETR": _detr,
+}
+
+
+def state_dict_from_jax(
+        model_key: str, variables: Mapping[str, Any], *,
+        num_decoder_layers: int = NNConfig.num_decoder_layers) -> StateDict:
+    """The port's float32 state dict for the JAX ``variables`` of
+    ``model_key``. ``num_decoder_layers`` says how many times DETR's shared
+    decoder layer is listed; the JAX tree holds it once."""
+    if model_key not in _EXPORTERS:
+        raise KeyError(f"no weight map for model {model_key!r} "
+                       f"(have {sorted(_EXPORTERS)})")
+    sd: StateDict = {}
+    _EXPORTERS[model_key](sd, variables["params"],
+                          variables.get("batch_stats", {}), num_decoder_layers)
+    return sd

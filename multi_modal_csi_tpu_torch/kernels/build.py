@@ -1,0 +1,65 @@
+"""Build the CUDA sources under ``csrc/`` into shared libraries and load them
+with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher and is
+compiled alone with ``nvcc`` (no PyTorch headers, so a build takes seconds)
+into ``_build/lib<name>-<hash>.so``, where the hash covers the source and the
+flags: an unchanged source is not rebuilt, a changed one never loads a stale
+library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# compiler output (register and shared-memory use from ``-Xptxas -v``) of
+# each library built by this process
+LOGS: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "source at first use and need the CUDA toolkit")
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, built first if needed. Each
+    kernel module loads its library once and sets its C signatures."""
+    target = _target(name)
+    if not target.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+        os.replace(tmp, target)
+        LOGS[name] = proc.stdout
+    return ctypes.CDLL(str(target))

@@ -1,0 +1,271 @@
+"""Layers with the JAX package's semantics (``nn/layers.py`` there), in
+PyTorch, for eval-mode serving.
+
+Layout is channels-last, (batch, length, features), as in the JAX package,
+so both packages' layers take the same arrays. Parameter names follow the
+reference torch state-dict layout.
+
+Dtypes follow JAX's promotion step for step, because bf16 serving casts only
+the weights (``core/serving.py``) and JAX then decides per operation where
+values are rounded:
+
+- a matrix product accumulates in f32 and its result takes the promoted
+  type of its operands (``dense``), so an f32 activation meeting a bf16
+  weight is computed in f32;
+- LayerNorm and BatchNorm compute in f32 and return the promoted type of
+  input and parameters;
+- attention keys its serving dtype on the parameter dtype, since
+  activations may arrive in f32 in bf16 serving.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.flash_attention import flash_attention
+from .init import torch_bias_, torch_linear_weight_, xavier_uniform_
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor,
+          bias: Optional[torch.Tensor], out_dtype: torch.dtype
+          ) -> torch.Tensor:
+    """x @ weight.T + bias with f32 accumulation, returned in out_dtype.
+
+    When x, weight and the output are all bf16 this is one bf16 product
+    (f32 accumulation, one rounding). Otherwise the operands are promoted to
+    f32, as JAX promotes a mixed f32 x bf16 product.
+    """
+    if x.dtype == weight.dtype == out_dtype and (
+            bias is None or bias.dtype == out_dtype):
+        return F.linear(x, weight, bias)
+    y = F.linear(x.float(), weight.float(),
+                 None if bias is None else bias.float())
+    return y.to(out_dtype)
+
+
+class Linear(nn.Module):
+    """torch.nn.Linear's parameters, xavier-uniform or torch-default weight,
+    torch-default bias; the output keeps the input's dtype."""
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 bias: bool = True, xavier: bool = True,
+                 generator: torch.Generator):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        (xavier_uniform_ if xavier else torch_linear_weight_)(
+            self.weight, generator)
+        self.bias = None
+        if bias:
+            self.bias = nn.Parameter(torch.empty(out_features))
+            torch_bias_(self.bias, in_features, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(x, self.weight, self.bias, x.dtype)
+
+
+def _same_pads(length: int, kernel: int, stride: int,
+               dilation: int) -> Tuple[int, int]:
+    """XLA's "SAME" padding: output ceil(L / stride), the odd pad at the
+    end (kernel 2 pads (0, 1))."""
+    out = -(-length // stride)
+    total = max((out - 1) * stride + (kernel - 1) * dilation + 1 - length, 0)
+    return total // 2, total - total // 2
+
+
+class Conv1d(nn.Module):
+    """1-D convolution on (B, L, C) with torch Conv1d's parameters.
+
+    ``padding`` is an int (both sides), "SAME" or "VALID". Input, weight
+    and bias are promoted to one dtype, in which the convolution runs.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 *, stride: int = 1, padding: Union[int, str] = "VALID",
+                 dilation: int = 1, groups: int = 1, bias: bool = True,
+                 xavier: bool = True, generator: torch.Generator):
+        super().__init__()
+        if isinstance(padding, str) and padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding must be an int, SAME or VALID, got "
+                             f"{padding!r}")
+        self.stride, self.padding = stride, padding
+        self.dilation, self.groups = dilation, groups
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels // groups, kernel_size))
+        (xavier_uniform_ if xavier else torch_linear_weight_)(
+            self.weight, generator)
+        self.bias = None
+        if bias:
+            self.bias = nn.Parameter(torch.empty(out_channels))
+            torch_bias_(self.bias, in_channels // groups * kernel_size,
+                        generator)
+
+    def pads(self, length: int) -> Tuple[int, int]:
+        if self.padding == "VALID":
+            return 0, 0
+        if self.padding == "SAME":
+            return _same_pads(length, self.weight.shape[-1], self.stride,
+                              self.dilation)
+        return self.padding, self.padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        if self.bias is not None:
+            dtype = torch.promote_types(dtype, self.bias.dtype)
+        xt = F.pad(x.transpose(1, 2).to(dtype), self.pads(x.shape[1]))
+        y = F.conv1d(xt, self.weight.to(dtype),
+                     None if self.bias is None else self.bias.to(dtype),
+                     stride=self.stride, dilation=self.dilation,
+                     groups=self.groups)
+        return y.transpose(1, 2)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm over the trailing feature axis of (B, ..., C),
+    eps 1e-5, with torch BatchNorm's parameter and buffer names. Training
+    statistics arrive with the training slice."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError("BatchNorm runs in eval mode only; "
+                                      "call .eval() on the model")
+        y = (x.float() - self.running_mean) * torch.rsqrt(
+            self.running_var + self.eps)
+        y = y * self.weight + self.bias
+        return y.to(torch.promote_types(x.dtype, self.weight.dtype))
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the trailing axis, computed in f32. eps is 1e-6, the
+    JAX package's (and the reference's), not torch's 1e-5."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), (x.shape[-1],), self.weight.float(),
+                         self.bias.float(), self.eps)
+        return y.to(torch.promote_types(x.dtype, self.weight.dtype))
+
+
+def avg_pool1d(x: torch.Tensor, kernel: int,
+               stride: Optional[int] = None) -> torch.Tensor:
+    """torch AvgPool1d on (B, L, C): VALID, floor length."""
+    return F.avg_pool1d(x.transpose(1, 2), kernel, stride or kernel
+                        ).transpose(1, 2)
+
+
+def max_pool1d(x: torch.Tensor, kernel: int,
+               stride: Optional[int] = None) -> torch.Tensor:
+    """torch MaxPool1d on (B, L, C): VALID, floor length."""
+    return F.max_pool1d(x.transpose(1, 2), kernel, stride or kernel
+                        ).transpose(1, 2)
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """torch's default negative slope, 0.01."""
+    return F.leaky_relu(x, 0.01)
+
+
+KV = Tuple[torch.Tensor, torch.Tensor]
+
+
+class MultiheadAttention(nn.Module):
+    """torch.nn.MultiheadAttention's parameters (batch-first, one embed
+    dim): packed ``in_proj_weight``/``in_proj_bias`` with xavier weight and
+    zero bias, ``out_proj`` with torch-default weight and zero bias.
+
+    ``output_scale`` is the reference's temperature: it divides the
+    attention OUTPUT, not the logits. ``kv``/``return_kv`` let a
+    weight-shared decoder project a fixed memory's K/V once and reuse it.
+
+    In eval mode with at least 64 query and 64 key tokens, attention runs
+    in the fused kernel (``kernels/flash_attention.py``) in the serving
+    dtype. Other shapes take the eager branch, which in bf16 serving rounds
+    logits and weights to bf16 as the JAX package does.
+    """
+
+    def __init__(self, embed_dim: int, num_heads: int, *,
+                 output_scale: float = 1.0, generator: torch.Generator):
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
+                             f"num_heads {num_heads}")
+        self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.output_scale = output_scale
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim,
+                                                       embed_dim))
+        xavier_uniform_(self.in_proj_weight, generator)
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
+        self.out_proj = Linear(embed_dim, embed_dim, xavier=False,
+                               generator=generator)
+        with torch.no_grad():
+            self.out_proj.bias.zero_()
+
+    def forward(self, query: torch.Tensor, key: torch.Tensor,
+                value: torch.Tensor, kv: Optional[KV] = None,
+                return_kv: bool = False
+                ) -> Union[torch.Tensor, Tuple[torch.Tensor, KV]]:
+        e, h = self.embed_dim, self.num_heads
+        d = e // h
+        w, b = self.in_proj_weight, self.in_proj_bias
+        # the serving dtype is the parameters' dtype
+        act = torch.bfloat16 if w.dtype == torch.bfloat16 else torch.float32
+        nk = (key if kv is None else kv[0]).shape[1]
+        use_flash = not self.training and query.shape[1] >= 64 and nk >= 64
+        # the flash branch projects straight into the serving dtype; the
+        # eager branch keeps q, k, v in f32
+        proj_dtype = act if use_flash else torch.float32
+
+        def split(t):
+            return t.reshape(*t.shape[:-1], h, d)
+
+        q = split(dense(query, w[:e], b[:e], proj_dtype))
+        if kv is None:
+            kv = (split(dense(key, w[e:2 * e], b[e:2 * e], proj_dtype)),
+                  split(dense(value, w[2 * e:], b[2 * e:], proj_dtype)))
+        k, v = kv
+        if use_flash:
+            ctx = flash_attention(q, k.to(act).contiguous(),
+                                  v.to(act).contiguous())
+        else:
+            ctx = _eager_attention(q, k, v, act)
+        ctx = ctx.reshape(*query.shape[:-1], e)
+
+        wo, bo = self.out_proj.weight, self.out_proj.bias
+        if self.output_scale != 1.0:
+            out = dense(ctx, wo, bo, torch.float32) * (1.0 / self.output_scale)
+            out = out.to(query.dtype)
+        else:
+            out = dense(ctx, wo, bo, query.dtype)
+        return (out, kv) if return_kv else out
+
+
+def _eager_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     act: torch.dtype) -> torch.Tensor:
+    """The gate's other branch, for short sequences (DETR's 10 memory
+    tokens and 5 queries). f32 q, k, v; in bf16 serving the (B, H, Nq, Nk)
+    logits, exp and weights are rounded to bf16, the row sum accumulates in
+    f32, and P.V runs in f32."""
+    d = q.shape[-1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()).to(act)
+    logits = logits / math.sqrt(d)
+    unnorm = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    weights = unnorm / unnorm.sum(dim=-1, keepdim=True,
+                                  dtype=torch.float32).to(act)
+    return torch.einsum("bhqk,bkhd->bqhd", weights.float(), v.float())
