@@ -1,8 +1,9 @@
-"""Configuration the CSI serving slice needs, copied from the JAX package's
-``core/config.py`` (which the port does not import).
+"""Configuration the CSI serving and training code needs, copied from the
+JAX package's ``core/config.py`` (which the port does not import).
 
-- ``NNConfig``: the model hyperparameters of the reference preset
-  (reference ``wifi_csi/preset.py:42-66``);
+- ``NNConfig``: the model and training hyperparameters of the reference
+  preset (reference ``wifi_csi/preset.py:42-66``), with the cosine-warmup
+  schedule's and the set-matching loss's knobs;
 - ``DataConfig.length``: CSI time steps per window after left-padding;
 - the serving dtype and batch with their ``resolve_*`` functions. The JAX
   package's tables differ per model only for video models, which arrive with
@@ -26,12 +27,36 @@ class DataConfig:
 
 
 @dataclass
+class SchedulerConfig:
+    """Cosine-warmup schedule knobs (reference wifi_csi/preset.py:47-51)."""
+    num_warmup_epochs: int = 10
+    min_lr_ratio: float = 0.05
+
+
+@dataclass
+class LossConfig:
+    """Set-matching loss knobs (reference wifi_csi/preset.py:52-59)."""
+    cost_class_weight: float = 1.0
+    aux_loss_weight: float = 0.25
+    label_smoothing: float = 0.3
+    class_imbalance_weight: float = 0.25
+
+
+@dataclass
 class NNConfig:
+    lr: float = 5e-4
+    epoch: int = 300
+    batch_size: int = 16
+    threshold: float = 0.5
+    scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
     cross_attention_temp: float = 2.0
+    weight_decay: float = 2e-4
     num_obj_queries: int = 5
     num_decoder_layers: int = 6
     dim_ffn: int = 512
     token_length: int = 10
+    patience: int = 150
 
 
 @dataclass

@@ -1,11 +1,15 @@
-"""Fused inference attention softmax(q k^T / sqrt(D)) v: the port of the JAX
-package's THAT-family Pallas kernel (``kernels/flash_attention.py::
-flash_attention``, K1).
+"""Fused attention softmax(q k^T / sqrt(D)) v and its backward: the port of
+the JAX package's THAT-family Pallas kernels (``kernels/flash_attention.py::
+flash_attention``, K1, and ``flash_attention_trainable``, K2).
 
 ``flash_attention`` launches the hand-written CUDA kernel
-``csrc/flash_attention.cu`` on CUDA tensors and takes the plain version,
-``flash_attention_reference``, only for CPU tensors. The source's header
-says what bounds the kernel on an H100 and what its design does about it.
+``csrc/flash_attention.cu`` and ``flash_attention_backward`` launches
+``csrc/flash_attention_bwd.cu`` on CUDA tensors; each takes its plain
+version (``flash_attention_reference``,
+``flash_attention_backward_reference``) only for CPU tensors.
+``flash_attention_trainable`` is the differentiable attention of training:
+its forward is K1 and its backward K2. Each source's header says what
+bounds the kernel on an H100 and what its design does about it.
 """
 
 from __future__ import annotations
@@ -13,12 +17,15 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Tuple
 
 import torch
 
 from . import build, count_launch
 
 NAME = "flash_attention"
+BWD_NAME = "flash_attention_backward"
+BWD_SOURCE = "flash_attention_bwd"    # csrc/flash_attention_bwd.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CUDA_ERROR_INVALID_VALUE = 1     # cudaErrorInvalidValue
 
@@ -40,37 +47,91 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype)
 
 
+def flash_attention_backward_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward, step for step the TPU
+    kernel's arithmetic (``_bwd_kernel_plain``): the weights recomputed from
+    f32 logits times 1/sqrt(D) and kept in f32; dw = dO V^T and
+    dl = w (dw - rowsum(dw w)) in f32; dQ = dl K scale and
+    dK = dl^T Q scale from the f32 dl; dV = bf(w)^T dO with the weights
+    rounded to dO's dtype; all three returned in the inputs' dtypes.
+
+    q, do: (B, Nq, H, D); k, v: (B, Nk, H, D). ``do`` is first cast to q's
+    dtype, as the TPU kernel casts it.
+    """
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    do = do.to(q.dtype)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    unnorm = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    w = unnorm / unnorm.sum(dim=-1, keepdim=True)
+    dw = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    dl = w * (dw - (dw * w).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bkhd->bqhd", dl, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", dl, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", w.to(do.dtype).float(), dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
-    """The built kernel library with the launcher's C signature set
-    (pointers and the stream as c_void_p, sizes as c_int)."""
-    lib = build.load(NAME)
-    fn = lib.mmcsi_flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+def _library(source: str, tensors: int) -> ctypes.CDLL:
+    """The built library of ``csrc/<source>.cu`` with its launcher's C
+    signature set: ``tensors`` pointers, then B, Nq, Nk, H, D and the
+    dtype code as c_int, then the stream (pointers and the stream as
+    c_void_p)."""
+    lib = build.load(source)
+    fn = getattr(lib, f"mmcsi_{source}")
+    fn.argtypes = [ctypes.c_void_p] * tensors + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           what: str = NAME) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention takes (B, N, H, D) tensors, got "
+        raise ValueError(f"{what} takes (B, N, H, D) tensors, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, _, h, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
-        raise ValueError(f"flash_attention shapes disagree: q {tuple(q.shape)}"
+        raise ValueError(f"{what} shapes disagree: q {tuple(q.shape)}"
                          f", k {tuple(k.shape)}, v {tuple(v.shape)}")
     if k.shape[1] == 0:
-        raise ValueError("flash_attention needs at least one key")
+        raise ValueError(f"{what} needs at least one key")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
-        raise TypeError("flash_attention takes float32 or bfloat16 q, k, v "
+        raise TypeError(f"{what} takes float32 or bfloat16 q, k, v "
                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
-        raise ValueError("flash_attention inputs lie on different devices: "
+        raise ValueError(f"{what} inputs lie on different devices: "
                          f"{q.device}, {k.device}, {v.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention takes contiguous tensors")
+        raise ValueError(f"{what} takes contiguous tensors")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {q.device}")
+
+
+def _launch(source: str, name: str, tensors, q: torch.Tensor, nk: int,
+            fits: str) -> None:
+    """Launch ``csrc/<source>.cu`` on q's device and current stream, raise
+    on a refused launch and count a launched one under ``name``."""
+    b, nq, h, d = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(_library(source, len(tensors)), f"mmcsi_{source}")(
+            *(t.data_ptr() for t in tensors), b, nq, nk, h, d,
+            _DTYPE_CODES[q.dtype], stream)
+    if err == _CUDA_ERROR_INVALID_VALUE:
+        # the sizes are positive here, so the launcher refused the shared
+        # memory that one (batch, head) needs
+        raise ValueError(f"{name}: {fits} of one (batch, head) at Nq={nq}, "
+                         f"Nk={nk}, D={d} do not fit in a block's shared "
+                         f"memory (227 KB)")
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
+                           f"{err}")
+    count_launch(name)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
@@ -84,27 +145,53 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device}")
-    b, nq, h, d = q.shape
-    nk = k.shape[1]
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _library().mmcsi_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, nq, nk, h, d, _DTYPE_CODES[q.dtype], stream)
-    if err == _CUDA_ERROR_INVALID_VALUE:
-        # the sizes are positive here, so the launcher refused the shared
-        # memory that K and V of one (batch, head) need
-        raise ValueError(f"flash_attention: K and V of one (batch, head) at "
-                         f"Nk={nk}, D={d} do not fit in a block's shared "
-                         f"memory (227 KB)")
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed with CUDA "
-                           f"error {err}")
-    count_launch(NAME)
+    if out.numel():
+        _launch(NAME, NAME, (q, k, v, out), q, k.shape[1], "K and V")
     return out
+
+
+def flash_attention_backward(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dQ, dK, dV) of softmax(q k^T / sqrt(D)) v for the output gradient
+    ``do``, recomputing the weights (nothing saved by the forward).
+
+    q, do: (B, Nq, H, D); k, v: (B, Nk, H, D), float32 or bfloat16. ``do``
+    may have any layout and float dtype: it is made contiguous in q's
+    dtype. Gradients come back in the inputs' dtype. CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise.
+    """
+    _check(q, k, v, BWD_NAME)
+    if do.shape != q.shape or do.device != q.device:
+        raise ValueError(f"{BWD_NAME}: do {tuple(do.shape)} on {do.device} "
+                         f"does not match q {tuple(q.shape)} on {q.device}")
+    do = do.to(q.dtype).contiguous()
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, do)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if dq.numel():
+        _launch(BWD_SOURCE, BWD_NAME, (q, k, v, do, dq, dk, dv), q, k.shape[1],
+                "Q, dO, K and V")
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward, K2 backward; saves q, k and v only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return flash_attention(q, k, v)
+
+    @staticmethod
+    def backward(ctx, do):
+        return flash_attention_backward(*ctx.saved_tensors, do)
+
+
+def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor) -> torch.Tensor:
+    """Differentiable ``flash_attention``: the forward launches K1 and the
+    backward K2 (their plain versions for CPU tensors). Takes and returns
+    what ``flash_attention`` does."""
+    return _FlashAttention.apply(q, k, v)

@@ -1,11 +1,14 @@
-"""DETR-style multi-user set prediction over CSI windows, for eval-mode
-serving. Counterpart of the JAX package's ``models/csi/detr.py``; parameter
+"""DETR-style multi-user set prediction over CSI windows, for serving and
+training. Counterpart of the JAX package's ``models/csi/detr.py``; parameter
 names follow the reference torch layout
 (``feature_extractor.dilated_blocks.2.bn.running_var``,
 ``decoder.decoder_layers.0.cross_attn.out_proj.weight`` ...).
 
 Its attention runs over 10 memory tokens and 5 queries, below the flash
-gate's 64, so DETR takes the attention's eager branch, as in JAX.
+gate's 64, so DETR takes the attention's eager branch, as in JAX, in
+serving and in training. Training mode uses batch statistics in the
+feature extractor's BatchNorms and every dropout of the JAX package
+(``detr.py:107-128`` there, and the encoder blocks').
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...nn.layers import (BatchNorm, Conv1d, LayerNorm, Linear,
+from ...nn.layers import (BatchNorm, Conv1d, Dropout, LayerNorm, Linear,
                           MultiheadAttention, max_pool1d)
 from .that import EncoderBlock, GaussianPosition
 
@@ -101,14 +104,18 @@ class TransformerEncoder(nn.Module):
 class TransformerDecoderLayer(nn.Module):
     """Post-LN decoder layer: self-attention, cross-attention with
     ``query_pos`` added to its queries and the temperature dividing its
-    output, then the FFN."""
+    output, then the FFN. In training, dropout 0.1 applies to both
+    attentions' weights, after each of the three sublayers before its
+    residual, and after the FFN's ReLU."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  temperature: float = 1.0, *, generator: torch.Generator):
         super().__init__()
         g = generator
-        self.self_attn = MultiheadAttention(d_model, nhead, generator=g)
-        self.cross_attn = MultiheadAttention(d_model, nhead,
+        dropout = 0.1
+        self.self_attn = MultiheadAttention(d_model, nhead, dropout=dropout,
+                                            generator=g)
+        self.cross_attn = MultiheadAttention(d_model, nhead, dropout=dropout,
                                              output_scale=temperature,
                                              generator=g)
         self.norm1 = LayerNorm(d_model)
@@ -118,15 +125,18 @@ class TransformerDecoderLayer(nn.Module):
         # indices name the parameters ffn.0 and ffn.3
         self.ffn = nn.Sequential(
             Linear(d_model, dim_feedforward, xavier=False, generator=g),
-            nn.ReLU(), nn.Dropout(0.1),
+            nn.ReLU(), Dropout(dropout),
             Linear(dim_feedforward, d_model, xavier=False, generator=g))
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.dropout3 = Dropout(dropout)
 
     def forward(self, tgt, memory, query_pos, kv=None):
-        tgt = self.norm1(tgt + self.self_attn(tgt, tgt, tgt))
+        tgt = self.norm1(tgt + self.dropout1(self.self_attn(tgt, tgt, tgt)))
         t2, kv = self.cross_attn(tgt + query_pos, memory, memory, kv=kv,
                                  return_kv=True)
-        tgt = self.norm2(tgt + t2)
-        tgt = self.norm3(tgt + self.ffn(tgt))
+        tgt = self.norm2(tgt + self.dropout2(t2))
+        tgt = self.norm3(tgt + self.dropout3(self.ffn(tgt)))
         return tgt, kv
 
 

@@ -1,5 +1,5 @@
 """THAT (Two-stream Transformer for Human Activity recognition) and its head
-variants, for eval-mode serving. Counterpart of the JAX package's
+variants, for serving and training. Counterpart of the JAX package's
 ``models/csi/that.py``; parameter names follow the reference torch layout
 (``layer_left_encoder.0.layer_attention.in_proj_weight`` ...).
 
@@ -7,8 +7,11 @@ The left stream attends over the 150 pooled time steps with the 270
 channels as features (10 heads of 27); the right stream attends over the
 270 channels with the 150 pooled time steps as features (10 heads of 15).
 Both sequences pass the attention's flash gate, so every THAT forward runs
-the fused attention kernel five times. Dropout is a no-op in eval and is
-left out.
+the fused attention kernel five times, and every training step its
+backward five times too. Dropout sits where the JAX package has it
+(``that.py:77, 86, 90, 117, 128`` there): 0.1 after each attention, inside
+each conv branch and after the branch average; 0.5 on each stream's
+feature. It is the identity in eval mode.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 from torch import nn
 
 from ...nn.init import xavier_uniform_
-from ...nn.layers import (BatchNorm, Conv1d, LayerNorm, Linear,
+from ...nn.layers import (BatchNorm, Conv1d, Dropout, LayerNorm, Linear,
                           MultiheadAttention, avg_pool1d, leaky_relu)
 
 
@@ -51,9 +54,9 @@ class GaussianPosition(nn.Module):
 
 
 class EncoderBlock(nn.Module):
-    """Pre-LN attention with residual, then a LayerNorm'd bank of
-    Conv1d + BatchNorm + LeakyReLU branches ("SAME" padding, one per kernel
-    size), averaged, with residual."""
+    """Pre-LN attention, dropout, residual; then a LayerNorm'd bank of
+    Conv1d + BatchNorm + dropout + LeakyReLU branches ("SAME" padding, one
+    per kernel size), averaged, dropout, residual."""
 
     def __init__(self, dim_feature: int, num_heads: int = 10,
                  conv_sizes: Sequence[int] = (1, 3, 5), *,
@@ -62,20 +65,24 @@ class EncoderBlock(nn.Module):
         self.layer_norm_0 = LayerNorm(dim_feature)
         self.layer_attention = MultiheadAttention(dim_feature, num_heads,
                                                   generator=generator)
+        self.layer_dropout_0 = Dropout(0.1)
         self.layer_norm_1 = LayerNorm(dim_feature)
+        # Sequential(conv, bn, dropout): parameters named layer_cnn.{i}.0
+        # and .1, as in the reference
         self.layer_cnn = nn.ModuleList(
             nn.Sequential(Conv1d(dim_feature, dim_feature, size,
                                  padding="SAME", xavier=False,
                                  generator=generator),
-                          BatchNorm(dim_feature))
+                          BatchNorm(dim_feature), Dropout(0.1))
             for size in conv_sizes)
+        self.layer_dropout_1 = Dropout(0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         t = self.layer_norm_0(x)
-        t = self.layer_attention(t, t, t) + x
+        t = self.layer_dropout_0(self.layer_attention(t, t, t)) + x
         s = self.layer_norm_1(t)
         branches = [leaky_relu(branch(s)) for branch in self.layer_cnn]
-        return sum(branches) / len(branches) + t
+        return self.layer_dropout_1(sum(branches) / len(branches)) + t
 
 
 class THATTrunk(nn.Module):
@@ -106,6 +113,8 @@ class THATTrunk(nn.Module):
                                         generator=g)
         self.layer_right_cnn_1 = Conv1d(dim_right, 16, 4, xavier=False,
                                         generator=g)
+        self.layer_left_dropout = Dropout(0.5)
+        self.layer_right_dropout = Dropout(0.5)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         pooled = avg_pool1d(x, self.pool)                     # (B, 150, 270)
@@ -117,6 +126,7 @@ class THATTrunk(nn.Module):
         left = torch.cat([leaky_relu(self.layer_left_cnn_0(left)).sum(dim=1),
                           leaky_relu(self.layer_left_cnn_1(left)).sum(dim=1)],
                          dim=-1)                              # (B, 256)
+        left = self.layer_left_dropout(left)
 
         right = pooled.transpose(1, 2)                        # (B, 270, 150)
         for block in self.layer_right_encoder:
@@ -126,6 +136,7 @@ class THATTrunk(nn.Module):
             [leaky_relu(self.layer_right_cnn_0(right)).sum(dim=1),
              leaky_relu(self.layer_right_cnn_1(right)).sum(dim=1)],
             dim=-1)                                           # (B, 32)
+        right = self.layer_right_dropout(right)
 
         dtype = torch.promote_types(left.dtype, right.dtype)
         return torch.cat([left.to(dtype), right.to(dtype)], dim=-1)

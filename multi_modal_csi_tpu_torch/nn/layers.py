@@ -1,5 +1,5 @@
 """Layers with the JAX package's semantics (``nn/layers.py`` there), in
-PyTorch, for eval-mode serving.
+PyTorch, for serving (eval mode) and training.
 
 Layout is channels-last, (batch, length, features), as in the JAX package,
 so both packages' layers take the same arrays. Parameter names follow the
@@ -16,18 +16,24 @@ values are rounded:
   input and parameters;
 - attention keys its serving dtype on the parameter dtype, since
   activations may arrive in f32 in bf16 serving.
+
+Training: BatchNorm uses batch statistics and updates its running ones as
+torch does; dropout draws its masks from the generator that
+``dropout_generator`` installs for the step (the global one outside it).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Tuple, Union
+from typing import Iterator, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import (flash_attention,
+                                       flash_attention_trainable)
 from .init import torch_bias_, torch_linear_weight_, xavier_uniform_
 
 
@@ -125,9 +131,18 @@ class Conv1d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the trailing feature axis of (B, ..., C),
-    eps 1e-5, with torch BatchNorm's parameter and buffer names. Training
-    statistics arrive with the training slice."""
+    """BatchNorm over the trailing feature axis of (B, ..., C), eps 1e-5,
+    with torch BatchNorm's parameter and buffer names.
+
+    Eval mode normalises with the running statistics. Training mode is the
+    JAX package's torch-exact core (``_TorchBNCore``): batch mean and
+    E[x^2] - E[x]^2 in f32 over every axis but the last, normalisation with
+    that biased variance, and running statistics updated with momentum 0.1,
+    the variance unbiased (x n / (n - 1)). The output takes the promoted
+    dtype of input and parameters in both modes.
+    """
+
+    momentum = 0.1
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -138,13 +153,69 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
         if self.training:
-            raise NotImplementedError("BatchNorm runs in eval mode only; "
-                                      "call .eval() on the model")
-        y = (x.float() - self.running_mean) * torch.rsqrt(
-            self.running_var + self.eps)
+            axes = tuple(range(x.dim() - 1))
+            n = math.prod(x.shape[a] for a in axes)
+            mean = xf.mean(dim=axes)
+            var = (xf * xf).mean(dim=axes) - mean * mean
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var * (n / max(n - 1, 1))
+                self.running_mean.copy_((1 - m) * self.running_mean
+                                        + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
         y = y * self.weight + self.bias
         return y.to(torch.promote_types(x.dtype, self.weight.dtype))
+
+
+_GENERATOR: Optional[torch.Generator] = None
+
+
+@contextlib.contextmanager
+def dropout_generator(generator: Optional[torch.Generator]
+                      ) -> Iterator[None]:
+    """Draw every dropout mask inside the block from ``generator`` (on the
+    activations' device)."""
+    global _GENERATOR
+    previous, _GENERATOR = _GENERATOR, generator
+    try:
+        yield
+    finally:
+        _GENERATOR = previous
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout as flax's: keep each element with probability
+    1 - p and divide the kept ones by 1 - p in x's dtype. ``F.dropout``
+    takes no generator, hence this."""
+    if p == 0.0:
+        return x
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+class Dropout(nn.Module):
+    """``dropout`` in training mode, with the generator that
+    ``dropout_generator`` installed; the identity in eval mode."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return x
+        return dropout(x, self.p, _GENERATOR)
 
 
 class LayerNorm(nn.Module):
@@ -191,23 +262,29 @@ class MultiheadAttention(nn.Module):
     zero bias, ``out_proj`` with torch-default weight and zero bias.
 
     ``output_scale`` is the reference's temperature: it divides the
-    attention OUTPUT, not the logits. ``kv``/``return_kv`` let a
-    weight-shared decoder project a fixed memory's K/V once and reuse it.
+    attention OUTPUT, not the logits. ``dropout`` is the attention-weight
+    dropout of training. ``kv``/``return_kv`` let a weight-shared decoder
+    project a fixed memory's K/V once and reuse it.
 
-    In eval mode with at least 64 query and 64 key tokens, attention runs
-    in the fused kernel (``kernels/flash_attention.py``) in the serving
-    dtype. Other shapes take the eager branch, which in bf16 serving rounds
-    logits and weights to bf16 as the JAX package does.
+    With at least 64 query and 64 key tokens, attention runs in the fused
+    kernels (``kernels/flash_attention.py``), as in the JAX package
+    (``nn/layers.py:433-437`` there): in eval mode K1 in the serving
+    dtype; in training, when ``dropout`` is 0, ``flash_attention_trainable``
+    (K1 forward, K2 backward). The gate does not look at the device: on CPU
+    tensors the kernels' plain versions run. Other shapes take the eager
+    branch, which in bf16 rounds logits and weights to bf16 as the JAX
+    package does.
     """
 
     def __init__(self, embed_dim: int, num_heads: int, *,
-                 output_scale: float = 1.0, generator: torch.Generator):
+                 dropout: float = 0.0, output_scale: float = 1.0,
+                 generator: torch.Generator):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
                              f"num_heads {num_heads}")
         self.embed_dim, self.num_heads = embed_dim, num_heads
-        self.output_scale = output_scale
+        self.dropout, self.output_scale = dropout, output_scale
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim,
                                                        embed_dim))
         xavier_uniform_(self.in_proj_weight, generator)
@@ -227,10 +304,15 @@ class MultiheadAttention(nn.Module):
         # the serving dtype is the parameters' dtype
         act = torch.bfloat16 if w.dtype == torch.bfloat16 else torch.float32
         nk = (key if kv is None else kv[0]).shape[1]
-        use_flash = not self.training and query.shape[1] >= 64 and nk >= 64
-        # the flash branch projects straight into the serving dtype; the
+        shapes_ok = query.shape[1] >= 64 and nk >= 64
+        if self.training:
+            fused = flash_attention_trainable if (
+                shapes_ok and self.dropout == 0.0) else None
+        else:
+            fused = flash_attention if shapes_ok else None
+        # the fused branch projects straight into the serving dtype; the
         # eager branch keeps q, k, v in f32
-        proj_dtype = act if use_flash else torch.float32
+        proj_dtype = act if fused is not None else torch.float32
 
         def split(t):
             return t.reshape(*t.shape[:-1], h, d)
@@ -240,11 +322,11 @@ class MultiheadAttention(nn.Module):
             kv = (split(dense(key, w[e:2 * e], b[e:2 * e], proj_dtype)),
                   split(dense(value, w[2 * e:], b[2 * e:], proj_dtype)))
         k, v = kv
-        if use_flash:
-            ctx = flash_attention(q, k.to(act).contiguous(),
-                                  v.to(act).contiguous())
+        if fused is not None:
+            ctx = fused(q, k.to(act).contiguous(), v.to(act).contiguous())
         else:
-            ctx = _eager_attention(q, k, v, act)
+            p = self.dropout if self.training else 0.0
+            ctx = _eager_attention(q, k, v, act, p)
         ctx = ctx.reshape(*query.shape[:-1], e)
 
         wo, bo = self.out_proj.weight, self.out_proj.bias
@@ -257,15 +339,18 @@ class MultiheadAttention(nn.Module):
 
 
 def _eager_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     act: torch.dtype) -> torch.Tensor:
+                     act: torch.dtype, p: float = 0.0) -> torch.Tensor:
     """The gate's other branch, for short sequences (DETR's 10 memory
-    tokens and 5 queries). f32 q, k, v; in bf16 serving the (B, H, Nq, Nk)
-    logits, exp and weights are rounded to bf16, the row sum accumulates in
-    f32, and P.V runs in f32."""
+    tokens and 5 queries). f32 q, k, v; in bf16 the (B, H, Nq, Nk) logits,
+    exp and weights are rounded to bf16, the row sum accumulates in f32,
+    and P.V runs in f32. ``p`` is the training dropout on the weights; the
+    row max takes no gradient, as in JAX."""
     d = q.shape[-1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()).to(act)
     logits = logits / math.sqrt(d)
-    unnorm = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    unnorm = torch.exp(logits - logits.amax(dim=-1, keepdim=True).detach())
     weights = unnorm / unnorm.sum(dim=-1, keepdim=True,
                                   dtype=torch.float32).to(act)
+    if p > 0.0:
+        weights = dropout(weights, p, _GENERATOR)
     return torch.einsum("bhqk,bkhd->bqhd", weights.float(), v.float())

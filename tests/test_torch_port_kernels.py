@@ -89,9 +89,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 def test_kernel_sources_and_build_flags():
     """Every kernel is a csrc/*.cu with a plain C launcher, built for
     sm_90a; the library name changes with the source or the flags."""
-    assert sorted(p.name for p in build.CSRC.glob("*.cu")) == [
-        "flash_attention.cu"]
-    src = (build.CSRC / "flash_attention.cu").read_text()
-    assert 'extern "C"' in src and "int mmcsi_flash_attention(" in src
+    sources = {"flash_attention.cu": "flash_attention",
+               "flash_attention_bwd.cu": "flash_attention_bwd"}
+    assert sorted(p.name for p in build.CSRC.glob("*.cu")) == sorted(sources)
+    for name, stem in sources.items():
+        src = (build.CSRC / name).read_text()
+        assert 'extern "C"' in src and f"int mmcsi_{stem}(" in src
+        assert build._target(stem).parent == build.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    assert build._target("flash_attention").parent == build.BUILD_DIR
+    assert build._target("flash_attention") != build._target(
+        "flash_attention_bwd")

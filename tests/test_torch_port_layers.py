@@ -139,8 +139,17 @@ def test_batchnorm_eval_running_stats(x_seq):
 
 
 def test_batchnorm_refuses_training_mode(x_seq):
-    with pytest.raises(NotImplementedError):
-        run(P.BatchNorm(12).train(), to_torch(x_seq))
+    """Training mode no longer refuses: it normalises with the batch's
+    statistics (zero mean, unit variance per feature), not the running
+    ones, and moves the running ones. tests/test_torch_port_train_layers.py
+    holds it against the JAX package's torch-exact core."""
+    bn = P.BatchNorm(12).train()
+    with torch.no_grad():
+        bn.running_mean.fill_(5.0)
+    y = run(bn, to_torch(x_seq)).numpy().reshape(-1, 12)
+    np.testing.assert_allclose(y.mean(axis=0), 0.0, atol=1e-5)
+    np.testing.assert_allclose(y.var(axis=0), 1.0, atol=1e-3)
+    assert float(bn.running_mean.max()) < 5.0
 
 
 def test_layernorm_eps_is_jax_default(x_seq):
