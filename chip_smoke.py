@@ -7,42 +7,63 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-1. the card's name and power limit, torch and CUDA versions; build both
-   kernels (attention forward K1 and backward K2) from csrc/ with one nvcc
-   each, started together, timed, with nvcc's register and spill lines;
+1. the card's name and power limit, torch and CUDA versions; build the
+   three kernels (attention forward K1, its backward K2, and the CSI
+   amplitude-phase pass K5) from csrc/ with one nvcc each, started
+   together, timed, with nvcc's register and spill lines;
 2. K1 against its plain PyTorch version on the card, f32 and bf16, at
-   THAT's left (256, 150, 10, 27) and right (256, 270, 10, 15) shapes, a
-   ragged (3, 64, 10, 15) case and a cross case (Nq 128, Nk 420, 6 heads of
-   45); then per-launch times with CUDA events in the order plain, kernel,
-   kernel, plain, beside scaled_dot_product_attention's time on the same
-   inputs (a yardstick the port never calls) and the card's bound for the
-   same work; a K and V too large for shared memory must raise;
-3. K2 against its plain version, f32 and bf16, at THAT's training shapes
-   at batch 16 and 256, a ragged (3, 70, 10, 15) case with 97 keys and a
-   cross case (4, 128, 6, 45) with 300 keys; per-launch times as for K1,
-   beside the backward of scaled_dot_product_attention on the same inputs
-   and the bound; a Q, dO, K and V too large for shared memory must raise;
-4. THAT serving at full width, bf16, batch 256: seeded weights, ragged
+   THAT's left (256, 150, 10, 27) and right (256, 270, 10, 15) shapes,
+   THAT_ENCODER's right (256, 270, 10, 27), a ragged (3, 64, 10, 15) case
+   and a cross case (Nq 128, Nk 420, 6 heads of 45); then per-launch times
+   with CUDA events in the order plain, kernel, kernel, plain, beside
+   scaled_dot_product_attention's time on the same inputs (a yardstick the
+   port never calls) and the card's bound for the same work; a K and V too
+   large for shared memory must raise;
+3. K2 against its plain version, f32 and bf16, at THAT's and
+   THAT_ENCODER's training shapes at batch 16 (and THAT's at 256), a
+   ragged (3, 70, 10, 15) case with 97 keys and a cross case
+   (4, 128, 6, 45) with 300 keys; per-launch times as for K1, beside the
+   backward of scaled_dot_product_attention on the same inputs and the
+   bound; a Q, dO, K and V too large for shared memory must raise;
+4. K5 against its plain version at one WiMANS trace (3000, 270), a ragged
+   (2999, 270) one, a batch of 8 traces and a buffer not 16-byte aligned:
+   the amplitude bit for bit, the phase within 4 ulp; the device time
+   per call from torch.profiler (CUDA events around back-to-back calls
+   measure the host's call rate at one trace) beside the plain version's,
+   torch.hypot with torch.atan2, and the bound;
+5. preprocessing on the card (cli/preprocess_csi.py, the default device):
+   4 synthetic WiMANS .mat traces of 3000 packets to amplitude and phase
+   files, exactly 4 K5 launches, seconds per trace by stage (.mat parse,
+   host-to-card copy, kernel, fetch, save); the files against the host
+   path (--device cpu): amplitude within 2.4e-7 relative, phase within 4
+   ulp;
+6. THAT serving at full width, bf16, batch 256: seeded weights, ragged
    requests of 256, 100 and 300 seeded windows, exactly 5 K1 launches per
    batch forward; windows/s from host memory, and with the requests
    already on the card; 5 batch forwards under torch.profiler for the
    device time per forward, the device's busy share and the kernels with
    the most device time; then the same weights at f32 (TF32 off, batch 4)
-   against the CPU, where the plain versions run;
-5. DETR serving at the flagship configuration, the same steps, with no
-   kernel launch;
-6. THAT training at full width through ``fit``: seeded (80, 3000, 270)
+   against the CPU, where the plain versions run; the same for DETR at
+   the flagship configuration, with no kernel launch, and for
+   THAT_ENCODER, with 5 K1 launches per forward;
+7. THAT training at full width through ``fit``: seeded (80, 3000, 270)
    training and (32, 3000, 270) validation windows, activity labels,
    batch 16, 2 epochs, augmentation on, f32; exactly 5 K1 and 5 K2
    launches in one training step; windows trained per second after a
    warm-up step; 5 steps under torch.profiler; then one bf16 epoch;
-7. one f32 THAT training step on the card against the CPU (TF32 off,
+8. one f32 THAT training step on the card against the CPU (TF32 off,
    batch 2, augmentation and dropout off, the CPU taking the card's side
    at every leaky-ReLU kink): loss and gradients;
-8. DETR's training step at the flagship configuration, batch 16, with the
+9. DETR's training step at the flagship configuration, batch 16, with the
    Hungarian matching loss and augmentation: finite loss, no kernel
    launch, windows/s;
-9. the bound of each TPU kernel still to port, worked out from a shape
+10. the experiment path (runners/csi.py::run_experiment) for THAT_ENCODER
+   and DETR at full width: a synthetic annotation.csv of 48 windows in one
+   environment, an amplitude cache of the 4 traces of phase 5 and 44
+   windows of 2500 to 3000 steps, 2 epochs at batch 16, the final test
+   pass in bf16; the result JSON read back with the JAX runner's keys;
+   THAT_ENCODER's exact K1 and K2 launch counts, none for DETR;
+11. the bound of each TPU kernel still to port, worked out from a shape
    its path runs; one JSON line describing each ported kernel, then the
    card's name and power limit, then the result line.
 
@@ -51,10 +72,13 @@ Exits non-zero without a result when no CUDA device is available.
 
 from __future__ import annotations
 
+import csv
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -77,6 +101,7 @@ TOP_KERNELS = 12           # listed from the profile, by device time
 KERNEL_SHAPES = {          # name: (q shape (B, Nq, H, D), Nk)
     "that-left": ((256, 150, 10, 27), 150),
     "that-right": ((256, 270, 10, 15), 270),
+    "that-encoder-right": ((256, 270, 10, 27), 270),
     "ragged": ((3, 64, 10, 15), 64),
     "cross": ((4, 128, 6, 45), 420),
 }
@@ -89,6 +114,7 @@ BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 BWD_SHAPES = {
     "that-left-16": ((16, 150, 10, 27), 150),
     "that-right-16": ((16, 270, 10, 15), 270),
+    "that-encoder-right-16": ((16, 270, 10, 27), 270),
     "that-left-256": ((256, 150, 10, 27), 150),
     "that-right-256": ((256, 270, 10, 15), 270),
     "ragged": ((3, 70, 10, 15), 97),
@@ -99,6 +125,19 @@ TRAIN_RATE_STEPS = 10      # timed training steps after a warm-up step
 PROFILED_STEPS = 5
 STEP_F32_TOL = 1e-5        # card vs CPU training-step loss, relative
 GRAD_F32_TOL = 1e-4        # card vs CPU gradients, of each tensor's scale
+K5_SHAPES = {"trace": (3000, 270), "ragged": (2999, 270),
+             "batch": (8, 3000, 270)}
+# K5's phase against torch.atan2 and against numpy's angle, in ulp of the
+# plain value: CUDA documents atan2f at 3 ulp, numpy's C library at 1
+PHASE_ULPS = 4
+# card amplitude sqrt(re^2 + im^2) against numpy's hypot: each within one
+# ulp of the exact value, so 2 ulp (2^-22 = 2.38e-7) apart at most
+AMP_HOST_REL = 2.4e-7
+K5_OPS = 5                 # per element: 2 products, a sum, a root, atan2
+TRACES, PACKETS = 4, 3000  # synthetic WiMANS traces preprocessed
+RUN_WINDOWS, RUN_EPOCHS = 48, 2   # the experiment path's dataset and epochs
+RESULT_KEYS = {"complexity", "repeat_0", "accuracy", "time_train",
+               "time_test", "final_metrics", "model", "task", "data", "nn"}
 
 
 def check(ok: bool, what: str) -> None:
@@ -271,6 +310,169 @@ def phase_backward(backward, backward_reference):
         refused = True
     check(refused, "K2 launched beyond shared memory")
     return results
+
+
+def ulps(got, want):
+    """|got - want| in units in the last place of |want| (float32)."""
+    w = want.float().abs()
+    ulp = torch.nextafter(w, torch.full_like(w, math.inf)) - w
+    return (got.float() - want.float()).abs() / ulp
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds per call of ``fn``: the CUDA kernels' own time
+    from torch.profiler over ``reps`` calls, after one untimed call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(us > 0, "the profile holds no device time")
+    return us / 1e3 / reps
+
+
+def k5_bound(n):
+    """The least times (ms) one amplitude-phase pass over n elements needs
+    on an H100 SXM: re and im read and amp and phase written once, 16 bytes
+    an element, over the HBM rate, and K5_OPS f32 operations an element
+    over the f32 peak."""
+    return 1e3 * 16 * n / PEAK_BYTES, 1e3 * K5_OPS * n / PEAK_FLOPS[
+        torch.float32]
+
+
+def phase_k5(amplitude_phase, amplitude_phase_reference):
+    """K5 against its plain version; times at one trace and a batch."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    results = {}
+    cases = dict(K5_SHAPES, unaligned=(3000, 270))
+    for name, shape in cases.items():
+        n = math.prod(shape)
+        if name == "unaligned":       # one float in: not 16-byte aligned
+            flat = torch.randn((2, n + 1), generator=gen, device="cuda")
+            re, im = (flat[i, 1:].view(shape) for i in range(2))
+        else:
+            re, im = (torch.randn(shape, generator=gen, device="cuda")
+                      for _ in range(2))
+        amp, phase = amplitude_phase(re, im)
+        want_amp, want_phase = amplitude_phase_reference(re, im)
+        torch.cuda.synchronize()
+        amp_err = (amp - want_amp).abs().max().item()
+        phase_err = (phase - want_phase).abs().max().item()
+        phase_ulps = ulps(phase, want_phase).max().item()
+        print(f"K5 {name} {tuple(shape)}: amplitude max abs err {amp_err:.3e}"
+              f" (must be 0), phase max abs err {phase_err:.3e}, "
+              f"{phase_ulps:.1f} ulp (tolerance {PHASE_ULPS} ulp)")
+        check(amp.shape == phase.shape == re.shape
+              and amp.dtype == phase.dtype == torch.float32,
+              f"K5 {name} outputs {tuple(amp.shape)} {amp.dtype}")
+        check(amp_err == 0.0, f"K5 {name} amplitude differs by {amp_err}")
+        check(phase_ulps <= PHASE_ULPS,
+              f"K5 {name} phase {phase_ulps} ulp > {PHASE_ULPS}")
+        if name == "unaligned":
+            continue
+        calls = {"kernel": lambda: amplitude_phase(re, im),
+                 "plain": lambda: amplitude_phase_reference(re, im),
+                 "library": lambda: (torch.hypot(re, im),
+                                     torch.atan2(im, re))}
+        # events around back-to-back calls (at one trace the host's call
+        # overhead sets that pace), then the device's own time per call
+        events = {k: cuda_ms(fn) for k, fn in calls.items()}
+        device = {k: [device_ms(fn) for _ in range(2)]
+                  for k, fn in calls.items()}
+        bytes_ms, ops_ms = k5_bound(n)
+        traces = n / (3000 * 270)
+        results[name] = dict(err=max(amp_err, phase_err),
+                             ms=sum(device["kernel"]) / 2,
+                             plain_ms=sum(device["plain"]) / 2,
+                             library_ms=sum(device["library"]) / 2,
+                             bytes_ms=bytes_ms, ops_ms=ops_ms)
+        print(f"K5 {name} device time per call (profiler, two runs): "
+              + ", ".join(f"{k} {v[0]:.4f}/{v[1]:.4f} ms"
+                          for k, v in device.items())
+              + "; per call from CUDA events around 20 calls: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in events.items())
+              + f"; kernel per trace {sum(device['kernel']) / 2 / traces:.4f}"
+              f" ms; bound: bytes {1e3 * bytes_ms:.1f} us, operations "
+              f"{1e3 * ops_ms:.2f} us")
+    return results
+
+
+def write_traces(dir_mat, n, packets, seed=SEED):
+    """``n`` synthetic WiMANS .mat traces of ``packets`` packets: a (T, 1)
+    object cell of (1, 1) struct records whose LAST field is the (3, 3, 30)
+    complex64 CSI, as the dataset nests them."""
+    import scipy.io as scio
+    rng = np.random.default_rng(seed)
+    rec_dt = np.dtype([("timestamp", "O"), ("csi", "O")])
+    os.makedirs(dir_mat, exist_ok=True)
+    for i in range(n):
+        csi = (rng.standard_normal((packets, 3, 3, 30))
+               + 1j * rng.standard_normal((packets, 3, 3, 30))
+               ).astype(np.complex64)
+        cell = np.empty((packets, 1), dtype=object)
+        for t in range(packets):
+            rec = np.empty((1, 1), dtype=rec_dt)
+            rec[0, 0] = (np.float64(t), csi[t])
+            cell[t, 0] = rec
+        scio.savemat(os.path.join(dir_mat, f"act_{i}.mat"), {"trace": cell})
+
+
+def preprocess_phase(work):
+    """The preprocessing CLI's main path on the card (the default device),
+    then the host path on the same traces. Returns the launch counts and
+    the card's amplitude directory."""
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.cli.preprocess_csi import (STAGES,
+                                                              extract_csi_amp)
+    dir_mat = os.path.join(work, "mat")
+    write_traces(dir_mat, TRACES, PACKETS)
+    card = {k: os.path.join(work, "card", k) for k in ("amp", "phase")}
+    host = {k: os.path.join(work, "host", k) for k in ("amp", "phase")}
+    seconds = {}
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    n = extract_csi_amp(dir_mat, card["amp"], card["phase"],
+                        seconds=seconds)
+    wall = time.perf_counter() - start
+    launches = dict(kernels.LAUNCH_COUNTS)
+    print(f"preprocess on the card: {n} traces of {PACKETS} packets in "
+          f"{wall:.3f} s; launches {launches}; seconds per trace: "
+          + ", ".join(f"{s} {seconds[s] / n:.5f}" for s in STAGES
+                      if s in seconds))
+    check(n == TRACES and launches == {"csi_amplitude_phase": TRACES}
+          and set(seconds) == set(STAGES),
+          f"preprocess converted {n} traces with launches {launches}, "
+          f"stages {sorted(seconds)}")
+    host_seconds = {}
+    start = time.perf_counter()
+    extract_csi_amp(dir_mat, host["amp"], host["phase"], device="cpu",
+                    seconds=host_seconds)
+    print(f"preprocess on the host (--device cpu): {n} traces in "
+          f"{time.perf_counter() - start:.3f} s; seconds per trace: "
+          + ", ".join(f"{s} {host_seconds[s] / n:.5f}" for s in STAGES
+                      if s in host_seconds))
+    worst_rel = worst_ulps = 0.0
+    for name in sorted(os.listdir(host["amp"])):
+        a_card, a_host, p_card, p_host = (
+            torch.from_numpy(np.load(os.path.join(d[k], name)))
+            for d, k in ((card, "amp"), (host, "amp"), (card, "phase"),
+                         (host, "phase")))
+        check(a_card.shape == a_host.shape == (PACKETS, 3, 3, 30),
+              f"preprocess {name}: shapes {tuple(a_card.shape)}")
+        rel = ((a_card - a_host).abs() / a_host.abs().clamp_min(1e-30)
+               ).max().item()
+        worst_rel = max(worst_rel, rel)
+        worst_ulps = max(worst_ulps, ulps(p_card, p_host).max().item())
+    print(f"preprocess card vs host: amplitude max rel err {worst_rel:.3e} "
+          f"(tolerance {AMP_HOST_REL}), phase {worst_ulps:.1f} ulp "
+          f"(tolerance {PHASE_ULPS})")
+    check(worst_rel <= AMP_HOST_REL, f"card vs host amplitude {worst_rel}")
+    check(worst_ulps <= PHASE_ULPS, f"card vs host phase {worst_ulps} ulp")
+    return launches, card["amp"]
 
 
 def profile_device(label, fn, count, unit):
@@ -621,12 +823,107 @@ def train_phase_detr(data):
                    PROFILED_STEPS, "step")
 
 
+def write_run_dataset(root, converted_amp):
+    """annotation.csv of RUN_WINDOWS windows in one environment (absent
+    users' cells empty) and the amplitude cache: the converted traces
+    (act_0 ... act_3) and seeded windows of 2500 to 3000 steps."""
+    from multi_modal_csi_tpu_torch.core.config import ACTIVITY_ENCODING
+    rng = np.random.default_rng(SEED)
+    amp_dir = os.path.join(root, "amp")
+    os.makedirs(amp_dir, exist_ok=True)
+    activities = [a for a in ACTIVITY_ENCODING if a != "nan"]
+    header = ["label", "environment", "wifi_band", "number_of_users"] + [
+        f"user_{u}_{what}" for u in range(1, 7)
+        for what in ("location", "activity")]
+    with open(os.path.join(root, "annotation.csv"), "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(header)
+        for i in range(RUN_WINDOWS):
+            label = f"act_{i}" if i < TRACES else f"win_{i}"
+            if i < TRACES:
+                amp = np.load(os.path.join(converted_amp, f"{label}.npy"))
+            else:
+                t = int(rng.integers(2500, 3001))
+                amp = np.abs(rng.standard_normal((t, 3, 3, 30),
+                                                 dtype=np.float32))
+            np.save(os.path.join(amp_dir, f"{label}.npy"), amp)
+            users = int(rng.integers(0, 6))
+            row = [label, "classroom", "5", str(users)]
+            for u in range(6):
+                row += ([str(rng.choice(list("abcde"))),
+                         str(rng.choice(activities))] if u < users
+                        else ["", ""])
+            writer.writerow(row)
+    return amp_dir
+
+
+def run_csi_phase(work, converted_amp):
+    """run_experiment for THAT_ENCODER and DETR at full width on the card:
+    the result JSON, its keys, and THAT_ENCODER's exact launch counts.
+    Returns THAT_ENCODER's launch counts."""
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.core.config import Config
+    from multi_modal_csi_tpu_torch.data.splits import (env_split,
+                                                       valid_test_split)
+    from multi_modal_csi_tpu_torch.runners.csi import run_experiment
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    amp_dir = write_run_dataset(work, converted_amp)
+    idx = np.arange(RUN_WINDOWS)
+    n_train, rest = len(env_split(idx, idx)[0]), env_split(idx, idx)[1]
+    n_valid, n_test = (len(a) for a in valid_test_split(rest, rest)[:2])
+    steps = RUN_EPOCHS * (math.ceil(n_train / TRAIN_BATCH) - 1)
+    chunks = RUN_EPOCHS * math.ceil(n_valid / 512) + math.ceil(n_test / 512)
+    out = {}
+    for key, want in (("THAT_ENCODER",
+                       {"flash_attention": 5 * steps + 5 * chunks,
+                        "flash_attention_backward": 5 * steps}),
+                      ("DETR", {})):
+        save = os.path.join(work, "results", f"{key}.json")
+        cfg = Config().override({
+            "model": key, "task": "activity", "repeat": 1,
+            "path.data_x": amp_dir,
+            "path.data_y": os.path.join(work, "annotation.csv"),
+            "path.save": save, "data.environment": ["classroom"],
+            "nn.epoch": RUN_EPOCHS, "nn.batch_size": TRAIN_BATCH,
+            "compute_dtype": "auto"})
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        result = run_experiment(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches = dict(kernels.LAUNCH_COUNTS)
+        with open(save) as f:
+            written = json.load(f)
+        fit_s = result["time_train"]["avg"]
+        print(f"{key} run_experiment: {n_train} training, {n_valid} "
+              f"validation, {n_test} test windows; {wall:.2f} s wall, fit "
+              f"{fit_s:.2f} s ({steps} steps and {RUN_EPOCHS} validation "
+              f"passes: {steps * TRAIN_BATCH / fit_s:.1f} windows trained/s"
+              f" over fit's wall time), final bf16 test pass "
+              f"{result['time_test']['avg']:.3f} s; PPP "
+              f"{result['accuracy']['avg']:.1f}, parameters "
+              f"{result['complexity']['parameter']}, forward FLOPs "
+              f"{result['complexity']['flops']:.4g}; launches {launches}")
+        check(set(written) == RESULT_KEYS,
+              f"{key} result JSON keys {sorted(written)}")
+        check(written["model"] == key and written["nn"]["epoch"]
+              == RUN_EPOCHS and written["data"]["length"] == LENGTH,
+              f"{key} result JSON config sections")
+        check(all(math.isfinite(written[k]["avg"]) for k in
+                  ("accuracy", "time_train", "time_test")),
+              f"{key} result JSON values not finite")
+        check(launches == want, f"{key} run launched {launches}, expected "
+                                f"{want}")
+        out[key] = launches
+    return out["THAT_ENCODER"]
+
+
 def pending_bounds():
     """Print the least time each TPU kernel still to port needs on an H100
     SXM at a shape its path runs: bytes read once and written once over
     the HBM rate against operations over the peak rate of their type."""
     nq, nk, d, m = 25089, 393, 96, 22     # MViT-v2-S stage 1, 16x224^2
-    n = LENGTH * CHANNELS
     rows = {
         "K3 flash_attention_lowrank_bias, MViT-v2-S stage 1, one (b, h): "
         "q (25089, 96), 393 keys, M 22, bf16, f32 bias":
@@ -636,8 +933,6 @@ def pending_bounds():
             ((4 * nq * d + 4 * nk * d) * 2 + (2 * nq * m + 2 * m * nk + nq) * 4,
              {torch.bfloat16: 10 * nq * nk * d,
               torch.float32: 6 * nq * nk * m}),
-        "K5 amplitude_phase, one (3000, 270) f32 window":
-            (3 * n * 4, {torch.float32: 4 * n}),
         "P1 kernel_s8, one (256, 272) x (272, 424) s8 -> s32 tile":
             (256 * 272 + 272 * 424 + 256 * 424 * 4,
              {torch.int8: 2 * 256 * 272 * 424}),
@@ -664,7 +959,7 @@ def build_kernels():
         build.load(name)
         return time.perf_counter() - start
 
-    names = ("flash_attention", "flash_attention_bwd")
+    names = ("flash_attention", "flash_attention_bwd", "csi_preprocess")
     start = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         took = dict(zip(names, pool.map(timed, names)))
@@ -699,6 +994,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    from multi_modal_csi_tpu_torch.kernels.csi_preprocess import (
+        amplitude_phase, amplitude_phase_reference)
     from multi_modal_csi_tpu_torch.kernels.flash_attention import (
         flash_attention, flash_attention_backward,
         flash_attention_backward_reference, flash_attention_reference)
@@ -712,35 +1009,59 @@ def main() -> int:
     fwd_times = phase_kernel(flash_attention, flash_attention_reference)
     bwd_times = phase_backward(flash_attention_backward,
                                flash_attention_backward_reference)
+    k5_times = phase_k5(amplitude_phase, amplitude_phase_reference)
 
-    rng = np.random.default_rng(SEED)
-    requests = [rng.standard_normal((n, LENGTH, CHANNELS), dtype=np.float32)
-                for n in REQUESTS]
-    that = serve_phase("THAT", requests, lambda n: (n, 54), 5)
-    detr = serve_phase("DETR", requests, lambda n: (6, n, 5, 10), 0)
-    check("flash_attention" not in detr,
-          "DETR launched the attention kernel")
-    del requests
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        preprocessed, converted_amp = preprocess_phase(work)
 
-    data = training_data()
-    trained = train_phase_that(data)
-    train_step_card_vs_cpu(data)
-    train_phase_detr(data)
+        rng = np.random.default_rng(SEED)
+        requests = [rng.standard_normal((n, LENGTH, CHANNELS),
+                                        dtype=np.float32) for n in REQUESTS]
+        that = serve_phase("THAT", requests, lambda n: (n, 54), 5)
+        detr = serve_phase("DETR", requests, lambda n: (6, n, 5, 10), 0)
+        check("flash_attention" not in detr,
+              "DETR launched the attention kernel")
+        encoder = serve_phase("THAT_ENCODER", requests,
+                              lambda n: (7, n, 5, 10), 5)
+        del requests
+
+        data = training_data()
+        trained = train_phase_that(data)
+        train_step_card_vs_cpu(data)
+        train_phase_detr(data)
+        del data
+
+        experiment = run_csi_phase(work, converted_amp)
 
     pending_bounds()
-    # per THAT forward (bf16 serving, batch 256) and per THAT training
-    # step (f32, batch 16): 4 left-stream and 1 right-stream launches
+    # K1 and K2: per THAT forward (bf16 serving, batch 256) and per THAT
+    # training step (f32, batch 16), 4 left-stream and 1 right-stream
+    # launches; launches summed over every main path that ran them. K5:
+    # per WiMANS trace (3000, 270).
+    trace = k5_times["trace"]
+    k5_bytes, k5_ops = trace["bytes_ms"], trace["ops_ms"]
     print(json.dumps({"kernels": [
         kernel_entry("flash_attention", "flash_attention.cu",
                      "multi_modal_csi_tpu/kernels/flash_attention.py:108",
-                     that.get("flash_attention", 0)
-                     + trained["flash_attention"], fwd_times,
+                     sum(runs.get("flash_attention", 0) for runs in
+                         (that, trained, encoder, experiment)), fwd_times,
                      {"that-left": 4, "that-right": 1}, torch.bfloat16),
         kernel_entry("flash_attention_backward", "flash_attention_bwd.cu",
                      "multi_modal_csi_tpu/kernels/flash_attention.py:271",
-                     trained["flash_attention_backward"], bwd_times,
+                     trained["flash_attention_backward"]
+                     + experiment["flash_attention_backward"], bwd_times,
                      {"that-left-16": 4, "that-right-16": 1},
                      torch.float32),
+        {"name": "csi_amplitude_phase", "route": "cuda",
+         "source": "multi_modal_csi_tpu_torch/kernels/csrc/"
+                   "csi_preprocess.cu",
+         "replaces": "multi_modal_csi_tpu/kernels/csi_preprocess.py:44",
+         "launches": preprocessed["csi_amplitude_phase"],
+         "max_abs_err": max(r["err"] for r in k5_times.values()),
+         "ms": trace["ms"], "plain_ms": trace["plain_ms"],
+         "bound_ms": max(k5_bytes, k5_ops),
+         "bound_by": "bytes" if k5_bytes >= k5_ops else "operations",
+         "library_ms": trace["library_ms"]},
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

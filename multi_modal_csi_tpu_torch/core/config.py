@@ -1,34 +1,88 @@
-"""Configuration the CSI serving and training code needs, copied from the
+"""The typed configuration tree of the CSI experiment path, copied from the
 JAX package's ``core/config.py`` (which the port does not import).
 
-- ``NNConfig``: the model and training hyperparameters of the reference
-  preset (reference ``wifi_csi/preset.py:42-66``), with the cosine-warmup
-  schedule's and the set-matching loss's knobs;
-- ``DataConfig.length``: CSI time steps per window after left-padding;
+- ``Config``: model, task, repeats, dataset paths, data selection, the
+  model and training hyperparameters of the reference preset (reference
+  ``wifi_csi/preset.py:8-96``), the label encoding tables, transfer
+  learning, and the serving and training dtypes. ``dataclasses.asdict``
+  of ``data`` and ``nn`` goes into the result JSON, so their fields are
+  the JAX package's, field for field.
+- ``override`` (dotted-path overrides), the environment overlay
+  (``apply_env_overrides``, the reference's ``config_modifier.py`` knob
+  set) and ``load_config`` (defaults < JSON file < environment < CLI).
 - the serving dtype and batch with their ``resolve_*`` functions. The JAX
-  package's tables differ per model only for video models, which arrive with
-  the video slice; every CSI model serves in bf16 at batch 256.
+  package's tables differ per model only for video models, which arrive
+  with the video slice; every CSI model serves in bf16 at batch 256.
+
+Left out until their ROADMAP items: the device mesh (item 14) and the
+metric writers (W&B, JSONL, profile directory; item 15).
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+import json
+import os
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Dict, List, Optional
 
 CSI_CHANNELS = 270          # 3 x 3 antenna pairs x 30 subcarriers
 
 CSI_SERVING_DTYPE = "bfloat16"
 CSI_SERVING_BATCH = 256
 
+# label encoding tables (reference wifi_csi/preset.py:69-90)
+ACTIVITY_ENCODING: Dict[str, List[int]] = {
+    "nan":      [0, 0, 0, 0, 0, 0, 0, 0, 0],
+    "nothing":  [1, 0, 0, 0, 0, 0, 0, 0, 0],
+    "walk":     [0, 1, 0, 0, 0, 0, 0, 0, 0],
+    "rotation": [0, 0, 1, 0, 0, 0, 0, 0, 0],
+    "jump":     [0, 0, 0, 1, 0, 0, 0, 0, 0],
+    "wave":     [0, 0, 0, 0, 1, 0, 0, 0, 0],
+    "lie_down": [0, 0, 0, 0, 0, 1, 0, 0, 0],
+    "pick_up":  [0, 0, 0, 0, 0, 0, 1, 0, 0],
+    "sit_down": [0, 0, 0, 0, 0, 0, 0, 1, 0],
+    "stand_up": [0, 0, 0, 0, 0, 0, 0, 0, 1],
+}
+
+LOCATION_ENCODING: Dict[str, List[int]] = {
+    "nan": [0, 0, 0, 0, 0],
+    "a":   [1, 0, 0, 0, 0],
+    "b":   [0, 1, 0, 0, 0],
+    "c":   [0, 0, 1, 0, 0],
+    "d":   [0, 0, 0, 1, 0],
+    "e":   [0, 0, 0, 0, 1],
+}
+
+
+@dataclass
+class PathConfig:
+    """Dataset and result locations (reference wifi_csi/preset.py:20-24,
+    video/preset.py:19-25)."""
+    data_x: str = "dataset/wifi_csi/amp"
+    data_y: str = "dataset/annotation.csv"
+    save: str = "results/result.json"
+    video_x: str = "dataset/video"
+    video_pre_x: str = "dataset/cache"
+    save_model: Optional[str] = None
+
 
 @dataclass
 class DataConfig:
-    length: int = 3000      # CSI time steps after left-pad
+    """Data selection (reference wifi_csi/preset.py:27-32)."""
+    num_users: List[str] = field(
+        default_factory=lambda: ["0", "1", "2", "3", "4", "5"])
+    wifi_band: List[str] = field(default_factory=lambda: ["5"])
+    environment: List[str] = field(default_factory=lambda: ["empty_room"])
+    length: int = 3000          # CSI time steps after left-pad
+    frame_stride: int = 1       # video frame downsampling (video/preset.py:40)
 
 
 @dataclass
 class SchedulerConfig:
     """Cosine-warmup schedule knobs (reference wifi_csi/preset.py:47-51)."""
+    type: str = "cosine_warmup"
     num_warmup_epochs: int = 10
     min_lr_ratio: float = 0.05
 
@@ -36,6 +90,7 @@ class SchedulerConfig:
 @dataclass
 class LossConfig:
     """Set-matching loss knobs (reference wifi_csi/preset.py:52-59)."""
+    type: str = "HungarianMatchingLoss"
     cost_class_weight: float = 1.0
     aux_loss_weight: float = 0.25
     label_smoothing: float = 0.3
@@ -44,6 +99,8 @@ class LossConfig:
 
 @dataclass
 class NNConfig:
+    """Model and optimizer hyperparameters (reference
+    wifi_csi/preset.py:42-66)."""
     lr: float = 5e-4
     epoch: int = 300
     batch_size: int = 16
@@ -61,8 +118,123 @@ class NNConfig:
 
 @dataclass
 class Config:
+    """Root experiment config."""
+    model: str = "DETR"
+    task: str = "activity"        # identity | activity | location
+    repeat: int = 8
+    path: PathConfig = field(default_factory=PathConfig)
     data: DataConfig = field(default_factory=DataConfig)
     nn: NNConfig = field(default_factory=NNConfig)
+    encoding_activity: Dict[str, List[int]] = field(
+        default_factory=lambda: dict(ACTIVITY_ENCODING))
+    encoding_location: Dict[str, List[int]] = field(
+        default_factory=lambda: dict(LOCATION_ENCODING))
+    # transfer learning (reference wifi_csi/preset.py:91-95)
+    pretrained_path: Optional[str] = None
+    # full | feature_extractor | feature_encoder (only full is ported)
+    transfer_scenario: str = "full"
+    save_model: bool = False
+    saving_path: str = "results/"
+    # dtype of the final test-set pass: "float32" (the reference's
+    # numerics), "bfloat16", or "auto" (resolve_serving_dtype)
+    compute_dtype: str = "float32"
+    # dtype of training: "float32" (the reference's) or "bfloat16"
+    train_dtype: str = "float32"
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def override(self, dotted: Dict[str, Any]) -> "Config":
+        """A new Config with dotted-path overrides applied, e.g.
+        ``override({"nn.lr": 1e-3, "data.environment": ["classroom"]})``.
+        String values are coerced to the type of the value they replace
+        (bool, int, float, or a comma-separated list). Unlike the JAX
+        package's shallow copy, the original's nested nodes are left as
+        they were."""
+        cfg = copy.deepcopy(self)
+        for key, value in dotted.items():
+            node: Any = cfg
+            parts = key.split(".")
+            for part in parts[:-1]:
+                node = getattr(node, part)
+            leaf = parts[-1]
+            if not hasattr(node, leaf):
+                raise KeyError(f"unknown config key: {key}")
+            current = getattr(node, leaf)
+            if current is not None and not isinstance(current, type(value)) \
+                    and not (isinstance(current, float)
+                             and isinstance(value, int)):
+                if isinstance(current, bool):
+                    value = str(value).lower() in ("1", "true", "yes")
+                elif isinstance(current, int):
+                    value = int(value)
+                elif isinstance(current, float):
+                    value = float(value)
+                elif isinstance(current, list) and isinstance(value, str):
+                    value = [v.strip() for v in value.split(",")]
+            setattr(node, leaf, value)
+        return cfg
+
+
+# environment overlay: the reference's config_modifier.py:14-46 knob set
+_ENV_MAP = {
+    "LEARNING_RATE": ("nn.lr", float),
+    "BATCH_SIZE": ("nn.batch_size", int),
+    "NUM_EPOCHS": ("nn.epoch", int),
+    "NUM_DECODER_LAYERS": ("nn.num_decoder_layers", int),
+    "DIM_FFN": ("nn.dim_ffn", int),
+    "NUM_QUERIES": ("nn.num_obj_queries", int),
+    "AUX_LOSS": ("nn.loss.aux_loss_weight", float),
+    "CLASS_IMBALANCE_WEIGHT": ("nn.loss.class_imbalance_weight", float),
+    "LABEL_SMOOTHING": ("nn.loss.label_smoothing", float),
+    "MODEL_TYPE": ("model", str),
+}
+
+
+def apply_env_overrides(cfg: Config,
+                        environ: Optional[Dict[str, str]] = None) -> Config:
+    """Overlay environment variables (``os.environ`` by default) onto
+    ``cfg``."""
+    env = dict(os.environ) if environ is None else environ
+    overrides: Dict[str, Any] = {}
+    for var, (key, cast) in _ENV_MAP.items():
+        if var in env:
+            overrides[key] = cast(env[var])
+    if "DATA_PATH" in env:
+        overrides["path.data_x"] = env["DATA_PATH"] + "/wifi_csi/amp"
+        overrides["path.data_y"] = env["DATA_PATH"] + "/annotation.csv"
+    if "ENVIRONMENTS_EXP" in env:
+        overrides["data.environment"] = [
+            e.strip() for e in env["ENVIRONMENTS_EXP"].split(",")]
+    return cfg.override(overrides) if overrides else cfg
+
+
+def load_config(path: Optional[str] = None,
+                cli_overrides: Optional[Dict[str, Any]] = None,
+                use_env: bool = True) -> Config:
+    """Config resolution order: defaults < JSON file < env vars < CLI."""
+    cfg = Config()
+    if path:
+        with open(path) as f:
+            cfg = cfg.override(_flatten(json.load(f)))
+    if use_env:
+        cfg = apply_env_overrides(cfg)
+    if cli_overrides:
+        cfg = cfg.override(cli_overrides)
+    return cfg
+
+
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """Nested dicts to dotted keys; the encoding tables stay whole."""
+    flat: Dict[str, Any] = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict) and not key.endswith(
+                ("encoding_activity", "encoding_location")):
+            flat.update(_flatten(v, key + "."))
+        else:
+            flat[key] = v
+    return flat
 
 
 def resolve_serving_dtype(compute_dtype: str, model_name: str) -> str:

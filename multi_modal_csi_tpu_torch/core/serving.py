@@ -21,27 +21,12 @@ import torch
 from torch import nn
 
 from ..runners.csi import CSI_MODELS
+from ..train.loop import cast_for_serving
 from .config import resolve_serving_batch, resolve_serving_dtype
 from .device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-@torch.no_grad()
-def cast_for_serving(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast every float32 parameter and persistent buffer to ``dtype`` in
-    place. Non-persistent buffers (constants such as GaussianPosition's
-    position index) stay as they are, as the JAX package computes them
-    in the forward."""
-    for module in model.modules():
-        for param in module.parameters(recurse=False):
-            if param.dtype == torch.float32:
-                param.data = param.data.to(dtype)
-        for name, buf in module.named_buffers(recurse=False):
-            if (buf.dtype == torch.float32
-                    and name not in module._non_persistent_buffers_set):
-                setattr(module, name, buf.to(dtype))
-    return model
+__all__ = ["CSIServer", "cast_for_serving"]
 
 
 class CSIServer:

@@ -132,7 +132,13 @@ def _detr(sd: StateDict, p, s, layers: int) -> None:
                        f"encoder.layer_embedding_encoder.{i}", 1)
     _ln(sd, ep["norm"], "encoder.layer_embedding_norm")
 
-    dp = p["decoder"]
+    _shared_decoder(sd, p["decoder"], layers)
+    _linear(sd, p["decoder"]["class_embed"], "decoder.class_embed")
+
+
+def _shared_decoder(sd: StateDict, dp, layers: int) -> None:
+    """The query embedding and the weight-shared decoder layer, written
+    under every ``decoder.decoder_layers.{i}``."""
     sd["decoder.query_embed"] = _t(dp["query_embed"])
     lp = dp["shared_layer"]
     layer: StateDict = {}
@@ -145,7 +151,23 @@ def _detr(sd: StateDict, p, s, layers: int) -> None:
     for i in range(layers):
         for key, value in layer.items():
             sd[f"decoder.decoder_layers.{i}.{key}"] = value
-    _linear(sd, dp["class_embed"], "decoder.class_embed")
+
+
+def _that_encoder(sd: StateDict, p, s, layers: int) -> None:
+    ep, es = p["encoder"], s["encoder"]
+    _gaussian(sd, ep["gaussian"], "encoder.layer_left_gaussian")
+    for i in range(4):
+        _encoder_block(sd, ep[f"left_encoder_{i}"], es[f"left_encoder_{i}"],
+                       f"encoder.layer_left_encoder.{i}", 3)
+    _ln(sd, ep["left_norm"], "encoder.layer_left_norm")
+    _encoder_block(sd, ep["right_encoder_0"], es["right_encoder_0"],
+                   "encoder.layer_right_encoder.0", 3)
+    _ln(sd, ep["right_norm"], "encoder.layer_right_norm")
+    dp = p["decoder"]
+    _shared_decoder(sd, dp, layers)
+    _ln(sd, dp["norm"], "decoder.norm")
+    for i in range(layers + 1):
+        _linear(sd, dp[f"class_embed_{i}"], f"decoder.class_embed.{i}")
 
 
 _EXPORTERS = {
@@ -153,6 +175,7 @@ _EXPORTERS = {
     "THAT_MULTI_HEAD": _that_multi_head,
     "THAT_COUNT": _that,
     "THAT_COUNT_CONSTRAINED": _that,
+    "THAT_ENCODER": _that_encoder,
     "DETR": _detr,
 }
 
@@ -161,8 +184,9 @@ def state_dict_from_jax(
         model_key: str, variables: Mapping[str, Any], *,
         num_decoder_layers: int = NNConfig.num_decoder_layers) -> StateDict:
     """The port's float32 state dict for the JAX ``variables`` of
-    ``model_key``. ``num_decoder_layers`` says how many times DETR's shared
-    decoder layer is listed; the JAX tree holds it once."""
+    ``model_key``. ``num_decoder_layers`` says how many times the shared
+    decoder layer of DETR and THAT_ENCODER is listed (the JAX tree holds
+    it once), and so how many class heads THAT_ENCODER has (one more)."""
     if model_key not in _EXPORTERS:
         raise KeyError(f"no weight map for model {model_key!r} "
                        f"(have {sorted(_EXPORTERS)})")

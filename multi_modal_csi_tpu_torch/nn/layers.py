@@ -241,6 +241,15 @@ def avg_pool1d(x: torch.Tensor, kernel: int,
                         ).transpose(1, 2)
 
 
+def adaptive_avg_pool1d(x: torch.Tensor, output_size: int) -> torch.Tensor:
+    """torch AdaptiveAvgPool1d on (B, L, C): bin i is the mean over steps
+    [floor(i L / out), ceil((i + 1) L / out)), so bins overlap when out
+    does not divide L (3000 to 270). The JAX package takes segment means
+    with the same bounds."""
+    return F.adaptive_avg_pool1d(x.transpose(1, 2), output_size
+                                 ).transpose(1, 2)
+
+
 def max_pool1d(x: torch.Tensor, kernel: int,
                stride: Optional[int] = None) -> torch.Tensor:
     """torch MaxPool1d on (B, L, C): VALID, floor length."""

@@ -26,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Callable, Dict, List, Optional, Union
+from typing import Callable, Dict, Iterable, List, Optional, Union
 
 import numpy as np
 import torch
@@ -115,6 +115,23 @@ def eval_dataset(model: nn.Module, x: np.ndarray, *, chunk: int = 512,
     return np.concatenate(outs, axis=batch_axis)
 
 
+@torch.no_grad()
+def cast_for_serving(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast every float32 parameter and persistent buffer to ``dtype`` in
+    place. Non-persistent buffers (constants such as GaussianPosition's
+    position index) stay as they are, as the JAX package computes them
+    in the forward."""
+    for module in model.modules():
+        for param in module.parameters(recurse=False):
+            if param.dtype == torch.float32:
+                param.data = param.data.to(dtype)
+        for name, buf in module.named_buffers(recurse=False):
+            if (buf.dtype == torch.float32
+                    and name not in module._non_persistent_buffers_set):
+                setattr(module, name, buf.to(dtype))
+    return model
+
+
 def state_snapshot(model: nn.Module) -> StateDict:
     """A CPU copy of the model's state dict."""
     return {k: v.detach().to("cpu", copy=True)
@@ -141,6 +158,8 @@ def fit(model: nn.Module,
         augment: bool = True,
         eval_chunk: int = 512,
         train_dtype: Optional[Union[str, torch.dtype]] = None,
+        optimizer: Optional[Callable[[Iterable[nn.Parameter]],
+                                     torch.optim.Optimizer]] = None,
         device: Optional[Union[str, torch.device]] = None) -> FitResult:
     """Train ``model`` (moved to ``device``, the card by default) and return
     the best weights by the reference's rule.
@@ -151,6 +170,10 @@ def fit(model: nn.Module,
     parameters and Adam's moments in bf16 and casts each batch, while
     BatchNorm's running statistics stay f32; validation then runs in bf16
     too.
+
+    ``optimizer``, if given, builds the optimizer from the parameters in
+    place of Adam with ``weight_decay`` and the cosine schedule, and no
+    schedule is stepped: the JAX ``fit``'s ``tx`` for restored weights.
     """
     if train_dtype not in _TRAIN_DTYPES:
         raise ValueError(f"unsupported train_dtype {train_dtype!r}")
@@ -169,15 +192,18 @@ def fit(model: nn.Module,
         for param in model.parameters():
             if param.dtype == torch.float32:
                 param.data = param.data.to(batch_dtype)
-    optimizer = adam_like_torch(model.parameters(), lr, weight_decay)
-    if use_cosine_schedule is None:
-        use_cosine_schedule = mode == "multi_head"
     scheduler = None
-    if use_cosine_schedule:
-        scheduler = torch.optim.lr_scheduler.LambdaLR(
-            optimizer, cosine_warmup(warmup_epochs * steps_per_epoch,
-                                     epochs * steps_per_epoch, min_lr_ratio))
-    step = make_train_step(model, optimizer, loss_fn, scheduler=scheduler,
+    if optimizer is not None:
+        opt = optimizer(model.parameters())
+    else:
+        opt = adam_like_torch(model.parameters(), lr, weight_decay)
+        if use_cosine_schedule is None:
+            use_cosine_schedule = mode == "multi_head"
+        if use_cosine_schedule:
+            scheduler = torch.optim.lr_scheduler.LambdaLR(
+                opt, cosine_warmup(warmup_epochs * steps_per_epoch,
+                                   epochs * steps_per_epoch, min_lr_ratio))
+    step = make_train_step(model, opt, loss_fn, scheduler=scheduler,
                            augment=augment, batch_dtype=batch_dtype)
 
     best_f1 = best_ppp = 0.0

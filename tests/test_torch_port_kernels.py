@@ -90,7 +90,8 @@ def test_kernel_sources_and_build_flags():
     """Every kernel is a csrc/*.cu with a plain C launcher, built for
     sm_90a; the library name changes with the source or the flags."""
     sources = {"flash_attention.cu": "flash_attention",
-               "flash_attention_bwd.cu": "flash_attention_bwd"}
+               "flash_attention_bwd.cu": "flash_attention_bwd",
+               "csi_preprocess.cu": "csi_preprocess"}
     assert sorted(p.name for p in build.CSRC.glob("*.cu")) == sorted(sources)
     for name, stem in sources.items():
         src = (build.CSRC / name).read_text()

@@ -166,9 +166,11 @@ def port_step(port, loss_fn, x, y):
     return float(loss), before
 
 
-def compare(key, port, before, loss, jloss, jnew, jgrads, layers=6):
+def compare(key, port, before, loss, jloss, jnew, jgrads, layers=6,
+            max_unsure=0.05):
     """The assertions of the module docstring; returns the count of
-    parameter elements held only to the 2 lr bound."""
+    parameter elements held only to the 2 lr bound, which must stay under
+    ``max_unsure`` of all (5% here)."""
     assert abs(loss - jloss) <= 1e-5 * abs(jloss)
     want_new = state_dict_from_jax(key, jnew, num_decoder_layers=layers)
     want_g = state_dict_from_jax(key, {"params": jgrads,
@@ -196,7 +198,7 @@ def compare(key, port, before, loss, jloss, jnew, jgrads, layers=6):
             np.testing.assert_allclose(sd[name].numpy(),
                                        want_new[name].numpy(),
                                        rtol=1e-5, atol=1e-5, err_msg=name)
-    assert flipped < 0.05 * total
+    assert flipped < max_unsure * total
     return flipped, total
 
 
