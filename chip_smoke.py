@@ -8,9 +8,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. the card's name and power limit, torch and CUDA versions; build the
-   three kernels (attention forward K1, its backward K2, and the CSI
-   amplitude-phase pass K5) from csrc/ with one nvcc each, started
-   together, timed, with nvcc's register and spill lines;
+   four kernels (attention forward K1, its backward K2, the CSI
+   amplitude-phase pass K5 and MViT's low-rank-bias attention K3) from
+   csrc/ with one nvcc each, started together, timed, with nvcc's
+   register and spill lines;
 2. K1 against its plain PyTorch version on the card, f32 and bf16, at
    THAT's left (256, 150, 10, 27) and right (256, 270, 10, 15) shapes,
    THAT_ENCODER's right (256, 270, 10, 27), a ragged (3, 64, 10, 15) case
@@ -31,6 +32,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    per call from torch.profiler (CUDA events around back-to-back calls
    measure the host's call rate at one trace) beside the plain version's,
    torch.hypot with torch.atan2, and the bound;
+4b. K3 against its plain version at MViT's seven block shapes of a
+   (2, 45, 224, 224, 3) forward and the JAX test's odd shapes, f32 and
+   bf16, with and without the bias: out within 2e-5 (f32) or 2^-7 of the
+   largest |out| (bf16), the row LSE within 1e-5 relative; per-call times
+   at the block shapes in bf16 beside the plain version's,
+   scaled_dot_product_attention's with r @ s as its mask, and the bound,
+   summed per MViT-v1 and v2 forward; a head dim of 160 must be refused;
 5. preprocessing on the card (cli/preprocess_csi.py, the default device):
    4 synthetic WiMANS .mat traces of 3000 packets to amplitude and phase
    files, exactly 4 K5 launches, seconds per trace by stage (.mat parse,
@@ -63,7 +71,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    windows of 2500 to 3000 steps, 2 epochs at batch 16, the final test
    pass in bf16; the result JSON read back with the JAX runner's keys;
    THAT_ENCODER's exact K1 and K2 launch counts, none for DETR;
-11. the bound of each TPU kernel still to port, worked out from a shape
+11. MViT-v1 and MViT-v2 serving at full width (runners/video.py,
+   core/serving.py::VideoServer), bf16, batch 2: seeded weights, ragged
+   requests of 2, 1 and 3 seeded (45, 224, 224, 3) clips, exactly 16 K3
+   launches per batch forward; clips/s from host memory and with the
+   clips on the card; 5 forwards under torch.profiler; a training forward
+   at the flash-backward gate must raise NotImplementedError;
+12. each variant in f32 at (2, 16, 112, 112, 3) on the card (TF32 off,
+   14 K3 launches) against the CPU, where K3's plain version runs, within
+   1e-4 of the largest logit;
+13. runners/video.py::evaluate for each variant over a ClipDataset of 5
+   seeded cached clips, bf16, chunks of 2, the weights loaded with
+   load_video_pretrained from a torchvision-layout .pt the script writes
+   at (16, 224, 224): logits against VideoServer's, exactly 48 K3
+   launches;
+14. the bound of each TPU kernel still to port, worked out from a shape
    its path runs; one JSON line describing each ported kernel, then the
    card's name and power limit, then the result line.
 
@@ -138,6 +160,36 @@ TRACES, PACKETS = 4, 3000  # synthetic WiMANS traces preprocessed
 RUN_WINDOWS, RUN_EPOCHS = 48, 2   # the experiment path's dataset and epochs
 RESULT_KEYS = {"complexity", "repeat_0", "accuracy", "time_train",
                "time_test", "final_metrics", "model", "task", "data", "nn"}
+# K3 at MViT's serving shapes, (2, 45, 224, 224, 3) bf16: per block
+# (B, H, Nq, Nk, D, M of v2's bias) and its launches in one forward
+LOWRANK_SHAPES = {
+    "block0": ((2, 1, 72129, 1128, 96, 37), 1),
+    "block1": ((2, 2, 18033, 4509, 96, 51), 1),
+    "block2": ((2, 2, 18033, 1128, 96, 37), 1),
+    "block3": ((2, 4, 4509, 4509, 96, 51), 1),
+    "blocks4-13": ((2, 4, 4509, 1128, 96, 37), 10),
+    "block14": ((2, 8, 1128, 4509, 96, 51), 1),
+    "block15": ((2, 8, 1128, 1128, 96, 37), 1),
+}
+# the JAX package's own K3 test shapes (tests/test_kernels.py:85-86)
+LOWRANK_ODD = {"odd-300": (2, 1, 300, 37, 16, 5),
+               "odd-513": (1, 2, 513, 129, 8, 11),
+               "odd-257": (2, 4, 257, 128, 24, 9),
+               "odd-128": (1, 8, 128, 128, 96, 0)}
+# K3 against its plain version: f32 the JAX test's 2e-5; bf16 2^-7 of the
+# largest |out| (one rounding step of it); the LSE 1e-5 relative
+LOWRANK_BF16_SHARE = 2.0 ** -7
+LOWRANK_LSE_RTOL = 1e-5
+LOWRANK_REPS = 3           # timed calls per measurement at the big shapes
+VIDEO_CLIP = (45, 224, 224)
+VIDEO_REQUESTS = (2, 1, 3)
+VIDEO_OUT = 6              # the identity task's head (cli/run_video.py:20)
+K3_PER_FORWARD = 16
+VIDEO_CPU_CLIP = (16, 112, 112)   # card vs CPU: stage 1 has 6273 queries
+VIDEO_CPU_K3 = 14          # blocks at nq >= 256 there (stage 4 has 129)
+VIDEO_F32_SHARE = 1e-4     # card vs CPU, of the largest logit
+PRETRAINED_CLIP = (16, 224, 224)  # torchvision's own clip size
+EVAL_CLIPS = 5
 
 
 def check(ok: bool, what: str) -> None:
@@ -919,17 +971,298 @@ def run_csi_phase(work, converted_amp):
     return out["THAT_ENCODER"]
 
 
+def lowrank_bound(shape, bias, dtype):
+    """The least times (ms) one K3 call needs on an H100 SXM: q, k, v, r
+    and s read once and out and the LSE written once over the HBM rate;
+    the QK^T and PV products (4 B*H*Nq*Nk*D) over the peak of the dtype
+    plus the bias product (2 B*H*Nq*Nk*M) over the f32 peak."""
+    b, h, nq, nk, d, m = shape
+    m = m if bias else 0
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * b * h * nq * d + 2 * b * h * nk * d) * item + 4 * (
+        b * h * nq * m + m * nk + b * h * nq)
+    ops_ms = 1e3 * (4.0 * b * h * nq * nk * d / PEAK_FLOPS[dtype]
+                    + 2.0 * b * h * nq * nk * m / PEAK_FLOPS[torch.float32])
+    return 1e3 * nbytes / PEAK_BYTES, ops_ms
+
+
+def phase_lowrank(lowrank, lowrank_reference):
+    """K3 against its plain version at MViT's seven serving shapes and the
+    JAX test's odd shapes, f32 and bf16, with and without the bias; then,
+    at the serving shapes in bf16, times per call with CUDA events (plain,
+    kernel, kernel, plain), beside scaled_dot_product_attention with r @ s
+    materialized as its attn_mask in q's dtype (the mask made outside the
+    timed call) and the bound; a head dim of 160 must be refused."""
+    import torch.nn.functional as F
+    set_tf32(False)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    shapes = {n: s for n, (s, _) in LOWRANK_SHAPES.items()}
+    shapes.update(LOWRANK_ODD)
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, shape in shapes.items():
+            b, h, nq, nk, d, m = shape
+            for bias in (False, True) if m else (False,):
+                q, k, v = (torch.randn((b, h, n, d), generator=gen,
+                                       device="cuda").to(dtype)
+                           for n in (nq, nk, nk))
+                r = s = None
+                if bias:      # the class token's row and column carry 0
+                    r = torch.randn((b, h, nq, m), generator=gen,
+                                    device="cuda")
+                    s = torch.randn((m, nk), generator=gen, device="cuda")
+                    r[:, :, 0] = 0.0
+                    s[:, 0] = 0.0
+                out, lse = lowrank(q, k, v, r, s, return_lse=True)
+                want, want_lse = lowrank_reference(q, k, v, r, s,
+                                                   return_lse=True)
+                torch.cuda.synchronize()
+                err = (out.float() - want.float()).abs().max().item()
+                top = want.float().abs().max().item()
+                lse_rel = ((lse - want_lse).abs() / want_lse.abs()
+                           .clamp_min(1e-30)).max().item()
+                tol = (F32_TOL if dtype == torch.float32
+                       else LOWRANK_BF16_SHARE * top)
+                label = f"{name}{'+bias' if bias else ''}"
+                print(f"K3 {label} {shape} {dtype}: max abs err {err:.3e} "
+                      f"(tolerance {tol:.3e}, max |out| {top:.3f}), LSE max "
+                      f"rel err {lse_rel:.2e} (tolerance {LOWRANK_LSE_RTOL})")
+                check(out.dtype == dtype and out.shape == q.shape
+                      and lse.shape == q.shape[:3],
+                      f"K3 {label} {dtype} outputs {out.dtype} "
+                      f"{tuple(out.shape)} {tuple(lse.shape)}")
+                check(err <= tol, f"K3 {label} {dtype} err {err} > {tol}")
+                check(lse_rel <= LOWRANK_LSE_RTOL,
+                      f"K3 {label} {dtype} LSE rel err {lse_rel}")
+                del out, lse, want, want_lse
+                if dtype != torch.bfloat16 or name not in LOWRANK_SHAPES:
+                    continue
+
+                def timed(fn):
+                    return cuda_ms(fn, reps=LOWRANK_REPS, warmup=1)
+
+                plain = [timed(lambda: lowrank_reference(q, k, v, r, s))]
+                kern = [timed(lambda: lowrank(q, k, v, r, s))
+                        for _ in range(2)]
+                plain.append(timed(lambda: lowrank_reference(q, k, v, r, s)))
+                mask = None if r is None else (r @ s).to(dtype)
+                lib = timed(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask))
+                del mask
+                bytes_ms, ops_ms = lowrank_bound(shape, bias, dtype)
+                results[(label, dtype)] = dict(
+                    err=err, ms=sum(kern) / 2, plain_ms=sum(plain) / 2,
+                    library_ms=lib, bytes_ms=bytes_ms, ops_ms=ops_ms)
+                print(f"K3 {label} {dtype} per call: kernel {kern[0]:.3f}/"
+                      f"{kern[1]:.3f} ms, plain {plain[0]:.3f}/{plain[1]:.3f}"
+                      f" ms, sdpa {lib:.3f} ms; bound: bytes "
+                      f"{1e3 * bytes_ms:.1f} us, operations "
+                      f"{1e3 * ops_ms:.1f} us")
+    for bias in (False, True):
+        per_forward = {k: sum(n * results[(f"{name}{'+bias' if bias else ''}",
+                                           torch.bfloat16)][k]
+                              for name, (_, n) in LOWRANK_SHAPES.items())
+                       for k in ("ms", "plain_ms", "library_ms", "bytes_ms",
+                                 "ops_ms")}
+        print(f"K3 per MViT-v{2 if bias else 1} bf16 forward at batch 2 "
+              f"(16 calls): kernel {per_forward['ms']:.3f} ms, plain "
+              f"{per_forward['plain_ms']:.3f} ms, sdpa "
+              f"{per_forward['library_ms']:.3f} ms, bound "
+              f"{max(per_forward['bytes_ms'], per_forward['ops_ms']):.3f} ms")
+
+    q = torch.zeros((1, 1, 8, 160), device="cuda")
+    try:
+        lowrank(q, q, q)
+        refused = False
+    except ValueError as e:
+        print(f"K3 D=160: refused ({e})")
+        refused = True
+    check(refused, "K3 launched with a head dim above 128")
+    return results
+
+
+def video_requests():
+    rng = np.random.default_rng(SEED)
+    return [rng.standard_normal((n, *VIDEO_CLIP, 3), dtype=np.float32)
+            for n in VIDEO_REQUESTS]
+
+
+def video_serve_phase(key, requests):
+    """Serve ``requests`` (host arrays of (n, 45, 224, 224, 3) clips) with
+    ``key`` in bf16 at batch 2: exactly 16 K3 launches per batch forward,
+    clips/s from host memory and resident, a profile; a training forward
+    at the flash-backward gate must raise."""
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.core.serving import VideoServer
+    from multi_modal_csi_tpu_torch.runners.video import build_video_model
+
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    server = VideoServer(key, build_video_model(key, VIDEO_OUT, VIDEO_CLIP,
+                                                seed=SEED),
+                         dtype="bfloat16", device="cuda")
+    check(server.batch == 2 and server.dtype == torch.bfloat16,
+          f"{key} serves at batch {server.batch} in {server.dtype}")
+    server(requests[0])                                       # warm-up
+    torch.cuda.synchronize()
+    batch = torch.from_numpy(requests[0][:server.batch]).cuda()
+    kernels.reset_launch_counts()
+    server.forward(batch)
+    torch.cuda.synchronize()
+    one = dict(kernels.LAUNCH_COUNTS)
+    print(f"{key}: launches in one batch forward: {one}")
+    check(one == {"flash_attention_lowrank_bias": K3_PER_FORWARD},
+          f"{key} launched {one} in one forward, expected "
+          f"{K3_PER_FORWARD} K3")
+
+    # the main path: ragged requests from host memory to logits on the host
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    outs = [server(r).cpu() for r in requests]
+    host_s = time.perf_counter() - start
+    launches = dict(kernels.LAUNCH_COUNTS)
+    batches = sum(-(-len(r) // server.batch) for r in requests)
+    n = sum(len(r) for r in requests)
+    for r, out in zip(requests, outs):
+        print(f"{key}: request of {len(r)} clips -> {tuple(out.shape)}")
+        check(tuple(out.shape) == (len(r), VIDEO_OUT)
+              and out.dtype == torch.float32
+              and bool(torch.isfinite(out).all()),
+              f"{key} output {tuple(out.shape)} {out.dtype} not finite f32")
+    print(f"{key}: main path ran {batches} batch forwards, launches "
+          f"{launches}")
+    check(launches == {"flash_attention_lowrank_bias":
+                       K3_PER_FORWARD * batches},
+          f"{key} launched {launches}, expected "
+          f"{K3_PER_FORWARD * batches} K3")
+
+    resident = [torch.from_numpy(r).cuda() for r in requests]
+    rates = []
+    for _ in range(RESIDENT_ROUNDS):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for r in resident:
+            server(r)
+        torch.cuda.synchronize()
+        rates.append(n / (time.perf_counter() - start))
+    del resident
+    print(f"{key} bf16 batch {server.batch}: {n / host_s:.2f} clips/s from "
+          f"host memory, {n} clips in {batches} batch forwards; with the "
+          f"clips already on the card, {RESIDENT_ROUNDS} timings: "
+          + ", ".join(f"{r:.2f}" for r in rates) + " clips/s")
+    profile_device(key, lambda: server.forward(batch), PROFILED_FORWARDS,
+                   "forward")
+
+    server.model.train()
+    try:
+        with torch.no_grad():
+            server.model(batch[:1].to(server.dtype))
+        raised = False
+    except NotImplementedError as e:
+        print(f"{key} training forward on the card: refused ({e})")
+        raised = True
+    finally:
+        server.model.eval()
+    check(raised, f"{key} trained at the K4 gate without the K4 kernel")
+    return launches
+
+
+def video_card_vs_cpu(key):
+    """The same seeded weights in f32 (TF32 off) at (2, 16, 112, 112, 3)
+    on the card and on the CPU, where K3's plain version runs: logits
+    within VIDEO_F32_SHARE of the largest."""
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.core.serving import VideoServer
+    from multi_modal_csi_tpu_torch.runners.video import build_video_model
+    set_tf32(False)
+    x = np.random.default_rng(SEED + 1).standard_normal(
+        (2, *VIDEO_CPU_CLIP, 3), dtype=np.float32)
+    got = {}
+    for device in ("cuda", "cpu"):
+        model = build_video_model(key, VIDEO_OUT, VIDEO_CPU_CLIP, seed=SEED)
+        kernels.reset_launch_counts()
+        got[device] = VideoServer(key, model, dtype="float32",
+                                  device=device)(x).cpu().numpy()
+        if device == "cuda":
+            launches = dict(kernels.LAUNCH_COUNTS)
+    err = float(np.abs(got["cuda"] - got["cpu"]).max())
+    top = float(np.abs(got["cpu"]).max())
+    print(f"{key} f32 card vs CPU at {VIDEO_CPU_CLIP}: max abs err "
+          f"{err:.3e} (tolerance {VIDEO_F32_SHARE} x {top:.4f}); card "
+          f"launches {launches}")
+    check(err <= VIDEO_F32_SHARE * top, f"{key} card vs CPU err {err}")
+    check(launches == {"flash_attention_lowrank_bias": VIDEO_CPU_K3},
+          f"{key} card launched {launches}, expected {VIDEO_CPU_K3} K3")
+    return launches
+
+
+def video_evaluate_phase(work, key):
+    """runners/video.py::evaluate over a ClipDataset of EVAL_CLIPS seeded
+    (45, 224, 224, 3) .npy clips, bf16, chunks of 2, the model loaded with
+    load_video_pretrained from a torchvision-layout .pt written here at
+    torchvision's (16, 224, 224) clip: the logits against VideoServer's on
+    the same clips, the predictions and accuracy against the logits."""
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.core.serving import VideoServer
+    from multi_modal_csi_tpu_torch.data.video_io import (ClipDataset,
+                                                         load_clips)
+    from multi_modal_csi_tpu_torch.metrics.classification import \
+        accuracy_score
+    from multi_modal_csi_tpu_torch.runners.video import (
+        build_video_model, evaluate, load_video_pretrained)
+    from multi_modal_csi_tpu_torch.train.loop import cast_for_serving
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    rng = np.random.default_rng(SEED + 2)
+    root = os.path.join(work, "clips")
+    os.makedirs(root, exist_ok=True)
+    labels = [f"act_{i}" for i in range(EVAL_CLIPS)]
+    for label in labels:
+        np.save(os.path.join(root, f"{label}.npy"), rng.standard_normal(
+            (*VIDEO_CLIP, 3), dtype=np.float32))
+    y = rng.integers(0, 2, (EVAL_CLIPS, VIDEO_OUT)).astype(np.float32)
+    path = os.path.join(work, f"{key}.pt")
+    torch.save(build_video_model(key, 400, PRETRAINED_CLIP, seed=SEED + 3)
+               .backbone.state_dict(), path)
+    model = load_video_pretrained(path, key, build_video_model(
+        key, VIDEO_OUT, VIDEO_CLIP, seed=SEED))
+    model = cast_for_serving(model.cuda(), torch.bfloat16)
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    acc, pred, logits = evaluate(model, ClipDataset(root, labels, y), 0.5,
+                                 chunk=2, dtype=torch.bfloat16)
+    wall = time.perf_counter() - start
+    launches = dict(kernels.LAUNCH_COUNTS)
+    chunks = -(-EVAL_CLIPS // 2)
+    served = VideoServer(key, model, dtype="bfloat16", device="cuda")(
+        load_clips(root, labels)).cpu().numpy()
+    err = float(np.abs(logits - served).max())
+    print(f"{key} evaluate over {EVAL_CLIPS} cached clips from a "
+          f"{PRETRAINED_CLIP} checkpoint: {wall:.3f} s, accuracy {acc:.3f},"
+          f" logits vs VideoServer max abs err {err:.3e}; launches "
+          f"{launches}")
+    check(logits.shape == (EVAL_CLIPS, VIDEO_OUT)
+          and np.isfinite(logits).all(), f"{key} evaluate logits")
+    check(err <= 1e-3 * np.abs(served).max(),
+          f"{key} evaluate vs VideoServer err {err}")
+    check(np.array_equal(pred, (1 / (1 + np.exp(-logits)) > 0.5)
+                         .astype(int))
+          and acc == accuracy_score(y.astype(int), pred),
+          f"{key} evaluate predictions or accuracy")
+    check(launches == {"flash_attention_lowrank_bias":
+                       K3_PER_FORWARD * chunks},
+          f"{key} evaluate launched {launches}")
+    return launches
+
+
 def pending_bounds():
     """Print the least time each TPU kernel still to port needs on an H100
     SXM at a shape its path runs: bytes read once and written once over
     the HBM rate against operations over the peak rate of their type."""
     nq, nk, d, m = 25089, 393, 96, 22     # MViT-v2-S stage 1, 16x224^2
     rows = {
-        "K3 flash_attention_lowrank_bias, MViT-v2-S stage 1, one (b, h): "
-        "q (25089, 96), 393 keys, M 22, bf16, f32 bias":
-            ((2 * nq * d + 2 * nk * d) * 2 + (nq * m + m * nk + nq) * 4,
-             {torch.bfloat16: 4 * nq * nk * d, torch.float32: 2 * nq * nk * m}),
-        "K4 flash_attention_lowrank_bias_trainable, the same shape":
+        "K4 flash_attention_lowrank_bias_trainable, MViT-v2-S stage 1, one "
+        "(b, h): q (25089, 96), 393 keys, M 22, bf16, f32 bias":
             ((4 * nq * d + 4 * nk * d) * 2 + (2 * nq * m + 2 * m * nk + nq) * 4,
              {torch.bfloat16: 10 * nq * nk * d,
               torch.float32: 6 * nq * nk * m}),
@@ -959,7 +1292,8 @@ def build_kernels():
         build.load(name)
         return time.perf_counter() - start
 
-    names = ("flash_attention", "flash_attention_bwd", "csi_preprocess")
+    names = ("flash_attention", "flash_attention_bwd",
+             "flash_attention_lowrank", "csi_preprocess")
     start = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         took = dict(zip(names, pool.map(timed, names)))
@@ -999,6 +1333,8 @@ def main() -> int:
     from multi_modal_csi_tpu_torch.kernels.flash_attention import (
         flash_attention, flash_attention_backward,
         flash_attention_backward_reference, flash_attention_reference)
+    from multi_modal_csi_tpu_torch.kernels.flash_attention_lowrank import (
+        flash_attention_lowrank_bias, flash_attention_lowrank_bias_reference)
 
     card = card_line()
     print(card)
@@ -1010,6 +1346,8 @@ def main() -> int:
     bwd_times = phase_backward(flash_attention_backward,
                                flash_attention_backward_reference)
     k5_times = phase_k5(amplitude_phase, amplitude_phase_reference)
+    k3_times = phase_lowrank(flash_attention_lowrank_bias,
+                             flash_attention_lowrank_bias_reference)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         preprocessed, converted_amp = preprocess_phase(work)
@@ -1033,11 +1371,21 @@ def main() -> int:
 
         experiment = run_csi_phase(work, converted_amp)
 
+        clips = video_requests()
+        video = [video_serve_phase(key, clips) for key in
+                 ("MViT-v1", "MViT-v2")]
+        del clips
+        video += [video_card_vs_cpu(key) for key in ("MViT-v1", "MViT-v2")]
+        video += [video_evaluate_phase(work, key) for key in
+                  ("MViT-v1", "MViT-v2")]
+
     pending_bounds()
     # K1 and K2: per THAT forward (bf16 serving, batch 256) and per THAT
     # training step (f32, batch 16), 4 left-stream and 1 right-stream
     # launches; launches summed over every main path that ran them. K5:
-    # per WiMANS trace (3000, 270).
+    # per WiMANS trace (3000, 270). K3: per MViT-v2 forward (bf16, batch
+    # 2, the bias on), its 16 launches; launches summed over the video
+    # serving, card-vs-CPU and evaluate runs of both variants.
     trace = k5_times["trace"]
     k5_bytes, k5_ops = trace["bytes_ms"], trace["ops_ms"]
     print(json.dumps({"kernels": [
@@ -1062,6 +1410,14 @@ def main() -> int:
          "bound_ms": max(k5_bytes, k5_ops),
          "bound_by": "bytes" if k5_bytes >= k5_ops else "operations",
          "library_ms": trace["library_ms"]},
+        kernel_entry("flash_attention_lowrank_bias",
+                     "flash_attention_lowrank.cu",
+                     "multi_modal_csi_tpu/kernels/flash_attention.py:377",
+                     sum(runs["flash_attention_lowrank_bias"]
+                         for runs in video), k3_times,
+                     {f"{name}+bias": n
+                      for name, (_, n) in LOWRANK_SHAPES.items()},
+                     torch.bfloat16),
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

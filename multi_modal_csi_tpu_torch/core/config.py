@@ -11,8 +11,8 @@ JAX package's ``core/config.py`` (which the port does not import).
   (``apply_env_overrides``, the reference's ``config_modifier.py`` knob
   set) and ``load_config`` (defaults < JSON file < environment < CLI).
 - the serving dtype and batch with their ``resolve_*`` functions. The JAX
-  package's tables differ per model only for video models, which arrive
-  with the video slice; every CSI model serves in bf16 at batch 256.
+  package's tables differ per model only for video models (MViT serves in
+  bf16 at batch 2); every CSI model serves in bf16 at batch 256.
 
 Left out until their ROADMAP items: the device mesh (item 14) and the
 metric writers (W&B, JSONL, profile directory; item 15).
@@ -31,6 +31,25 @@ CSI_CHANNELS = 270          # 3 x 3 antenna pairs x 30 subcarriers
 
 CSI_SERVING_DTYPE = "bfloat16"
 CSI_SERVING_BATCH = 256
+
+# the video models' serving dtype and batch (JAX core/config.py:261-269,
+# :329-336); every other model takes the CSI values above
+SERVING_DTYPE_DEFAULTS: Dict[str, str] = {
+    "ResNet": "bfloat16",
+    "S3D": "bfloat16",
+    "Swin-T": "float32",
+    "Swin-S": "float32",
+    "MViT-v1": "bfloat16",
+    "MViT-v2": "bfloat16",
+}
+SERVING_BATCH_DEFAULTS: Dict[str, int] = {
+    "ResNet": 64,
+    "S3D": 32,
+    "Swin-T": 2,
+    "Swin-S": 2,
+    "MViT-v1": 2,
+    "MViT-v2": 2,
+}
 
 # label encoding tables (reference wifi_csi/preset.py:69-90)
 ACTIVITY_ENCODING: Dict[str, List[int]] = {
@@ -243,7 +262,9 @@ def resolve_serving_dtype(compute_dtype: str, model_name: str) -> str:
     if compute_dtype not in ("auto", "float32", "bfloat16"):
         raise ValueError("serving dtype must be auto, float32 or bfloat16, "
                          f"got {compute_dtype!r}")
-    return CSI_SERVING_DTYPE if compute_dtype == "auto" else compute_dtype
+    if compute_dtype != "auto":
+        return compute_dtype
+    return SERVING_DTYPE_DEFAULTS.get(model_name, CSI_SERVING_DTYPE)
 
 
 def resolve_serving_batch(model_name: str,
@@ -251,4 +272,4 @@ def resolve_serving_batch(model_name: str,
     """The model's serving batch; an explicit positive batch wins."""
     if batch is not None and batch > 0:
         return batch
-    return CSI_SERVING_BATCH
+    return SERVING_BATCH_DEFAULTS.get(model_name, CSI_SERVING_BATCH)

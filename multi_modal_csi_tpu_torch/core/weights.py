@@ -18,6 +18,13 @@ named after):
 
 The weight-shared decoder layer is written under every
 ``decoder_layers.{i}`` index, as the port's state dict repeats it.
+
+MViT (``tools/convert_torchvision.py::convert_mvit`` inverted): Conv3d
+``kernel`` (kt, kh, kw, in/groups, out) -> ``weight`` (out, in/groups, kt,
+kh, kw); Linear and LayerNorm as above; the backbone under ``backbone.``
+with torchvision's names, the task head as ``task_head``.
+``resize_mvit_tables`` adapts a torchvision-named MViT checkpoint to
+another clip size.
 """
 
 from __future__ import annotations
@@ -170,6 +177,56 @@ def _that_encoder(sd: StateDict, p, s, layers: int) -> None:
         _linear(sd, dp[f"class_embed_{i}"], f"decoder.class_embed.{i}")
 
 
+def _conv3d(sd: StateDict, p, pre: str) -> None:
+    sd[f"{pre}.weight"] = _t(np.transpose(np.asarray(p["kernel"]),
+                                          (4, 3, 0, 1, 2)))
+    if "bias" in p:
+        sd[f"{pre}.bias"] = _t(p["bias"])
+
+
+def _ln_flat(sd: StateDict, p, pre: str) -> None:
+    sd[f"{pre}.weight"] = _t(p["scale"])
+    sd[f"{pre}.bias"] = _t(p["bias"])
+
+
+def _mvit_attention(sd: StateDict, ap, pre: str) -> None:
+    """One MultiscaleAttention: qkv, project.0, pool_{q,k,v} (conv and
+    norm_act.0) and the relative tables, where present."""
+    _linear(sd, ap["qkv"], f"{pre}.qkv")
+    _linear(sd, ap["project"], f"{pre}.project.0")
+    for pool in ("pool_q", "pool_k", "pool_v"):
+        if pool in ap:
+            _conv3d(sd, ap[pool]["conv"], f"{pre}.{pool}.pool")
+            _ln_flat(sd, ap[pool]["norm"], f"{pre}.{pool}.norm_act.0")
+    for axis in ("h", "w", "t"):
+        if f"rel_pos_{axis}" in ap:
+            sd[f"{pre}.rel_pos_{axis}"] = _t(ap[f"rel_pos_{axis}"])
+
+
+def _mvit(sd: StateDict, p, s, layers: int) -> None:
+    """MViT-v1 or v2 (the variant shows in the tree: v1 has the absolute
+    tables, v2 the relative ones) into ``backbone.*`` with torchvision's
+    names, and the task head into ``task_head``."""
+    _conv3d(sd, p["conv_proj"], "backbone.conv_proj")
+    for name in ("class_token", "spatial_pos", "temporal_pos", "class_pos"):
+        if name in p:
+            sd[f"backbone.pos_encoding.{name}"] = _t(p[name])
+    i = 0
+    while f"block{i}" in p:
+        bp, pre = p[f"block{i}"], f"backbone.blocks.{i}"
+        _ln_flat(sd, bp["norm1"], f"{pre}.norm1")
+        _mvit_attention(sd, bp["attn"], f"{pre}.attn")
+        _ln_flat(sd, bp["norm2"], f"{pre}.norm2")
+        _linear(sd, bp["mlp_up"], f"{pre}.mlp.0")
+        _linear(sd, bp["mlp_down"], f"{pre}.mlp.3")
+        if "project" in bp:
+            _linear(sd, bp["project"], f"{pre}.project")
+        i += 1
+    _ln_flat(sd, p["norm"], "backbone.norm")
+    _linear(sd, p["fc"], "backbone.head.1")
+    _linear(sd, p["head"], "task_head")
+
+
 _EXPORTERS = {
     "THAT": _that,
     "THAT_MULTI_HEAD": _that_multi_head,
@@ -177,6 +234,8 @@ _EXPORTERS = {
     "THAT_COUNT_CONSTRAINED": _that,
     "THAT_ENCODER": _that_encoder,
     "DETR": _detr,
+    "MViT-v1": _mvit,
+    "MViT-v2": _mvit,
 }
 
 
@@ -193,4 +252,57 @@ def state_dict_from_jax(
     sd: StateDict = {}
     _EXPORTERS[model_key](sd, variables["params"],
                           variables.get("batch_stats", {}), num_decoder_layers)
+    return sd
+
+
+# ---------------------------------------------------------------------- #
+# MViT checkpoints at another clip size (the port's copy of
+# tools/convert_torchvision.py:270-323, on torchvision-named state dicts)
+# ---------------------------------------------------------------------- #
+
+def _interp_table_np(table: np.ndarray, dst: int) -> np.ndarray:
+    """torch F.interpolate(mode='linear', align_corners=False) on dim 0."""
+    src = table.shape[0]
+    if src == dst:
+        return table
+    pos = np.clip((np.arange(dst) + 0.5) * (src / dst) - 0.5, 0, src - 1)
+    i0 = np.floor(pos).astype(np.int64)
+    i1 = np.minimum(i0 + 1, src - 1)
+    frac = (pos - i0)[:, None].astype(table.dtype)
+    return table[i0] * (1 - frac) + table[i1] * frac
+
+
+def resize_mvit_tables(state: Mapping[str, Any], variant: str,
+                       target_clip) -> StateDict:
+    """A torchvision-named MViT state dict (``MViT.backbone``'s names)
+    adapted to clips of ``target_clip`` = (T, H, W).
+
+    v2: each block's decomposed relative tables are interpolated linearly
+    to the sizes the clip gives, as torchvision does at run time. v1: the
+    absolute tables are drawn afresh at the clip's size from
+    ``default_rng(1)`` (std 0.02), as the reference rebuilds its positional
+    encoding per clip size. Other entries are passed through.
+    """
+    from ..models.video.mvit import _block_configs, patchified
+    sd = dict(state)
+    tt, hh, ww = patchified(target_clip)
+    if variant == "v1":
+        c = sd["pos_encoding.class_token"].shape[0]
+        rng = np.random.default_rng(1)
+        for name, shape in (("spatial_pos", (hh * ww, c)),
+                            ("temporal_pos", (tt, c)), ("class_pos", (c,))):
+            sd[f"pos_encoding.{name}"] = _t(
+                rng.standard_normal(shape) * 0.02)
+        return sd
+    size = [tt, hh, ww]
+    for i, cfg in enumerate(_block_configs(variant)):
+        pre = f"blocks.{i}.attn.rel_pos_"
+        sp = max(size[1], size[2])
+        rel_sp = 2 * max(sp // cfg.q_stride[1], sp // cfg.kv_stride[1]) - 1
+        for axis, dst in (("h", rel_sp), ("w", rel_sp),
+                          ("t", 2 * size[0] - 1)):
+            table = np.asarray(sd[pre + axis], dtype=np.float32)
+            sd[pre + axis] = _t(_interp_table_np(table, dst))
+        if cfg.has_pool_q:
+            size = [s // st for s, st in zip(size, cfg.q_stride)]
     return sd

@@ -1,9 +1,10 @@
 """Layers with the JAX package's semantics (``nn/layers.py`` there), in
 PyTorch, for serving (eval mode) and training.
 
-Layout is channels-last, (batch, length, features), as in the JAX package,
-so both packages' layers take the same arrays. Parameter names follow the
-reference torch state-dict layout.
+Layout is channels-last, (batch, length, features) and (batch, T, H, W,
+features) for video, as in the JAX package, so both packages' layers take
+the same arrays. Parameter names follow the reference torch state-dict
+layout.
 
 Dtypes follow JAX's promotion step for step, because bf16 serving casts only
 the weights (``core/serving.py``) and JAX then decides per operation where
@@ -130,6 +131,64 @@ class Conv1d(nn.Module):
         return y.transpose(1, 2)
 
 
+Triple = Tuple[int, int, int]
+
+
+class Conv3d(nn.Module):
+    """3-D convolution on channels-last (B, T, H, W, C) with torch Conv3d's
+    parameters (weight (out, in/groups, kt, kh, kw), bias) and explicit
+    symmetric padding per axis, as the JAX package pads its video convs.
+
+    Input, weight and bias are promoted to one dtype, in which the
+    convolution runs (as flax promotes). The input is handed to
+    ``F.conv3d`` as a contiguous channels-first copy: given the
+    channels-last view instead, cuDNN runs a depthwise conv (MViT's
+    pooling) as one kernel per group, many times slower on the card than
+    PyTorch's own depthwise kernel, which takes the contiguous layout.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: Triple,
+                 *, stride: Triple = (1, 1, 1), padding: Triple = (0, 0, 0),
+                 groups: int = 1, bias: bool = True,
+                 generator: torch.Generator):
+        super().__init__()
+        self.stride, self.padding, self.groups = stride, padding, groups
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels // groups, *kernel))
+        torch_linear_weight_(self.weight, generator)
+        self.bias = None
+        if bias:
+            self.bias = nn.Parameter(torch.empty(out_channels))
+            torch_bias_(self.bias, self.weight[0].numel(), generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        if self.bias is not None:
+            dtype = torch.promote_types(dtype, self.bias.dtype)
+        y = F.conv3d(x.to(dtype).permute(0, 4, 1, 2, 3).contiguous(),
+                     self.weight.to(dtype),
+                     None if self.bias is None else self.bias.to(dtype),
+                     stride=self.stride, padding=self.padding,
+                     groups=self.groups)
+        return y.permute(0, 2, 3, 4, 1)
+
+
+def max_pool3d(x: torch.Tensor, kernel: Triple, stride: Triple,
+               padding: Triple) -> torch.Tensor:
+    """Max pooling on channels-last (B, T, H, W, C). The padding never wins
+    (torch pads with -inf, as flax's ``max_pool`` does)."""
+    return F.max_pool3d(x.permute(0, 4, 1, 2, 3), kernel, stride,
+                        padding).permute(0, 2, 3, 4, 1)
+
+
+class GELU(nn.Module):
+    """flax's ``nn.gelu``, whose default is the tanh approximation (not the
+    exact erf GELU of torch's default and torchvision's MViT)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.gelu(x, approximate="tanh")
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over the trailing feature axis of (B, ..., C), eps 1e-5,
     with torch BatchNorm's parameter and buffer names.
@@ -216,6 +275,25 @@ class Dropout(nn.Module):
         if not self.training:
             return x
         return dropout(x, self.p, _GENERATOR)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth as the JAX package's MViT ``DropPath``: in training
+    each sample is kept with probability 1 - rate and the kept ones are
+    divided by 1 - rate, the mask drawn from the generator that
+    ``dropout_generator`` installed; the identity in eval mode."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        mask = torch.rand(shape, generator=_GENERATOR, device=x.device) < keep
+        return x * mask.to(x.dtype) / keep
 
 
 class LayerNorm(nn.Module):

@@ -91,6 +91,7 @@ def test_kernel_sources_and_build_flags():
     sm_90a; the library name changes with the source or the flags."""
     sources = {"flash_attention.cu": "flash_attention",
                "flash_attention_bwd.cu": "flash_attention_bwd",
+               "flash_attention_lowrank.cu": "flash_attention_lowrank",
                "csi_preprocess.cu": "csi_preprocess"}
     assert sorted(p.name for p in build.CSRC.glob("*.cu")) == sorted(sources)
     for name, stem in sources.items():

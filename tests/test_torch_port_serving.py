@@ -89,19 +89,24 @@ def test_serve_cli_on_cpu(capsys):
 
 def test_port_imports_nothing_of_jax():
     """Importing every port module and chip_smoke.py loads no jax, flax,
-    optax or multi_modal_csi_tpu module (the port's own package name
-    starts with the JAX package's, so names are compared exactly), and no
-    pandas or sklearn, which the machine with the card does not have."""
+    optax, multi_modal_csi_tpu or tools module (the port's own package
+    name starts with the JAX package's, so names are compared exactly),
+    and no pandas, sklearn or cv2, which the machine with the card does
+    not have. The video slice's modules are named, so that the test fails
+    if one of them goes missing."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "multi_modal_csi_tpu_torch").rglob("*.py"))
+    for video_module in ("models.video.mvit", "kernels.flash_attention_lowrank",
+                         "data.video_io", "runners.video", "cli.serve_video"):
+        assert f"multi_modal_csi_tpu_torch.{video_module}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m.removesuffix('.__init__'))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'multi_modal_csi_tpu',\n"
-        "        'pandas', 'sklearn')]\n"
+        "        'tools', 'pandas', 'sklearn', 'cv2')]\n"
         "print(len(bad), bad[:5])\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
