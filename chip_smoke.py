@@ -8,10 +8,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. the card's name and power limit, torch and CUDA versions; build the
-   four kernels (attention forward K1, its backward K2, the CSI
-   amplitude-phase pass K5 and MViT's low-rank-bias attention K3) from
-   csrc/ with one nvcc each, started together, timed, with nvcc's
-   register and spill lines;
+   five kernel sources (attention forward K1, its backward K2, the CSI
+   amplitude-phase pass K5, MViT's low-rank-bias attention K3 and its
+   backward K4, two kernels) from csrc/ with one nvcc each, started
+   together, timed, with nvcc's register and spill lines;
 2. K1 against its plain PyTorch version on the card, f32 and bf16, at
    THAT's left (256, 150, 10, 27) and right (256, 270, 10, 15) shapes,
    THAT_ENCODER's right (256, 270, 10, 27), a ragged (3, 64, 10, 15) case
@@ -39,6 +39,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    at the block shapes in bf16 beside the plain version's,
    scaled_dot_product_attention's with r @ s as its mask, and the bound,
    summed per MViT-v1 and v2 forward; a head dim of 160 must be refused;
+4c. K4 (dQ/dR and dK/dV/dS kernels) against its plain version at MViT's
+   three training block shapes of a (2, 45, 224, 224, 3) step and the JAX
+   test's odd shapes, f32 and bf16, with and without the bias, both fed
+   K3's out and LSE: each gradient within 5e-5 (f32) or 2^-7 (bf16) of
+   its largest magnitude; per-call times of each kernel at the training
+   shapes in f32 beside its plain part's, the backward of
+   scaled_dot_product_attention with r @ s as a float mask, and the
+   bounds, summed per MViT-v1 and v2 training step; a head dim of 160
+   must be refused;
 5. preprocessing on the card (cli/preprocess_csi.py, the default device):
    4 synthetic WiMANS .mat traces of 3000 packets to amplitude and phase
    files, exactly 4 K5 launches, seconds per trace by stage (.mat parse,
@@ -75,8 +84,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    core/serving.py::VideoServer), bf16, batch 2: seeded weights, ragged
    requests of 2, 1 and 3 seeded (45, 224, 224, 3) clips, exactly 16 K3
    launches per batch forward; clips/s from host memory and with the
-   clips on the card; 5 forwards under torch.profiler; a training forward
-   at the flash-backward gate must raise NotImplementedError;
+   clips on the card; 5 forwards under torch.profiler; then a bf16
+   training forward and backward of one batch: exactly 3 K3 and 3 of each
+   K4 kernel (blocks 0-2 at the training gate, the eager path after);
 12. each variant in f32 at (2, 16, 112, 112, 3) on the card (TF32 off,
    14 K3 launches) against the CPU, where K3's plain version runs, within
    1e-4 of the largest logit;
@@ -85,7 +95,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    load_video_pretrained from a torchvision-layout .pt the script writes
    at (16, 224, 224): logits against VideoServer's, exactly 48 K3
    launches;
-14. the bound of each TPU kernel still to port, worked out from a shape
+14. MViT-v1 and MViT-v2 training steps at full width (train/loop.py::
+   make_train_step, Adam, BCE), f32, batch 2, (45, 224, 224, 3) clips on
+   the card: exactly 3 K3 and 3 of each K4 kernel a step; peak memory,
+   clips trained/s, 5 steps under torch.profiler; whether a step at the
+   JAX CLI's batch 8 fits in the card's memory;
+15. one f32 MViT-v2 step at (1, 32, 224, 224, 3) on the card (TF32 off,
+   K3 and K4 at blocks 0-2) against the CPU (the eager path), dropout
+   off, the CPU taking the card's pick at every residual max pool: loss
+   and gradients;
+16. the video experiment path (cli/run_video.py -> run_video_model ->
+   fit_video) for MViT-v1 and MViT-v2 in f32 and MViT-v2 in bf16: 10
+   cached (45, 224, 224, 3) clips with a synthetic annotation.csv, repeat
+   1, one epoch at batch 2, the final test pass in bf16; the result JSON
+   read back with the JAX runner's keys; exact K3 and K4 launch counts;
+17. the bound of each TPU kernel still to port, worked out from a shape
    its path runs; one JSON line describing each ported kernel, then the
    card's name and power limit, then the result line.
 
@@ -190,6 +214,33 @@ VIDEO_CPU_K3 = 14          # blocks at nq >= 256 there (stage 4 has 129)
 VIDEO_F32_SHARE = 1e-4     # card vs CPU, of the largest logit
 PRETRAINED_CLIP = (16, 224, 224)  # torchvision's own clip size
 EVAL_CLIPS = 5
+K3 = "flash_attention_lowrank_bias"
+DQ = "flash_attention_lowrank_bias_backward_dq"
+DKV = "flash_attention_lowrank_bias_backward_dkv"
+# K4 at MViT's training shapes, (2, 45, 224, 224, 3): blocks 0-2 pass the
+# training gate of 8192 queries; per block (B, H, Nq, Nk, D, M of v2's bias)
+LOWRANK_BWD_SHAPES = {name: LOWRANK_SHAPES[name][0]
+                      for name in ("block0", "block1", "block2")}
+# the JAX package's own K4 test shapes (tests/test_kernels.py:114-141), a
+# bias wider than the kernels' chunk of 64, and the largest head dim
+LOWRANK_BWD_ODD = {"odd-300": (2, 2, 300, 130, 32, 11),
+                   "odd-513": (1, 2, 513, 129, 8, 0),
+                   "odd-wide-bias": (1, 2, 130, 70, 8, 70),
+                   "odd-d128": (1, 1, 200, 100, 128, 3)}
+# K4 against its plain version, each gradient against its largest
+# magnitude: f32 5e-5 (sums over up to 72129 rows in another order; the
+# largest seen on an H100 was 1.2e-5, dK at block 0); bf16 2^-7, one
+# rounding step of the largest value (dQ, dK and dV are stored in bf16 by
+# both)
+LOWRANK_BWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 2.0 ** -7}
+K4_PER_STEP = 3            # MViT blocks at the training gate
+VIDEO_TRAIN_BATCH = 2      # the JAX bench's (tools/bench_video_training.py)
+VIDEO_CLI_BATCH = 8        # the JAX CLI's (cli/run_video.py:36)
+RUN_CLIPS = 10             # the video run: 8 training and 2 test clips
+VIDEO_STEP_CLIP = (32, 224, 224)  # card vs CPU step: blocks 0-2 at 50177,
+                                  # 12545 and 12545 queries pass the gate
+VIDEO_RESULT_KEYS = {"complexity", "repeat_0", "accuracy", "time_train",
+                     "time_test", "model", "task"}
 
 
 def check(ok: bool, what: str) -> None:
@@ -645,14 +696,17 @@ def serve_phase(key, requests, expect_out, launches_per_forward):
 
 
 def without_dropout(model):
-    """p = 0 on every dropout of a port model (layers and attention)."""
-    from multi_modal_csi_tpu_torch.nn.layers import (Dropout,
+    """p = 0 on every dropout of a port model (layers and attention) and
+    rate 0 on every drop-path."""
+    from multi_modal_csi_tpu_torch.nn.layers import (DropPath, Dropout,
                                                      MultiheadAttention)
     for m in model.modules():
         if isinstance(m, Dropout):
             m.p = 0.0
         elif isinstance(m, MultiheadAttention):
             m.dropout = 0.0
+        elif isinstance(m, DropPath):
+            m.rate = 0.0
     return model
 
 
@@ -670,9 +724,9 @@ def training_data():
     return windows(TRAIN_WINDOWS) + windows(VALID_WINDOWS)
 
 
-def train_rate(label, step, bx, by, gen):
-    """Windows trained per second over TRAIN_RATE_STEPS steps, after the
-    caller's warm-up step."""
+def train_rate(label, step, bx, by, gen, unit="windows"):
+    """Windows (or clips) trained per second over TRAIN_RATE_STEPS steps,
+    after the caller's warm-up step."""
     torch.cuda.synchronize()
     start = time.perf_counter()
     for _ in range(TRAIN_RATE_STEPS):
@@ -680,7 +734,7 @@ def train_rate(label, step, bx, by, gen):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - start
     rate = TRAIN_RATE_STEPS * bx.shape[0] / elapsed
-    print(f"{label}: {rate:.1f} windows trained/s at batch {bx.shape[0]} "
+    print(f"{label}: {rate:.2f} {unit} trained/s at batch {bx.shape[0]} "
           f"({TRAIN_RATE_STEPS} steps in {elapsed * 1e3:.1f} ms, the "
           f"batch already on the card), last loss {float(loss):.4f}")
     check(math.isfinite(float(loss)), f"{label}: loss not finite")
@@ -1081,6 +1135,160 @@ def phase_lowrank(lowrank, lowrank_reference):
     return results
 
 
+def lowrank_bwd_bound(shape, bias, dtype, part):
+    """The least times (ms) on an H100 SXM of K4's dQ/dR kernel ("dq"), its
+    dK/dV/dS kernel ("dkv") or the whole backward ("both"): q, k, v, dO, r,
+    s, the LSE and delta read once and the part's gradients written once
+    over the HBM rate; its products over the peak of q's dtype (QK^T and
+    dO V^T rebuilt, then dQ: 6 B*H*Nq*Nk*D for "dq"; dK and dV instead: 8;
+    all five: 10) plus the f32 bias products (r s rebuilt, then dR: 4
+    B*H*Nq*Nk*M; dS instead: 4; all three: 6) over the f32 peak."""
+    b, h, nq, nk, d, m = shape
+    bh, m = b * h, m if bias else 0
+    item = torch.tensor([], dtype=dtype).element_size()
+    reads = (2 * bh * nq * d + 2 * bh * nk * d) * item + 4 * (
+        bh * nq * m + m * nk + 2 * bh * nq)
+    writes = {"dq": bh * nq * d * item + 4 * bh * nq * m,
+              "dkv": 2 * bh * nk * d * item + 4 * m * nk}
+    writes["both"] = writes["dq"] + writes["dkv"]
+    at_dtype, in_f32 = {"dq": (6, 4), "dkv": (8, 4), "both": (10, 6)}[part]
+    pairs = bh * nq * nk
+    ops_ms = 1e3 * (at_dtype * pairs * d / PEAK_FLOPS[dtype]
+                    + in_f32 * pairs * m / PEAK_FLOPS[torch.float32])
+    return 1e3 * (reads + writes[part]) / PEAK_BYTES, ops_ms
+
+
+def phase_lowrank_backward(lowrank, backward, backward_reference):
+    """K4 against its plain version at MViT's three training block shapes
+    and the odd shapes, f32 and bf16, with and without the bias, both fed
+    the same out and LSE from K3: each gradient within LOWRANK_BWD_TOL of
+    its largest magnitude. Then, at the training shapes in f32 (the
+    default train_dtype), times per call of each kernel and of its plain
+    part with CUDA events (plain, kernel, kernel, plain), beside the
+    backward of scaled_dot_product_attention with r @ s as a float mask
+    that takes a gradient (the mask made outside the timed call), and the
+    bounds; a head dim of 160 must be refused."""
+    import torch.nn.functional as F
+    from multi_modal_csi_tpu_torch.kernels import flash_attention_lowrank
+    set_tf32(False)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    shapes = dict(LOWRANK_BWD_SHAPES)
+    shapes.update(LOWRANK_BWD_ODD)
+    names = ("dq", "dk", "dv", "dr", "ds")
+    results = {}
+    for dtype, tol in LOWRANK_BWD_TOL.items():
+        for name, shape in shapes.items():
+            b, h, nq, nk, d, m = shape
+            for bias in (False, True) if m else (False,):
+                q, do = (torch.randn((b, h, nq, d), generator=gen,
+                                     device="cuda").to(dtype)
+                         for _ in range(2))
+                k, v = (torch.randn((b, h, nk, d), generator=gen,
+                                    device="cuda").to(dtype)
+                        for _ in range(2))
+                r = s = None
+                if bias:      # the class token's row and column carry 0
+                    r = torch.randn((b, h, nq, m), generator=gen,
+                                    device="cuda")
+                    s = torch.randn((m, nk), generator=gen, device="cuda")
+                    r[:, :, 0] = 0.0
+                    s[:, 0] = 0.0
+                out, lse = lowrank(q, k, v, r, s, return_lse=True)
+                got = backward(q, k, v, r, s, out, lse, do)
+                want = backward_reference(q, k, v, r, s, out, lse, do)
+                torch.cuda.synchronize()
+                label = f"{name}{'+bias' if bias else ''}"
+                errs = {}
+                for g_name, g, w in zip(names, got, want):
+                    if w is None:
+                        check(g is None, f"K4 {label} {g_name} without bias")
+                        continue
+                    check(g.dtype == w.dtype and g.shape == w.shape,
+                          f"K4 {label} {dtype} {g_name} {g.dtype} "
+                          f"{tuple(g.shape)}")
+                    errs[g_name] = ((g.float() - w.float()).abs().max()
+                                    .item(), w.float().abs().max().item())
+                print(f"K4 {label} {shape} {dtype}: max abs err "
+                      + ", ".join(f"{n} {e:.3e} (max |{n}| {t:.3f})"
+                                  for n, (e, t) in errs.items())
+                      + f"; tolerance {tol:.1e} of each max")
+                for g_name, (err, top) in errs.items():
+                    check(err <= tol * top, f"K4 {label} {dtype} {g_name} "
+                                            f"err {err} > {tol} x {top}")
+                del got, want
+                if dtype != torch.float32 or name not in LOWRANK_BWD_SHAPES:
+                    continue
+
+                def timed(fn):
+                    return cuda_ms(fn, reps=LOWRANK_REPS, warmup=1)
+
+                delta = (do.float() * out.float()).sum(dim=-1)
+                args = (q, k, v, r, s, do, lse, delta)
+                row = {}
+                for part, grads in (("dq", ("dq", "dr")),
+                                    ("dkv", ("dk", "dv", "ds"))):
+                    kernel = getattr(flash_attention_lowrank,
+                                     f"lowrank_backward_{part}")
+                    plain_fn = getattr(flash_attention_lowrank,
+                                       f"lowrank_backward_{part}_reference")
+                    plain = [timed(lambda: plain_fn(*args))]
+                    kern = [timed(lambda: kernel(*args)) for _ in range(2)]
+                    plain.append(timed(lambda: plain_fn(*args)))
+                    bytes_ms, ops_ms = lowrank_bwd_bound(shape, bias, dtype,
+                                                         part)
+                    row[part] = dict(
+                        err=max(errs[g][0] for g in grads if g in errs),
+                        ms=sum(kern) / 2, plain_ms=sum(plain) / 2,
+                        bytes_ms=bytes_ms, ops_ms=ops_ms)
+                    print(f"K4 {part} {label} {dtype} per call: kernel "
+                          f"{kern[0]:.3f}/{kern[1]:.3f} ms, plain "
+                          f"{plain[0]:.3f}/{plain[1]:.3f} ms; bound: bytes "
+                          f"{1e3 * bytes_ms:.1f} us, operations "
+                          f"{1e3 * ops_ms:.1f} us")
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                if bias:
+                    leaves.append((r @ s).to(dtype).requires_grad_())
+                lib_out = F.scaled_dot_product_attention(
+                    *leaves[:3], attn_mask=leaves[3] if bias else None)
+                row["library_ms"] = timed(lambda: torch.autograd.grad(
+                    lib_out, leaves, do, retain_graph=True))
+                del leaves, lib_out
+                row["bytes_ms"], row["ops_ms"] = lowrank_bwd_bound(
+                    shape, bias, dtype, "both")
+                results[label] = row
+                print(f"K4 {label} {dtype} per backward: kernels "
+                      f"{row['dq']['ms'] + row['dkv']['ms']:.3f} ms, plain "
+                      f"{row['dq']['plain_ms'] + row['dkv']['plain_ms']:.3f}"
+                      f" ms, sdpa backward {row['library_ms']:.3f} ms; "
+                      f"bound {max(row['bytes_ms'], row['ops_ms']):.3f} ms")
+    for bias in (False, True):
+        rows = [results[f"{name}{'+bias' if bias else ''}"]
+                for name in LOWRANK_BWD_SHAPES]
+
+        def total(part, field):
+            return sum(r[part][field] for r in rows)
+
+        print(f"K4 per MViT-v{2 if bias else 1} f32 training step at batch "
+              f"2 ({K4_PER_STEP} backwards): kernels "
+              f"{total('dq', 'ms') + total('dkv', 'ms'):.3f} ms (dq "
+              f"{total('dq', 'ms'):.3f}, dkv {total('dkv', 'ms'):.3f}), "
+              f"plain {total('dq', 'plain_ms') + total('dkv', 'plain_ms'):.3f}"
+              f" ms, sdpa backward "
+              f"{sum(r['library_ms'] for r in rows):.3f} ms, bound "
+              f"{sum(max(r['bytes_ms'], r['ops_ms']) for r in rows):.3f} ms")
+
+    z = torch.zeros((1, 1, 8, 160), device="cuda")
+    try:
+        backward(z, z, z, None, None, z, torch.zeros((1, 1, 8),
+                                                     device="cuda"), z)
+        refused = False
+    except ValueError as e:
+        print(f"K4 D=160: refused ({e})")
+        refused = True
+    check(refused, "K4 launched with a head dim above 128")
+    return results
+
+
 def video_requests():
     rng = np.random.default_rng(SEED)
     return [rng.standard_normal((n, *VIDEO_CLIP, 3), dtype=np.float32)
@@ -1090,8 +1298,9 @@ def video_requests():
 def video_serve_phase(key, requests):
     """Serve ``requests`` (host arrays of (n, 45, 224, 224, 3) clips) with
     ``key`` in bf16 at batch 2: exactly 16 K3 launches per batch forward,
-    clips/s from host memory and resident, a profile; a training forward
-    at the flash-backward gate must raise."""
+    clips/s from host memory and resident, a profile; then a training
+    forward and backward of one batch, exactly 3 K3 and 3 of each K4
+    kernel. Returns the serving and the training launch counts."""
     from multi_modal_csi_tpu_torch import kernels
     from multi_modal_csi_tpu_torch.core.serving import VideoServer
     from multi_modal_csi_tpu_torch.runners.video import build_video_model
@@ -1153,18 +1362,21 @@ def video_serve_phase(key, requests):
     profile_device(key, lambda: server.forward(batch), PROFILED_FORWARDS,
                    "forward")
 
-    server.model.train()
+    # a training forward and backward of the same bf16 model: K3 and K4 at
+    # blocks 0-2 (the training gate), the eager path at blocks 3-15
+    model = server.model.train()
+    kernels.reset_launch_counts()
     try:
-        with torch.no_grad():
-            server.model(batch[:1].to(server.dtype))
-        raised = False
-    except NotImplementedError as e:
-        print(f"{key} training forward on the card: refused ({e})")
-        raised = True
+        model(batch.to(server.dtype)).float().sum().backward()
+        torch.cuda.synchronize()
     finally:
-        server.model.eval()
-    check(raised, f"{key} trained at the K4 gate without the K4 kernel")
-    return launches
+        model.zero_grad(set_to_none=True)
+        model.eval()
+    step = dict(kernels.LAUNCH_COUNTS)
+    print(f"{key} bf16 training forward and backward: launches {step}")
+    check(step == {K3: K4_PER_STEP, DQ: K4_PER_STEP, DKV: K4_PER_STEP},
+          f"{key} training step launched {step}")
+    return launches, step
 
 
 def video_card_vs_cpu(key):
@@ -1255,17 +1467,241 @@ def video_evaluate_phase(work, key):
     return launches
 
 
+def video_train_phase(key):
+    """One MViT training step at full width on the card, f32 (the default
+    train_dtype; PyTorch's default TF32 settings), batch 2, seeded
+    (45, 224, 224, 3) clips on the card: exactly 3 K3 and 3 of each K4
+    kernel; the peak memory of a step; clips trained per second; 5 steps
+    under torch.profiler; then whether one step at the JAX CLI's batch 8
+    fits in the card's memory. Returns the counted step's launches."""
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.losses.basic import bce_with_logits
+    from multi_modal_csi_tpu_torch.runners.video import build_video_model
+    from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch,
+                                                      make_train_step)
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    rng = np.random.default_rng(SEED + 4)
+
+    def batch(n):
+        x = rng.standard_normal((n, *VIDEO_CLIP, 3), dtype=np.float32)
+        y = (rng.random((n, VIDEO_OUT)) < 0.5).astype(np.float32)
+        return torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+
+    model = build_video_model(key, VIDEO_OUT, VIDEO_CLIP, seed=SEED).cuda()
+    step = make_train_step(model, adam_like_torch(model.parameters(), 1e-4),
+                           bce_with_logits, augment=False)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bx, by = batch(VIDEO_TRAIN_BATCH)
+    step(bx, by, gen)                                         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    step(bx, by, gen)
+    torch.cuda.synchronize()
+    one = dict(kernels.LAUNCH_COUNTS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{key} f32 training step at batch {VIDEO_TRAIN_BATCH}: launches "
+          f"{one}; peak memory {peak:.2f} GiB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f}")
+    check(one == {K3: K4_PER_STEP, DQ: K4_PER_STEP, DKV: K4_PER_STEP},
+          f"{key} training step launched {one}")
+    train_rate(f"{key} f32 training", step, bx, by, gen, unit="clips")
+    profile_device(f"{key} f32 training", lambda: step(bx, by, gen),
+                   PROFILED_STEPS, "step")
+    del bx, by
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        step(*batch(VIDEO_CLI_BATCH), gen)
+        torch.cuda.synchronize()
+        print(f"{key} f32 training step at batch {VIDEO_CLI_BATCH}: fits, "
+              f"peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    except torch.cuda.OutOfMemoryError:
+        print(f"{key} f32 training step at batch {VIDEO_CLI_BATCH}: does not "
+              f"fit in the card's memory")
+    del model, step
+    torch.cuda.empty_cache()
+    return one
+
+
+def video_train_card_vs_cpu():
+    """One f32 MViT-v2 training step at (1, 32, 224, 224, 3) on the card
+    (TF32 off; K3 and K4 at blocks 0-2, 50177, 12545 and 12545 queries)
+    and on the CPU (the eager attention everywhere), from the same seeded
+    weights and clip, dropout and drop-path off: the loss within
+    STEP_F32_TOL relative and each gradient within GRAD_F32_TOL of its
+    tensor's scale, as train_step_card_vs_cpu holds THAT's.
+
+    The residual path's max pooling (``_pool_skip``) picks the largest of
+    a window; where two candidates lie within rounding of each other the
+    devices can pick different ones and route the gradient elsewhere. So
+    the card's step records the index each window picked, the CPU step
+    takes the card's (and counts where its own differs), and the
+    comparison measures rounding alone."""
+    import torch.nn.functional as F
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.losses.basic import bce_with_logits
+    from multi_modal_csi_tpu_torch.models.video import mvit as mvit_module
+    from multi_modal_csi_tpu_torch.runners.video import build_video_model
+    from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch,
+                                                      make_train_step)
+    set_tf32(False)
+    rng = np.random.default_rng(SEED + 5)
+    x = rng.standard_normal((1, *VIDEO_STEP_CLIP, 3), dtype=np.float32)
+    y = (rng.random((1, VIDEO_OUT)) < 0.5).astype(np.float32)
+    picks, flips = [], [0, 0]
+
+    def pooled(v, kernel, stride, padding):
+        return F.max_pool3d(v.permute(0, 4, 1, 2, 3), kernel, stride,
+                            padding, return_indices=True)
+
+    def recording(v, kernel, stride, padding):
+        out, idx = pooled(v, kernel, stride, padding)
+        picks.append(idx.cpu())
+        return out.permute(0, 2, 3, 4, 1)
+
+    def replaying(v, kernel, stride, padding):
+        idx = picks.pop(0)
+        own = pooled(v.detach(), kernel, stride, padding)[1]
+        flips[0] += int((own != idx).sum())
+        flips[1] += idx.numel()
+        b, c = idx.shape[:2]
+        flat = v.permute(0, 4, 1, 2, 3).reshape(b, c, -1)
+        out = flat.gather(2, idx.reshape(b, c, -1)).reshape(idx.shape)
+        return out.permute(0, 2, 3, 4, 1)
+
+    got = {}
+    real = mvit_module.max_pool3d
+    try:
+        for device, pool in (("cuda", recording), ("cpu", replaying)):
+            mvit_module.max_pool3d = pool
+            model = without_dropout(build_video_model(
+                "MViT-v2", VIDEO_OUT, VIDEO_STEP_CLIP, seed=SEED)).to(device)
+            step = make_train_step(model, adam_like_torch(
+                model.parameters(), 1e-4), bce_with_logits, augment=False)
+            kernels.reset_launch_counts()
+            start = time.perf_counter()
+            loss, _ = step(torch.from_numpy(x).to(device),
+                           torch.from_numpy(y).to(device),
+                           torch.Generator(device=device).manual_seed(SEED))
+            got[device] = (float(loss), {n: p.grad.detach().cpu() for n, p
+                                         in model.named_parameters()})
+            print(f"MViT-v2 f32 training step at {VIDEO_STEP_CLIP} on "
+                  f"{device}: {time.perf_counter() - start:.2f} s, launches "
+                  f"{dict(kernels.LAUNCH_COUNTS)}")
+            if device == "cuda":
+                launches = dict(kernels.LAUNCH_COUNTS)
+            del model, step
+    finally:
+        mvit_module.max_pool3d = real
+    check(not picks, "the CPU step replayed fewer max pools than the card")
+    check(launches == {K3: K4_PER_STEP, DQ: K4_PER_STEP, DKV: K4_PER_STEP},
+          f"card step launched {launches}")
+    (card_loss, card), (cpu_loss, cpu) = got["cuda"], got["cpu"]
+    floor = 1e-2 * max(g.abs().max().item() for g in cpu.values())
+    worst = max((((card[n] - cpu[n]).abs().max().item()
+                  / max(cpu[n].abs().max().item(), floor)), n) for n in cpu)
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    print(f"MViT-v2 f32 training step, card vs CPU: {flips[0]} of "
+          f"{flips[1]} max-pool windows picked another element on the CPU "
+          f"(it took the card's); loss {card_loss:.6f} vs {cpu_loss:.6f} "
+          f"(relative {rel:.2e}, tolerance {STEP_F32_TOL}); worst gradient "
+          f"{worst[0]:.2e} of its scale in {worst[1]} (tolerance "
+          f"{GRAD_F32_TOL})")
+    check(rel <= STEP_F32_TOL, f"card vs CPU MViT step loss relative {rel}")
+    check(worst[0] <= GRAD_F32_TOL, f"card vs CPU MViT gradient {worst}")
+    return launches
+
+
+def write_video_run(root):
+    """annotation.csv of RUN_CLIPS empty-room clips (seeded users, absent
+    users' cells empty) and their seeded (45, 224, 224, 3) f32 .npy clips.
+    Returns the clip directory and the annotation's path."""
+    rng = np.random.default_rng(SEED + 6)
+    clips = os.path.join(root, "video_cache")
+    os.makedirs(clips, exist_ok=True)
+    header = ["label", "environment", "wifi_band", "number_of_users"] + [
+        f"user_{u}_{what}" for u in range(1, 7)
+        for what in ("location", "activity")]
+    annotation = os.path.join(root, "video_annotation.csv")
+    with open(annotation, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(header)
+        for i in range(RUN_CLIPS):
+            users = int(rng.integers(0, 6))
+            row = [f"clip_{i}", "empty_room", "5", str(users)]
+            for u in range(6):
+                row += ["a", "walk"] if u < users else ["", ""]
+            writer.writerow(row)
+            np.save(os.path.join(clips, f"clip_{i}.npy"), rng.standard_normal(
+                (*VIDEO_CLIP, 3), dtype=np.float32))
+    return clips, annotation
+
+
+def run_video_phase(clips, annotation, work, key, train_dtype="float32"):
+    """The video experiment path (cli/run_video.py -> run_video_model ->
+    fit_video) on the card: RUN_CLIPS cached clips, identity task, repeat
+    1, one epoch at batch 2, the final test pass in the serving dtype
+    (bf16); the result JSON read back with the JAX runner's keys and
+    exactly 3 K3 and 3 of each K4 kernel per step and 16 K3 per
+    evaluation chunk. Returns the launch counts."""
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.cli import run_video
+    from multi_modal_csi_tpu_torch.data.splits import train_test_split
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    rows = np.arange(RUN_CLIPS)
+    n_train, n_test = (len(a) for a in
+                       train_test_split(rows, rows, 0.2, 39)[:2])
+    steps = n_train // VIDEO_TRAIN_BATCH
+    # per epoch the training and test sets, then the final test pass
+    chunks = (-(-n_train // VIDEO_TRAIN_BATCH)
+              + 2 * -(-n_test // VIDEO_TRAIN_BATCH))
+    save = os.path.join(work, "results", f"{key}-{train_dtype}.json")
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    result = run_video.main([
+        "--model", key, "--repeat", "1",
+        "--set", f"path.video_pre_x={clips}",
+        "--set", f"path.data_y={annotation}", "--set", f"path.save={save}",
+        "--set", "nn.epoch=1", "--set", f"nn.batch_size={VIDEO_TRAIN_BATCH}",
+        "--set", f"train_dtype={train_dtype}",
+        "--set", "compute_dtype=auto"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = dict(kernels.LAUNCH_COUNTS)
+    with open(save) as f:
+        written = json.load(f)
+    fit_s = result["time_train"]["avg"]
+    rate = steps * VIDEO_TRAIN_BATCH / fit_s
+    print(f"{key} run_video ({train_dtype}): {n_train} training and {n_test}"
+          f" test clips; {wall:.2f} s wall, fit {fit_s:.2f} s ({steps} steps "
+          f"and the evaluation of both sets: {rate:.2f} clips trained/s "
+          f"over fit's wall time), final bf16 test pass "
+          f"{result['time_test']['avg']:.3f} s; accuracy "
+          f"{result['accuracy']['avg']:.3f}, parameters "
+          f"{result['complexity']['parameter']}, forward FLOPs (CPU) "
+          f"{result['complexity']['flops']:.4g}; launches {launches}")
+    check(set(written) == VIDEO_RESULT_KEYS,
+          f"{key} result JSON keys {sorted(written)}")
+    check(written["model"] == key and "micro avg" in written["repeat_0"]
+          and all(math.isfinite(written[k]["avg"]) for k in
+                  ("accuracy", "time_train", "time_test")),
+          f"{key} result JSON values")
+    want = {K3: K4_PER_STEP * steps + K3_PER_FORWARD * chunks,
+            DQ: K4_PER_STEP * steps, DKV: K4_PER_STEP * steps}
+    check(launches == want, f"{key} run launched {launches}, expected "
+                            f"{want}")
+    return launches
+
+
 def pending_bounds():
     """Print the least time each TPU kernel still to port needs on an H100
     SXM at a shape its path runs: bytes read once and written once over
     the HBM rate against operations over the peak rate of their type."""
-    nq, nk, d, m = 25089, 393, 96, 22     # MViT-v2-S stage 1, 16x224^2
     rows = {
-        "K4 flash_attention_lowrank_bias_trainable, MViT-v2-S stage 1, one "
-        "(b, h): q (25089, 96), 393 keys, M 22, bf16, f32 bias":
-            ((4 * nq * d + 4 * nk * d) * 2 + (2 * nq * m + 2 * m * nk + nq) * 4,
-             {torch.bfloat16: 10 * nq * nk * d,
-              torch.float32: 6 * nq * nk * m}),
         "P1 kernel_s8, one (256, 272) x (272, 424) s8 -> s32 tile":
             (256 * 272 + 272 * 424 + 256 * 424 * 4,
              {torch.int8: 2 * 256 * 272 * 424}),
@@ -1293,7 +1729,8 @@ def build_kernels():
         return time.perf_counter() - start
 
     names = ("flash_attention", "flash_attention_bwd",
-             "flash_attention_lowrank", "csi_preprocess")
+             "flash_attention_lowrank", "flash_attention_lowrank_bwd",
+             "csi_preprocess")
     start = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         took = dict(zip(names, pool.map(timed, names)))
@@ -1324,6 +1761,29 @@ def kernel_entry(name, source, replaces, launches, times, per_call, dtype):
     }
 
 
+def k4_entry(name, replaces, launches, times, part):
+    """The JSON description of one of K4's kernels: times and bound summed
+    over one MViT-v2 f32 training step at batch 2 (one launch at each of
+    blocks 0-2, with the bias). ``library_ms`` is the backward of
+    scaled_dot_product_attention, which computes the gradients of both
+    kernels at once, so both entries carry it."""
+    rows = [times[f"{block}+bias"] for block in LOWRANK_BWD_SHAPES]
+    bytes_ms = sum(r[part]["bytes_ms"] for r in rows)
+    ops_ms = sum(r[part]["ops_ms"] for r in rows)
+    return {
+        "name": name, "route": "cuda",
+        "source": "multi_modal_csi_tpu_torch/kernels/csrc/"
+                  "flash_attention_lowrank_bwd.cu",
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": max(r[part]["err"] for r in rows),
+        "ms": sum(r[part]["ms"] for r in rows),
+        "plain_ms": sum(r[part]["plain_ms"] for r in rows),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": sum(r["library_ms"] for r in rows),
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1334,7 +1794,9 @@ def main() -> int:
         flash_attention, flash_attention_backward,
         flash_attention_backward_reference, flash_attention_reference)
     from multi_modal_csi_tpu_torch.kernels.flash_attention_lowrank import (
-        flash_attention_lowrank_bias, flash_attention_lowrank_bias_reference)
+        flash_attention_lowrank_bias, flash_attention_lowrank_bias_backward,
+        flash_attention_lowrank_bias_backward_reference,
+        flash_attention_lowrank_bias_reference)
 
     card = card_line()
     print(card)
@@ -1348,6 +1810,9 @@ def main() -> int:
     k5_times = phase_k5(amplitude_phase, amplitude_phase_reference)
     k3_times = phase_lowrank(flash_attention_lowrank_bias,
                              flash_attention_lowrank_bias_reference)
+    k4_times = phase_lowrank_backward(
+        flash_attention_lowrank_bias, flash_attention_lowrank_bias_backward,
+        flash_attention_lowrank_bias_backward_reference)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         preprocessed, converted_amp = preprocess_phase(work)
@@ -1372,12 +1837,25 @@ def main() -> int:
         experiment = run_csi_phase(work, converted_amp)
 
         clips = video_requests()
-        video = [video_serve_phase(key, clips) for key in
-                 ("MViT-v1", "MViT-v2")]
+        served = [video_serve_phase(key, clips) for key in
+                  ("MViT-v1", "MViT-v2")]
         del clips
+        video = [runs for runs, _ in served]
         video += [video_card_vs_cpu(key) for key in ("MViT-v1", "MViT-v2")]
         video += [video_evaluate_phase(work, key) for key in
                   ("MViT-v1", "MViT-v2")]
+        # the training paths, each of which launches K3 and K4
+        trained_video = [step for _, step in served]
+        trained_video += [video_train_phase(key) for key in
+                          ("MViT-v1", "MViT-v2")]
+        trained_video.append(video_train_card_vs_cpu())
+        clip_dir, annotation = write_video_run(work)
+        trained_video += [
+            run_video_phase(clip_dir, annotation, work, "MViT-v1"),
+            run_video_phase(clip_dir, annotation, work, "MViT-v2"),
+            run_video_phase(clip_dir, annotation, work, "MViT-v2",
+                            "bfloat16")]
+        video += trained_video
 
     pending_bounds()
     # K1 and K2: per THAT forward (bf16 serving, batch 256) and per THAT
@@ -1385,7 +1863,9 @@ def main() -> int:
     # launches; launches summed over every main path that ran them. K5:
     # per WiMANS trace (3000, 270). K3: per MViT-v2 forward (bf16, batch
     # 2, the bias on), its 16 launches; launches summed over the video
-    # serving, card-vs-CPU and evaluate runs of both variants.
+    # serving, card-vs-CPU, evaluate and training runs of both variants.
+    # K4's two kernels: per MViT-v2 training step (f32, batch 2), 3 each;
+    # launches summed over every training run.
     trace = k5_times["trace"]
     k5_bytes, k5_ops = trace["bytes_ms"], trace["ops_ms"]
     print(json.dumps({"kernels": [
@@ -1413,11 +1893,14 @@ def main() -> int:
         kernel_entry("flash_attention_lowrank_bias",
                      "flash_attention_lowrank.cu",
                      "multi_modal_csi_tpu/kernels/flash_attention.py:377",
-                     sum(runs["flash_attention_lowrank_bias"]
-                         for runs in video), k3_times,
+                     sum(runs[K3] for runs in video), k3_times,
                      {f"{name}+bias": n
                       for name, (_, n) in LOWRANK_SHAPES.items()},
                      torch.bfloat16),
+        k4_entry(DQ, "multi_modal_csi_tpu/kernels/flash_attention.py:480",
+                 sum(runs[DQ] for runs in trained_video), k4_times, "dq"),
+        k4_entry(DKV, "multi_modal_csi_tpu/kernels/flash_attention.py:492",
+                 sum(runs[DKV] for runs in trained_video), k4_times, "dkv"),
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,18 @@
-"""Attention with a low-rank additive bias, softmax(q k^T / sqrt(D) + r s) v:
-the port of the JAX package's MViT Pallas kernel
-(``kernels/flash_attention.py::flash_attention_lowrank_bias``, K3).
+"""Attention with a low-rank additive bias, softmax(q k^T / sqrt(D) + r s) v,
+and its flash backward: the port of the JAX package's MViT Pallas kernels
+(``kernels/flash_attention.py::flash_attention_lowrank_bias``, K3, and
+``flash_attention_lowrank_bias_trainable``, K4).
 
 ``flash_attention_lowrank_bias`` launches the hand-written CUDA kernel
 ``csrc/flash_attention_lowrank.cu`` on CUDA tensors and takes its plain
 version (``flash_attention_lowrank_bias_reference``) only for CPU tensors.
-The source's header says what bounds the kernel on an H100 and what its
+``flash_attention_lowrank_bias_backward`` launches the two kernels of
+``csrc/flash_attention_lowrank_bwd.cu`` (dQ/dR, then dK/dV/dS; each
+wrapper, ``lowrank_backward_dq`` and ``lowrank_backward_dkv``, counts its
+own launches) and takes ``flash_attention_lowrank_bias_backward_reference``
+only for CPU tensors. ``flash_attention_lowrank_bias_trainable`` is the
+differentiable attention of MViT's training: K3 forward, K4 backward. Each
+source's header says what bounds its kernels on an H100 and what their
 design does about it.
 """
 
@@ -22,7 +29,12 @@ from . import build, count_launch
 
 NAME = "flash_attention_lowrank_bias"
 SOURCE = "flash_attention_lowrank"    # csrc/flash_attention_lowrank.cu
+DQ_NAME = "flash_attention_lowrank_bias_backward_dq"
+DKV_NAME = "flash_attention_lowrank_bias_backward_dkv"
+BWD_SOURCE = "flash_attention_lowrank_bwd"  # its csrc/ .cu
 MAX_HEAD_DIM = 128
+TILE = 64                 # query rows and keys per tile of the K4 kernels
+BLOCKS_PER_SM = 2         # the dK/dV/dS grid aims at this many blocks an SM
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CUDA_ERROR_INVALID_VALUE = 1     # cudaErrorInvalidValue
 
@@ -144,3 +156,216 @@ def flash_attention_lowrank_bias(
                                f"{err}")
         count_launch(NAME)
     return (out, lse) if return_lse else out
+
+
+# ---------------------------------------------------------------------- #
+# K4: the flash backward
+# ---------------------------------------------------------------------- #
+
+def _tile_wdl(q, k, v, r, s, do, lse, delta):
+    """The TPU kernels' shared step (``_bwd_tile_wdl``) over all of Nq and
+    Nk at once: f32 logits times 1/sqrt(D) plus the f32 bias r @ s,
+    w = exp(logits - lse) kept in f32, dw = dO V^T and
+    dl = w (dw - delta) in f32. Returns the f32 q and dO, w, dl, scale."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, dof = q.float(), do.float()
+    logits = torch.einsum("bhqd,bhkd->bhqk", qf, k.float()) * scale
+    if r is not None:
+        logits = logits + torch.einsum("bhqm,mk->bhqk", r.float(), s.float())
+    w = torch.exp(logits - lse[..., None])
+    dw = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
+    dl = w * (dw - delta[..., None])
+    return qf, dof, w, dl, scale
+
+
+def lowrank_backward_dq_reference(q, k, v, r, s, do, lse, delta):
+    """Plain version of the dQ/dR kernel (``_tiled_bwd_dq_kernel``):
+    dQ = (dl K) scale in q's dtype, dR = dl S^T in f32 (None without a
+    bias). ``do`` is in q's dtype; lse and delta are (B, H, Nq) f32."""
+    _, _, _, dl, scale = _tile_wdl(q, k, v, r, s, do, lse, delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", dl, k.float()) * scale
+    dr = None if r is None else torch.einsum("bhqk,mk->bhqm", dl, s.float())
+    return dq.to(q.dtype), dr
+
+
+def lowrank_backward_dkv_reference(q, k, v, r, s, do, lse, delta):
+    """Plain version of the dK/dV/dS kernel (``_tiled_bwd_dkv_kernel``):
+    dV = w^T dO with the unrounded f32 weights, dK = (dl^T Q) scale, both
+    in the inputs' dtypes, and dS = R^T dl summed over (B, H) in f32 (None
+    without a bias)."""
+    qf, dof, w, dl, scale = _tile_wdl(q, k, v, r, s, do, lse, delta)
+    dk = torch.einsum("bhqk,bhqd->bhkd", dl, qf) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", w, dof)
+    ds = None if r is None else torch.einsum("bhqm,bhqk->mk", r.float(), dl)
+    return dk.to(k.dtype), dv.to(v.dtype), ds
+
+
+def _delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * out) in f32, from the forward's output as it was
+    returned and dO before its cast (the TPU backward's ``:569-570``)."""
+    return (do.float() * out.float()).sum(dim=-1)
+
+
+def flash_attention_lowrank_bias_backward_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        r: Optional[torch.Tensor], s: Optional[torch.Tensor],
+        out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor):
+    """Plain version of K4, step for step the TPU backward's arithmetic:
+    delta from ``out`` and dO in f32, dO cast to q's dtype, then the two
+    kernels' plain versions. Returns (dQ, dK, dV, dR, dS)."""
+    delta = _delta(out, do)
+    do = do.to(q.dtype)
+    dq, dr = lowrank_backward_dq_reference(q, k, v, r, s, do, lse, delta)
+    dk, dv, ds = lowrank_backward_dkv_reference(q, k, v, r, s, do, lse, delta)
+    return dq, dk, dv, dr, ds
+
+
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    """The built library of ``csrc/flash_attention_lowrank_bwd.cu`` with
+    its two launchers' C signatures set: q, k, v, r, s, dO, lse, delta and
+    the output pointers (dQ, dR; or the dK, dV, dS partials), then B*H, Nq,
+    Nk, D, M (and the splits) and the dtype code as c_int, then the
+    stream."""
+    lib = build.load(BWD_SOURCE)
+    dq = getattr(lib, f"mmcsi_{BWD_SOURCE}_dq")
+    dq.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    dkv = getattr(lib, f"mmcsi_{BWD_SOURCE}_dkv")
+    dkv.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    dq.restype = dkv.restype = ctypes.c_int
+    return lib
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _bwd_launch(kernel: str, name: str, tensors, ints, q) -> None:
+    """Call the launcher ``kernel`` on q's device and current stream, raise
+    on a refused launch and count a launched one under ``name``."""
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(_bwd_library(), f"mmcsi_{BWD_SOURCE}_{kernel}")(
+            *(_ptr(t) for t in tensors), *ints, _DTYPE_CODES[q.dtype], stream)
+    if err == _CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f"{name}: the kernel refused the sizes (B*H, Nq, "
+                         f"Nk, D, M...) {ints}; it takes D <= {MAX_HEAD_DIM}")
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
+                           f"{err}")
+    count_launch(name)
+
+
+def dkv_splits(bh: int, nq: int, nk: int, sms: int) -> int:
+    """How many blocks share the query tiles of one (b h, key tile) in the
+    dK/dV/dS kernel: enough for BLOCKS_PER_SM blocks on each of ``sms``
+    SMs, at most one a query tile."""
+    key_blocks = bh * -(-nk // TILE)
+    return max(1, min(-(-nq // TILE),
+                      -(-BLOCKS_PER_SM * sms // key_blocks)))
+
+
+def lowrank_backward_dq(q, k, v, r, s, do, lse, delta):
+    """(dQ, dR) of K4's first kernel: dQ in q's dtype, dR f32 (None
+    without a bias). ``do`` contiguous in q's dtype; lse and delta
+    (B, H, Nq) f32. CPU tensors take the plain version."""
+    if q.device.type == "cpu":
+        return lowrank_backward_dq_reference(q, k, v, r, s, do, lse, delta)
+    b, h, nq, d = q.shape
+    nk, m = k.shape[2], 0 if r is None else r.shape[3]
+    dq = torch.empty_like(q)
+    dr = None if r is None else torch.empty_like(r)
+    _bwd_launch("dq", DQ_NAME, (q, k, v, r, s, do, lse, delta, dq, dr),
+                (b * h, nq, nk, d, m), q)
+    return dq, dr
+
+
+def lowrank_backward_dkv(q, k, v, r, s, do, lse, delta):
+    """(dK, dV, dS) of K4's second kernel: dK and dV in the inputs'
+    dtypes, dS (M, Nk) f32 summed over (B, H) (None without a bias). The
+    kernel writes f32 partials per split of the query range, summed here
+    over the splits and (B, H) in a fixed order. CPU tensors take the
+    plain version."""
+    if q.device.type == "cpu":
+        return lowrank_backward_dkv_reference(q, k, v, r, s, do, lse, delta)
+    b, h, nq, d = q.shape
+    nk, m = k.shape[2], 0 if r is None else r.shape[3]
+    splits = dkv_splits(b * h, nq, nk, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dk = torch.empty((splits, b, h, nk, d), **f32)
+    dv = torch.empty((splits, b, h, nk, d), **f32)
+    ds = None if r is None else torch.empty((splits, b * h, m, nk), **f32)
+    _bwd_launch("dkv", DKV_NAME, (q, k, v, r, s, do, lse, delta, dk, dv, ds),
+                (b * h, nq, nk, d, m, splits), q)
+    dk, dv = dk.sum(dim=0).to(k.dtype), dv.sum(dim=0).to(v.dtype)
+    return dk, dv, None if ds is None else ds.sum(dim=(0, 1))
+
+
+def _check_backward(q, k, v, r, s, out, lse, do) -> None:
+    _check(q, k, v, r, s)
+    b, h, nq, d = q.shape
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"{NAME} backward takes a head dim of at most "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    if out.shape != q.shape or do.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError(f"{NAME} backward: out {tuple(out.shape)} "
+                         f"{out.dtype} and do {tuple(do.shape)} must match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    if lse.shape != (b, h, nq) or lse.dtype != torch.float32:
+        raise ValueError(f"{NAME} backward takes the forward's (B, H, Nq) "
+                         f"float32 LSE, got {tuple(lse.shape)} {lse.dtype}")
+    if any(t.device != q.device for t in (out, lse, do)):
+        raise ValueError(f"{NAME} backward inputs lie on different devices")
+    if not (out.is_contiguous() and lse.is_contiguous()):
+        raise ValueError(f"{NAME} backward takes a contiguous out and LSE")
+
+
+def flash_attention_lowrank_bias_backward(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        r: Optional[torch.Tensor], s: Optional[torch.Tensor],
+        out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor):
+    """(dQ, dK, dV, dR, dS) of ``flash_attention_lowrank_bias`` for the
+    output gradient ``do``, from the forward's inputs, its output ``out``
+    and its row LSE. delta = rowsum(dO out) is taken in f32 here, and dO
+    (any layout and float dtype) is made contiguous in q's dtype. dQ, dK
+    and dV come back in the inputs' dtypes, dR (B, H, Nq, M) and dS
+    (M, Nk) in f32, or None without a bias. CPU tensors take the plain
+    version; CUDA tensors launch the two kernels or raise (D <= 128)."""
+    _check_backward(q, k, v, r, s, out, lse, do)
+    if q.device.type == "cpu":
+        return flash_attention_lowrank_bias_backward_reference(
+            q, k, v, r, s, out, lse, do)
+    delta = _delta(out, do)
+    do = do.to(q.dtype).contiguous()
+    dq, dr = lowrank_backward_dq(q, k, v, r, s, do, lse, delta)
+    dk, dv, ds = lowrank_backward_dkv(q, k, v, r, s, do, lse, delta)
+    return dq, dk, dv, dr, ds
+
+
+class _LowrankAttention(torch.autograd.Function):
+    """K3 forward, K4 backward; saves the inputs, the output and the LSE."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, r, s):
+        out, lse = flash_attention_lowrank_bias(q, k, v, r, s,
+                                                return_lse=True)
+        ctx.save_for_backward(q, k, v, r, s, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        return flash_attention_lowrank_bias_backward(*ctx.saved_tensors, do)
+
+
+def flash_attention_lowrank_bias_trainable(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        r: Optional[torch.Tensor] = None,
+        s: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable ``flash_attention_lowrank_bias``: the forward
+    launches K3 and the backward K4 (their plain versions for CPU tensors).
+    Takes and returns what ``flash_attention_lowrank_bias`` does; the
+    gradients of r and s exist only when a bias is given."""
+    return _LowrankAttention.apply(q, k, v, r, s)

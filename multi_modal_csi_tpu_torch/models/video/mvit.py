@@ -30,13 +30,18 @@ the patchified clip; v2's relative tables follow each block's input size
 and are interpolated at run time when the sizes differ.
 
 Attention (``MultiscaleAttention``) mirrors the JAX gate
-(``mvit.py:256-269`` there): in eval mode with at least 256 queries it runs
-K3 (``kernels/flash_attention_lowrank.py``), with v2's relative bias passed
-as the low-rank factor pair from ``_rel_factors`` (a zero class-token row
-in R and column in S); on CPU tensors K3's plain version runs. Below the
-gate the eager einsum path with ``_add_rel_pos`` runs. In training, a
-CUDA forward at the flash-backward gate (at least 8192 queries) raises
-NotImplementedError: that backward (K4) is not ported yet.
+(``mvit.py:256-269`` there), with v2's relative bias passed as the
+low-rank factor pair from ``_rel_factors`` (a zero class-token row in R
+and column in S):
+
+- in eval mode, with at least 256 queries, K3
+  (``kernels/flash_attention_lowrank.py::flash_attention_lowrank_bias``;
+  its plain version on CPU tensors);
+- in training, on the card with at least 8192 queries (MViT's blocks 0-2
+  at the serving clip), ``flash_attention_lowrank_bias_trainable``: K3
+  forward, the flash backward K4;
+- everywhere else the eager einsum path with ``_add_rel_pos``, in training
+  on the CPU too, as the JAX package trains there.
 
 Known difference from torchvision: the MLP uses flax's default GELU, the
 tanh approximation (``nn.layers.GELU``), as the JAX package does.
@@ -52,7 +57,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...kernels.flash_attention_lowrank import flash_attention_lowrank_bias
+from ...kernels.flash_attention_lowrank import (
+    flash_attention_lowrank_bias, flash_attention_lowrank_bias_trainable)
 from ...nn.layers import (GELU, Conv3d, Dropout, DropPath, LayerNorm, Linear,
                           max_pool3d)
 
@@ -236,6 +242,13 @@ class PoolConv(nn.Module):
         return self.norm_act(x), new_thw
 
 
+def use_train_flash(q: torch.Tensor) -> bool:
+    """The training gate (JAX ``mvit.py:258-259``): the flash forward and
+    backward for q (B, heads, Nq, d) on the card with Nq >= 8192; the eager
+    path elsewhere, on the CPU whatever Nq."""
+    return q.is_cuda and q.shape[2] >= TRAIN_FLASH_MIN_QUERIES
+
+
 def _pool_skip(x: torch.Tensor, thw: THW, stride: THW) -> torch.Tensor:
     """torchvision pool_skip: MaxPool3d(kernel=s+1, stride=s, pad=k//2) on
     the residual path (no parameters, class token kept)."""
@@ -294,27 +307,18 @@ class MultiscaleAttention(nn.Module):
                   (self.rel_pos_h, self.rel_pos_w, self.rel_pos_t))
 
         nq = q.shape[2]
-        if self.training:
-            if nq >= TRAIN_FLASH_MIN_QUERIES and q.is_cuda:
-                raise NotImplementedError(
-                    f"MViT training at {nq} queries runs the flash backward "
-                    "(K4, kernels/flash_attention.py::"
-                    "flash_attention_lowrank_bias_trainable in the JAX "
-                    "package), which is not ported yet: it comes with video "
-                    "training, slice 5 of the port")
-            use_flash = False
-        else:
-            use_flash = nq >= FLASH_MIN_QUERIES
+        use_flash = (use_train_flash(q) if self.training
+                     else nq >= FLASH_MIN_QUERIES)
         if use_flash:
             r = s = None
             if tables is not None:
                 r_cat, scatter = _rel_factors(q, q_thw, k_thw, *tables)
                 # class-token row/col carry zero bias
-                r = r_cat.new_zeros((b, heads, nq, r_cat.shape[-1]),
-                                    dtype=torch.float32)
-                r[:, :, 1:] = r_cat
+                r = F.pad(r_cat.float(), (0, 0, 1, 0))
                 s = F.pad(scatter, (1, 0))
-            out = flash_attention_lowrank_bias(q.contiguous(), k, v, r, s)
+            fa = (flash_attention_lowrank_bias_trainable if self.training
+                  else flash_attention_lowrank_bias)
+            out = fa(q.contiguous(), k, v, r, s)
         else:
             attn = torch.einsum("bhnd,bhmd->bhnm",
                                 (q / math.sqrt(d)).float(), k.float())
@@ -325,8 +329,8 @@ class MultiscaleAttention(nn.Module):
         if self.residual_pool:
             if self.residual_with_cls:
                 out = out + q
-            else:
-                out[:, :, 1:] += q[:, :, 1:]
+            else:        # out of place: the flash path saved ``out``
+                out = out + F.pad(q[:, :, 1:], (0, 0, 1, 0))
         out = out.transpose(1, 2).reshape(b, -1, self.output_dim)
         return self.project(out), q_thw
 

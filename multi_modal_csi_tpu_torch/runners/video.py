@@ -1,6 +1,7 @@
-"""The video runner's serving half (counterpart of the JAX package's
-``runners/video.py``): the video model table, the dataset selection,
-streaming evaluation and torchvision checkpoints.
+"""The video runner (counterpart of the JAX package's ``runners/video.py``):
+the video model table, the dataset selection, streaming evaluation,
+torchvision checkpoints, and training as the reference's video engine
+trains (reference ``video/run.py:37-99``, ``video/train.py:19-176``).
 
 - ``VIDEO_MODELS``: MViT-v1 and MViT-v2 are ported; ResNet, S3D, Swin-T
   and Swin-S raise NotImplementedError (ROADMAP item 12);
@@ -11,29 +12,43 @@ streaming evaluation and torchvision checkpoints.
   through ``prefetch_batches`` in fixed chunks, the tail chunk zero-padded
   and the padding cut from the logits, the input cast to the serving dtype;
 - ``load_video_pretrained``: a torchvision-layout ``.pt``/``.pth``
-  checkpoint into a live model, its tables resized to the model's clip.
+  checkpoint into a live model, its tables resized to the model's clip;
+- ``fit_video``: the JAX ``fit_video`` (``:126-262``): Adam, BCE with
+  logits, no augmentation, ``n // batch_size`` full batches an epoch, then
+  a full evaluation of the training and the test set; the best weights
+  by test subset accuracy alone, starting from the initial weights;
+- ``run_video_model``: the JAX ``run_video_model`` (``:323-407``):
+  ``cfg.repeat`` runs seeded r + 39, each trained by ``fit_video`` and
+  scored on the test set in the serving dtype, and the result dict.
 
-Training (``fit_video``, ``run_video_model``) comes with the MViT flash
-backward in slice 5 of the port.
+Warm start and saving through ``cfg.path.save_model`` (ROADMAP item 11)
+and data-parallel runs over a mesh (item 14) raise NotImplementedError.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Tuple
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..core.config import Config
+from ..core.config import Config, resolve_serving_dtype
+from ..core.device import resolve_device
 from ..core.weights import resize_mvit_tables
 from ..data.annotation import filter_annotation, label_list, load_annotation
 from ..data.encoders import encode_labels
-from ..data.pipeline import pad_to
+from ..data.pipeline import epoch_batches, pad_to
 from ..data.splits import train_test_split
-from ..data.video_io import ClipDataset, prefetch_batches
-from ..metrics.classification import accuracy_score
+from ..data.video_io import ArrayClips, ClipDataset, prefetch_batches
+from ..losses.basic import bce_with_logits
+from ..metrics.classification import accuracy_score, classification_report
 from ..models import video as video_models
+from ..train.loop import (TRAIN_DTYPES, StateDict, adam_like_torch,
+                          cast_for_serving, cast_parameters, make_train_step,
+                          state_snapshot)
+from ..utils.complexity import complexity_report
 
 THW = Tuple[int, int, int]
 # (out_features, clip (T, H, W), generator) -> model
@@ -180,3 +195,152 @@ def load_video_pretrained(path: str, model_key: str,
     head = model.task_head
     head.load_state_dict(_task_head(*head.weight.shape))
     return model
+
+
+def fit_video(model: nn.Module, train_ds, test_ds, *, lr: float,
+              epochs: int, batch_size: int, seed: int, threshold: float,
+              verbose: bool = True, num_workers: int = 4,
+              train_dtype: Optional[Union[str, torch.dtype]] = None,
+              sharding: Any = None, fsdp: bool = False,
+              history: Optional[List[Dict[str, float]]] = None,
+              device: Optional[Union[str, torch.device]] = None
+              ) -> Tuple[StateDict, float]:
+    """Train ``model`` (moved to ``device``, the card by default) on
+    ``train_ds`` (a ClipDataset or ArrayClips) and return (the best
+    weights as a CPU state dict, the best test accuracy).
+
+    Each epoch shuffles with ``np.random.default_rng(seed)`` and trains
+    ``n // batch_size`` full batches (Adam at ``lr``, BCE with logits, no
+    augmentation), then scores the whole training and test sets in chunks
+    of ``batch_size``. The best weights start as the initial ones and are
+    replaced only by a strictly higher test accuracy. ``history``, if
+    given, receives one record an epoch: the last batch's loss and both
+    accuracies. ``train_dtype="bfloat16"`` keeps the parameters and Adam's
+    moments in bf16, casts each batch and evaluates in bf16. ``sharding``
+    and ``fsdp`` (data-parallel training) are not ported (ROADMAP item
+    14)."""
+    if sharding is not None or fsdp:
+        raise NotImplementedError("data-parallel video training (sharding, "
+                                  "fsdp) is not ported yet (ROADMAP item 14)")
+    if train_dtype not in TRAIN_DTYPES:
+        raise ValueError(f"unsupported train_dtype {train_dtype!r}")
+    batch_dtype = TRAIN_DTYPES[train_dtype]
+    device = resolve_device(device)
+    np_rng = np.random.default_rng(seed)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    model.to(device)
+    cast_parameters(model, batch_dtype)
+    step = make_train_step(model, adam_like_torch(model.parameters(), lr),
+                           bce_with_logits, augment=False,
+                           batch_dtype=batch_dtype)
+
+    best_acc = 0.0
+    best = state_snapshot(model)
+    n = len(train_ds)
+    for epoch in range(epochs):
+        t0 = time.time()
+        loss = torch.zeros(())
+        for bx, by in prefetch_batches(
+                train_ds, epoch_batches(n, batch_size, np_rng,
+                                        skip_last=False),
+                num_workers=num_workers):
+            loss, _ = step(torch.from_numpy(bx).to(device),
+                           torch.from_numpy(by).to(device), generator)
+        train_acc, _, _ = evaluate(model, train_ds, threshold,
+                                   chunk=batch_size, num_workers=num_workers,
+                                   dtype=batch_dtype)
+        test_acc, _, _ = evaluate(model, test_ds, threshold,
+                                  chunk=batch_size, num_workers=num_workers,
+                                  dtype=batch_dtype)
+        if verbose:
+            print(f"Epoch {epoch}/{epochs} - {time.time() - t0:.3f}s "
+                  f"- Loss {float(loss):.6f} - Accuracy {train_acc:.6f} "
+                  f"- Test Accuracy {test_acc:.6f}")
+        if history is not None:
+            history.append({"epoch": epoch, "train_loss": float(loss),
+                            "train_acc": float(train_acc),
+                            "test_acc": float(test_acc)})
+        if test_acc > best_acc:
+            best_acc = test_acc
+            best = state_snapshot(model)
+    return best, best_acc
+
+
+def run_video_model(cfg: Config,
+                    data: Optional[Tuple[np.ndarray, ...]] = None,
+                    use_mesh: bool = False,
+                    device: Optional[Union[str, torch.device]] = None
+                    ) -> Dict[str, Any]:
+    """Run ``cfg.repeat`` seeded experiments of the video model
+    ``cfg.model`` on ``device`` (the card unless told otherwise) and
+    return the result dict of the JAX runner: the complexity report, one
+    classification report per repeat, and the mean and spread of the test
+    accuracy and of the training and test seconds.
+
+    ``data`` is (x_tr, x_te, y_tr, y_te) in memory; by default the clips
+    stream from ``cfg.path.video_pre_x`` (``load_video_data``). The model
+    is built for the clips' (T, H, W). Repeat ``r`` draws its weights
+    from a generator seeded r + 39 (or loads ``cfg.pretrained_path``, a
+    torchvision-layout checkpoint), trains with that seed and scores the
+    test set in the serving dtype (``compute_dtype``, "auto" the model's
+    own). The complexity report's forward runs on the CPU."""
+    make_model = video_spec(cfg.model)
+    if use_mesh:
+        raise NotImplementedError("data-parallel runs over a device mesh "
+                                  "are not ported yet (ROADMAP item 14)")
+    if cfg.path.save_model:
+        raise NotImplementedError("warm start and saving through "
+                                  "path.save_model (component checkpoints) "
+                                  "are not ported yet (ROADMAP item 11)")
+    if data is None:
+        train_ds, test_ds = load_video_data(cfg)
+    else:
+        x_tr, x_te, y_tr, y_te = data
+        train_ds = ArrayClips(x_tr, y_tr.reshape(y_tr.shape[0], -1))
+        test_ds = ArrayClips(x_te, y_te.reshape(y_te.shape[0], -1))
+    out_dim = train_ds.y.shape[-1]
+    example = np.ascontiguousarray(train_ds.example())
+    clip = tuple(example.shape[1:4])
+
+    def build(seed: int) -> nn.Module:
+        return make_model(out_dim, clip,
+                          torch.Generator().manual_seed(seed))
+
+    result: Dict[str, Any] = {"complexity": complexity_report(
+        build(0).eval(), torch.from_numpy(example))}
+    pretrained = None
+    if cfg.pretrained_path:
+        pretrained = state_snapshot(load_video_pretrained(
+            cfg.pretrained_path, cfg.model, build(0)))
+    dtype = (torch.bfloat16 if resolve_serving_dtype(
+        cfg.compute_dtype, cfg.model) == "bfloat16" else None)
+
+    accuracies, times_train, times_test = [], [], []
+    for r in range(cfg.repeat):
+        model = build(r + 39)
+        if pretrained is not None:
+            model.load_state_dict(pretrained)
+        t0 = time.time()
+        best, _ = fit_video(model, train_ds, test_ds, lr=cfg.nn.lr,
+                            epochs=cfg.nn.epoch, batch_size=cfg.nn.batch_size,
+                            seed=r + 39, threshold=cfg.nn.threshold,
+                            train_dtype=cfg.train_dtype, device=device)
+        t1 = time.time()
+        # the final test pass: the serving path, in the serving dtype
+        model.load_state_dict(best)
+        if dtype is not None:
+            cast_for_serving(model, dtype)
+        acc, pred, _ = evaluate(model, test_ds, cfg.nn.threshold,
+                                chunk=cfg.nn.batch_size, dtype=dtype)
+        result[f"repeat_{r}"] = classification_report(
+            test_ds.y.astype(int), pred)
+        accuracies.append(acc)
+        times_train.append(t1 - t0)
+        times_test.append(time.time() - t1)
+
+    for name, values in (("accuracy", accuracies),
+                         ("time_train", times_train),
+                         ("time_test", times_test)):
+        result[name] = {"avg": float(np.mean(values)),
+                        "std": float(np.std(values))}
+    return result

@@ -41,7 +41,7 @@ from .schedules import cosine_warmup
 
 Loss = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 StateDict = Dict[str, torch.Tensor]
-_TRAIN_DTYPES = {None: None, "float32": None, torch.float32: None,
+TRAIN_DTYPES = {None: None, "float32": None, torch.float32: None,
                  "bfloat16": torch.bfloat16, torch.bfloat16: torch.bfloat16}
 
 
@@ -132,6 +132,16 @@ def cast_for_serving(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     return model
 
 
+def cast_parameters(model: nn.Module, dtype: Optional[torch.dtype]) -> None:
+    """Cast every float32 parameter to ``dtype`` in place (bf16 training;
+    nothing for None); buffers such as BatchNorm's statistics stay f32."""
+    if dtype is None:
+        return
+    for param in model.parameters():
+        if param.dtype == torch.float32:
+            param.data = param.data.to(dtype)
+
+
 def state_snapshot(model: nn.Module) -> StateDict:
     """A CPU copy of the model's state dict."""
     return {k: v.detach().to("cpu", copy=True)
@@ -175,9 +185,9 @@ def fit(model: nn.Module,
     place of Adam with ``weight_decay`` and the cosine schedule, and no
     schedule is stepped: the JAX ``fit``'s ``tx`` for restored weights.
     """
-    if train_dtype not in _TRAIN_DTYPES:
+    if train_dtype not in TRAIN_DTYPES:
         raise ValueError(f"unsupported train_dtype {train_dtype!r}")
-    batch_dtype = _TRAIN_DTYPES[train_dtype]
+    batch_dtype = TRAIN_DTYPES[train_dtype]
     device = resolve_device(device)
     np_rng = np.random.default_rng(seed)
     generator = torch.Generator(device=device).manual_seed(seed)
@@ -188,10 +198,7 @@ def fit(model: nn.Module,
         raise ValueError(f"{n} training windows at batch {batch_size} give "
                          f"no full batch once the last one is skipped")
     model.to(device)
-    if batch_dtype is not None:
-        for param in model.parameters():
-            if param.dtype == torch.float32:
-                param.data = param.data.to(batch_dtype)
+    cast_parameters(model, batch_dtype)
     scheduler = None
     if optimizer is not None:
         opt = optimizer(model.parameters())

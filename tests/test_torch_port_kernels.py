@@ -87,16 +87,21 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_kernel_sources_and_build_flags():
-    """Every kernel is a csrc/*.cu with a plain C launcher, built for
+    """Every kernel is a csrc/*.cu with plain C launchers, built for
     sm_90a; the library name changes with the source or the flags."""
-    sources = {"flash_attention.cu": "flash_attention",
-               "flash_attention_bwd.cu": "flash_attention_bwd",
-               "flash_attention_lowrank.cu": "flash_attention_lowrank",
-               "csi_preprocess.cu": "csi_preprocess"}
-    assert sorted(p.name for p in build.CSRC.glob("*.cu")) == sorted(sources)
-    for name, stem in sources.items():
-        src = (build.CSRC / name).read_text()
-        assert 'extern "C"' in src and f"int mmcsi_{stem}(" in src
+    launchers = {
+        "flash_attention": ["flash_attention"],
+        "flash_attention_bwd": ["flash_attention_bwd"],
+        "flash_attention_lowrank": ["flash_attention_lowrank"],
+        "flash_attention_lowrank_bwd": ["flash_attention_lowrank_bwd_dq",
+                                        "flash_attention_lowrank_bwd_dkv"],
+        "csi_preprocess": ["csi_preprocess"]}
+    assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == sorted(
+        launchers)
+    for stem, names in launchers.items():
+        src = (build.CSRC / f"{stem}.cu").read_text()
+        assert 'extern "C"' in src
+        assert all(f"int mmcsi_{name}(" in src for name in names)
         assert build._target(stem).parent == build.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build._target("flash_attention") != build._target(
