@@ -8,10 +8,11 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. the card's name and power limit, torch and CUDA versions; build the
-   five kernel sources (attention forward K1, its backward K2, the CSI
+   six kernel sources (attention forward K1, its backward K2, the CSI
    amplitude-phase pass K5, MViT's low-rank-bias attention K3 and its
-   backward K4, two kernels) from csrc/ with one nvcc each, started
-   together, timed, with nvcc's register and spill lines;
+   backward K4, two kernels, and int8 serving's tile product P1) from
+   csrc/ with one nvcc each, started together, timed, with nvcc's
+   register and spill lines;
 2. K1 against its plain PyTorch version on the card, f32 and bf16, at
    THAT's left (256, 150, 10, 27) and right (256, 270, 10, 15) shapes,
    THAT_ENCODER's right (256, 270, 10, 27), a ragged (3, 64, 10, 15) case
@@ -48,6 +49,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    scaled_dot_product_attention with r @ s as a float mask, and the
    bounds, summed per MViT-v1 and v2 training step; a head dim of 160
    must be refused;
+4d. P1 (kernels/int8_matmul.py), both instantiations, against their
+   plain versions at P1's own tile (256, 272) x (272, 424), every product
+   of DETR's and THAT_ENCODER's bs256 int8 forwards and odd shapes (1 x 1
+   x 1, 17 x 33 x 65, K mod 32 = 14, K = 27,000, grouped): s8 exactly,
+   bf16 within K 2^-23 sum |a b| of the exact product; per shape the
+   kernel's and the plain version's times, torch._int_mm's (K and N
+   zero-padded to multiples of 8, as cuBLASLt needs) or bf16
+   torch.matmul's (yardsticks the port never calls), and the bound; a K
+   whose int32 sum could overflow must raise;
+4e. K1 and K2 at the largest shapes their fit predicates admit (one head
+   of 27): launched; one key or token more: refused with ValueError;
 5. preprocessing on the card (cli/preprocess_csi.py, the default device):
    4 synthetic WiMANS .mat traces of 3000 packets to amplitude and phase
    files, exactly 4 K5 launches, seconds per trace by stage (.mat parse,
@@ -63,6 +75,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    against the CPU, where the plain versions run; the same for DETR at
    the flagship configuration, with no kernel launch, and for
    THAT_ENCODER, with 5 K1 launches per forward;
+6b. int8 serving of DETR and THAT_ENCODER in w8a8 (their QUANT_DEFAULTS),
+   bf16, batch 256, calibrated through CSIServer(calib=...) on a seeded
+   .npy of 64 windows: exact s8 and bf16 P1 launches by product shape in
+   one batch forward (22 + 54 for DETR; 27 + 58 and 5 K1 for
+   THAT_ENCODER), the ragged requests, windows/s from host memory and on
+   the card beside bf16 serving's, a profile with P1's share; the logits
+   against bf16 serving within the JAX package's own bounds; then the
+   same int8 weights and scales at f32 on the card against the CPU, with
+   the int8 activations that flipped; and cli/serve_csi.py --model DETR
+   --quant auto --calib F.npy once;
 7. THAT training at full width through ``fit``: seeded (80, 3000, 270)
    training and (32, 3000, 270) validation windows, activity labels,
    batch 16, 2 epochs, augmentation on, f32; exactly 5 K1 and 5 K2
@@ -87,6 +109,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    clips on the card; 5 forwards under torch.profiler; then a bf16
    training forward and backward of one batch: exactly 3 K3 and 3 of each
    K4 kernel (blocks 0-2 at the training gate, the eager path after);
+11b. MViT-v2 w8 serving at full width, bf16, batch 2 (the hooked set
+   discovered with one zero clip): exactly 16 K3 and 67 bf16 P1 launches
+   per batch forward and no s8, clips/s beside bf16 serving's, a profile,
+   the logits against bf16 serving, and P1 held against its plain version
+   at each of the forward's product shapes;
 12. each variant in f32 at (2, 16, 112, 112, 3) on the card (TF32 off,
    14 K3 launches) against the CPU, where K3's plain version runs, within
    1e-4 of the largest logit;
@@ -109,15 +136,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    cached (45, 224, 224, 3) clips with a synthetic annotation.csv, repeat
    1, one epoch at batch 2, the final test pass in bf16; the result JSON
    read back with the JAX runner's keys; exact K3 and K4 launch counts;
-17. the bound of each TPU kernel still to port, worked out from a shape
-   its path runs; one JSON line describing each ported kernel, then the
-   card's name and power limit, then the result line.
+17. one JSON line describing each kernel (every TPU kernel of the repo
+   is ported), then the card's name and power limit, then the result
+   line.
 
 Exits non-zero without a result when no CUDA device is available.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import math
@@ -581,7 +609,8 @@ def preprocess_phase(work):
 def profile_device(label, fn, count, unit):
     """Device time of ``count`` calls of ``fn`` by kernel, from
     torch.profiler: per ``unit``, busy share of the wall time, and the
-    kernels with the most device time."""
+    kernels with the most device time. Returns the device ms per ``unit``
+    and, by kernel name, its ms per ``unit``."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -614,6 +643,9 @@ def profile_device(label, fn, count, unit):
         ms = e.self_device_time_total / 1e3 / count
         print(f"  {share:5.1f}%  {ms:8.3f} ms/{unit}  "
               f"{e.count // count:4d}x  {e.key[:90]}")
+    return {"device_ms": device_us / 1e3 / count,
+            "kernels": {e.key: e.self_device_time_total / 1e3 / count
+                        for e in kernels}}
 
 
 def serve_phase(key, requests, expect_out, launches_per_forward):
@@ -674,6 +706,7 @@ def serve_phase(key, requests, expect_out, launches_per_forward):
           f"from host memory, {n} windows in {batches} batch forwards; with "
           f"the requests already on the card, {RESIDENT_ROUNDS} timings: "
           + ", ".join(f"{r:.1f}" for r in rates) + " windows/s")
+    SERVE_RATES[key] = (n / host_s, rates)
     batch = resident[0][:server.batch]
     profile_device(key, lambda: server.forward(batch), PROFILED_FORWARDS,
                    "forward")
@@ -1355,6 +1388,7 @@ def video_serve_phase(key, requests):
         torch.cuda.synchronize()
         rates.append(n / (time.perf_counter() - start))
     del resident
+    SERVE_RATES[key] = (n / host_s, rates)
     print(f"{key} bf16 batch {server.batch}: {n / host_s:.2f} clips/s from "
           f"host memory, {n} clips in {batches} batch forwards; with the "
           f"clips already on the card, {RESIDENT_ROUNDS} timings: "
@@ -1697,26 +1731,557 @@ def run_video_phase(clips, annotation, work, key, train_dtype="float32"):
     return launches
 
 
-def pending_bounds():
-    """Print the least time each TPU kernel still to port needs on an H100
-    SXM at a shape its path runs: bytes read once and written once over
-    the HBM rate against operations over the peak rate of their type."""
-    rows = {
-        "P1 kernel_s8, one (256, 272) x (272, 424) s8 -> s32 tile":
-            (256 * 272 + 272 * 424 + 256 * 424 * 4,
-             {torch.int8: 2 * 256 * 272 * 424}),
-        "P1 kernel_bf16, the same tile, bf16 -> f32":
-            ((256 * 272 + 272 * 424) * 2 + 256 * 424 * 4,
-             {torch.bfloat16: 2 * 256 * 272 * 424}),
+# ---------------------------------------------------------------------- #
+# P1: the products of int8 serving (kernels/int8_matmul.py)
+# ---------------------------------------------------------------------- #
+
+S8, BF16 = "int8_matmul_s8", "int8_matmul_bf16"
+P1_TILE = (256, 272, 424)            # tools/exp_pallas_int8.py:36
+# (M, K, N) of each product in one bs256 forward at full width, and its
+# launches: the w8a8 layers (int8) and the weight-only attention
+# projections (bf16), as the models are built (4 encoder blocks, 6 uses of
+# the shared decoder layer whose memory K and V are projected once)
+DETR_S8 = {(768000, 270, 270): 1,    # initial_conv.pointwise, 1x1
+           (256000, 810, 270): 4,    # dilated_blocks.{0..3}.conv, k3
+           (2560, 27000, 270): 1,    # final_conv, k = stride = 100
+           (2560, 270, 270): 4,      # encoder layer_cnn.0, k1, 4 blocks
+           (1280, 270, 512): 6,      # decoder ffn.0
+           (1280, 512, 270): 6}      # decoder ffn.3
+DETR_BF16 = {(2560, 270, 270): 4 * 4 + 2,    # encoder q, k, v, out; memory
+             (1280, 270, 270): 6 * 4 + 6 * 2}  # k, v; decoder self q, k,
+                                               # v, out and cross q, out
+ENCODER_S8 = {(38400, 270, 270): 4,  # left blocks: convs k1, k3, k5
+              (38400, 810, 270): 4,
+              (38400, 1350, 270): 4,
+              (69120, 270, 270): 1,  # right block: convs k1, k2, k3
+              (69120, 540, 270): 1,
+              (69120, 810, 270): 1,
+              (1280, 270, 2048): 6,  # decoder ffn.0 and ffn.3
+              (1280, 2048, 270): 6}
+ENCODER_BF16 = {(38400, 270, 270): 4 * 4,    # left blocks q, k, v, out
+                (69120, 270, 270): 4,        # right block
+                (107520, 270, 270): 2,       # the 420-token memory's k, v
+                (1280, 270, 270): 6 * 4 + 6 * 2}
+# (G, M, K, N): odd sizes, a K with K mod 32 = 14, a grouped product
+P1_ODD = [(None, 1, 1, 1), (None, 17, 33, 65), (None, 300, 810, 270),
+          (None, 100, 46, 70), (3, 100, 90, 30)]
+# MViT-v2 w8 (bf16 serving, batch 2): its Linears of at least 16384
+# weights, each called once a forward: qkv 16, attn.project.0 15 (block 0's
+# 96 x 96 stays float), mlp.0 and mlp.3 32, the widening block projects 3,
+# head.1 1 (the 400 x 6 task head stays float)
+MVIT_BF16_PER_FORWARD = 16 + 15 + 32 + 3 + 1
+# bf16 x bf16 -> f32 against the exact product (f64 of the bf16 values):
+# each element within K * 2^-23 * sum |a b|, the bound of K f32 additions
+# in any order, each rounding by at most one unit of 2^-23 relative (so
+# truncating accumulation is covered too)
+P1_BF16_BOUND = 2.0 ** -23
+# card vs CPU logits of the same int8 weights and scales at f32 serving,
+# of the largest logit: activations that the two devices' f32 arithmetic
+# put on either side of an int8 rounding boundary take the other value
+# (one step at the first quantized layer) and the flips compound over the
+# quantized layers (the CPU tests measure 8.8e-3 between JAX and the port
+# for DETR)
+INT8_CPU_SHARE = 2e-2
+# w8a8 / w8 logits against bf16 serving, over the bf16 logits' spread: the
+# JAX package's own bounds against float (tests/test_quantize.py:171, :300)
+INT8_SPREAD_BOUND = {"DETR": 0.35, "THAT_ENCODER": 0.5, "MViT-v2": 0.35}
+CALIB_WINDOWS = 64         # seeded calibration windows, one .npy
+P1_TIMES = {}              # (dtype, (G, M, K, N)) -> error, times, bound
+SERVE_RATES = {}           # model -> bf16 windows (clips) / s: host, card
+
+
+def p1_bound(shape, dtype):
+    """The least times (ms) of one product on an H100 SXM: A and B read
+    once and C written once over the HBM rate (M K + N K + 4 M N bytes in
+    int8, 2 M K + 2 N K + 4 M N in bf16), and 2 M N K operations over the
+    int8 or bf16 tensor-core peak."""
+    g, m, k, n = shape
+    g = g or 1
+    item = 1 if dtype == torch.int8 else 2
+    nbytes = g * (item * (m * k + n * k) + 4 * m * n)
+    return (1e3 * nbytes / PEAK_BYTES,
+            1e3 * 2.0 * g * m * n * k / PEAK_FLOPS[dtype])
+
+
+def p1_operands(shape, dtype, gen):
+    g, m, k, n = shape
+    lead = () if g is None else (g,)
+    if dtype == torch.int8:
+        return tuple(torch.randint(-128, 128, lead + dims, generator=gen,
+                                   device="cuda", dtype=torch.int8)
+                     for dims in ((m, k), (n, k)))
+    return tuple(torch.randn(lead + dims, generator=gen,
+                             device="cuda").to(torch.bfloat16)
+                 for dims in ((m, k), (n, k)))
+
+
+def p1_library(a, b, dtype):
+    """One PyTorch call computing the same product, the yardstick the
+    port never calls, or None: ``torch._int_mm`` (cuBLASLt) with K and N
+    zero-padded to multiples of 8 as it needs (exact: zeros add nothing),
+    for M above 16 and no groups; ``torch.matmul`` in bf16 (its output
+    bf16)."""
+    import torch.nn.functional as F
+    if dtype == torch.bfloat16:
+        return lambda: torch.matmul(a, b.transpose(-1, -2))
+    if a.dim() == 3 or a.shape[0] <= 16:
+        return None
+    k8, n8 = -(-a.shape[1] // 8) * 8, -(-b.shape[0] // 8) * 8
+    ap = F.pad(a, (0, k8 - a.shape[1]))
+    bp = F.pad(b, (0, k8 - b.shape[1], 0, n8 - b.shape[0]))
+    for bt in (bp.t(), bp.t().contiguous()):      # the layouts it may take
+        try:
+            torch._int_mm(ap, bt)
+            return lambda: torch._int_mm(ap, bt)
+        except RuntimeError as e:
+            print(f"torch._int_mm at {tuple(ap.shape)} x {tuple(bt.shape)} "
+                  f"(strides {bt.stride()}): {str(e).splitlines()[0]}")
+    return None
+
+
+def p1_case(shape, dtype, gen):
+    """One shape of P1 on the card, once: the kernel against its plain
+    version (s8 exactly; bf16 within the accumulation bound of the exact
+    product), then plain, kernel, kernel, plain and the library call timed
+    with CUDA events, and the bound. Kept in P1_TIMES."""
+    from multi_modal_csi_tpu_torch.kernels import int8_matmul as K
+    if (dtype, shape) in P1_TIMES:
+        return P1_TIMES[(dtype, shape)]
+    g, m, k, n = shape
+    a, b = p1_operands(shape, dtype, gen)
+    if dtype == torch.int8:
+        kernel, plain = K.int8_matmul, K.int8_matmul_reference
+        got, want = kernel(a, b), plain(a, b)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.int32 and torch.equal(got, want),
+              f"P1 s8 {shape}: not equal to the exact product")
+        err, worst = 0.0, 0.0
+    else:
+        kernel, plain = K.bf16_matmul_f32, K.bf16_matmul_f32_reference
+        got, want = kernel(a, b), plain(a, b)
+        ad, bd = a.double(), b.double().transpose(-1, -2)
+        bound = k * P1_BF16_BOUND * (ad.abs() @ bd.abs())
+        worst = float(((got.double() - ad @ bd).abs()
+                       / bound.clamp_min(1e-300)).max())
+        del ad, bd, bound
+        check(got.dtype == torch.float32 and worst <= 1.0,
+              f"P1 bf16 {shape}: {worst:.3g} of K 2^-23 sum|ab| from the "
+              f"exact product")
+        err = float((got - want).abs().max())
+    del got, want
+    reps = max(3, min(20, int(4e10 / ((g or 1) * m * k * n))))
+    times = [cuda_ms(lambda: plain(a, b), reps, 1)]
+    times += [cuda_ms(lambda: kernel(a, b), reps, 1) for _ in range(2)]
+    times.append(cuda_ms(lambda: plain(a, b), reps, 1))
+    lib = p1_library(a, b, dtype)
+    lib_ms = None if lib is None else cuda_ms(lib, reps, 1)
+    bytes_ms, ops_ms = p1_bound(shape, dtype)
+    row = dict(err=err, ms=(times[1] + times[2]) / 2,
+               plain_ms=(times[0] + times[3]) / 2, library_ms=lib_ms,
+               bytes_ms=bytes_ms, ops_ms=ops_ms)
+    P1_TIMES[(dtype, shape)] = row
+    name = "s8" if dtype == torch.int8 else "bf16"
+    lib_text = "none" if lib_ms is None else f"{lib_ms:.4f}"
+    print(f"P1 {name} G,M,K,N={shape}: "
+          + ("exact" if dtype == torch.int8 else
+             f"max abs err vs plain {err:.3e}, {worst:.3g} of the bound")
+          + f"; kernel {times[1]:.4f}/{times[2]:.4f} ms, plain "
+          f"{times[0]:.4f}/{times[3]:.4f} ms, library {lib_text} ms; bound"
+          f" bytes {1e3 * bytes_ms:.1f} us, operations {1e3 * ops_ms:.1f} "
+          f"us")
+    del a, b
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_p1():
+    """P1's two instantiations against their plain versions on the card
+    at P1's own tile, every product of DETR's and THAT_ENCODER's bs256
+    int8 forwards, and odd shapes; a K that could overflow int32 must
+    raise."""
+    from multi_modal_csi_tpu_torch.kernels import int8_matmul as K
+    set_tf32(False)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    shapes = [(None, *P1_TILE)]
+    for table in (DETR_S8, DETR_BF16, ENCODER_S8, ENCODER_BF16):
+        shapes += [(None, *mkn) for mkn in table
+                   if (None, *mkn) not in shapes]
+    shapes += P1_ODD
+    start = time.perf_counter()
+    for shape in shapes:
+        for dtype in (torch.int8, torch.bfloat16):
+            p1_case(shape, dtype, gen)
+    big = torch.zeros((2, K.MAX_K_S8 + 1), dtype=torch.int8, device="cuda")
+    try:
+        K.int8_matmul(big, big)
+        refused = False
+    except ValueError as e:
+        print(f"P1 s8 K={K.MAX_K_S8 + 1}: refused ({e})")
+        refused = True
+    check(refused, "P1 s8 launched with a K whose sum could overflow")
+    print(f"P1 phase: {len(shapes)} shapes x 2 in "
+          f"{time.perf_counter() - start:.1f} s")
+
+
+def phase_fits():
+    """K1 and K2 at the largest shapes that their fit predicates admit
+    (one head of D = 27, THAT's): launched; one key (token) more: refused
+    with ValueError. The predicates and the C launchers agree."""
+    from multi_modal_csi_tpu_torch.kernels.flash_attention import (
+        backward_fits, flash_attention, flash_attention_backward,
+        forward_fits)
+    d = 27
+    nk = max(n for n in range(1, 4096) if forward_fits(n, d))
+    nt = max(n for n in range(1, 4096) if backward_fits(n, n, d))
+    print(f"fit predicates at D={d}: K1 up to Nk={nk}, K2 up to "
+          f"Nq=Nk={nt}")
+    for what, n, call in (
+            ("K1", nk, lambda t, kv: flash_attention(t[:, :64], kv, kv)),
+            ("K2", nt, lambda t, kv: flash_attention_backward(t, kv, kv,
+                                                             t))):
+        for size, fits in ((n, True), (n + 1, False)):
+            t = torch.randn((1, size, 1, d), device="cuda")
+            try:
+                call(t, t)
+                torch.cuda.synchronize()
+                launched = True
+                print(f"{what} at {size}: launched")
+            except ValueError as e:
+                print(f"{what} at {size}: refused ({e})")
+                launched = False
+            check(launched == fits, f"{what} at {size} tokens: launched "
+                                    f"{launched}, predicate {fits}")
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Records (dtype, G, M, K, N) of every P1 launch inside the block."""
+    from multi_modal_csi_tpu_torch.kernels import int8_matmul as K
+    real, shapes = K._launch, []
+
+    def launch(a, b, out):
+        shapes.append((a.dtype, *a.shape, b.shape[1]))
+        real(a, b, out)
+    K._launch = launch
+    try:
+        yield shapes
+    finally:
+        K._launch = real
+
+
+@contextlib.contextmanager
+def recorded_activations():
+    """Keeps a CPU copy of every int8 activation that the quantized
+    layers make inside the block."""
+    from multi_modal_csi_tpu_torch.core import quantize as Q
+    real, out = Q.quantize_activation, []
+
+    def quantize(x, scale):
+        q = real(x, scale)
+        out.append(q.cpu())
+        return q
+    Q.quantize_activation = quantize
+    try:
+        yield out
+    finally:
+        Q.quantize_activation = real
+
+
+def by_shape(shapes, dtype):
+    """Launch counts by (M, K, N) of the ungrouped launches of ``dtype``."""
+    from collections import Counter
+    return Counter((m, k, n) for t, g, m, k, n in shapes
+                   if t == dtype and g == 1)
+
+
+def int8_serve_phase(key, requests, calib_path, s8_table, bf16_table,
+                     expect_out, k1_per_forward):
+    """w8a8 serving (QUANT_DEFAULTS) of ``key`` in bf16 at batch 256,
+    calibrated on the .npy at ``calib_path`` through CSIServer: exact P1
+    launches by shape in one batch forward, the ragged requests from host
+    memory, rates, a profile with P1's share; the logits against bf16
+    serving; then the same int8 weights at f32 on the card against the
+    CPU, with the int8 activations that flipped."""
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.core.serving import CSIServer
+    from multi_modal_csi_tpu_torch.runners.csi import build_model
+
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    calib = np.load(calib_path)
+    start = time.perf_counter()
+    server = CSIServer(key, build_model(key, seed=SEED), dtype="bfloat16",
+                       device="cuda", quant="auto", calib=calib)
+    torch.cuda.synchronize()
+    scales = [b for n, b in server.model.named_buffers()
+              if n.endswith("input_scale")]
+    int8 = {n for n, p in server.model.named_parameters()
+            if p.dtype == torch.int8}
+    print(f"{key}: quant {server.quant}, {len(int8)} int8 weights, "
+          f"{len(scales)} input scales, calibrated on {len(calib)} windows "
+          f"in {time.perf_counter() - start:.1f} s")
+    check(server.quant == "w8a8", f"{key} resolved quant {server.quant}")
+    server(requests[0][:server.batch])                        # warm-up
+    torch.cuda.synchronize()
+
+    batch = torch.from_numpy(requests[0][:server.batch])
+    kernels.reset_launch_counts()
+    with recorded_launches() as shapes:
+        server.forward(batch)
+        torch.cuda.synchronize()
+    one = dict(kernels.LAUNCH_COUNTS)
+    want = {S8: sum(s8_table.values()), BF16: sum(bf16_table.values())}
+    if k1_per_forward:
+        want["flash_attention"] = k1_per_forward
+    print(f"{key} w8a8: launches in one batch forward: {one}")
+    check(one == want, f"{key} w8a8 launched {one}, expected {want}")
+    check(by_shape(shapes, torch.int8) == s8_table
+          and by_shape(shapes, torch.bfloat16) == bf16_table,
+          f"{key} w8a8 product shapes {sorted(set(shapes), key=str)}")
+
+    # the main path: ragged requests from host memory to logits on the host
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    outs = [server(r).cpu() for r in requests]
+    host_s = time.perf_counter() - start
+    launches = dict(kernels.LAUNCH_COUNTS)
+    batches = sum(-(-len(r) // server.batch) for r in requests)
+    n = sum(len(r) for r in requests)
+    for r, out in zip(requests, outs):
+        check(tuple(out.shape) == expect_out(len(r))
+              and out.dtype == torch.float32
+              and bool(torch.isfinite(out).all()),
+              f"{key} w8a8 output {tuple(out.shape)} not finite f32")
+    print(f"{key} w8a8: main path ran {batches} batch forwards, launches "
+          f"{launches}")
+    check(launches == {name: count * batches for name, count in
+                       want.items()}, f"{key} w8a8 launches {launches}")
+
+    resident = [torch.from_numpy(r).cuda() for r in requests]
+    rates = []
+    for _ in range(RESIDENT_ROUNDS):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for r in resident:
+            server(r)
+        torch.cuda.synchronize()
+        rates.append(n / (time.perf_counter() - start))
+    bf16_host, bf16_card = SERVE_RATES[key]
+    print(f"{key} w8a8 bf16 batch {server.batch}: {n / host_s:.1f} "
+          f"windows/s from host memory (bf16 serving {bf16_host:.1f}); "
+          f"with the requests on the card: "
+          + ", ".join(f"{r:.1f}" for r in rates) + " windows/s (bf16 "
+          + ", ".join(f"{r:.1f}" for r in bf16_card) + ")")
+    prof = profile_device(f"{key} w8a8", lambda: server.forward(
+        resident[0][:server.batch]), PROFILED_FORWARDS, "forward")
+    p1_ms = sum(ms for name, ms in prof["kernels"].items()
+                if "int8_matmul_kernel" in name)
+    print(f"{key} w8a8: P1 {p1_ms:.3f} ms of {prof['device_ms']:.3f} ms "
+          f"device time per forward ({100 * p1_ms / prof['device_ms']:.1f}"
+          f"%)")
+    del resident
+
+    # the logits against bf16 serving of the same seeded weights
+    x = requests[1]
+    got = server(x).cpu().numpy()
+    ref = CSIServer(key, build_model(key, seed=SEED), dtype="bfloat16",
+                    device="cuda")(x).cpu().numpy()
+    spread = float(np.abs(got - ref).max() / (ref.std() + 1e-9))
+    print(f"{key} w8a8 vs bf16 serving on {len(x)} windows: max abs diff "
+          f"{np.abs(got - ref).max():.4f} = {spread:.4f} of the bf16 "
+          f"logits' spread (bound {INT8_SPREAD_BOUND[key]})")
+    check(spread < INT8_SPREAD_BOUND[key], f"{key} w8a8 vs bf16 {spread}")
+    del server
+
+    # the same int8 weights and scales at f32: the CPU (plain versions)
+    # against the card (TF32 off), 4 windows
+    set_tf32(False)
+    x = requests[1][:4]
+    cpu = CSIServer(key, build_model(key, seed=SEED), dtype="float32",
+                    device="cpu", batch=4, quant="w8a8", calib=calib[:4])
+    with recorded_activations() as cpu_acts:
+        want_out = cpu(x).numpy()
+    card = CSIServer(key, cpu.model, dtype="float32", device="cuda",
+                     batch=4)
+    kernels.reset_launch_counts()
+    with recorded_activations() as card_acts:
+        got_out = card(x).cpu().numpy()
+    card_launches = dict(kernels.LAUNCH_COUNTS)
+    check(card_launches.get(S8) == want[S8],
+          f"{key} f32 int8 on the card launched {card_launches}")
+    check(len(card_acts) == len(cpu_acts), f"{key}: {len(card_acts)} "
+          f"quantized activations on the card, {len(cpu_acts)} on the CPU")
+    flips = [int((a != b).sum()) for a, b in zip(cpu_acts, card_acts)]
+    steps = [int((a.int() - b.int()).abs().max())
+             for a, b in zip(cpu_acts, card_acts)]
+    err = float(np.abs(got_out - want_out).max())
+    top = float(np.abs(want_out).max())
+    print(f"{key} w8a8 f32 card vs CPU: max abs err {err:.3e} (tolerance "
+          f"{INT8_CPU_SHARE} x {top:.4f}); int8 activations flipped: "
+          f"{sum(flips)} of {sum(a.numel() for a in cpu_acts)} over "
+          f"{len(flips)} quantized layers, by at most {max(steps)}; at the "
+          f"first layer {flips[0]} of {cpu_acts[0].numel()}, by at most "
+          f"{steps[0]}")
+    # the first quantized layer's input differs between the devices by f32
+    # noise only, so an activation can only land on the other side of one
+    # rounding boundary; later layers inherit the flips before them
+    check(steps[0] <= 1, f"{key} first int8 activations differ by "
+                         f"{steps[0]}")
+    check(err <= INT8_CPU_SHARE * top, f"{key} w8a8 card vs CPU {err}")
+    return launches
+
+
+def int8_cli_phase(calib_path):
+    """cli/serve_csi.py --model DETR --quant auto --calib F.npy on the
+    card: its default requests, w8a8, exact P1 launches."""
+    import io
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.cli import serve_csi
+    kernels.reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve_csi.main(["--model", "DETR", "--quant", "auto", "--calib",
+                        calib_path])
+    text = out.getvalue()
+    print(text, end="")
+    launches = dict(kernels.LAUNCH_COUNTS)
+    # the warm-up request and then 256, 100 and 300 windows: 1 + 1 + 1 + 2
+    # batch forwards
+    forwards = 5
+    want = {S8: sum(DETR_S8.values()) * forwards,
+            BF16: sum(DETR_BF16.values()) * forwards}
+    check("quant w8a8" in text and launches == want,
+          f"serve_csi --quant auto launched {launches}, expected {want}")
+    return launches
+
+
+def video_int8_phase(requests):
+    """MViT-v2 w8 serving at full width, bf16, batch 2 (the hooked set
+    discovered with one zero clip): exactly 16 K3 and
+    MVIT_BF16_PER_FORWARD bf16 products per batch forward and no s8; the
+    logits against bf16 serving; clips/s; P1 held against its plain
+    version at each product shape of the forward."""
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.core.serving import VideoServer
+    from multi_modal_csi_tpu_torch.nn.layers import Linear
+    from multi_modal_csi_tpu_torch.runners.video import build_video_model
+    key = "MViT-v2"
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    server = VideoServer(key, build_video_model(key, VIDEO_OUT, VIDEO_CLIP,
+                                                seed=SEED),
+                         dtype="bfloat16", device="cuda", quant="w8")
+    linears = [m for m in server.model.modules() if isinstance(m, Linear)
+               and m.weight.dtype == torch.int8]
+    print(f"{key} w8: {len(linears)} int8 Linears")
+    check(server.quant == "w8" and len(linears) == MVIT_BF16_PER_FORWARD,
+          f"{key} w8 quantized {len(linears)} Linears")
+    server(requests[0])                                       # warm-up
+    torch.cuda.synchronize()
+    batch = torch.from_numpy(requests[0][:server.batch]).cuda()
+    kernels.reset_launch_counts()
+    with recorded_launches() as shapes:
+        server.forward(batch)
+        torch.cuda.synchronize()
+    one = dict(kernels.LAUNCH_COUNTS)
+    want = {K3: K3_PER_FORWARD, BF16: MVIT_BF16_PER_FORWARD}
+    print(f"{key} w8: launches in one batch forward: {one}")
+    check(one == want, f"{key} w8 launched {one}, expected {want}")
+
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    outs = [server(r).cpu() for r in requests]
+    host_s = time.perf_counter() - start
+    launches = dict(kernels.LAUNCH_COUNTS)
+    batches = sum(-(-len(r) // server.batch) for r in requests)
+    n = sum(len(r) for r in requests)
+    for r, out in zip(requests, outs):
+        check(tuple(out.shape) == (len(r), VIDEO_OUT)
+              and bool(torch.isfinite(out).all()),
+              f"{key} w8 output {tuple(out.shape)} not finite")
+    check(launches == {name: c * batches for name, c in want.items()},
+          f"{key} w8 main path launched {launches}")
+    resident = [torch.from_numpy(r).cuda() for r in requests]
+    rates = []
+    for _ in range(RESIDENT_ROUNDS):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for r in resident:
+            server(r)
+        torch.cuda.synchronize()
+        rates.append(n / (time.perf_counter() - start))
+    bf16_host, bf16_card = SERVE_RATES[key]
+    print(f"{key} w8 bf16 batch 2: main path launches {launches}; "
+          f"{n / host_s:.2f} clips/s from host memory (bf16 serving "
+          f"{bf16_host:.2f}); with the clips on the card: "
+          + ", ".join(f"{r:.2f}" for r in rates) + " clips/s (bf16 "
+          + ", ".join(f"{r:.2f}" for r in bf16_card) + ")")
+    prof = profile_device(f"{key} w8", lambda: server.forward(batch),
+                          PROFILED_FORWARDS, "forward")
+    p1_ms = sum(ms for name, ms in prof["kernels"].items()
+                if "int8_matmul_kernel" in name)
+    print(f"{key} w8: P1 {p1_ms:.3f} ms of {prof['device_ms']:.3f} ms "
+          f"device time per forward")
+    del resident
+    got = outs[0].numpy()
+    ref = VideoServer(key, build_video_model(key, VIDEO_OUT, VIDEO_CLIP,
+                                             seed=SEED),
+                      dtype="bfloat16", device="cuda")(
+                          requests[0]).cpu().numpy()
+    spread = float(np.abs(got - ref).max() / (ref.std() + 1e-9))
+    print(f"{key} w8 vs bf16 serving: max abs diff "
+          f"{np.abs(got - ref).max():.4f} = {spread:.4f} of the bf16 "
+          f"logits' spread (bound {INT8_SPREAD_BOUND[key]})")
+    check(spread < INT8_SPREAD_BOUND[key], f"{key} w8 vs bf16 {spread}")
+    del server, outs
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    table = by_shape(shapes, torch.bfloat16)
+    for mkn in sorted(table):
+        for dtype in (torch.int8, torch.bfloat16):
+            p1_case((None, *mkn), dtype, gen)
+    p1_totals(f"{key} w8", table, torch.bfloat16)
+    return launches
+
+
+def p1_totals(label, table, dtype):
+    """P1's times and bound summed over one forward (``table``: (M, K, N)
+    -> launches), printed under ``label``."""
+    rows = [(P1_TIMES[(dtype, (None, *mkn))], count)
+            for mkn, count in table.items()]
+    total = {field: sum(count * r[field] for r, count in rows)
+             for field in ("ms", "plain_ms", "bytes_ms", "ops_ms")}
+    total["library_ms"] = (None if any(r["library_ms"] is None
+                                       for r, _ in rows)
+                           else sum(count * r["library_ms"]
+                                    for r, count in rows))
+    name = "s8" if dtype == torch.int8 else "bf16"
+    lib = total["library_ms"]
+    print(f"P1 {name} per {label} forward ({sum(table.values())} launches):"
+          f" kernel {total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
+          f"library {'none' if lib is None else f'{lib:.4f}'} ms; bound "
+          f"bytes {total['bytes_ms']:.4f} ms, operations "
+          f"{total['ops_ms']:.4f} ms")
+    return total
+
+
+def p1_entry(name, replaces, launches, table, dtype):
+    """The JSON description of one of P1's instantiations: times and bound
+    summed over one DETR w8a8 forward at bs256 (``table``: (M, K, N) ->
+    launches); the error the largest over every shape held."""
+    total = p1_totals("DETR w8a8", table, dtype)
+    bytes_ms, ops_ms = total["bytes_ms"], total["ops_ms"]
+    return {
+        "name": name, "route": "cuda",
+        "source": "multi_modal_csi_tpu_torch/kernels/csrc/int8_matmul.cu",
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": max(r["err"] for (t, _), r in P1_TIMES.items()
+                           if t == dtype),
+        "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": total["library_ms"],
     }
-    for name, (nbytes, ops) in rows.items():
-        bytes_us = 1e6 * nbytes / PEAK_BYTES
-        ops_us = 1e6 * sum(count / PEAK_FLOPS[t]
-                           for t, count in ops.items())
-        print(f"bound of {name}: {nbytes / 1e6:.2f} MB -> {bytes_us:.2f} us "
-              f"bytes, {sum(ops.values()) / 1e9:.3f} G operations -> "
-              f"{ops_us:.2f} us; bound by "
-              f"{'bytes' if bytes_us >= ops_us else 'operations'}")
 
 
 def build_kernels():
@@ -1730,7 +2295,7 @@ def build_kernels():
 
     names = ("flash_attention", "flash_attention_bwd",
              "flash_attention_lowrank", "flash_attention_lowrank_bwd",
-             "csi_preprocess")
+             "csi_preprocess", "int8_matmul")
     start = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         took = dict(zip(names, pool.map(timed, names)))
@@ -1813,6 +2378,8 @@ def main() -> int:
     k4_times = phase_lowrank_backward(
         flash_attention_lowrank_bias, flash_attention_lowrank_bias_backward,
         flash_attention_lowrank_bias_backward_reference)
+    phase_p1()
+    phase_fits()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         preprocessed, converted_amp = preprocess_phase(work)
@@ -1826,6 +2393,18 @@ def main() -> int:
               "DETR launched the attention kernel")
         encoder = serve_phase("THAT_ENCODER", requests,
                               lambda n: (7, n, 5, 10), 5)
+        calib = os.path.join(work, "calib.npy")
+        np.save(calib, np.random.default_rng(SEED + 3).standard_normal(
+            (CALIB_WINDOWS, LENGTH, CHANNELS), dtype=np.float32))
+        int8_runs = [
+            int8_serve_phase("DETR", requests, calib, DETR_S8, DETR_BF16,
+                             lambda n: (6, n, 5, 10), 0),
+            int8_serve_phase("THAT_ENCODER", requests, calib, ENCODER_S8,
+                             ENCODER_BF16, lambda n: (7, n, 5, 10), 5),
+            int8_cli_phase(calib)]
+        p1_totals("THAT_ENCODER w8a8", ENCODER_S8, torch.int8)
+        p1_totals("THAT_ENCODER w8a8", ENCODER_BF16, torch.bfloat16)
+        encoder_int8 = int8_runs[1]
         del requests
 
         data = training_data()
@@ -1839,8 +2418,10 @@ def main() -> int:
         clips = video_requests()
         served = [video_serve_phase(key, clips) for key in
                   ("MViT-v1", "MViT-v2")]
+        video_int8 = video_int8_phase(clips)
+        int8_runs.append(video_int8)
         del clips
-        video = [runs for runs, _ in served]
+        video = [runs for runs, _ in served] + [video_int8]
         video += [video_card_vs_cpu(key) for key in ("MViT-v1", "MViT-v2")]
         video += [video_evaluate_phase(work, key) for key in
                   ("MViT-v1", "MViT-v2")]
@@ -1857,7 +2438,6 @@ def main() -> int:
                             "bfloat16")]
         video += trained_video
 
-    pending_bounds()
     # K1 and K2: per THAT forward (bf16 serving, batch 256) and per THAT
     # training step (f32, batch 16), 4 left-stream and 1 right-stream
     # launches; launches summed over every main path that ran them. K5:
@@ -1865,14 +2445,18 @@ def main() -> int:
     # 2, the bias on), its 16 launches; launches summed over the video
     # serving, card-vs-CPU, evaluate and training runs of both variants.
     # K4's two kernels: per MViT-v2 training step (f32, batch 2), 3 each;
-    # launches summed over every training run.
+    # launches summed over every training run. P1's two instantiations: per
+    # DETR w8a8 forward (bf16 serving, batch 256), 22 s8 and 54 bf16
+    # products; launches summed over the int8 serving runs (DETR and
+    # THAT_ENCODER w8a8, the serve_csi CLI, MViT-v2 w8).
     trace = k5_times["trace"]
     k5_bytes, k5_ops = trace["bytes_ms"], trace["ops_ms"]
     print(json.dumps({"kernels": [
         kernel_entry("flash_attention", "flash_attention.cu",
                      "multi_modal_csi_tpu/kernels/flash_attention.py:108",
                      sum(runs.get("flash_attention", 0) for runs in
-                         (that, trained, encoder, experiment)), fwd_times,
+                         (that, trained, encoder, experiment,
+                          encoder_int8)), fwd_times,
                      {"that-left": 4, "that-right": 1}, torch.bfloat16),
         kernel_entry("flash_attention_backward", "flash_attention_bwd.cu",
                      "multi_modal_csi_tpu/kernels/flash_attention.py:271",
@@ -1901,6 +2485,12 @@ def main() -> int:
                  sum(runs[DQ] for runs in trained_video), k4_times, "dq"),
         k4_entry(DKV, "multi_modal_csi_tpu/kernels/flash_attention.py:492",
                  sum(runs[DKV] for runs in trained_video), k4_times, "dkv"),
+        p1_entry(S8, "tools/exp_pallas_int8.py:43",
+                 sum(runs.get(S8, 0) for runs in int8_runs), DETR_S8,
+                 torch.int8),
+        p1_entry(BF16, "tools/exp_pallas_int8.py:48",
+                 sum(runs.get(BF16, 0) for runs in int8_runs), DETR_BF16,
+                 torch.bfloat16),
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

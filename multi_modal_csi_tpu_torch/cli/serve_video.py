@@ -3,15 +3,18 @@
 Usage:
   python -m multi_modal_csi_tpu_torch.cli.serve_video --model MViT-v2 \
       [--task identity] [--pretrained PATH] [--clip 45,224,224] \
-      [--batch 0] [--dtype auto] [--device cuda] [--requests 2,1,3]
+      [--batch 0] [--dtype auto] [--device cuda] [--requests 2,1,3] \
+      [--quant none] [--calib F.npy] [--calib-stat amax]
 
 The weights are drawn from a seeded generator, or loaded from a
 torchvision-layout checkpoint with ``--pretrained`` (its tables resized to
 the clip). Each request is a seeded numpy array of (n, T, H, W, 3) float32
-clips in host memory, in the JAX cache layout. Prints each request's
-output shape and the clips per second over all requests, timed from the
-host arrays to the logits back on the host. The first request is answered
-once untimed, as warm-up.
+clips in host memory, in the JAX cache layout. ``--quant`` serves int8
+weights (``core/quantize.py``; MViT's Linears, never its Conv3d); w8a8
+calibrates on ``--calib``, a .npy of (n, T, H, W, 3) clips. Prints each
+request's output shape and the clips per second over all requests, timed
+from the host arrays to the logits back on the host. The first request is
+answered once untimed, as warm-up.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 from ..core.serving import VideoServer
 from ..runners.video import (TASK_OUT_FEATURES, VIDEO_CLIP, VIDEO_MODELS,
                              build_video_model, load_video_pretrained)
+from .serve_csi import add_quant_arguments, quant_arguments
 
 SEED = 0
 
@@ -52,7 +56,9 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda")
     p.add_argument("--requests", default="2,1,3",
                    help="comma-separated clip counts, one per request")
+    add_quant_arguments(p)
     args = p.parse_args(argv)
+    quant, calib = quant_arguments(args)
 
     clip = tuple(int(n) for n in args.clip.split(","))
     sizes = [int(n) for n in args.requests.split(",")]
@@ -61,7 +67,9 @@ def main(argv=None) -> None:
     if args.pretrained:
         load_video_pretrained(args.pretrained, args.model, model)
     server = VideoServer(args.model, model, batch=args.batch or None,
-                         dtype=args.dtype, device=args.device)
+                         dtype=args.dtype, device=args.device,
+                         quant=quant, calib=calib,
+                         calib_stat=args.calib_stat)
     requests = make_clips(sizes, SEED, clip)
     server(requests[0]).cpu()                                  # warm-up
 
@@ -72,7 +80,8 @@ def main(argv=None) -> None:
         print(f"{args.model}: request of {n} clips -> logits {shape}")
     device = (torch.cuda.get_device_name(server.device)
               if server.device.type == "cuda" else "cpu")
-    print(f"{args.model} {server.dtype} batch {server.batch} on {device}: "
+    print(f"{args.model} {server.dtype} quant {server.quant} batch "
+          f"{server.batch} on {device}: "
           f"{sum(sizes) / seconds:.2f} clips/s over {sum(sizes)} clips of "
           f"{clip}")
 

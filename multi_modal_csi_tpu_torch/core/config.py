@@ -13,6 +13,7 @@ JAX package's ``core/config.py`` (which the port does not import).
 - the serving dtype and batch with their ``resolve_*`` functions. The JAX
   package's tables differ per model only for video models (MViT serves in
   bf16 at batch 2); every CSI model serves in bf16 at batch 256.
+- the int8 serving mode per model (``QUANT_DEFAULTS``, ``resolve_quant``).
 
 Left out until their ROADMAP items: the device mesh (item 14) and the
 metric writers (W&B, JSONL, profile directory; item 15).
@@ -265,6 +266,33 @@ def resolve_serving_dtype(compute_dtype: str, model_name: str) -> str:
     if compute_dtype != "auto":
         return compute_dtype
     return SERVING_DTYPE_DEFAULTS.get(model_name, CSI_SERVING_DTYPE)
+
+
+# the int8 serving mode that --quant auto picks per model (JAX
+# core/config.py:297-304): full int8 for DETR, THAT_ENCODER and the video
+# conv backbones, weight-only for the MLP; every other model unquantized
+QUANT_DEFAULTS: Dict[str, Optional[str]] = {
+    "DETR": "w8a8",
+    "THAT_ENCODER": "w8a8",
+    "MLP": "w8",
+    "ResNet": "w8a8",
+    "S3D": "w8a8",
+}
+QUANT_CHOICES = ("none", "auto", "w8", "w8a8")
+
+
+def resolve_quant(quant: Optional[str], model_name: str) -> Optional[str]:
+    """--quant for a model as None, "w8" or "w8a8": "auto" takes
+    ``QUANT_DEFAULTS`` (None for a model not listed), "none" and None
+    disable, "w8" and "w8a8" always win."""
+    if quant not in QUANT_CHOICES and quant is not None:
+        raise ValueError(f"quant must be one of {QUANT_CHOICES}, got "
+                         f"{quant!r}")
+    if quant == "auto":
+        return QUANT_DEFAULTS.get(model_name)
+    if quant in (None, "none"):
+        return None
+    return quant
 
 
 def resolve_serving_batch(model_name: str,

@@ -10,11 +10,19 @@ an eager PyTorch model.
   into batches of the serving batch; the last is zero-padded, and the
   padding is cut from the output along the model's output batch axis
   (from the model table, never guessed from sizes).
+- int8 serving (``quant``, ``core/quantize.py``), in the order of JAX's
+  ``core/export.py:71-86``: after the cast, the calibration samples
+  (``calib``, split into serving batches, fed as given: float32, not cast)
+  run through the model while it records, and the hooked weights are
+  quantized in place, their scales float32. ``w8a8`` needs ``calib``;
+  ``w8`` without it discovers the hooked layers with one zero sample. A
+  quantized server holds int8 weights or raises: it never serves float
+  when int8 is asked.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -23,10 +31,13 @@ from torch import nn
 from ..runners.csi import CSI_MODELS
 from ..runners.video import video_spec
 from ..train.loop import cast_for_serving
-from .config import resolve_serving_batch, resolve_serving_dtype
+from .config import (CSI_CHANNELS, Config, resolve_quant,
+                     resolve_serving_batch, resolve_serving_dtype)
 from .device import resolve_device
+from .quantize import quantize_for_serving
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+Samples = Union[np.ndarray, torch.Tensor]
 __all__ = ["CSIServer", "VideoServer", "cast_for_serving"]
 
 
@@ -39,7 +50,9 @@ class _Server:
 
     def __init__(self, model_key: str, model: nn.Module, batch_axis: int, *,
                  batch: Optional[int], dtype: str,
-                 device: Optional[Union[str, torch.device]]):
+                 device: Optional[Union[str, torch.device]],
+                 quant: Optional[str], calib: Optional[Samples],
+                 calib_stat: str, sample_shape: Tuple[int, ...]):
         self.model_key = model_key
         self.device = resolve_device(device)
         self.dtype = _DTYPES[resolve_serving_dtype(dtype, model_key)]
@@ -47,6 +60,25 @@ class _Server:
         self.batch_axis = batch_axis
         self.model = cast_for_serving(model.to(self.device).eval(),
                                       self.dtype)
+        self.quant = resolve_quant(quant, model_key)
+        if self.quant is not None:
+            self._quantize(calib, calib_stat, sample_shape)
+
+    def _quantize(self, calib: Optional[Samples], stat: str,
+                  sample_shape: Tuple[int, ...]) -> None:
+        if calib is None:
+            if self.quant != "w8":
+                raise ValueError(
+                    f"{self.quant} serving of {self.model_key} needs calib "
+                    f"samples to calibrate the activation scales")
+            calib = torch.zeros((1, *sample_shape))
+        calib = torch.as_tensor(calib)
+        batches = (calib[i:i + self.batch].to(self.device)
+                   for i in range(0, calib.shape[0], self.batch))
+        quantize_for_serving(self.model, batches, mode=self.quant, stat=stat)
+        if not any(p.dtype == torch.int8 for p in self.model.parameters()):
+            raise ValueError(f"{self.quant} serving of {self.model_key}: no "
+                             f"weight of the model was quantized")
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -85,7 +117,10 @@ class CSIServer(_Server):
     ``model`` is a port model for ``model_key`` (from
     ``runners.csi.build_model`` or with carried-over weights); the server
     moves it to ``device`` (the card unless told otherwise), casts it, and
-    puts it in eval mode.
+    puts it in eval mode. ``quant`` is None, "none", "auto" (the model's
+    ``QUANT_DEFAULTS``), "w8" or "w8a8"; ``calib`` an array of windows
+    (n, length, channels); ``calib_stat`` "amax" or "p999". ``w8`` without
+    ``calib`` discovers with one zero window of the full width (3000, 270).
     """
 
     sample_dims = 2
@@ -93,12 +128,16 @@ class CSIServer(_Server):
 
     def __init__(self, model_key: str, model: nn.Module, *,
                  batch: Optional[int] = None, dtype: str = "auto",
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 quant: Optional[str] = None, calib: Optional[Samples] = None,
+                 calib_stat: str = "amax"):
         if model_key not in CSI_MODELS:
             raise KeyError(f"unknown model {model_key!r}; ported: "
                            f"{sorted(CSI_MODELS)}")
         super().__init__(model_key, model, CSI_MODELS[model_key].batch_axis,
-                         batch=batch, dtype=dtype, device=device)
+                         batch=batch, dtype=dtype, device=device,
+                         quant=quant, calib=calib, calib_stat=calib_stat,
+                         sample_shape=(Config().data.length, CSI_CHANNELS))
 
 
 class VideoServer(_Server):
@@ -108,6 +147,9 @@ class VideoServer(_Server):
     ``model`` is a port model for ``model_key`` (from
     ``runners.video.build_video_model``, or loaded with
     ``load_video_pretrained``) built for the requests' clip size.
+    ``quant``, ``calib`` (clips) and ``calib_stat`` as for ``CSIServer``;
+    ``w8`` without ``calib`` discovers with one zero clip of the model's
+    clip size. Only MViT's Linears are hooked (its Conv3d are not).
     """
 
     sample_dims = 4
@@ -115,8 +157,12 @@ class VideoServer(_Server):
 
     def __init__(self, model_key: str, model: nn.Module, *,
                  batch: Optional[int] = None, dtype: str = "auto",
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 quant: Optional[str] = None, calib: Optional[Samples] = None,
+                 calib_stat: str = "amax"):
         video_spec(model_key)
         super().__init__(model_key, model, 0, batch=batch, dtype=dtype,
-                         device=device)
+                         device=device, quant=quant, calib=calib,
+                         calib_stat=calib_stat,
+                         sample_shape=(*model.backbone.clip, 3))
 

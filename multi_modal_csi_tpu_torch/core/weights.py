@@ -19,6 +19,13 @@ named after):
 The weight-shared decoder layer is written under every
 ``decoder_layers.{i}`` index, as the port's state dict repeats it.
 
+A tree quantized by the JAX package (``core/quantize.py`` there) carries
+across too: an int8 ``kernel`` (or ``in_proj_weight``/``out_proj_weight``)
+stays int8 in the port's layout, ``kernel_scale`` becomes
+``weight_scale``, ``input_scale`` keeps its name, ``in_proj_weight_scale``
+too, and ``out_proj_weight_scale`` becomes ``out_proj.weight_scale``
+(float32 each). ``core.quantize.load_quantized`` loads such a state dict.
+
 MViT (``tools/convert_torchvision.py::convert_mvit`` inverted): Conv3d
 ``kernel`` (kt, kh, kw, in/groups, out) -> ``weight`` (out, in/groups, kt,
 kh, kw); Linear and LayerNorm as above; the backbone under ``backbone.``
@@ -43,17 +50,36 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
 
+def _w(a) -> torch.Tensor:
+    """A weight already in the port's layout: int8 stays int8 (a
+    quantized tree), anything else becomes float32."""
+    if np.asarray(a).dtype == np.int8:
+        return torch.from_numpy(np.array(a, dtype=np.int8, copy=True))
+    return _t(a)
+
+
+def _scales(sd: StateDict, p, pre: str) -> None:
+    """A quantized layer's ``kernel_scale`` and ``input_scale``, where
+    present."""
+    if "kernel_scale" in p:
+        sd[f"{pre}.weight_scale"] = _t(p["kernel_scale"])
+    if "input_scale" in p:
+        sd[f"{pre}.input_scale"] = _t(p["input_scale"])
+
+
 def _linear(sd: StateDict, p, pre: str) -> None:
-    sd[f"{pre}.weight"] = _t(np.asarray(p["kernel"]).T)
+    sd[f"{pre}.weight"] = _w(np.asarray(p["kernel"]).T)
     if "bias" in p:
         sd[f"{pre}.bias"] = _t(p["bias"])
+    _scales(sd, p, pre)
 
 
 def _conv1d(sd: StateDict, p, pre: str) -> None:
     c = p["conv"]
-    sd[f"{pre}.weight"] = _t(np.transpose(np.asarray(c["kernel"]), (2, 1, 0)))
+    sd[f"{pre}.weight"] = _w(np.transpose(np.asarray(c["kernel"]), (2, 1, 0)))
     if "bias" in c:
         sd[f"{pre}.bias"] = _t(c["bias"])
+    _scales(sd, c, pre)
 
 
 def _bn(sd: StateDict, p, s, pre: str) -> None:
@@ -69,10 +95,14 @@ def _ln(sd: StateDict, p, pre: str) -> None:
 
 
 def _mha(sd: StateDict, p, pre: str) -> None:
-    sd[f"{pre}.in_proj_weight"] = _t(np.asarray(p["in_proj_weight"]).T)
+    sd[f"{pre}.in_proj_weight"] = _w(np.asarray(p["in_proj_weight"]).T)
     sd[f"{pre}.in_proj_bias"] = _t(p["in_proj_bias"])
-    sd[f"{pre}.out_proj.weight"] = _t(np.asarray(p["out_proj_weight"]).T)
+    sd[f"{pre}.out_proj.weight"] = _w(np.asarray(p["out_proj_weight"]).T)
     sd[f"{pre}.out_proj.bias"] = _t(p["out_proj_bias"])
+    if "in_proj_weight_scale" in p:
+        sd[f"{pre}.in_proj_weight_scale"] = _t(p["in_proj_weight_scale"])
+    if "out_proj_weight_scale" in p:
+        sd[f"{pre}.out_proj.weight_scale"] = _t(p["out_proj_weight_scale"])
 
 
 def _gaussian(sd: StateDict, p, pre: str) -> None:
@@ -242,10 +272,11 @@ _EXPORTERS = {
 def state_dict_from_jax(
         model_key: str, variables: Mapping[str, Any], *,
         num_decoder_layers: int = NNConfig.num_decoder_layers) -> StateDict:
-    """The port's float32 state dict for the JAX ``variables`` of
-    ``model_key``. ``num_decoder_layers`` says how many times the shared
-    decoder layer of DETR and THAT_ENCODER is listed (the JAX tree holds
-    it once), and so how many class heads THAT_ENCODER has (one more)."""
+    """The port's state dict (float32, the int8 weights of a quantized
+    tree kept int8) for the JAX ``variables`` of ``model_key``.
+    ``num_decoder_layers`` says how many times the shared decoder layer of
+    DETR and THAT_ENCODER is listed (the JAX tree holds it once), and so
+    how many class heads THAT_ENCODER has (one more)."""
     if model_key not in _EXPORTERS:
         raise KeyError(f"no weight map for model {model_key!r} "
                        f"(have {sorted(_EXPORTERS)})")
@@ -278,12 +309,15 @@ def resize_mvit_tables(state: Mapping[str, Any], variant: str,
     adapted to clips of ``target_clip`` = (T, H, W).
 
     v2: each block's decomposed relative tables are interpolated linearly
-    to the sizes the clip gives, as torchvision does at run time. v1: the
+    to the sizes the live model has at that clip (the pooled sizes are
+    ceilings, as the stride-2 pooling convs give them), as torchvision
+    does at run time. v1: the
     absolute tables are drawn afresh at the clip's size from
     ``default_rng(1)`` (std 0.02), as the reference rebuilds its positional
     encoding per clip size. Other entries are passed through.
     """
-    from ..models.video.mvit import _block_configs, patchified
+    from ..models.video.mvit import (_block_configs, _pooled, patchified,
+                                     rel_table_sizes)
     sd = dict(state)
     tt, hh, ww = patchified(target_clip)
     if variant == "v1":
@@ -294,15 +328,13 @@ def resize_mvit_tables(state: Mapping[str, Any], variant: str,
             sd[f"pos_encoding.{name}"] = _t(
                 rng.standard_normal(shape) * 0.02)
         return sd
-    size = [tt, hh, ww]
+    thw = (tt, hh, ww)
     for i, cfg in enumerate(_block_configs(variant)):
         pre = f"blocks.{i}.attn.rel_pos_"
-        sp = max(size[1], size[2])
-        rel_sp = 2 * max(sp // cfg.q_stride[1], sp // cfg.kv_stride[1]) - 1
-        for axis, dst in (("h", rel_sp), ("w", rel_sp),
-                          ("t", 2 * size[0] - 1)):
+        rel_sp, rel_t = rel_table_sizes(thw, cfg.q_stride, cfg.kv_stride)
+        for axis, dst in (("h", rel_sp), ("w", rel_sp), ("t", rel_t)):
             table = np.asarray(sd[pre + axis], dtype=np.float32)
             sd[pre + axis] = _t(_interp_table_np(table, dst))
         if cfg.has_pool_q:
-            size = [s // st for s, st in zip(size, cfg.q_stride)]
+            thw = _pooled(thw, cfg.q_stride)
     return sd

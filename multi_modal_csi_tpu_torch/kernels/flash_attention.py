@@ -28,6 +28,30 @@ BWD_NAME = "flash_attention_backward"
 BWD_SOURCE = "flash_attention_bwd"    # csrc/flash_attention_bwd.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CUDA_ERROR_INVALID_VALUE = 1     # cudaErrorInvalidValue
+# a block's shared memory on an H100, the launchers' limit (kMaxSharedBytes)
+MAX_SHARED_BYTES = 232448
+_WARPS = 8                        # kWarps of both kernels
+
+
+def forward_fits(nk: int, d: int) -> bool:
+    """Whether K1's launcher takes Nk keys of head dim D: its
+    ``smem_bytes(nk, d)`` (``csrc/flash_attention.cu``), term for term, f32
+    K at the odd row stride D | 1, V, one weight row and one query row per
+    warp, within the block's shared memory."""
+    need = 4 * (nk * (d | 1) + nk * d + _WARPS * nk + _WARPS * d)
+    return need <= MAX_SHARED_BYTES
+
+
+def backward_fits(nq: int, nk: int, d: int) -> bool:
+    """Whether K2's launcher takes Nq queries and Nk keys of head dim D:
+    its ``smem_bytes(nq, nk, d)`` (``csrc/flash_attention_bwd.cu``), term
+    for term, f32 Q and dO, K and V at the odd row stride D | 1, three
+    per-query rows and two rows of max(Nq, Nk) per warp, within the
+    block's shared memory."""
+    stride = d | 1
+    need = 4 * (2 * nq * stride + 2 * nk * stride + 3 * nq
+                + 2 * _WARPS * max(nq, nk))
+    return need <= MAX_SHARED_BYTES
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,

@@ -116,6 +116,15 @@ def _pooled(thw: THW, stride: THW) -> THW:
     return tuple((n - 1) // s + 1 for n, s in zip(thw, stride))
 
 
+def rel_table_sizes(input_thw: THW, q_stride: THW,
+                    kv_stride: THW) -> Tuple[int, int]:
+    """(spatial, temporal) lengths of a v2 block's relative tables for
+    its input size ``input_thw``."""
+    size = max(input_thw[1], input_thw[2])
+    return (2 * max(size // q_stride[1], size // kv_stride[1]) - 1,
+            2 * input_thw[0] - 1)
+
+
 def _interp_weights(src: int, dst: int):
     """torch F.interpolate(mode='linear', align_corners=False) gather plan."""
     pos = (np.arange(dst) + 0.5) * (src / dst) - 0.5
@@ -285,11 +294,10 @@ class MultiscaleAttention(nn.Module):
         self.pool_v = PoolConv(d, (3, 3, 3), kv_stride, generator=g)
         self.rel_pos_h = self.rel_pos_w = self.rel_pos_t = None
         if rel_pos:
-            size = max(input_thw[1], input_thw[2])
-            rel_sp = 2 * max(size // q_stride[1], size // kv_stride[1]) - 1
+            rel_sp, rel_t = rel_table_sizes(input_thw, q_stride, kv_stride)
             self.rel_pos_h = _table((rel_sp, d), g)
             self.rel_pos_w = _table((rel_sp, d), g)
-            self.rel_pos_t = _table((2 * input_thw[0] - 1, d), g)
+            self.rel_pos_t = _table((rel_t, d), g)
 
     def forward(self, x: torch.Tensor, thw: THW
                 ) -> Tuple[torch.Tensor, THW]:

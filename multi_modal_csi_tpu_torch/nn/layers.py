@@ -21,6 +21,12 @@ values are rounded:
 Training: BatchNorm uses batch statistics and updates its running ones as
 torch does; dropout draws its masks from the generator that
 ``dropout_generator`` installs for the step (the global one outside it).
+
+int8 serving (``core/quantize.py``): an int8 weight is the signal, as in
+JAX. ``Linear`` and ``Conv1d`` with an int8 weight run the quantized
+product (w8, or w8a8 when an ``input_scale`` buffer is present) and
+otherwise record their input under calibration; ``MultiheadAttention``'s
+packed projections are weight-only. ``Conv3d`` is not hooked.
 """
 
 from __future__ import annotations
@@ -33,8 +39,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.flash_attention import (flash_attention,
-                                       flash_attention_trainable)
+from ..core.quantize import (conv_forward, dense_forward, mark_weight_only,
+                             record_input)
+from ..kernels.flash_attention import (backward_fits, flash_attention,
+                                       flash_attention_trainable,
+                                       forward_fits)
 from .init import torch_bias_, torch_linear_weight_, xavier_uniform_
 
 
@@ -57,7 +66,9 @@ def dense(x: torch.Tensor, weight: torch.Tensor,
 
 class Linear(nn.Module):
     """torch.nn.Linear's parameters, xavier-uniform or torch-default weight,
-    torch-default bias; the output keeps the input's dtype."""
+    torch-default bias; the output keeps the input's dtype. With an int8
+    weight (``core/quantize.py``) the product is the quantized one, in f32,
+    plus the bias, cast to the input's dtype."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  bias: bool = True, xavier: bool = True,
@@ -72,6 +83,13 @@ class Linear(nn.Module):
             torch_bias_(self.bias, in_features, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.weight.dtype == torch.int8:
+            y = dense_forward(x, self.weight, self.weight_scale,
+                              getattr(self, "input_scale", None))
+            if self.bias is not None:
+                y = y + self.bias
+            return y.to(x.dtype)
+        record_input(self, x)
         return dense(x, self.weight, self.bias, x.dtype)
 
 
@@ -88,7 +106,10 @@ class Conv1d(nn.Module):
     """1-D convolution on (B, L, C) with torch Conv1d's parameters.
 
     ``padding`` is an int (both sides), "SAME" or "VALID". Input, weight
-    and bias are promoted to one dtype, in which the convolution runs.
+    and bias are promoted to one dtype, in which the convolution runs. With
+    an int8 weight (``core/quantize.py``) the convolution is the quantized
+    product over the padded input's columns, in f32, plus the bias, cast to
+    the input's dtype.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
@@ -120,6 +141,15 @@ class Conv1d(nn.Module):
         return self.padding, self.padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.weight.dtype == torch.int8:
+            y = conv_forward(x, self.weight, self.weight_scale,
+                             getattr(self, "input_scale", None),
+                             pads=self.pads(x.shape[1]), stride=self.stride,
+                             dilation=self.dilation, groups=self.groups)
+            if self.bias is not None:
+                y = y + self.bias
+            return y.to(x.dtype)
+        record_input(self, x)
         dtype = torch.promote_types(x.dtype, self.weight.dtype)
         if self.bias is not None:
             dtype = torch.promote_types(dtype, self.bias.dtype)
@@ -356,11 +386,21 @@ class MultiheadAttention(nn.Module):
     With at least 64 query and 64 key tokens, attention runs in the fused
     kernels (``kernels/flash_attention.py``), as in the JAX package
     (``nn/layers.py:433-437`` there): in eval mode K1 in the serving
-    dtype; in training, when ``dropout`` is 0, ``flash_attention_trainable``
-    (K1 forward, K2 backward). The gate does not look at the device: on CPU
-    tensors the kernels' plain versions run. Other shapes take the eager
-    branch, which in bf16 rounds logits and weights to bf16 as the JAX
-    package does.
+    dtype, when K and V fit in the kernel's shared memory
+    (``forward_fits``); in training, when ``dropout`` is 0 and K2's
+    operands fit too (``backward_fits``), ``flash_attention_trainable``
+    (K1 forward, K2 backward). The gate looks at shapes, never at the
+    device: on CPU tensors the kernels' plain versions run. Other shapes
+    take the eager branch, which in bf16 rounds logits and weights to bf16
+    as the JAX package does (whose K2 takes XLA's backward where a row does
+    not fit).
+
+    int8 serving: ``in_proj_weight`` and ``out_proj.weight`` are
+    weight-only quantizable (never an ``input_scale``; ``out_proj`` never
+    records an input). With int8 weights each projection is the bf16 x
+    bf16 -> f32 product times the per-row scale plus the bias, and the
+    serving dtype is the bias's, as in JAX (``nn/layers.py:377-396``,
+    ``:441-445``).
     """
 
     def __init__(self, embed_dim: int, num_heads: int, *,
@@ -388,26 +428,39 @@ class MultiheadAttention(nn.Module):
         e, h = self.embed_dim, self.num_heads
         d = e // h
         w, b = self.in_proj_weight, self.in_proj_bias
-        # the serving dtype is the parameters' dtype
-        act = torch.bfloat16 if w.dtype == torch.bfloat16 else torch.float32
-        nk = (key if kv is None else kv[0]).shape[1]
-        shapes_ok = query.shape[1] >= 64 and nk >= 64
+        quantized = w.dtype == torch.int8
+        if not quantized:
+            mark_weight_only(self, "in_proj_weight", "out_proj.weight")
+        # the serving dtype is the parameters' dtype (the bias's under int8
+        # weights)
+        act = (torch.bfloat16 if (b if quantized else w).dtype
+               == torch.bfloat16 else torch.float32)
+        nq, nk = query.shape[1], (key if kv is None else kv[0]).shape[1]
+        shapes_ok = nq >= 64 and nk >= 64 and forward_fits(nk, d)
         if self.training:
             fused = flash_attention_trainable if (
-                shapes_ok and self.dropout == 0.0) else None
+                shapes_ok and self.dropout == 0.0
+                and backward_fits(nq, nk, d)) else None
         else:
             fused = flash_attention if shapes_ok else None
         # the fused branch projects straight into the serving dtype; the
         # eager branch keeps q, k, v in f32
         proj_dtype = act if fused is not None else torch.float32
 
+        def project(x, lo, hi):
+            if quantized:
+                scale = self.in_proj_weight_scale[lo:hi]
+                y = dense_forward(x, w[lo:hi], scale, None) + b[lo:hi]
+                return y.to(proj_dtype)
+            return dense(x, w[lo:hi], b[lo:hi], proj_dtype)
+
         def split(t):
             return t.reshape(*t.shape[:-1], h, d)
 
-        q = split(dense(query, w[:e], b[:e], proj_dtype))
+        q = split(project(query, 0, e))
         if kv is None:
-            kv = (split(dense(key, w[e:2 * e], b[e:2 * e], proj_dtype)),
-                  split(dense(value, w[2 * e:], b[2 * e:], proj_dtype)))
+            kv = (split(project(key, e, 2 * e)),
+                  split(project(value, 2 * e, 3 * e)))
         k, v = kv
         if fused is not None:
             ctx = fused(q, k.to(act).contiguous(), v.to(act).contiguous())
@@ -417,11 +470,14 @@ class MultiheadAttention(nn.Module):
         ctx = ctx.reshape(*query.shape[:-1], e)
 
         wo, bo = self.out_proj.weight, self.out_proj.bias
-        if self.output_scale != 1.0:
-            out = dense(ctx, wo, bo, torch.float32) * (1.0 / self.output_scale)
-            out = out.to(query.dtype)
+        scaled = self.output_scale != 1.0
+        if wo.dtype == torch.int8:
+            out = dense_forward(ctx, wo, self.out_proj.weight_scale, None) + bo
         else:
-            out = dense(ctx, wo, bo, query.dtype)
+            out = dense(ctx, wo, bo, torch.float32 if scaled else query.dtype)
+        if scaled:
+            out = out * (1.0 / self.output_scale)
+        out = out.to(query.dtype)
         return (out, kv) if return_kv else out
 
 

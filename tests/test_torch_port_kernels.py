@@ -95,7 +95,8 @@ def test_kernel_sources_and_build_flags():
         "flash_attention_lowrank": ["flash_attention_lowrank"],
         "flash_attention_lowrank_bwd": ["flash_attention_lowrank_bwd_dq",
                                         "flash_attention_lowrank_bwd_dkv"],
-        "csi_preprocess": ["csi_preprocess"]}
+        "csi_preprocess": ["csi_preprocess"],
+        "int8_matmul": ["int8_matmul"]}
     assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == sorted(
         launchers)
     for stem, names in launchers.items():

@@ -92,14 +92,15 @@ def test_port_imports_nothing_of_jax():
     optax, multi_modal_csi_tpu or tools module (the port's own package
     name starts with the JAX package's, so names are compared exactly),
     and no pandas, sklearn or cv2, which the machine with the card does
-    not have. The video slices' modules are named, so that the test fails
-    if one of them goes missing."""
+    not have. The video and int8 slices' modules are named, so that the
+    test fails if one of them goes missing."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "multi_modal_csi_tpu_torch").rglob("*.py"))
     for video_module in ("models.video.mvit", "kernels.flash_attention_lowrank",
                          "data.video_io", "runners.video", "cli.serve_video",
-                         "cli.run_video"):
+                         "cli.run_video", "core.quantize",
+                         "kernels.int8_matmul"):
         assert f"multi_modal_csi_tpu_torch.{video_module}" in mods
     code = (
         "import importlib, sys\n"
