@@ -11,16 +11,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    six kernel sources (attention forward K1, its backward K2, the CSI
    amplitude-phase pass K5, MViT's low-rank-bias attention K3 and its
    backward K4, two kernels, and int8 serving's tile product P1) from
-   csrc/ with one nvcc each, started together, timed, with nvcc's
-   register and spill lines;
-2. K1 against its plain PyTorch version on the card, f32 and bf16, at
+   csrc/ with one nvcc each, started together, timed, with ptxas's line
+   (registers, spills, static shared memory) for each kernel;
+2. K1 against its plain PyTorch version on the card, f32 and bf16 (the
+   bf16 one is the tensor-core kernel of csrc/tc_attention.cuh), at
    THAT's left (256, 150, 10, 27) and right (256, 270, 10, 15) shapes,
    THAT_ENCODER's right (256, 270, 10, 27), a ragged (3, 64, 10, 15) case
-   and a cross case (Nq 128, Nk 420, 6 heads of 45); then per-launch times
+   and a cross case (Nq 128, Nk 420, 6 heads of 45), and in bf16 2048 keys
+   of D = 27 (past the f32 kernel's 933); then per-launch times
    with CUDA events in the order plain, kernel, kernel, plain, beside
    scaled_dot_product_attention's time on the same inputs (a yardstick the
-   port never calls) and the card's bound for the same work; a K and V too
-   large for shared memory must raise;
+   port never calls) and the card's bound for the same work; an f32 K and
+   V too large for shared memory, and a bf16 head dim of 129, must
+   raise;
 3. K2 against its plain version, f32 and bf16, at THAT's and
    THAT_ENCODER's training shapes at batch 16 (and THAT's at 256), a
    ragged (3, 70, 10, 15) case with 97 keys and a cross case
@@ -39,7 +42,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    largest |out| (bf16), the row LSE within 1e-5 relative; per-call times
    at the block shapes in bf16 beside the plain version's,
    scaled_dot_product_attention's with r @ s as its mask, and the bound,
-   summed per MViT-v1 and v2 forward; a head dim of 160 must be refused;
+   summed per MViT-v1 and v2 forward (the bf16 kernel is the tensor-core
+   kernel of csrc/tc_attention.cuh, its bias a 3xTF32 product); a head dim
+   of 160, and in bf16 a bias of 129 factor columns, must be refused;
 4c. K4 (dQ/dR and dK/dV/dS kernels) against its plain version at MViT's
    three training block shapes of a (2, 45, 224, 224, 3) step and the JAX
    test's odd shapes, f32 and bf16, with and without the bias, both fed
@@ -58,8 +63,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    zero-padded to multiples of 8, as cuBLASLt needs) or bf16
    torch.matmul's (yardsticks the port never calls), and the bound; a K
    whose int32 sum could overflow must raise;
-4e. K1 and K2 at the largest shapes their fit predicates admit (one head
-   of 27): launched; one key or token more: refused with ValueError;
+4e. K1 and K2 at the largest shapes their fit predicates admit, each
+   instantiation: K1 f32 and K2 at one head of 27 (one key or token
+   more: refused with ValueError), K1 bf16 at 4096 keys of a head of 128
+   (a head of 129: refused);
 5. preprocessing on the card (cli/preprocess_csi.py, the default device):
    4 synthetic WiMANS .mat traces of 3000 packets to amplitude and phase
    files, exactly 4 K5 launches, seconds per trace by stage (.mat parse,
@@ -70,8 +77,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    requests of 256, 100 and 300 seeded windows, exactly 5 K1 launches per
    batch forward; windows/s from host memory, and with the requests
    already on the card; 5 batch forwards under torch.profiler for the
-   device time per forward, the device's busy share and the kernels with
-   the most device time; then the same weights at f32 (TF32 off, batch 4)
+   device time per forward, the device's busy share, the kernels with
+   the most device time and K1's share; then the same weights at f32 (TF32 off, batch 4)
    against the CPU, where the plain versions run; the same for DETR at
    the flagship configuration, with no kernel launch, and for
    THAT_ENCODER, with 5 K1 launches per forward;
@@ -106,7 +113,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    core/serving.py::VideoServer), bf16, batch 2: seeded weights, ragged
    requests of 2, 1 and 3 seeded (45, 224, 224, 3) clips, exactly 16 K3
    launches per batch forward; clips/s from host memory and with the
-   clips on the card; 5 forwards under torch.profiler; then a bf16
+   clips on the card; 5 forwards under torch.profiler (K3's share); then
+   a bf16
    training forward and backward of one batch: exactly 3 K3 and 3 of each
    K4 kernel (blocks 0-2 at the training gate, the eager path after);
 11b. MViT-v2 w8 serving at full width, bf16, batch 2 (the hooked set
@@ -169,6 +177,7 @@ SERVE_F32_TOL = 1e-4      # card vs CPU logits, f32, atol and rtol
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
               torch.int8: 1979e12}
+PEAK_TF32 = 495e12        # dense TF32 tensor cores: K3's bf16 bias
 RESIDENT_ROUNDS = 3        # timings of the requests already on the card
 PROFILED_FORWARDS = 5
 TOP_KERNELS = 12           # listed from the profile, by device time
@@ -179,6 +188,9 @@ KERNEL_SHAPES = {          # name: (q shape (B, Nq, H, D), Nk)
     "ragged": ((3, 64, 10, 15), 64),
     "cross": ((4, 128, 6, 45), 420),
 }
+# K1 in bf16 only: the tensor-core kernel streams the keys, so 2048 keys
+# of THAT's D = 27 (past the f32 kernel's 933) run too
+KERNEL_BF16_SHAPES = {"long": ((4, 256, 10, 27), 2048)}
 # K2, per gradient against the plain version's largest magnitude: f32 the
 # JAX package's bound for its own kernel (tests/test_kernels.py:165-168);
 # bf16 one rounding step of the largest value (both store bf16 gradients
@@ -318,11 +330,16 @@ def attention_bound(shape, nk, dtype):
 def phase_kernel(flash_attention, flash_attention_reference):
     """K1 against its plain version; times at the main path's shapes."""
     import torch.nn.functional as F
+    from multi_modal_csi_tpu_torch.kernels.flash_attention import (
+        TC_MAX_HEAD_DIM)
     set_tf32(False)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        for name, (shape, nk) in KERNEL_SHAPES.items():
+        shapes = dict(KERNEL_SHAPES)
+        if dtype == torch.bfloat16:
+            shapes.update(KERNEL_BF16_SHAPES)
+        for name, (shape, nk) in shapes.items():
             b, nq, h, d = shape
             q = torch.randn(shape, generator=gen, device="cuda").to(dtype)
             k = torch.randn((b, nk, h, d), generator=gen,
@@ -355,16 +372,19 @@ def phase_kernel(flash_attention, flash_attention_reference):
                   f" sdpa {lib:.4f} ms; bound: bytes {1e3 * bytes_ms:.1f} us,"
                   f" operations {1e3 * ops_ms:.1f} us")
 
-    # K and V of one (b, h) beyond the block's shared memory: refused
-    q = torch.zeros((1, 64, 1, 27), device="cuda")
-    kv = torch.zeros((1, 4096, 1, 27), device="cuda")
-    try:
-        flash_attention(q, kv, kv)
-        refused = False
-    except ValueError as e:
-        print(f"K1 Nk=4096 D=27: refused ({e})")
-        refused = True
-    check(refused, "K1 launched with K and V beyond shared memory")
+    # f32: K and V of one (b, h) beyond the block's shared memory; bf16: a
+    # head dim past the tensor-core kernel's: refused
+    for dtype, nk, d in ((torch.float32, 4096, 27),
+                         (torch.bfloat16, 64, TC_MAX_HEAD_DIM + 1)):
+        q = torch.zeros((1, 64, 1, d), device="cuda", dtype=dtype)
+        kv = torch.zeros((1, nk, 1, d), device="cuda", dtype=dtype)
+        try:
+            flash_attention(q, kv, kv)
+            refused = False
+        except ValueError as e:
+            print(f"K1 {dtype} Nk={nk} D={d}: refused ({e})")
+            refused = True
+        check(refused, f"K1 {dtype} launched at Nk={nk}, D={d}")
     return results
 
 
@@ -648,6 +668,15 @@ def profile_device(label, fn, count, unit):
                         for e in kernels}}
 
 
+def attention_share(key, what, profile):
+    """Print the bf16 tensor-core attention kernel's (K1's or K3's) device
+    ms per forward and share of the device time, from ``profile_device``."""
+    ms = sum(t for name, t in profile["kernels"].items()
+             if "tc::attention_kernel" in name)
+    print(f"{key}: {what} (tc::attention_kernel) {ms:.3f} ms per forward, "
+          f"{100 * ms / profile['device_ms']:.1f}% of the device time")
+
+
 def serve_phase(key, requests, expect_out, launches_per_forward):
     """Serve ``requests`` (host arrays) with ``key`` in bf16 at batch 256;
     then hold the same weights at f32 on the card against the CPU."""
@@ -708,8 +737,8 @@ def serve_phase(key, requests, expect_out, launches_per_forward):
           + ", ".join(f"{r:.1f}" for r in rates) + " windows/s")
     SERVE_RATES[key] = (n / host_s, rates)
     batch = resident[0][:server.batch]
-    profile_device(key, lambda: server.forward(batch), PROFILED_FORWARDS,
-                   "forward")
+    attention_share(key, "K1", profile_device(
+        key, lambda: server.forward(batch), PROFILED_FORWARDS, "forward"))
     del resident
 
     # f32 on the card (TF32 off) against the CPU, where the plain
@@ -1062,14 +1091,18 @@ def lowrank_bound(shape, bias, dtype):
     """The least times (ms) one K3 call needs on an H100 SXM: q, k, v, r
     and s read once and out and the LSE written once over the HBM rate;
     the QK^T and PV products (4 B*H*Nq*Nk*D) over the peak of the dtype
-    plus the bias product (2 B*H*Nq*Nk*M) over the f32 peak."""
+    plus the bias product (2 B*H*Nq*Nk*M): in f32 over the f32 peak, in
+    bf16 as the kernel computes it, three TF32 products (3xTF32) over the
+    TF32 tensor-core peak."""
     b, h, nq, nk, d, m = shape
     m = m if bias else 0
     item = torch.tensor([], dtype=dtype).element_size()
     nbytes = (2 * b * h * nq * d + 2 * b * h * nk * d) * item + 4 * (
         b * h * nq * m + m * nk + b * h * nq)
-    ops_ms = 1e3 * (4.0 * b * h * nq * nk * d / PEAK_FLOPS[dtype]
-                    + 2.0 * b * h * nq * nk * m / PEAK_FLOPS[torch.float32])
+    bias_ms = (2.0 * b * h * nq * nk * m / PEAK_FLOPS[torch.float32]
+               if dtype == torch.float32 else
+               3 * 2.0 * b * h * nq * nk * m / PEAK_TF32)
+    ops_ms = 1e3 * (4.0 * b * h * nq * nk * d / PEAK_FLOPS[dtype] + bias_ms)
     return 1e3 * nbytes / PEAK_BYTES, ops_ms
 
 
@@ -1081,6 +1114,8 @@ def phase_lowrank(lowrank, lowrank_reference):
     materialized as its attn_mask in q's dtype (the mask made outside the
     timed call) and the bound; a head dim of 160 must be refused."""
     import torch.nn.functional as F
+    from multi_modal_csi_tpu_torch.kernels.flash_attention_lowrank import (
+        MAX_BIAS_RANK_BF16)
     set_tf32(False)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     shapes = {n: s for n, (s, _) in LOWRANK_SHAPES.items()}
@@ -1157,14 +1192,22 @@ def phase_lowrank(lowrank, lowrank_reference):
               f"{per_forward['library_ms']:.3f} ms, bound "
               f"{max(per_forward['bytes_ms'], per_forward['ops_ms']):.3f} ms")
 
-    q = torch.zeros((1, 1, 8, 160), device="cuda")
-    try:
-        lowrank(q, q, q)
-        refused = False
-    except ValueError as e:
-        print(f"K3 D=160: refused ({e})")
-        refused = True
-    check(refused, "K3 launched with a head dim above 128")
+    # a head dim above 128 in either dtype; a bf16 bias past the
+    # tensor-core kernel's factor columns
+    for dtype, d, m in ((torch.float32, 160, 0), (torch.bfloat16, 160, 0),
+                        (torch.bfloat16, 8, MAX_BIAS_RANK_BF16 + 1)):
+        q = torch.zeros((1, 1, 8, d), device="cuda", dtype=dtype)
+        r = s = None
+        if m:
+            r = torch.zeros((1, 1, 8, m), device="cuda")
+            s = torch.zeros((m, 8), device="cuda")
+        try:
+            lowrank(q, q, q, r, s)
+            refused = False
+        except ValueError as e:
+            print(f"K3 {dtype} D={d} M={m}: refused ({e})")
+            refused = True
+        check(refused, f"K3 {dtype} launched at D={d}, M={m}")
     return results
 
 
@@ -1393,8 +1436,8 @@ def video_serve_phase(key, requests):
           f"host memory, {n} clips in {batches} batch forwards; with the "
           f"clips already on the card, {RESIDENT_ROUNDS} timings: "
           + ", ".join(f"{r:.2f}" for r in rates) + " clips/s")
-    profile_device(key, lambda: server.forward(batch), PROFILED_FORWARDS,
-                   "forward")
+    attention_share(key, "K3", profile_device(
+        key, lambda: server.forward(batch), PROFILED_FORWARDS, "forward"))
 
     # a training forward and backward of the same bf16 model: K3 and K4 at
     # blocks 0-2 (the training gate), the eager path at blocks 3-15
@@ -1924,33 +1967,44 @@ def phase_p1():
 
 
 def phase_fits():
-    """K1 and K2 at the largest shapes that their fit predicates admit
-    (one head of D = 27, THAT's): launched; one key (token) more: refused
-    with ValueError. The predicates and the C launchers agree."""
+    """Each instantiation at the largest shape that its fit predicate
+    admits: launched; one step beyond: refused with ValueError. K1 f32
+    and K2 (f32) at one head of D = 27, THAT's, one key (token) more; K1
+    bf16, which streams the keys, at 4096 keys of a head of 128, and a
+    head of 129. The predicates and the C launchers agree."""
     from multi_modal_csi_tpu_torch.kernels.flash_attention import (
         backward_fits, flash_attention, flash_attention_backward,
         forward_fits)
+    f32, bf16 = torch.float32, torch.bfloat16
     d = 27
-    nk = max(n for n in range(1, 4096) if forward_fits(n, d))
+    nk = max(n for n in range(1, 4096) if forward_fits(n, d, f32))
     nt = max(n for n in range(1, 4096) if backward_fits(n, n, d))
-    print(f"fit predicates at D={d}: K1 up to Nk={nk}, K2 up to "
-          f"Nq=Nk={nt}")
-    for what, n, call in (
-            ("K1", nk, lambda t, kv: flash_attention(t[:, :64], kv, kv)),
-            ("K2", nt, lambda t, kv: flash_attention_backward(t, kv, kv,
-                                                             t))):
-        for size, fits in ((n, True), (n + 1, False)):
-            t = torch.randn((1, size, 1, d), device="cuda")
-            try:
-                call(t, t)
-                torch.cuda.synchronize()
-                launched = True
-                print(f"{what} at {size}: launched")
-            except ValueError as e:
-                print(f"{what} at {size}: refused ({e})")
-                launched = False
-            check(launched == fits, f"{what} at {size} tokens: launched "
-                                    f"{launched}, predicate {fits}")
+    dk = max(n for n in range(1, 512) if forward_fits(4096, n, bf16))
+    print(f"fit predicates: K1 f32 up to Nk={nk} at D={d}, K2 up to "
+          f"Nq=Nk={nt} at D={d}, K1 bf16 up to D={dk} at any Nk")
+
+    def k1(size, dim, dtype):
+        t = torch.randn((1, size, 1, dim), device="cuda").to(dtype)
+        flash_attention(t[:, :64], t, t)
+
+    def k2(size, dim, dtype):
+        t = torch.randn((1, size, 1, dim), device="cuda").to(dtype)
+        flash_attention_backward(t, t, t, t)
+
+    cases = [("K1 f32", k1, f32, n, d, n == nk) for n in (nk, nk + 1)]
+    cases += [("K2", k2, f32, n, d, n == nt) for n in (nt, nt + 1)]
+    cases += [("K1 bf16", k1, bf16, 4096, n, n == dk) for n in (dk, dk + 1)]
+    for what, call, dtype, size, dim, fits in cases:
+        try:
+            call(size, dim, dtype)
+            torch.cuda.synchronize()
+            launched = True
+            print(f"{what} at {size} tokens, D={dim}: launched")
+        except ValueError as e:
+            print(f"{what} at {size} tokens, D={dim}: refused ({e})")
+            launched = False
+        check(launched == fits, f"{what} at {size} tokens, D={dim}: "
+                                f"launched {launched}, predicate {fits}")
 
 
 @contextlib.contextmanager
@@ -2302,9 +2356,30 @@ def build_kernels():
     print(f"kernels built and loaded in {time.perf_counter() - start:.1f} s: "
           + ", ".join(f"{n} {t:.1f} s" for n, t in took.items()))
     for name in names:
-        for line in build.LOGS.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  nvcc {name}: {line.strip()}")
+        for kernel, line in ptxas_lines(build.LOGS.get(name, "")):
+            print(f"  ptxas {name}: {kernel}: {line}")
+
+
+def ptxas_lines(log):
+    """(kernel, "registers ...; spills ...") for each kernel in an nvcc
+    ``-Xptxas -v`` log; the tensor-core attention's instantiations named
+    ``tc::attention_kernel<k-steps, bias>``."""
+    import re
+    out, kernel, spill = [], "?", ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            kernel = entry.group(1)
+            tc = re.fullmatch(r"_ZN2tc16attention_kernelILi(\d+)ELb(\d)E"
+                              r"EEvNS_6ParamsE", kernel)
+            if tc:
+                kernel = (f"tc::attention_kernel<{tc.group(1)}, "
+                          f"{'true' if tc.group(2) == '1' else 'false'}>")
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            out.append((kernel, f"{line.split(':', 1)[1].strip()}; {spill}"))
+    return out
 
 
 def kernel_entry(name, source, replaces, launches, times, per_call, dtype):

@@ -3,9 +3,10 @@ with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher and is
 compiled alone with ``nvcc`` (no PyTorch headers, so a build takes seconds)
-into ``_build/lib<name>-<hash>.so``, where the hash covers the source and the
-flags: an unchanged source is not rebuilt, a changed one never loads a stale
-library.
+into ``_build/lib<name>-<hash>.so``, where the hash covers the source, every
+``csrc/`` header it includes (``#include "x.cuh"``, followed through headers)
+and the flags: an unchanged source is not rebuilt, a changed one or one
+whose header changed never loads a stale library.
 """
 
 from __future__ import annotations
@@ -13,11 +14,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -40,10 +42,37 @@ def _nvcc() -> str:
                        "source at first use and need the CUDA toolkit")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the ``csrc/`` headers it includes, directly
+    or through another header, each once, in the order first met."""
+    found: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [CSRC / inc for inc in _INCLUDE.findall(path.read_text())]
+    return found
+
+
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    digest = hashlib.sha256()
+    for path in _sources(name):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def _command(name: str, out: str) -> List[str]:
+    """nvcc's argv building ``csrc/<name>.cu`` into ``out``; ``-I csrc``
+    finds the shared headers."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", out,
+            str(CSRC / f"{name}.cu")]
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -55,7 +84,7 @@ def load(name: str) -> ctypes.CDLL:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            _command(name, tmp),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if proc.returncode != 0:
             os.unlink(tmp)

@@ -2,10 +2,11 @@
 // serving shapes, written by hand for Hopper (sm_90a).
 //
 // Replaces the TPU kernel multi_modal_csi_tpu/kernels/flash_attention.py::
-// flash_attention (body _kernel, pallas_call at :144). Same arithmetic:
+// flash_attention (body _kernel, pallas_call at :144). Its arithmetic:
 //   - logits in f32 (bf16 products are exact in f32), times 1/sqrt(D) with
 //     the true head dim D;
-//   - row max, exp and sum in f32; weights = exp / sum, rounded to v's dtype;
+//   - row max, exp and sum in f32; weights = exp / sum, rounded to v's dtype
+//     (the bf16 kernel rounds exp and divides by the sum at the end);
 //   - P.V accumulated in f32; output stored in q's dtype.
 // No mask, no dropout.
 //
@@ -14,35 +15,52 @@
 // (B, H, D, N) transposes existed only for VMEM tiling; this kernel reads the
 // projection layout directly, so the port adds no transposes.
 //
-// Design. One block per (b, h, tile of 64 query rows); 8 warps, one query
-// row per warp at a time. The block stages that (b, h)'s whole K and V in
-// shared memory as f32 (K with an odd row stride, so lanes reading
+// Two instantiations, chosen by dtype:
+//
+// bfloat16 (serving): the tensor-core kernel of tc_attention.cuh. One block
+// of 4 warps per (b, 64 query rows, h), h fastest so the heads of one token
+// row are read together; key tiles of 64 stream through a cp.async ring, QK^T
+// and P.V on mma.sync m16n8k16 with f32 accumulators, one pass with an online
+// softmax (the unnormalised weights rounded to bf16, the division at the end).
+// The trap is alignment: a head's row is D * 2 = 54 bytes (D = 27) or 30
+// (D = 15) at byte offsets 54 h, so no 16-byte copy fits; token rows of H*D =
+// 270 or 150 elements are 4-byte aligned, so each head's row moves in aligned
+// 4-byte pieces starting one element early where 54 h is not a multiple of 4,
+// and lands at that shift in a tile zero-padded to 32 (D = 27, 45: 48) or 16
+// (D = 15) positions; the stray positions are zeroed in the fragments. Keys
+// stream, so any Nk runs; the launcher refuses only D > 128.
+//
+// float32 (training): one block per (b, h, tile of 64 query rows); 8 warps,
+// one query row per warp at a time. The block stages that (b, h)'s whole K
+// and V in shared memory as f32 (K with an odd row stride, so lanes reading
 // different keys hit different banks), then each warp
 //   1. computes its row's Nk logits, one key per lane, into a per-warp
 //      shared-memory row;
 //   2. reduces max and sum with warp shuffles and rounds the weights;
 //   3. forms the output with lanes over the head dim; when D <= 16, two lane
 //      groups split the keys and a shuffle adds their halves.
-// The (Nq, Nk) matrices never leave shared memory.
+// K and V of one (b, h) must fit in shared memory (232,448 bytes a block);
+// the launcher refuses larger Nk*D instead of running anything else.
 //
 // Bound on an H100 SXM. At the THAT serving shapes (bs256, bf16: left
 // (256, 150, 10, 27), right (256, 270, 10, 15)) one launch reads q, k, v
 // and writes out, 4 x 20.7 MB = 82.9 MB, about 25 us at 3.35 TB/s; its
 // 6.2 (left) or 11.2 (right) GFLOP take 6 or 11 us at the 989 TFLOP/s bf16
-// tensor-core peak. So the work is bound by bytes. This first version runs
-// its products on CUDA cores in f32 (D = 27 and 15 are not multiples of the
-// tensor-core tile depth), so it is limited by FMA issue, not by bytes;
-// padding D for mma/wgmma with TMA staging is the later step.
+// tensor-core peak. So the work is bound by bytes, and the bf16 kernel is
+// judged by how close it comes to reading q, k and v once at full rate: the
+// query tiles of one (b, h) re-read its K and V from L2, not from memory,
+// and the 4-byte pieces of neighbouring heads share sectors. The f32 kernel
+// runs its products on CUDA cores and is limited by its FMA rate.
 //
-// Limits: K and V of one (b, h) must fit in shared memory (232,448 bytes a
-// block); the launcher refuses larger Nk*D instead of running anything
-// else. The launcher returns cudaGetLastError() so a refused launch is seen.
+// The launcher returns cudaGetLastError() so a refused launch is seen.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cmath>
+
+#include "tc_attention.cuh"
 
 namespace {
 
@@ -51,18 +69,11 @@ constexpr int kRowsPerBlock = 64;
 constexpr size_t kMaxSharedBytes = 232448;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1)
@@ -189,20 +200,33 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched);
-// cudaErrorInvalidValue for a non-positive size or for K and V that do not
-// fit in shared memory.
+// cudaErrorInvalidValue for a non-positive size, for f32 K and V that do
+// not fit in shared memory, or for a bf16 head dim above 128.
 int mmcsi_flash_attention(const void* q, const void* k, const void* v,
                           void* out, int batch, int nq, int nk, int heads,
                           int d, int dtype, void* stream) {
   if (batch <= 0 || nq <= 0 || nk <= 0 || heads <= 0 || d <= 0)
     return (int)cudaErrorInvalidValue;
-  if (smem_bytes(nk, d) > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
+      if (smem_bytes(nk, d) > kMaxSharedBytes)
+        return (int)cudaErrorInvalidValue;
       return launch<float>(q, k, v, out, batch, nq, nk, heads, d, s);
-    case 1:
-      return launch<__nv_bfloat16>(q, k, v, out, batch, nq, nk, heads, d, s);
+    case 1: {
+      tc::Params p = {};
+      p.q = static_cast<const tc::bf16*>(q);
+      p.k = static_cast<const tc::bf16*>(k);
+      p.v = static_cast<const tc::bf16*>(v);
+      p.out = static_cast<tc::bf16*>(out);
+      p.groups = batch;
+      p.heads = heads;
+      p.nq = nq;
+      p.nk = nk;
+      p.d = d;
+      p.row = heads * d;
+      return tc::launch<false>(p, s);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -17,12 +17,31 @@
 // and its key padding folded into the factors (_fold_pad) were devices of
 // the TPU's tiling; here every loop is bounded by the true Nq, Nk and M.
 //
-// Design. K and V of one (b, h) do not fit in a block's shared memory at
-// MViT's shapes (1128 keys of D = 96 are 423 KB in bf16, 4509 keys 1690 KB,
-// against 227 KB), so the keys stream through in tiles. One block of 256
-// threads takes one (b, h) and 64 query rows; the Q tile (transposed, f32)
-// and, when M <= 64, the tile's R strip stay in shared memory. Two passes
-// over the key tiles of 64:
+// Two instantiations, chosen by dtype. K and V of one (b, h) do not fit in
+// a block's shared memory at MViT's shapes (1128 keys of D = 96 are 423 KB
+// in bf16, 4509 keys 1690 KB, against 227 KB), so in both the keys stream
+// through in tiles of 64.
+//
+// bfloat16 (serving): the tensor-core kernel of tc_attention.cuh. One block
+// of 4 warps per (b h, 64 query rows), the Q tile in registers as mma
+// fragments and, with the bias, the tile's R strip (64 rows x M f32) in
+// shared memory; the K, V and S chunks of the next key tile arrive by
+// cp.async (16-byte pieces of D = 96's 192-byte rows) while this one
+// computes. QK^T and P.V run on mma.sync m16n8k16 (bf16 in, f32
+// accumulators; D zero-padded to a multiple of 16), with one online
+// softmax pass: the logits are computed once, the unnormalised weights
+// rounded to bf16 straight from the accumulators into P.V's fragments, the
+// division by the row sum at the end. The bias r s keeps f32's precision
+// ("bias math is always f32" in the TPU kernel) as a 3xTF32 product on the
+// tensor cores (mma.sync m16n8k8; r and s split into tf32 hi + lo, and lo hi
+// + hi lo + hi hi summed in f32), from R's strip and S's chunk in shared
+// memory straight into the logits' accumulators, once per (query tile, key
+// tile); M = 0 (MViT-v1) is its own template with no bias code. The bf16
+// launcher takes M <= 128.
+//
+// float32 (training's forward): one block of 256 threads per (b h, 64 query
+// rows); the Q tile (transposed, f32) and, when M <= 64, the tile's R strip
+// stay in shared memory. Two passes over the key tiles of 64:
 //   1. the logits of each tile (each thread a 4 x 4 register tile of rows x
 //      keys: a K^T tile and an S chunk in shared memory, the Q and R columns
 //      read as float4), then the running row max and the rescaled row sum,
@@ -40,21 +59,27 @@
 // TB/s. Its products are 4 Nq Nk D operations in bf16 and 2 Nq Nk M in f32
 // for the bias: at block 0, 62 G and 12 G, 63 us and 180 us at the 989
 // TFLOP/s bf16 and 67 TFLOP/s f32 peaks. So the work is bound by
-// operations, and in MViT-v2 by the f32 bias product. This first version
-// runs every product on CUDA cores in f32 and computes the logits twice,
-// so it is limited by FMA issue; the tensor-core (wgmma) version with
-// TMA-staged tiles and a single online pass is the later step.
+// operations: MViT-v1's forward by the bf16 tensor cores (0.482 ms for its
+// 16 calls), MViT-v2's f32 kernel by the f32 bias product (2.090 ms). The
+// bf16 kernel computes the bias as three TF32 products (495 TFLOP/s), so
+// its MViT-v2 bound is 1.135 ms; it puts every product on the tensor cores
+// and computes each logit once, so what remains is the softmax's exp and
+// rescaling, the bias's tf32 splits and the shared-memory fragment loads.
+// The f32 kernel runs every product on CUDA cores and computes the logits
+// twice, so it is limited by its FMA rate.
 //
 // Limits: D <= 128 (the Q and K tiles in shared memory); any Nq, Nk >= 1
-// and M >= 0 (S and R stream in chunks of 64 when M > 64). The launcher
-// refuses other sizes and returns cudaGetLastError() so a refused launch
-// is seen.
+// and M >= 0 in f32 (S and R stream in chunks of 64 when M > 64), M <= 128
+// in bf16. The launcher refuses other sizes and returns cudaGetLastError()
+// so a refused launch is seen.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cmath>
+
+#include "tc_attention.cuh"
 
 namespace {
 
@@ -68,18 +93,11 @@ constexpr int kLd = 68;        // row stride of the 64-wide tiles (floats):
                                // float4-aligned, transposed stores 4-way
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
 
 // max and sum over the 16 lanes that share a row group (lanes 0-15 or
 // 16-31 of the warp)
@@ -310,7 +328,8 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out); r, s and lse are
 // float32; r and s may be null when m = 0. bh = batch x heads. Returns a
 // cudaError_t (0 = launched); cudaErrorInvalidValue for a non-positive size,
-// a negative m, a missing factor, or a head dim above 128.
+// a negative m, a missing factor, a head dim above 128, or in bf16 more
+// than 128 factor columns.
 int mmcsi_flash_attention_lowrank(const void* q, const void* k, const void* v,
                                   const void* r, const void* s, void* out,
                                   void* lse, int bh, int nq, int nk, int d,
@@ -326,9 +345,24 @@ int mmcsi_flash_attention_lowrank(const void* q, const void* k, const void* v,
   switch (dtype) {
     case 0:
       return launch<float>(q, k, v, rf, sf, out, lf, bh, nq, nk, d, m, st);
-    case 1:
-      return launch<__nv_bfloat16>(q, k, v, rf, sf, out, lf, bh, nq, nk, d, m,
-                                   st);
+    case 1: {
+      tc::Params p = {};
+      p.q = static_cast<const tc::bf16*>(q);
+      p.k = static_cast<const tc::bf16*>(k);
+      p.v = static_cast<const tc::bf16*>(v);
+      p.out = static_cast<tc::bf16*>(out);
+      p.r = rf;
+      p.s = sf;
+      p.lse = lf;
+      p.groups = bh;
+      p.heads = 1;
+      p.nq = nq;
+      p.nk = nk;
+      p.d = d;
+      p.m = m;
+      p.row = d;
+      return m ? tc::launch<true>(p, st) : tc::launch<false>(p, st);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }

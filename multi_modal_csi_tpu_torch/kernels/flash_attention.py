@@ -10,6 +10,12 @@ version (``flash_attention_reference``,
 ``flash_attention_trainable`` is the differentiable attention of training:
 its forward is K1 and its backward K2. Each source's header says what
 bounds the kernel on an H100 and what its design does about it.
+
+K1's source holds two kernels, chosen by q's dtype: bfloat16 (serving)
+launches the tensor-core kernel of ``csrc/tc_attention.cuh`` (keys streamed
+in tiles, so any Nk; D <= 128), float32 (training) the CUDA-core kernel
+that stages one (batch, head)'s K and V in shared memory. A CUDA call that
+its instantiation refuses raises; it never runs the other one.
 """
 
 from __future__ import annotations
@@ -30,14 +36,20 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CUDA_ERROR_INVALID_VALUE = 1     # cudaErrorInvalidValue
 # a block's shared memory on an H100, the launchers' limit (kMaxSharedBytes)
 MAX_SHARED_BYTES = 232448
-_WARPS = 8                        # kWarps of both kernels
+_WARPS = 8                        # kWarps of both f32 kernels
+# the bf16 kernel's head-dim limit (csrc/tc_attention.cuh: 16 * kMaxSteps)
+TC_MAX_HEAD_DIM = 128
 
 
-def forward_fits(nk: int, d: int) -> bool:
-    """Whether K1's launcher takes Nk keys of head dim D: its
-    ``smem_bytes(nk, d)`` (``csrc/flash_attention.cu``), term for term, f32
-    K at the odd row stride D | 1, V, one weight row and one query row per
-    warp, within the block's shared memory."""
+def forward_fits(nk: int, d: int, dtype: torch.dtype) -> bool:
+    """Whether K1's launcher takes Nk keys of head dim D in ``dtype``, term
+    for term its limit (``csrc/flash_attention.cu``). bfloat16: the
+    tensor-core kernel streams the keys, so any Nk, and takes D <= 128.
+    float32: ``smem_bytes(nk, d)``, f32 K at the odd row stride D | 1, V,
+    one weight row and one query row per warp, within the block's shared
+    memory."""
+    if dtype == torch.bfloat16:
+        return d <= TC_MAX_HEAD_DIM
     need = 4 * (nk * (d | 1) + nk * d + _WARPS * nk + _WARPS * d)
     return need <= MAX_SHARED_BYTES
 
@@ -137,9 +149,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _launch(source: str, name: str, tensors, q: torch.Tensor, nk: int,
-            fits: str) -> None:
+            refused: str) -> None:
     """Launch ``csrc/<source>.cu`` on q's device and current stream, raise
-    on a refused launch and count a launched one under ``name``."""
+    on a refused launch (ValueError saying what the launcher ``refused``)
+    and count a launched one under ``name``."""
     b, nq, h, d = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -147,11 +160,10 @@ def _launch(source: str, name: str, tensors, q: torch.Tensor, nk: int,
             *(t.data_ptr() for t in tensors), b, nq, nk, h, d,
             _DTYPE_CODES[q.dtype], stream)
     if err == _CUDA_ERROR_INVALID_VALUE:
-        # the sizes are positive here, so the launcher refused the shared
-        # memory that one (batch, head) needs
-        raise ValueError(f"{name}: {fits} of one (batch, head) at Nq={nq}, "
-                         f"Nk={nk}, D={d} do not fit in a block's shared "
-                         f"memory (227 KB)")
+        # the sizes are positive here, so the launcher refused what its
+        # instantiation cannot take
+        raise ValueError(f"{name} at Nq={nq}, Nk={nk}, D={d}, {q.dtype}: "
+                         f"{refused}")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error "
                            f"{err}")
@@ -164,14 +176,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
 
     q: (B, Nq, H, D); k, v: (B, Nk, H, D), float32 or bfloat16. Returns
     (B, Nq, H, D) in q's dtype. CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise.
+    tensors launch the kernel of their dtype (``forward_fits`` says which
+    shapes it takes) or raise.
     """
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v)
     out = torch.empty_like(q)
     if out.numel():
-        _launch(NAME, NAME, (q, k, v, out), q, k.shape[1], "K and V")
+        _launch(NAME, NAME, (q, k, v, out), q, k.shape[1],
+                f"the bfloat16 kernel takes D <= {TC_MAX_HEAD_DIM}"
+                if q.dtype == torch.bfloat16 else
+                "K and V of one (batch, head) do not fit in a block's "
+                "shared memory (227 KB)")
     return out
 
 
@@ -196,7 +213,8 @@ def flash_attention_backward(
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel():
         _launch(BWD_SOURCE, BWD_NAME, (q, k, v, do, dq, dk, dv), q, k.shape[1],
-                "Q, dO, K and V")
+                "Q, dO, K and V of one (batch, head) do not fit in a "
+                "block's shared memory (227 KB)")
     return dq, dk, dv
 
 

@@ -14,6 +14,12 @@ only for CPU tensors. ``flash_attention_lowrank_bias_trainable`` is the
 differentiable attention of MViT's training: K3 forward, K4 backward. Each
 source's header says what bounds its kernels on an H100 and what their
 design does about it.
+
+K3's source holds two kernels, chosen by q's dtype: bfloat16 (serving)
+launches the tensor-core kernel of ``csrc/tc_attention.cuh`` (one online
+pass, the bias in f32), float32 (training's forward) the CUDA-core kernel
+of two passes. A CUDA call that its instantiation refuses raises; it never
+runs the other one.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ DQ_NAME = "flash_attention_lowrank_bias_backward_dq"
 DKV_NAME = "flash_attention_lowrank_bias_backward_dkv"
 BWD_SOURCE = "flash_attention_lowrank_bwd"  # its csrc/ .cu
 MAX_HEAD_DIM = 128
+MAX_BIAS_RANK_BF16 = 128  # the bf16 kernel's factor columns (kMaxRank)
 TILE = 64                 # query rows and keys per tile of the K4 kernels
 BLOCKS_PER_SM = 2         # the dK/dV/dS grid aims at this many blocks an SM
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -128,7 +135,8 @@ def flash_attention_lowrank_bias(
     (B, H, Nq, M) and s (M, Nk), float32, or both None for no bias. Returns
     (B, H, Nq, D) in q's dtype and, with ``return_lse``, the row
     log-sum-exp (B, H, Nq) in float32. CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise (the kernel takes D <= 128).
+    CUDA tensors launch the kernel of their dtype or raise (both take
+    D <= 128; the bfloat16 one, on the tensor cores, M <= 128).
     """
     _check(q, k, v, r, s)
     if q.device.type == "cpu":
@@ -150,7 +158,8 @@ def flash_attention_lowrank_bias(
         if err == _CUDA_ERROR_INVALID_VALUE:
             raise ValueError(f"{NAME}: the kernel refused B*H={b * h}, "
                              f"Nq={nq}, Nk={nk}, D={d}, M={m}; it takes "
-                             f"D <= {MAX_HEAD_DIM}")
+                             f"D <= {MAX_HEAD_DIM} and, in bfloat16, "
+                             f"M <= {MAX_BIAS_RANK_BF16}")
         if err != 0:
             raise RuntimeError(f"{NAME} kernel launch failed with CUDA error "
                                f"{err}")

@@ -386,14 +386,14 @@ class MultiheadAttention(nn.Module):
     With at least 64 query and 64 key tokens, attention runs in the fused
     kernels (``kernels/flash_attention.py``), as in the JAX package
     (``nn/layers.py:433-437`` there): in eval mode K1 in the serving
-    dtype, when K and V fit in the kernel's shared memory
-    (``forward_fits``); in training, when ``dropout`` is 0 and K2's
-    operands fit too (``backward_fits``), ``flash_attention_trainable``
-    (K1 forward, K2 backward). The gate looks at shapes, never at the
-    device: on CPU tensors the kernels' plain versions run. Other shapes
-    take the eager branch, which in bf16 rounds logits and weights to bf16
-    as the JAX package does (whose K2 takes XLA's backward where a row does
-    not fit).
+    dtype, when its kernel for that dtype takes the shape (``forward_fits``:
+    any Nk in bf16, K and V in shared memory in f32); in training, when
+    ``dropout`` is 0 and K2's operands fit too (``backward_fits``),
+    ``flash_attention_trainable`` (K1 forward, K2 backward). The gate looks
+    at shapes and dtypes, never at the device: on CPU tensors the kernels'
+    plain versions run. Other shapes take the eager branch, which in bf16
+    rounds logits and weights to bf16 as the JAX package does (whose K2
+    takes XLA's backward where a row does not fit).
 
     int8 serving: ``in_proj_weight`` and ``out_proj.weight`` are
     weight-only quantizable (never an ``input_scale``; ``out_proj`` never
@@ -436,7 +436,7 @@ class MultiheadAttention(nn.Module):
         act = (torch.bfloat16 if (b if quantized else w).dtype
                == torch.bfloat16 else torch.float32)
         nq, nk = query.shape[1], (key if kv is None else kv[0]).shape[1]
-        shapes_ok = nq >= 64 and nk >= 64 and forward_fits(nk, d)
+        shapes_ok = nq >= 64 and nk >= 64 and forward_fits(nk, d, act)
         if self.training:
             fused = flash_attention_trainable if (
                 shapes_ok and self.dropout == 0.0

@@ -86,9 +86,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         flash_attention(q, k, v)
 
 
-def test_kernel_sources_and_build_flags():
+def test_kernel_sources_and_build_flags(tmp_path, monkeypatch):
     """Every kernel is a csrc/*.cu with plain C launchers, built for
-    sm_90a; the library name changes with the source or the flags."""
+    sm_90a with ``-I csrc``; the shared header is tc_attention.cuh, the
+    tensor-core body of K1's and K3's bf16 kernels (mma.sync fed by
+    ldmatrix, cp.async copies); the library name changes with the source,
+    with a header it includes, or with the flags."""
     launchers = {
         "flash_attention": ["flash_attention"],
         "flash_attention_bwd": ["flash_attention_bwd"],
@@ -99,11 +102,38 @@ def test_kernel_sources_and_build_flags():
         "int8_matmul": ["int8_matmul"]}
     assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == sorted(
         launchers)
+    assert [p.name for p in build.CSRC.glob("*.cuh")] == ["tc_attention.cuh"]
     for stem, names in launchers.items():
         src = (build.CSRC / f"{stem}.cu").read_text()
         assert 'extern "C"' in src
         assert all(f"int mmcsi_{name}(" in src for name in names)
         assert build._target(stem).parent == build.BUILD_DIR
+    header = (build.CSRC / "tc_attention.cuh").read_text()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in header
+    assert "ldmatrix" in header and "cp.async" in header
+    for stem in ("flash_attention", "flash_attention_lowrank"):
+        src = (build.CSRC / f"{stem}.cu").read_text()
+        bf16_case = src[src.index("case 1:"):]
+        assert "tc::launch" in bf16_case
+        assert build._sources(stem) == [build.CSRC / f"{stem}.cu",
+                                         build.CSRC / "tc_attention.cuh"]
+    assert build._sources("int8_matmul") == [build.CSRC / "int8_matmul.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+    command = build._command("flash_attention", "out.so")
+    assert command[command.index("-I") + 1] == str(build.CSRC)
     assert build._target("flash_attention") != build._target(
         "flash_attention_bwd")
+    # a copy of csrc/: editing the header renames both libraries that
+    # include it, and no other
+    copy = tmp_path / "csrc"
+    copy.mkdir()
+    for path in build.CSRC.iterdir():
+        (copy / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(build, "CSRC", copy)
+    before = {stem: build._target(stem) for stem in launchers}
+    with open(copy / "tc_attention.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {stem: build._target(stem) for stem in launchers}
+    assert {stem for stem in launchers if before[stem] != after[stem]} == {
+        "flash_attention", "flash_attention_lowrank"}

@@ -1,8 +1,8 @@
 """Repairs of the port's open faults, on the CPU.
 
-- The attention gate and K1/K2's shared memory: ``forward_fits`` and
+- The attention gate and K1/K2's limits: ``forward_fits`` (per dtype) and
   ``backward_fits`` (kernels/flash_attention.py) copy the launchers'
-  ``smem_bytes`` and hold at their boundary; past it the attention takes
+  limits and hold at their boundary; past it the attention takes
   its eager branch (the JAX package's K2 takes XLA's backward there), so
   no shape that JAX runs is refused on the card.
 - MViT tables at a clip whose pooled size is odd: ``resize_mvit_tables``
@@ -16,7 +16,7 @@ import torch
 
 from multi_modal_csi_tpu_torch.core.weights import resize_mvit_tables
 from multi_modal_csi_tpu_torch.kernels.flash_attention import (
-    MAX_SHARED_BYTES, backward_fits, forward_fits)
+    MAX_SHARED_BYTES, TC_MAX_HEAD_DIM, backward_fits, forward_fits)
 from multi_modal_csi_tpu_torch.models.video.mvit import (_block_configs,
                                                          _pooled, patchified)
 from multi_modal_csi_tpu_torch.nn import layers as P
@@ -27,16 +27,26 @@ from test_torch_port_layers import gen, run
 torch.set_num_threads(1)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("d", [15, 27, 45])
-def test_fit_predicates_at_their_boundary(d):
+def test_fit_predicates_at_their_boundary(d, dtype):
     """The largest Nk (and Nq = Nk) that fits, and one more, against the
-    launchers' formulas and the 232,448-byte limit."""
+    launchers' formulas and the 232,448-byte limit. K1 in bf16 streams the
+    keys (any Nk) and takes D <= 128; K2 has one kernel for both dtypes."""
     assert MAX_SHARED_BYTES == 232448
-    nk = max(n for n in range(1, 20000) if forward_fits(n, d))
-    assert not forward_fits(nk + 1, d)
-    assert 4 * (nk * (d | 1) + nk * d + 8 * nk + 8 * d) <= MAX_SHARED_BYTES
     n = max(n for n in range(1, 20000) if backward_fits(n, n, d))
     assert not backward_fits(n + 1, n + 1, d)
+    if dtype == torch.bfloat16:
+        assert all(forward_fits(nk, d, dtype) for nk in (1, 933, 934, 10**6))
+        assert forward_fits(1, TC_MAX_HEAD_DIM, dtype)
+        assert not forward_fits(1, TC_MAX_HEAD_DIM + 1, dtype)
+        if d == 27:
+            assert n == 457
+        return
+    nk = max(n for n in range(1, 20000) if forward_fits(n, d, dtype))
+    assert not forward_fits(nk + 1, d, dtype)
+    assert 4 * (nk * (d | 1) + nk * d + 8 * nk + 8 * d) <= MAX_SHARED_BYTES
     if d == 27:                 # THAT's heads: about 934 keys, 457 tokens
         assert (nk, n) == (933, 457)
 
@@ -48,31 +58,52 @@ def _record(monkeypatch, name):
     return calls
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("training", [False, True], ids=["eval", "train"])
-def test_attention_takes_eager_branch_past_the_boundary(training,
+def test_attention_takes_eager_branch_past_the_boundary(training, dtype,
                                                         monkeypatch):
-    """One head of D = 27: the fused branch at the largest fitting token
-    count, the eager branch one token beyond; both agree."""
-    d = 27
-    last = 933 if not training else 457
-    mha = P.MultiheadAttention(d, 1, generator=gen()).train(training)
+    """One head: the fused branch at the largest fitting shape, the eager
+    branch one step beyond; both agree (f32 within 2e-5; bf16, where the
+    eager branch rounds the logits to bf16, within BF16_TOL 2^-6 of
+    chip_smoke.py). At D = 27 in f32 the step is a token (933 keys in
+    eval, 457 in training); in bf16 eval K1 streams the keys, so 934 keys
+    fuse and the step is the head dim (128 to 129); bf16 training keeps
+    K2's 457."""
+    d, last = 27, 933 if not training else 457
+    if dtype == torch.bfloat16 and not training:
+        d, last = TC_MAX_HEAD_DIM, 934
     name = "flash_attention_trainable" if training else "flash_attention"
     calls = _record(monkeypatch, name)
-    outs = []
-    for n in (last, last + 1):
+
+    def attend(d, n):
+        mha = P.MultiheadAttention(d, 1, generator=gen()).train(training)
         x = torch.from_numpy(np.random.default_rng(4).standard_normal(
             (1, n, d), dtype=np.float32))
-        outs.append(run(mha, x, x, x))
+        return run(mha.to(dtype), *(x.to(dtype),) * 3)
+
+    if dtype == torch.bfloat16 and not training:
+        attend(27, last)
+        assert len(calls) == 1         # past f32's 933 keys: fused
+        calls.clear()
+        attend(d, 64)
+        attend(d + 1, 64)
+        d, n_out = d + 1, 64
+    else:
+        attend(d, last)
+        attend(d, last + 1)
+        n_out = last + 1
     assert len(calls) == 1             # only the fitting one was fused
-    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
-        (1, last + 1, d), dtype=np.float32))
+    eager = attend(d, n_out)
     calls.clear()
     with monkeypatch.context() as m:
-        m.setattr(P, "forward_fits", lambda nk, d: True)
+        m.setattr(P, "forward_fits", lambda nk, d, dtype: True)
         m.setattr(P, "backward_fits", lambda nq, nk, d: True)
-        fused = run(mha, x, x, x)
+        fused = attend(d, n_out)
     assert len(calls) == 1
-    torch.testing.assert_close(outs[1], fused, atol=2e-5, rtol=2e-5)
+    tol = 2e-5 if dtype == torch.float32 else 2.0 ** -6
+    torch.testing.assert_close(eager.float(), fused.float(), atol=tol,
+                               rtol=tol)
 
 
 @pytest.mark.parametrize("key", ["MViT-v1", "MViT-v2"])
