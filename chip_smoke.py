@@ -43,8 +43,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    at the block shapes in bf16 beside the plain version's,
    scaled_dot_product_attention's with r @ s as its mask, and the bound,
    summed per MViT-v1 and v2 forward (the bf16 kernel is the tensor-core
-   kernel of csrc/tc_attention.cuh, its bias a 3xTF32 product); a head dim
-   of 160, and in bf16 a bias of 129 factor columns, must be refused;
+   kernel of csrc/tc_attention.cuh, its bias a 3xTF32 product), and the
+   same in f32 at the training blocks 0-2, summed per training step; a
+   head dim of 160, and in bf16 a bias of 129 factor columns, must be
+   refused;
 4c. K4 (dQ/dR and dK/dV/dS kernels) against its plain version at MViT's
    three training block shapes of a (2, 45, 224, 224, 3) step and the JAX
    test's odd shapes, f32 and bf16, with and without the bias, both fed
@@ -62,7 +64,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel's and the plain version's times, torch._int_mm's (K and N
    zero-padded to multiples of 8, as cuBLASLt needs) or bf16
    torch.matmul's (yardsticks the port never calls), and the bound; a K
-   whose int32 sum could overflow must raise;
+   whose int32 sum could overflow must raise; then the fused path (the
+   prologue quantize_columns and quantized_product with its epilogue,
+   through core/quantize.py) at the odd shapes as Linears or grouped
+   convs, w8a8 and w8, with a bias: the prologue torch.equal to its plain
+   version on the card, the s8 output torch.equal to the eager chain, the
+   bf16 output within P1_BF16_BOUND's accumulation bound plus the
+   epilogue's roundings, with times beside the yardstick (_int_mm or
+   matmul plus the eager epilogue) and the bound; a bf16 operand whose
+   rows no 4-byte copy divides must be refused, raising;
 4e. K1 and K2 at the largest shapes their fit predicates admit, each
    instantiation: K1 f32 and K2 at one head of 27 (one key or token
    more: refused with ValueError), K1 bf16 at 4096 keys of a head of 128
@@ -84,10 +94,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    THAT_ENCODER, with 5 K1 launches per forward;
 6b. int8 serving of DETR and THAT_ENCODER in w8a8 (their QUANT_DEFAULTS),
    bf16, batch 256, calibrated through CSIServer(calib=...) on a seeded
-   .npy of 64 windows: exact s8 and bf16 P1 launches by product shape in
-   one batch forward (22 + 54 for DETR; 27 + 58 and 5 K1 for
-   THAT_ENCODER), the ragged requests, windows/s from host memory and on
-   the card beside bf16 serving's, a profile with P1's share; the logits
+   .npy of 64 windows: exact s8 and bf16 P1 launches by product shape and
+   prologue launches in one batch forward (22 + 54 and 52 for DETR; 27 +
+   58, 53 and 5 K1 for THAT_ENCODER); every prologue and fused product of
+   one forward held and timed as in 4d on the forward's own activations,
+   weights and scales (every product shape of the tables); the ragged
+   requests, windows/s from host memory and on the card beside bf16
+   serving's, a profile with P1's, the prologue's and the remaining
+   elementwise kernels' shares; the logits
    against bf16 serving within the JAX package's own bounds; then the
    same int8 weights and scales at f32 on the card against the CPU, with
    the int8 activations that flipped; and cli/serve_csi.py --model DETR
@@ -119,9 +133,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    K4 kernel (blocks 0-2 at the training gate, the eager path after);
 11b. MViT-v2 w8 serving at full width, bf16, batch 2 (the hooked set
    discovered with one zero clip): exactly 16 K3 and 67 bf16 P1 launches
-   per batch forward and no s8, clips/s beside bf16 serving's, a profile,
-   the logits against bf16 serving, and P1 held against its plain version
-   at each of the forward's product shapes;
+   per batch forward, no s8 and no prologue (every product takes its bf16
+   activation as it is), the forward's fused calls held as in 6b, clips/s beside bf16 serving's, a profile with the
+   shares, the logits against bf16 serving, and the bare P1 held against
+   its plain version at each of the forward's product shapes;
 12. each variant in f32 at (2, 16, 112, 112, 3) on the card (TF32 off,
    14 K3 launches) against the CPU, where K3's plain version runs, within
    1e-4 of the largest logit;
@@ -145,8 +160,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    1, one epoch at batch 2, the final test pass in bf16; the result JSON
    read back with the JAX runner's keys; exact K3 and K4 launch counts;
 17. one JSON line describing each kernel (every TPU kernel of the repo
-   is ported), then the card's name and power limit, then the result
-   line.
+   is ported, and P1's prologue), then the card's name and power limit,
+   then the result line.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -1157,7 +1172,10 @@ def phase_lowrank(lowrank, lowrank_reference):
                 check(lse_rel <= LOWRANK_LSE_RTOL,
                       f"K3 {label} {dtype} LSE rel err {lse_rel}")
                 del out, lse, want, want_lse
-                if dtype != torch.bfloat16 or name not in LOWRANK_SHAPES:
+                # timed: bf16 at the serving shapes, f32 at the training
+                # blocks 0-2
+                if name not in (LOWRANK_SHAPES if dtype == torch.bfloat16
+                                else LOWRANK_BWD_SHAPES):
                     continue
 
                 def timed(fn):
@@ -1191,6 +1209,16 @@ def phase_lowrank(lowrank, lowrank_reference):
               f"{per_forward['plain_ms']:.3f} ms, sdpa "
               f"{per_forward['library_ms']:.3f} ms, bound "
               f"{max(per_forward['bytes_ms'], per_forward['ops_ms']):.3f} ms")
+        per_step = {k: sum(results[(f"{name}{'+bias' if bias else ''}",
+                                    torch.float32)][k]
+                           for name in LOWRANK_BWD_SHAPES)
+                    for k in ("ms", "plain_ms", "library_ms", "bytes_ms",
+                              "ops_ms")}
+        print(f"K3 per MViT-v{2 if bias else 1} f32 training step at batch 2 "
+              f"(blocks 0-2, 3 calls): kernel {per_step['ms']:.3f} ms, plain "
+              f"{per_step['plain_ms']:.3f} ms, sdpa "
+              f"{per_step['library_ms']:.3f} ms, bound "
+              f"{max(per_step['bytes_ms'], per_step['ops_ms']):.3f} ms")
 
     # a head dim above 128 in either dtype; a bf16 bias past the
     # tensor-core kernel's factor columns
@@ -1779,6 +1807,7 @@ def run_video_phase(clips, annotation, work, key, train_dtype="float32"):
 # ---------------------------------------------------------------------- #
 
 S8, BF16 = "int8_matmul_s8", "int8_matmul_bf16"
+COLUMNS = "int8_quantize_columns"
 P1_TILE = (256, 272, 424)            # tools/exp_pallas_int8.py:36
 # (M, K, N) of each product in one bs256 forward at full width, and its
 # launches: the w8a8 layers (int8) and the weight-only attention
@@ -1805,6 +1834,13 @@ ENCODER_BF16 = {(38400, 270, 270): 4 * 4,    # left blocks q, k, v, out
                 (69120, 270, 270): 4,        # right block
                 (107520, 270, 270): 2,       # the 420-token memory's k, v
                 (1280, 270, 270): 6 * 4 + 6 * 2}
+# prologue launches in one bs256 forward: one for each s8 product (its
+# input quantized) and one for each bf16 product whose input arrives in f32
+# (cast to bf16 at the padded stride: the attention projections after the
+# f32 LayerNorms); a bf16 input whose rows 4-byte copies divide is read as
+# it is
+DETR_COLUMNS = 22 + 30
+ENCODER_COLUMNS = 27 + 26
 # (G, M, K, N): odd sizes, a K with K mod 32 = 14, a grouped product
 P1_ODD = [(None, 1, 1, 1), (None, 17, 33, 65), (None, 300, 810, 270),
           (None, 100, 46, 70), (3, 100, 90, 30)]
@@ -1813,6 +1849,7 @@ P1_ODD = [(None, 1, 1, 1), (None, 17, 33, 65), (None, 300, 810, 270),
 # 96 x 96 stays float), mlp.0 and mlp.3 32, the widening block projects 3,
 # head.1 1 (the 400 x 6 task head stays float)
 MVIT_BF16_PER_FORWARD = 16 + 15 + 32 + 3 + 1
+# every one of them takes its bf16 activation as it is: no prologue
 # bf16 x bf16 -> f32 against the exact product (f64 of the bf16 values):
 # each element within K * 2^-23 * sum |a b|, the bound of K f32 additions
 # in any order, each rounding by at most one unit of 2^-23 relative (so
@@ -1830,6 +1867,7 @@ INT8_CPU_SHARE = 2e-2
 INT8_SPREAD_BOUND = {"DETR": 0.35, "THAT_ENCODER": 0.5, "MViT-v2": 0.35}
 CALIB_WINDOWS = 64         # seeded calibration windows, one .npy
 P1_TIMES = {}              # (dtype, (G, M, K, N)) -> error, times, bound
+FUSED_TOTALS = {}          # model -> check_fused's sums per forward
 SERVE_RATES = {}           # model -> bf16 windows (clips) / s: host, card
 
 
@@ -1962,8 +2000,9 @@ def phase_p1():
         print(f"P1 s8 K={K.MAX_K_S8 + 1}: refused ({e})")
         refused = True
     check(refused, "P1 s8 launched with a K whose sum could overflow")
-    print(f"P1 phase: {len(shapes)} shapes x 2 in "
-          f"{time.perf_counter() - start:.1f} s")
+    phase_p1_fused(gen)
+    print(f"P1 phase: {len(shapes)} shapes x 2 and the fused path at "
+          f"{len(P1_ODD)} x 2 in {time.perf_counter() - start:.1f} s")
 
 
 def phase_fits():
@@ -2009,13 +2048,14 @@ def phase_fits():
 
 @contextlib.contextmanager
 def recorded_launches():
-    """Records (dtype, G, M, K, N) of every P1 launch inside the block."""
+    """Records (A's dtype, G, M, K, N) of every P1 launch inside the
+    block, K the true width and N per group."""
     from multi_modal_csi_tpu_torch.kernels import int8_matmul as K
     real, shapes = K._launch, []
 
-    def launch(a, b, out):
-        shapes.append((a.dtype, *a.shape, b.shape[1]))
-        real(a, b, out)
+    def launch(a, b, out, **kw):
+        shapes.append((a.dtype, kw["groups"], kw["m"], kw["k"], kw["n"]))
+        real(a, b, out, **kw)
     K._launch = launch
     try:
         yield shapes
@@ -2025,20 +2065,21 @@ def recorded_launches():
 
 @contextlib.contextmanager
 def recorded_activations():
-    """Keeps a CPU copy of every int8 activation that the quantized
-    layers make inside the block."""
+    """Keeps a CPU copy of every int8 operand that the quantized layers'
+    prologues make inside the block."""
     from multi_modal_csi_tpu_torch.core import quantize as Q
-    real, out = Q.quantize_activation, []
+    real, out = Q.quantize_columns, []
 
-    def quantize(x, scale):
-        q = real(x, scale)
-        out.append(q.cpu())
+    def quantize(x, scale, *args):
+        q = real(x, scale, *args)
+        if scale is not None:
+            out.append(q.cpu())
         return q
-    Q.quantize_activation = quantize
+    Q.quantize_columns = quantize
     try:
         yield out
     finally:
-        Q.quantize_activation = real
+        Q.quantize_columns = real
 
 
 def by_shape(shapes, dtype):
@@ -2049,7 +2090,7 @@ def by_shape(shapes, dtype):
 
 
 def int8_serve_phase(key, requests, calib_path, s8_table, bf16_table,
-                     expect_out, k1_per_forward):
+                     columns, expect_out, k1_per_forward):
     """w8a8 serving (QUANT_DEFAULTS) of ``key`` in bf16 at batch 256,
     calibrated on the .npy at ``calib_path`` through CSIServer: exact P1
     launches by shape in one batch forward, the ragged requests from host
@@ -2084,7 +2125,8 @@ def int8_serve_phase(key, requests, calib_path, s8_table, bf16_table,
         server.forward(batch)
         torch.cuda.synchronize()
     one = dict(kernels.LAUNCH_COUNTS)
-    want = {S8: sum(s8_table.values()), BF16: sum(bf16_table.values())}
+    want = {S8: sum(s8_table.values()), BF16: sum(bf16_table.values()),
+            COLUMNS: columns}
     if k1_per_forward:
         want["flash_attention"] = k1_per_forward
     print(f"{key} w8a8: launches in one batch forward: {one}")
@@ -2092,6 +2134,12 @@ def int8_serve_phase(key, requests, calib_path, s8_table, bf16_table,
     check(by_shape(shapes, torch.int8) == s8_table
           and by_shape(shapes, torch.bfloat16) == bf16_table,
           f"{key} w8a8 product shapes {sorted(set(shapes), key=str)}")
+    # the prologue and the fused product at every call of a forward
+    with captured_calls() as calls:
+        server.forward(batch)
+        torch.cuda.synchronize()
+    FUSED_TOTALS[key] = check_fused(f"{key} w8a8", calls)
+    del calls
 
     # the main path: ragged requests from host memory to logits on the host
     kernels.reset_launch_counts()
@@ -2128,11 +2176,7 @@ def int8_serve_phase(key, requests, calib_path, s8_table, bf16_table,
           + ", ".join(f"{r:.1f}" for r in bf16_card) + ")")
     prof = profile_device(f"{key} w8a8", lambda: server.forward(
         resident[0][:server.batch]), PROFILED_FORWARDS, "forward")
-    p1_ms = sum(ms for name, ms in prof["kernels"].items()
-                if "int8_matmul_kernel" in name)
-    print(f"{key} w8a8: P1 {p1_ms:.3f} ms of {prof['device_ms']:.3f} ms "
-          f"device time per forward ({100 * p1_ms / prof['device_ms']:.1f}"
-          f"%)")
+    int8_shares(f"{key} w8a8", prof)
     del resident
 
     # the logits against bf16 serving of the same seeded weights
@@ -2203,7 +2247,8 @@ def int8_cli_phase(calib_path):
     # batch forwards
     forwards = 5
     want = {S8: sum(DETR_S8.values()) * forwards,
-            BF16: sum(DETR_BF16.values()) * forwards}
+            BF16: sum(DETR_BF16.values()) * forwards,
+            COLUMNS: DETR_COLUMNS * forwards}
     check("quant w8a8" in text and launches == want,
           f"serve_csi --quant auto launched {launches}, expected {want}")
     return launches
@@ -2241,6 +2286,11 @@ def video_int8_phase(requests):
     want = {K3: K3_PER_FORWARD, BF16: MVIT_BF16_PER_FORWARD}
     print(f"{key} w8: launches in one batch forward: {one}")
     check(one == want, f"{key} w8 launched {one}, expected {want}")
+    with captured_calls() as calls:
+        server.forward(batch)
+        torch.cuda.synchronize()
+    FUSED_TOTALS[key] = check_fused(f"{key} w8", calls)
+    del calls
 
     kernels.reset_launch_counts()
     start = time.perf_counter()
@@ -2272,10 +2322,7 @@ def video_int8_phase(requests):
           + ", ".join(f"{r:.2f}" for r in bf16_card) + ")")
     prof = profile_device(f"{key} w8", lambda: server.forward(batch),
                           PROFILED_FORWARDS, "forward")
-    p1_ms = sum(ms for name, ms in prof["kernels"].items()
-                if "int8_matmul_kernel" in name)
-    print(f"{key} w8: P1 {p1_ms:.3f} ms of {prof['device_ms']:.3f} ms "
-          f"device time per forward")
+    int8_shares(f"{key} w8", prof)
     del resident
     got = outs[0].numpy()
     ref = VideoServer(key, build_video_model(key, VIDEO_OUT, VIDEO_CLIP,
@@ -2296,6 +2343,279 @@ def video_int8_phase(requests):
             p1_case((None, *mkn), dtype, gen)
     p1_totals(f"{key} w8", table, torch.bfloat16)
     return launches
+
+
+# ---------------------------------------------------------------------- #
+# the fused path of int8 serving: prologue (quantize_columns) and the
+# product with its epilogue (quantized_product)
+# ---------------------------------------------------------------------- #
+
+@contextlib.contextmanager
+def captured_calls():
+    """Keeps, for each signature of a prologue or fused-product call that
+    the quantized layers make inside the block (kind, dtypes, shapes,
+    options), the first call's arguments and how often it ran:
+    key -> [args, kwargs, count]."""
+    from multi_modal_csi_tpu_torch.core import quantize as Q
+    real_columns, real_product = Q.quantize_columns, Q.quantized_product
+    calls = {}
+
+    def keep(key, args, kwargs):
+        calls.setdefault(key, [args, kwargs, 0])[2] += 1
+
+    def columns(x, scale, *args):
+        keep(("columns", x.dtype, tuple(x.shape), scale is None, args),
+             (x, scale) + args, {})
+        return real_columns(x, scale, *args)
+
+    def product(a, b, ws, s, bias, out_dtype, *, k):
+        keep(("product", a.dtype, tuple(a.shape), tuple(b.shape), k,
+              out_dtype, bias is not None), (a, b, ws, s, bias, out_dtype),
+             {"k": k})
+        return real_product(a, b, ws, s, bias, out_dtype, k=k)
+    Q.quantize_columns, Q.quantized_product = columns, product
+    try:
+        yield calls
+    finally:
+        Q.quantize_columns, Q.quantized_product = real_columns, real_product
+
+
+def columns_bound(x, out):
+    """The least time (ms) of one prologue call: x read once and the
+    columns written once (the row pad not counted) over the HBM rate; its
+    one division a value over the f32 peak."""
+    nbytes = x.numel() * x.element_size() + out.numel() * out.element_size()
+    return (1e3 * nbytes / PEAK_BYTES,
+            1e3 * out.numel() / PEAK_FLOPS[torch.float32])
+
+
+def product_shape(a, b, k):
+    """(M, K, N) of a fused product: K the true width, N every group's."""
+    return a.shape[0], k, b.shape[-2] * (b.shape[0] if b.dim() == 3 else 1)
+
+
+def fused_bound(a, b, out_dtype, k):
+    """The least times (ms) of one fused product: A (its true K columns)
+    and B read once and the output written once in ``out_dtype`` over the
+    HBM rate, and 2 M N K operations over the tensor-core peak of A's
+    type."""
+    m, _, n = product_shape(a, b, k)
+    groups = b.shape[0] if b.dim() == 3 else 1
+    out = torch.empty((), dtype=out_dtype).element_size()
+    nbytes = m * k * groups * a.element_size() + n * k + m * n * out
+    return (1e3 * nbytes / PEAK_BYTES,
+            1e3 * 2.0 * m * n * k / PEAK_FLOPS[a.dtype])
+
+
+def fused_library(a, b, ws, s, bias, out_dtype, k):
+    """The yardstick of a fused product, or None (grouped, or M <= 16 for
+    s8): ``torch._int_mm`` (w8a8) or bf16 ``torch.matmul`` (w8) on the
+    unpadded operands, then the eager epilogue (times the scale, plus the
+    bias, the cast)."""
+    if b.dim() == 3:
+        return None
+    a2 = (a[:, 0] if a.dim() == 3 else a)[:, :k].contiguous()
+    b2 = b[:, :k].contiguous()
+    n = b.shape[0]
+    dtype = a.dtype
+    lib = p1_library(a2, b2 if dtype == torch.int8 else
+                     b2.to(torch.bfloat16), dtype)
+    if lib is None:
+        return None
+    scale = ws if s is None else ws * s
+
+    def run():
+        y = lib()[:, :n].float() * scale
+        if bias is not None:
+            y = y + bias
+        return y.to(out_dtype)
+    return run
+
+
+def bf16_fused_worst(got, a, b, ws, bias, k):
+    """The bf16 fused product's largest error against the exact value
+    (float64) of the same epilogue, over its bound: the accumulation bound
+    P1_BF16_BOUND of p1_case (K 2^-23 sum |a b|) times |scale|, plus the
+    epilogue's f32 roundings (2^-22 of |A B^T scale| + |bias|); for a bf16
+    output, plus half a bf16 step of the f32 value before the cast, at
+    most 2^-8 of it."""
+    m, _, n = product_shape(a, b, k)
+    a3 = (a if a.dim() == 3 else a[:, None])[..., :k].double().transpose(0, 1)
+    b3 = (b if b.dim() == 3 else b[None])[..., :k].double()
+    y = (a3 @ b3.transpose(-1, -2)).transpose(0, 1).reshape(m, n)
+    mag = (a3.abs() @ b3.abs().transpose(-1, -2)).transpose(0, 1).reshape(
+        m, n)
+    del a3, b3
+    wsd = ws.double()
+    bd = torch.zeros_like(wsd) if bias is None else bias.double()
+    want = y * wsd + bd
+    tol = (k * P1_BF16_BOUND * mag * wsd.abs()
+           + 2.0 ** -22 * ((y * wsd).abs() + bd.abs()))
+    if got.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -8 * (want.abs() + tol)
+    return float(((got.double() - want).abs() / tol.clamp_min(1e-300))
+                 .max())
+
+
+@torch.no_grad()
+def check_fused(label, calls):
+    """Each captured prologue call against its plain version on the card
+    (torch.equal: quantize_activation or the bf16 cast, unfold, pad), each
+    captured fused product against the eager chain on the card (s8:
+    torch.equal; bf16: ``bf16_fused_worst`` within 1); then per signature,
+    with CUDA events (plain, kernel, kernel, plain), their times beside the
+    yardstick (prologue: none; product: ``fused_library``) and the bound.
+    Returns the sums per forward (weights: the calls' counts) for the
+    prologue and each product type, with the largest error (0: equal)."""
+    from multi_modal_csi_tpu_torch.kernels import int8_matmul as K
+    fields = ("ms", "plain_ms", "bytes_ms", "ops_ms", "library_ms")
+    totals = {name: dict.fromkeys(fields, 0.0) | {"err": 0.0, "calls": 0}
+              for name in ("columns", "s8", "bf16")}
+    for key, (args, kwargs, count) in sorted(calls.items(), key=str):
+        if key[0] == "columns":
+            kernel, plain = K.quantize_columns, K.quantize_columns_reference
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"{label}: prologue {key} differs from its plain version")
+            bytes_ms, ops_ms = columns_bound(args[0], got)
+            name, err, lib, what = "columns", 0.0, None, (
+                f"prologue x {tuple(args[0].shape)} {str(args[0].dtype)[6:]}"
+                f" k,stride,dilation,pads,groups={args[2:] or (1,)} -> "
+                f"{str(got.dtype)[6:]} {tuple(got.shape)}: equal")
+            reps = max(3, min(20, int(4e9 / got.numel())))
+        else:
+            kernel, plain = K.quantized_product, K.quantized_product_reference
+            a, b, ws, s, bias, out_dtype = args
+            k = kwargs["k"]
+            got, want = kernel(*args, **kwargs), plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            m, _, n = product_shape(a, b, k)
+            if a.dtype == torch.int8:
+                name, err = "s8", 0.0
+                check(torch.equal(got, want), f"{label}: fused s8 {key} "
+                                              f"differs from the eager chain")
+                result = "equal to the eager chain"
+            else:
+                name = "bf16"
+                worst = bf16_fused_worst(got, a, b, ws, bias, k)
+                check(worst <= 1.0, f"{label}: fused bf16 {key}: {worst:.3g}"
+                                    f" of its bound")
+                err = float((got.float() - want.float()).abs().max())
+                result = (f"max abs err vs eager {err:.3e}, {worst:.3g} of "
+                          f"the bound")
+            bytes_ms, ops_ms = fused_bound(a, b, out_dtype, k)
+            lib = fused_library(a, b, ws, s, bias, out_dtype, k)
+            what = (f"fused {name} M,K,N={(m, k, n)} A {tuple(a.shape)} "
+                    f"{'bias ' if bias is not None else ''}-> "
+                    f"{str(out_dtype)[6:]}: {result}")
+            reps = max(3, min(20, int(4e10 / (m * k * n))))
+        del got, want
+        times = [cuda_ms(lambda: plain(*args, **kwargs), reps, 1)]
+        times += [cuda_ms(lambda: kernel(*args, **kwargs), reps, 1)
+                  for _ in range(2)]
+        times.append(cuda_ms(lambda: plain(*args, **kwargs), reps, 1))
+        lib_ms = None if lib is None else cuda_ms(lib, reps, 1)
+        if key[0] == "product" and a.dim() == 2 and (
+                a.stride(0) * a.element_size()) % 16:
+            # the alternative to the bf16 activation read as it is, with
+            # 4-byte copies: staged by the prologue at a 16-byte stride,
+            # then 16-byte copies
+            staged = cuda_ms(lambda: kernel(K.quantize_columns(
+                a[None], None), *args[1:], **kwargs), reps, 1)
+            what += (f"; as it is ({a.stride(0) * 2}-byte rows) "
+                     f"{(times[1] + times[2]) / 2:.4f} ms against staged "
+                     f"{staged:.4f} ms")
+        total = totals[name]
+        row = dict(ms=(times[1] + times[2]) / 2,
+                   plain_ms=(times[0] + times[3]) / 2, bytes_ms=bytes_ms,
+                   ops_ms=ops_ms, library_ms=lib_ms)
+        for field in fields:
+            if total[field] is not None:
+                total[field] = (None if row[field] is None
+                                else total[field] + count * row[field])
+        total["err"] = max(total["err"], err)
+        total["calls"] += count
+        lib_text = "none" if lib_ms is None else f"{lib_ms:.4f}"
+        print(f"{label} {what}; {count}x a forward; kernel {times[1]:.4f}/"
+              f"{times[2]:.4f} ms, plain {times[0]:.4f}/{times[3]:.4f} ms, "
+              f"library {lib_text} ms; bound bytes {1e3 * bytes_ms:.1f} us, "
+              f"operations {1e3 * ops_ms:.1f} us")
+        torch.cuda.empty_cache()
+    for name, t in totals.items():
+        if not t["calls"]:
+            continue
+        lib = t["library_ms"]
+        print(f"{label} {name if name != 'columns' else 'prologue'} per "
+              f"forward ({t['calls']} calls): kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, library "
+              f"{'none' if lib is None else f'{lib:.4f}'} ms; bound bytes "
+              f"{t['bytes_ms']:.4f} ms, operations {t['ops_ms']:.4f} ms")
+    return totals
+
+
+def int8_shares(label, prof):
+    """P1's (the product and split-K kernels), the prologue's and the
+    remaining elementwise and copy kernels' device ms per forward and
+    shares, from ``profile_device``."""
+    groups = {"P1 (product_kernel, reduce_kernel)": ("product_kernel",
+                                                      "reduce_kernel"),
+              "prologue (columns_kernel)": ("columns_kernel",),
+              "elementwise and copies": ("elementwise", "Copy")}
+    for what, names in groups.items():
+        ms = sum(t for kname, t in prof["kernels"].items()
+                 if any(n in kname for n in names))
+        print(f"{label}: {what} {ms:.3f} ms of {prof['device_ms']:.3f} ms "
+              f"device time per forward ({100 * ms / prof['device_ms']:.1f}"
+              f"%)")
+
+
+def phase_p1_fused(gen):
+    """The fused path at P1's odd shapes: each (G, M, K, N) of P1_ODD as a
+    Linear (G None) or a grouped k = 1 convolution, in w8a8 (f32 input,
+    bf16 output) and in w8 (bf16 input, f32 output), with a bf16 bias,
+    through core/quantize.py, every call held by ``check_fused``; then a
+    bf16 A whose rows no copy of 4 bytes divides must be refused by the
+    launcher, raising."""
+    from multi_modal_csi_tpu_torch.core import quantize as Q
+    from multi_modal_csi_tpu_torch.kernels import int8_matmul as K
+    for shape in P1_ODD:
+        g, m, k, n = shape
+        groups = g or 1
+        x = 3 * torch.randn((1, m, groups * k), generator=gen, device="cuda")
+        w = torch.randint(-127, 128, (groups * n, k), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        ws = 1e-3 + 1e-2 * torch.rand(groups * n, generator=gen,
+                                      device="cuda")
+        bias = torch.randn(groups * n, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+        s = torch.tensor(0.05, device="cuda")
+        for scale, x_dtype, out_dtype in ((s, torch.float32, torch.bfloat16),
+                                          (None, torch.bfloat16,
+                                           torch.float32)):
+            xi = x.to(x_dtype)
+            with captured_calls() as calls:
+                if g is None:
+                    Q.dense_forward(xi, w, ws, scale, bias, out_dtype,
+                                    K.pad_columns(w))
+                else:
+                    Q.conv_forward(xi, w[..., None], ws, scale, pads=(0, 0),
+                                   stride=1, dilation=1, groups=groups,
+                                   bias=bias, out_dtype=out_dtype,
+                                   padded=K.pad_columns(w))
+            mode = "w8" if scale is None else "w8a8"
+            check_fused(f"P1_ODD {shape} {mode}", calls)
+    a = torch.zeros((4, 270), dtype=torch.bfloat16, device="cuda")[:, 1:]
+    try:
+        K.quantized_product(a, K.pad_columns(torch.zeros(
+            (8, 269), dtype=torch.int8, device="cuda")), torch.ones(
+                8, device="cuda"), None, None, torch.float32, k=269)
+        refused = False
+    except RuntimeError as e:
+        print(f"P1 fused bf16 A with rows of 538 bytes at a 540-byte stride:"
+              f" refused ({e})")
+        refused = True
+    check(refused, "P1 launched a product no copy width divides")
 
 
 def p1_totals(label, table, dtype):
@@ -2335,6 +2655,26 @@ def p1_entry(name, replaces, launches, table, dtype):
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": total["library_ms"],
+    }
+
+
+def columns_entry(launches):
+    """The JSON description of the prologue: its times and bound summed
+    over one DETR w8a8 forward at bs256, from ``check_fused``. No one
+    PyTorch call computes the quantization with the unfold (library
+    null). It replaces no TPU kernel of its own: it is the activation
+    quantization that XLA fuses into P1's product in the JAX package."""
+    total = FUSED_TOTALS["DETR"]["columns"]
+    bytes_ms, ops_ms = total["bytes_ms"], total["ops_ms"]
+    return {
+        "name": COLUMNS, "route": "cuda",
+        "source": "multi_modal_csi_tpu_torch/kernels/csrc/int8_matmul.cu",
+        "replaces": "multi_modal_csi_tpu/core/quantize.py:90",
+        "launches": launches, "max_abs_err": total["err"],
+        "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
     }
 
 
@@ -2473,9 +2813,10 @@ def main() -> int:
             (CALIB_WINDOWS, LENGTH, CHANNELS), dtype=np.float32))
         int8_runs = [
             int8_serve_phase("DETR", requests, calib, DETR_S8, DETR_BF16,
-                             lambda n: (6, n, 5, 10), 0),
+                             DETR_COLUMNS, lambda n: (6, n, 5, 10), 0),
             int8_serve_phase("THAT_ENCODER", requests, calib, ENCODER_S8,
-                             ENCODER_BF16, lambda n: (7, n, 5, 10), 5),
+                             ENCODER_BF16, ENCODER_COLUMNS,
+                             lambda n: (7, n, 5, 10), 5),
             int8_cli_phase(calib)]
         p1_totals("THAT_ENCODER w8a8", ENCODER_S8, torch.int8)
         p1_totals("THAT_ENCODER w8a8", ENCODER_BF16, torch.bfloat16)
@@ -2522,8 +2863,10 @@ def main() -> int:
     # K4's two kernels: per MViT-v2 training step (f32, batch 2), 3 each;
     # launches summed over every training run. P1's two instantiations: per
     # DETR w8a8 forward (bf16 serving, batch 256), 22 s8 and 54 bf16
-    # products; launches summed over the int8 serving runs (DETR and
-    # THAT_ENCODER w8a8, the serve_csi CLI, MViT-v2 w8).
+    # products, as bare products (as the TPU kernels compute them; the
+    # main path runs them fused); launches summed over the int8 serving
+    # runs (DETR and THAT_ENCODER w8a8, the serve_csi CLI, MViT-v2 w8). The
+    # prologue: per DETR w8a8 forward, its 52 calls; launches likewise.
     trace = k5_times["trace"]
     k5_bytes, k5_ops = trace["bytes_ms"], trace["ops_ms"]
     print(json.dumps({"kernels": [
@@ -2566,6 +2909,7 @@ def main() -> int:
         p1_entry(BF16, "tools/exp_pallas_int8.py:48",
                  sum(runs.get(BF16, 0) for runs in int8_runs), DETR_BF16,
                  torch.bfloat16),
+        columns_entry(sum(runs.get(COLUMNS, 0) for runs in int8_runs)),
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

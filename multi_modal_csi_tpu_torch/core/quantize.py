@@ -13,8 +13,14 @@ Two modes, as there:
   ``weight_scale * input_scale``.
 
 There is no mode flag: an int8 weight is the signal, and an
-``input_scale`` buffer beside it selects w8a8. Both products run in
-``kernels/int8_matmul.py`` (the hand-written kernel on the card).
+``input_scale`` buffer beside it selects w8a8. A layer's product runs in
+``kernels/int8_matmul.py`` as two launches on the card: the prologue
+(``quantize_columns``: the activation quantized, or cast to bf16, and
+unfolded for a conv, at a padded row stride) and the product with the
+rescale, the bias and the cast in its epilogue (``quantized_product``).
+The product reads each int8 weight padded to a 16-byte row stride: a
+non-persistent ``<name>_padded`` buffer beside it, made once when the
+model is quantized or loaded, so the state dict stays as it is.
 
 Which layers are quantized is decided by discovery, as in JAX: ``Linear``
 and ``Conv1d`` (``nn/layers.py``) record their input's max-abs (or its
@@ -46,7 +52,11 @@ from typing import Dict, Iterable, Iterator, Optional, Tuple
 import torch
 from torch import nn
 
-from ..kernels.int8_matmul import bf16_matmul_f32, int8_matmul
+from ..kernels.int8_matmul import (direct_operand, pad_columns,
+                                   quantize_columns, quantized_product)
+# the activation quantizer lives beside the prologue that fuses it; it is
+# part of this module's interface, as in the JAX package
+from ..kernels.int8_matmul import quantize_activation  # noqa: F401
 
 # weights smaller than this stay float: tiny layers save nothing and lose
 # the most precision (10-class heads)
@@ -84,13 +94,6 @@ def quantize_array(w: torch.Tensor, channel_axis: int = 0
     return q.to(torch.int8), scale
 
 
-def quantize_activation(x: torch.Tensor, scale: torch.Tensor
-                        ) -> torch.Tensor:
-    """Per-tensor symmetric int8 with a fixed (calibrated) scale."""
-    q = torch.round(x.float() / scale)
-    return q.clamp(-127, 127).to(torch.int8)
-
-
 def p999(x: torch.Tensor) -> torch.Tensor:
     """The 99.9th percentile of |x| over all elements, as float32, with
     ``jnp.quantile``'s default linear interpolation and its float32
@@ -113,33 +116,25 @@ def p999(x: torch.Tensor) -> torch.Tensor:
 # the products of a quantized layer (called from nn/layers.py)
 # ---------------------------------------------------------------------- #
 
-def _operand(x: torch.Tensor,
-             input_scale: Optional[torch.Tensor]) -> torch.Tensor:
-    """The activation as the product takes it: bf16 (w8) or int8 (w8a8)."""
-    if input_scale is None:
-        return x.to(torch.bfloat16)
-    return quantize_activation(x, input_scale)
-
-
-def _product(a: torch.Tensor, weight: torch.Tensor,
-             weight_scale: torch.Tensor,
-             input_scale: Optional[torch.Tensor]) -> torch.Tensor:
-    """(..., M, K) x (..., N, K)^T in f32 with the rescale, for an operand
-    from ``_operand``: w8 in bf16 on the dequantised weight, w8a8 in int8
-    (the two scales multiplied first, as JAX does)."""
-    if input_scale is None:
-        y = bf16_matmul_f32(a, weight.to(torch.bfloat16))
-        return y * weight_scale
-    y = int8_matmul(a, weight)
-    return y.float() * (weight_scale * input_scale)
-
-
 def dense_forward(x: torch.Tensor, weight: torch.Tensor,
                   weight_scale: torch.Tensor,
-                  input_scale: Optional[torch.Tensor]) -> torch.Tensor:
-    """x @ dequant(weight)^T in float32 for an int8 (out, in) weight."""
-    a = _operand(x.reshape(-1, x.shape[-1]), input_scale)
-    y = _product(a, weight, weight_scale, input_scale)
+                  input_scale: Optional[torch.Tensor],
+                  bias: Optional[torch.Tensor] = None,
+                  out_dtype: torch.dtype = torch.float32,
+                  padded: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ dequant(weight)^T + bias as ``out_dtype`` for an int8 (out, in)
+    weight (``padded``: the same weight at the product's padded stride).
+    w8a8 quantizes x; w8 takes x as bf16, straight from x when the product
+    can read it as it is."""
+    c = x.shape[-1]
+    a = direct_operand(x) if input_scale is None else None
+    if a is None:                      # x as (B, L, C), viewed if it can be
+        x3 = x.reshape(-1, *x.shape[-2:]) if x.dim() > 2 else x.reshape(
+            1, -1, c)
+        a = quantize_columns(x3, input_scale)
+    y = quantized_product(a, pad_columns(weight) if padded is None
+                          else padded, weight_scale, input_scale, bias,
+                          out_dtype, k=c)
     return y.reshape(*x.shape[:-1], weight.shape[0])
 
 
@@ -147,26 +142,38 @@ def conv_forward(x: torch.Tensor, weight: torch.Tensor,
                  weight_scale: torch.Tensor,
                  input_scale: Optional[torch.Tensor], *,
                  pads: Tuple[int, int], stride: int, dilation: int,
-                 groups: int) -> torch.Tensor:
+                 groups: int, bias: Optional[torch.Tensor] = None,
+                 out_dtype: torch.dtype = torch.float32,
+                 padded: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A 1-D convolution of channels-last x (B, L, C) with an int8 weight
-    (N, C/groups, k), as float32 (B, L_out, N): the padded input (int8 for
-    w8a8, bf16 for w8) unfolded into (B L_out, C k) columns in the weight's
-    (channel, tap) order, one product per group, the groups as the
-    product's batch dimension."""
+    (N, C/groups, k), plus the bias, as ``out_dtype`` (B, L_out, N): the
+    padded input (int8 for w8a8, bf16 for w8) unfolded into (B L_out, G,
+    C/groups k) columns in the weight's (channel, tap) order, one product
+    per group. ``padded``: the weight as (N, C/groups k) at the product's
+    padded stride."""
     n, cg, k = weight.shape
-    x = _operand(x, input_scale)
-    span = (k - 1) * dilation + 1
-    cols = torch.nn.functional.pad(x, (0, 0, *pads)).unfold(1, span, stride)
-    cols = cols[..., ::dilation]                       # (B, L_out, C, k)
-    b, lout = cols.shape[:2]
-    a = cols.reshape(b * lout, groups, cg * k)
-    w = weight.reshape(groups, n // groups, cg * k)
-    if groups == 1:
-        y = _product(a[:, 0], w[0], weight_scale, input_scale)
-    else:
-        y = _product(a.transpose(0, 1), w, weight_scale.reshape(
-            groups, 1, n // groups), input_scale).transpose(0, 1)
-    return y.reshape(b, lout, n)
+    a = quantize_columns(x, input_scale, k, stride, dilation, pads, groups)
+    b = pad_columns(weight.reshape(n, cg * k)) if padded is None else padded
+    if groups > 1:
+        b = b.reshape(groups, n // groups, b.shape[-1])
+    y = quantized_product(a, b, weight_scale, input_scale, bias, out_dtype,
+                          k=cg * k)
+    return y.reshape(x.shape[0], -1, n)
+
+
+def pad_weights(model: nn.Module) -> nn.Module:
+    """Give every int8 weight of ``model`` its ``<name>_padded`` buffer
+    (non-persistent): the weight as (out, in) rows zero-padded to the
+    product's 16-byte stride, so that no call pads it again. Returns
+    ``model``."""
+    for module in model.modules():
+        for name, param in module.named_parameters(recurse=False):
+            if param.dtype == torch.int8:
+                module.register_buffer(
+                    f"{name}_padded",
+                    pad_columns(param.detach().reshape(param.shape[0], -1)),
+                    persistent=False)
+    return model
 
 
 # ---------------------------------------------------------------------- #
@@ -275,7 +282,7 @@ def quantize_model(model: nn.Module, stats: Stats, mode: str = "w8",
             owner.register_buffer("input_scale", torch.tensor(
                 max(stat, 1e-12) / 127.0, dtype=torch.float32,
                 device=q.device))
-    return model
+    return pad_weights(model)
 
 
 @torch.no_grad()
@@ -298,7 +305,7 @@ def load_quantized(model: nn.Module, state) -> nn.Module:
             owner.register_buffer(leaf, torch.empty(
                 value.shape, dtype=torch.float32, device=device))
     model.load_state_dict(state, strict=True)
-    return model
+    return pad_weights(model)
 
 
 def quantize_for_serving(model: nn.Module, batches: Iterable[torch.Tensor],

@@ -84,11 +84,10 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.weight.dtype == torch.int8:
-            y = dense_forward(x, self.weight, self.weight_scale,
-                              getattr(self, "input_scale", None))
-            if self.bias is not None:
-                y = y + self.bias
-            return y.to(x.dtype)
+            return dense_forward(x, self.weight, self.weight_scale,
+                                 getattr(self, "input_scale", None),
+                                 self.bias, x.dtype,
+                                 getattr(self, "weight_padded", None))
         record_input(self, x)
         return dense(x, self.weight, self.bias, x.dtype)
 
@@ -142,13 +141,13 @@ class Conv1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.weight.dtype == torch.int8:
-            y = conv_forward(x, self.weight, self.weight_scale,
-                             getattr(self, "input_scale", None),
-                             pads=self.pads(x.shape[1]), stride=self.stride,
-                             dilation=self.dilation, groups=self.groups)
-            if self.bias is not None:
-                y = y + self.bias
-            return y.to(x.dtype)
+            return conv_forward(x, self.weight, self.weight_scale,
+                                getattr(self, "input_scale", None),
+                                pads=self.pads(x.shape[1]),
+                                stride=self.stride, dilation=self.dilation,
+                                groups=self.groups, bias=self.bias,
+                                out_dtype=x.dtype,
+                                padded=getattr(self, "weight_padded", None))
         record_input(self, x)
         dtype = torch.promote_types(x.dtype, self.weight.dtype)
         if self.bias is not None:
@@ -449,9 +448,11 @@ class MultiheadAttention(nn.Module):
 
         def project(x, lo, hi):
             if quantized:
-                scale = self.in_proj_weight_scale[lo:hi]
-                y = dense_forward(x, w[lo:hi], scale, None) + b[lo:hi]
-                return y.to(proj_dtype)
+                padded = getattr(self, "in_proj_weight_padded", None)
+                return dense_forward(
+                    x, w[lo:hi], self.in_proj_weight_scale[lo:hi], None,
+                    b[lo:hi], proj_dtype,
+                    None if padded is None else padded[lo:hi])
             return dense(x, w[lo:hi], b[lo:hi], proj_dtype)
 
         def split(t):
@@ -472,7 +473,9 @@ class MultiheadAttention(nn.Module):
         wo, bo = self.out_proj.weight, self.out_proj.bias
         scaled = self.output_scale != 1.0
         if wo.dtype == torch.int8:
-            out = dense_forward(ctx, wo, self.out_proj.weight_scale, None) + bo
+            out = dense_forward(ctx, wo, self.out_proj.weight_scale, None, bo,
+                                torch.float32 if scaled else query.dtype,
+                                getattr(self.out_proj, "weight_padded", None))
         else:
             out = dense(ctx, wo, bo, torch.float32 if scaled else query.dtype)
         if scaled:
