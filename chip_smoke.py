@@ -44,9 +44,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    scaled_dot_product_attention's with r @ s as its mask, and the bound,
    summed per MViT-v1 and v2 forward (the bf16 kernel is the tensor-core
    kernel of csrc/tc_attention.cuh, its bias a 3xTF32 product), and the
-   same in f32 at the training blocks 0-2, summed per training step; a
-   head dim of 160, and in bf16 a bias of 129 factor columns, must be
-   refused;
+   same in f32 at the training blocks 0-2, summed per training step, with
+   the f32 bound at the f32 peak and as 3xTF32 (the f32 kernel is that
+   file's f32 body: QK^T and P.V as 3xTF32, the bias as the plain
+   version's FMA chain, which must be the plain version's r @ s bit for
+   bit at the training blocks), and SDPA's f32 kernels named from a
+   profile at block 0; f32 also at two shapes where the f32 launcher
+   takes its other configuration (4 warps over 64 rows, key tiles of 32);
+   at the seven f32 block shapes both the kernel's and the plain
+   version's distance from the same function in float64; a head dim of
+   160 or a bias of 129 factor columns must be refused in either dtype;
 4c. K4 (dQ/dR and dK/dV/dS kernels) against its plain version at MViT's
    three training block shapes of a (2, 45, 224, 224, 3) step and the JAX
    test's odd shapes, f32 and bf16, with and without the bias, both fed
@@ -76,7 +83,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 4e. K1 and K2 at the largest shapes their fit predicates admit, each
    instantiation: K1 f32 and K2 at one head of 27 (one key or token
    more: refused with ValueError), K1 bf16 at 4096 keys of a head of 128
-   (a head of 129: refused);
+   (a head of 129: refused), K3 in both dtypes at a bias of 128 factor
+   columns and a head of 128 (129 of either: refused);
 5. preprocessing on the card (cli/preprocess_csi.py, the default device):
    4 synthetic WiMANS .mat traces of 3000 packets to amplitude and phase
    files, exactly 4 K5 launches, seconds per trace by stage (.mat parse,
@@ -160,8 +168,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    1, one epoch at batch 2, the final test pass in bf16; the result JSON
    read back with the JAX runner's keys; exact K3 and K4 launch counts;
 17. one JSON line describing each kernel (every TPU kernel of the repo
-   is ported, and P1's prologue), then the card's name and power limit,
-   then the result line.
+   is ported, and P1's prologue; K3 with one entry per dtype), then the
+   card's name and power limit, then the result line.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -255,6 +263,11 @@ LOWRANK_ODD = {"odd-300": (2, 1, 300, 37, 16, 5),
                "odd-513": (1, 2, 513, 129, 8, 11),
                "odd-257": (2, 4, 257, 128, 24, 9),
                "odd-128": (1, 8, 128, 128, 96, 0)}
+# f32 shapes where the 8-warp configuration's tiles do not fit in shared
+# memory, so the f32 launcher takes 4 warps over 64 rows and key tiles of
+# 32: a bias past 64 factor columns at D = 96, and a head of 128
+LOWRANK_NARROW = {"d96-m70": (2, 2, 18033, 1128, 96, 70),
+                  "d128-m37": (1, 2, 4099, 1128, 128, 37)}
 # K3 against its plain version: f32 the JAX test's 2e-5; bf16 2^-7 of the
 # largest |out| (one rounding step of it); the LSE 1e-5 relative
 LOWRANK_BF16_SHARE = 2.0 ** -7
@@ -1108,7 +1121,10 @@ def lowrank_bound(shape, bias, dtype):
     the QK^T and PV products (4 B*H*Nq*Nk*D) over the peak of the dtype
     plus the bias product (2 B*H*Nq*Nk*M): in f32 over the f32 peak, in
     bf16 as the kernel computes it, three TF32 products (3xTF32) over the
-    TF32 tensor-core peak."""
+    TF32 tensor-core peak. The third time is the operations bound with
+    every f32 product as 3xTF32 (3 x operations over the TF32 peak; the
+    f32 kernel computes QK^T and P.V so, the bias on the CUDA cores); in
+    bf16 it is the second."""
     b, h, nq, nk, d, m = shape
     m = m if bias else 0
     item = torch.tensor([], dtype=dtype).element_size()
@@ -1118,7 +1134,50 @@ def lowrank_bound(shape, bias, dtype):
                if dtype == torch.float32 else
                3 * 2.0 * b * h * nq * nk * m / PEAK_TF32)
     ops_ms = 1e3 * (4.0 * b * h * nq * nk * d / PEAK_FLOPS[dtype] + bias_ms)
-    return 1e3 * nbytes / PEAK_BYTES, ops_ms
+    tf32_ms = (1e3 * 3 * (4.0 * d + 2.0 * m) * b * h * nq * nk / PEAK_TF32
+               if dtype == torch.float32 else ops_ms)
+    return 1e3 * nbytes / PEAK_BYTES, ops_ms, tf32_ms
+
+
+def sdpa_kernels(label, q, k, v, mask):
+    """The CUDA kernels one scaled_dot_product_attention call runs (the
+    backend PyTorch picks), by device time, from torch.profiler."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    print(f"sdpa {label} kernels: " + "; ".join(
+        f"{e.key[:80]} {e.self_device_time_total / 1e3:.3f} ms"
+        for e in kernels[:4]))
+
+
+def fma_chain_matches(r, s, rows=1024):
+    """Whether the f32 r @ s the plain version takes (torch.einsum) equals,
+    bit for bit on its first ``rows`` rows, one FMA chain over the factor
+    columns in order (each step r_m s_m + b exact in f64, rounded once to
+    f32), the order the f32 kernel's bias follows."""
+    r = r[:, :, :rows]
+    want = torch.einsum("bhqm,mk->bhqk", r, s)
+    acc = torch.zeros_like(want)
+    for i in range(s.shape[0]):
+        acc = (r[..., i:i + 1].double() * s[i].double() + acc.double()
+               ).float()
+    return torch.equal(acc, want)
+
+
+def lowrank_f64(q, k, v, r, s):
+    """K3's function computed in float64 (the f32 kernel's and the plain
+    version's own rounding errors are measured against it)."""
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()) / (
+        q.shape[-1] ** 0.5)
+    if r is not None:
+        logits += torch.einsum("bhqm,mk->bhqk", r.double(), s.double())
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, dim=-1),
+                        v.double())
 
 
 def phase_lowrank(lowrank, lowrank_reference):
@@ -1127,17 +1186,22 @@ def phase_lowrank(lowrank, lowrank_reference):
     at the serving shapes in bf16, times per call with CUDA events (plain,
     kernel, kernel, plain), beside scaled_dot_product_attention with r @ s
     materialized as its attn_mask in q's dtype (the mask made outside the
-    timed call) and the bound; a head dim of 160 must be refused."""
+    timed call) and the bound; in f32 likewise at the training blocks 0-2,
+    with SDPA's kernels named from a profile at block 0, and held to the
+    same marks at LOWRANK_NARROW; a head dim of 160 and a bias of 129
+    factor columns must be refused."""
     import torch.nn.functional as F
-    from multi_modal_csi_tpu_torch.kernels.flash_attention_lowrank import (
-        MAX_BIAS_RANK_BF16)
+    from multi_modal_csi_tpu_torch.kernels.flash_attention_lowrank import \
+        MAX_BIAS_RANK
     set_tf32(False)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     shapes = {n: s for n, (s, _) in LOWRANK_SHAPES.items()}
     shapes.update(LOWRANK_ODD)
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for name, shape in shapes.items():
+        f32 = dtype == torch.float32
+        for name, shape in (shapes | LOWRANK_NARROW if f32
+                            else shapes).items():
             b, h, nq, nk, d, m = shape
             for bias in (False, True) if m else (False,):
                 q, k, v = (torch.randn((b, h, n, d), generator=gen,
@@ -1164,6 +1228,20 @@ def phase_lowrank(lowrank, lowrank_reference):
                 print(f"K3 {label} {shape} {dtype}: max abs err {err:.3e} "
                       f"(tolerance {tol:.3e}, max |out| {top:.3f}), LSE max "
                       f"rel err {lse_rel:.2e} (tolerance {LOWRANK_LSE_RTOL})")
+                if dtype == torch.float32 and name in LOWRANK_SHAPES:
+                    exact = lowrank_f64(q, k, v, r, s)
+                    print(f"K3 {label} f32 against the same function in "
+                          f"f64: kernel {(out - exact).abs().max().item():.3e}"
+                          f", plain {(want - exact).abs().max().item():.3e}")
+                    del exact
+                    if bias and name in LOWRANK_BWD_SHAPES:
+                        # the f32 kernel's bias follows this order, and
+                        # its err stays under F32_TOL because of it
+                        chain = fma_chain_matches(r, s)
+                        print(f"K3 {label}: r @ s of the plain version is one"
+                              f" FMA chain over M (rows 0-1023): {chain}")
+                        check(chain, f"K3 {label}: the plain version's r @ s"
+                                     f" is not one FMA chain over M")
                 check(out.dtype == dtype and out.shape == q.shape
                       and lse.shape == q.shape[:3],
                       f"K3 {label} {dtype} outputs {out.dtype} "
@@ -1174,30 +1252,34 @@ def phase_lowrank(lowrank, lowrank_reference):
                 del out, lse, want, want_lse
                 # timed: bf16 at the serving shapes, f32 at the training
                 # blocks 0-2
-                if name not in (LOWRANK_SHAPES if dtype == torch.bfloat16
-                                else LOWRANK_BWD_SHAPES):
+                if name not in (LOWRANK_BWD_SHAPES if f32
+                                else LOWRANK_SHAPES):
                     continue
 
                 def timed(fn):
                     return cuda_ms(fn, reps=LOWRANK_REPS, warmup=1)
 
                 plain = [timed(lambda: lowrank_reference(q, k, v, r, s))]
-                kern = [timed(lambda: lowrank(q, k, v, r, s))
-                        for _ in range(2)]
+                kern = [timed(lambda: lowrank(q, k, v, r, s))]
+                kern.append(timed(lambda: lowrank(q, k, v, r, s)))
                 plain.append(timed(lambda: lowrank_reference(q, k, v, r, s)))
                 mask = None if r is None else (r @ s).to(dtype)
                 lib = timed(lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask))
+                if f32 and name == "block0":
+                    sdpa_kernels(f"{label} f32", q, k, v, mask)
                 del mask
-                bytes_ms, ops_ms = lowrank_bound(shape, bias, dtype)
+                bytes_ms, ops_ms, tf32_ms = lowrank_bound(shape, bias, dtype)
                 results[(label, dtype)] = dict(
                     err=err, ms=sum(kern) / 2, plain_ms=sum(plain) / 2,
-                    library_ms=lib, bytes_ms=bytes_ms, ops_ms=ops_ms)
+                    library_ms=lib, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                    tf32_ms=tf32_ms)
                 print(f"K3 {label} {dtype} per call: kernel {kern[0]:.3f}/"
                       f"{kern[1]:.3f} ms, plain {plain[0]:.3f}/{plain[1]:.3f}"
                       f" ms, sdpa {lib:.3f} ms; bound: bytes "
                       f"{1e3 * bytes_ms:.1f} us, operations "
-                      f"{1e3 * ops_ms:.1f} us")
+                      f"{1e3 * ops_ms:.1f} us"
+                      + (f" (3xTF32 {1e3 * tf32_ms:.1f} us)" if f32 else ""))
     for bias in (False, True):
         per_forward = {k: sum(n * results[(f"{name}{'+bias' if bias else ''}",
                                            torch.bfloat16)][k]
@@ -1213,17 +1295,20 @@ def phase_lowrank(lowrank, lowrank_reference):
                                     torch.float32)][k]
                            for name in LOWRANK_BWD_SHAPES)
                     for k in ("ms", "plain_ms", "library_ms", "bytes_ms",
-                              "ops_ms")}
+                              "ops_ms", "tf32_ms")}
         print(f"K3 per MViT-v{2 if bias else 1} f32 training step at batch 2 "
               f"(blocks 0-2, 3 calls): kernel {per_step['ms']:.3f} ms, plain "
               f"{per_step['plain_ms']:.3f} ms, sdpa "
               f"{per_step['library_ms']:.3f} ms, bound "
-              f"{max(per_step['bytes_ms'], per_step['ops_ms']):.3f} ms")
+              f"{max(per_step['bytes_ms'], per_step['ops_ms']):.3f} ms at the "
+              f"f32 peak, {max(per_step['bytes_ms'], per_step['tf32_ms']):.3f}"
+              f" ms as 3xTF32")
 
-    # a head dim above 128 in either dtype; a bf16 bias past the
-    # tensor-core kernel's factor columns
+    # a head dim above 128 or a bias past the kernels' factor columns, in
+    # either dtype
     for dtype, d, m in ((torch.float32, 160, 0), (torch.bfloat16, 160, 0),
-                        (torch.bfloat16, 8, MAX_BIAS_RANK_BF16 + 1)):
+                        (torch.float32, 8, MAX_BIAS_RANK + 1),
+                        (torch.bfloat16, 8, MAX_BIAS_RANK + 1)):
         q = torch.zeros((1, 1, 8, d), device="cuda", dtype=dtype)
         r = s = None
         if m:
@@ -1751,7 +1836,9 @@ def run_video_phase(clips, annotation, work, key, train_dtype="float32"):
     1, one epoch at batch 2, the final test pass in the serving dtype
     (bf16); the result JSON read back with the JAX runner's keys and
     exactly 3 K3 and 3 of each K4 kernel per step and 16 K3 per
-    evaluation chunk. Returns the launch counts."""
+    evaluation chunk. Returns the launch counts and how many of the K3
+    launches ran in f32 (all but the final test pass's, when training in
+    f32)."""
     from multi_modal_csi_tpu_torch import kernels
     from multi_modal_csi_tpu_torch.cli import run_video
     from multi_modal_csi_tpu_torch.data.splits import train_test_split
@@ -1799,7 +1886,9 @@ def run_video_phase(clips, annotation, work, key, train_dtype="float32"):
             DQ: K4_PER_STEP * steps, DKV: K4_PER_STEP * steps}
     check(launches == want, f"{key} run launched {launches}, expected "
                             f"{want}")
-    return launches
+    final_pass = K3_PER_FORWARD * -(-n_test // VIDEO_TRAIN_BATCH)
+    return launches, (launches[K3] - final_pass
+                      if train_dtype == "float32" else 0)
 
 
 # ---------------------------------------------------------------------- #
@@ -2010,10 +2099,14 @@ def phase_fits():
     admits: launched; one step beyond: refused with ValueError. K1 f32
     and K2 (f32) at one head of D = 27, THAT's, one key (token) more; K1
     bf16, which streams the keys, at 4096 keys of a head of 128, and a
-    head of 129. The predicates and the C launchers agree."""
+    head of 129; K3 in both dtypes at the largest bias rank M and head dim
+    D that ``lowrank_fits`` admits, and one more of each. The predicates
+    and the C launchers agree."""
     from multi_modal_csi_tpu_torch.kernels.flash_attention import (
         backward_fits, flash_attention, flash_attention_backward,
         forward_fits)
+    from multi_modal_csi_tpu_torch.kernels.flash_attention_lowrank import (
+        flash_attention_lowrank_bias, lowrank_fits)
     f32, bf16 = torch.float32, torch.bfloat16
     d = 27
     nk = max(n for n in range(1, 4096) if forward_fits(n, d, f32))
@@ -2044,6 +2137,28 @@ def phase_fits():
             launched = False
         check(launched == fits, f"{what} at {size} tokens, D={dim}: "
                                 f"launched {launched}, predicate {fits}")
+
+    mk = max(n for n in range(512) if lowrank_fits(96, n))
+    dl = max(n for n in range(1, 512) if lowrank_fits(n, mk))
+    print(f"fit predicate: K3 up to M={mk} at D=96, D={dl} at M={mk}")
+    for dtype in (f32, bf16):
+        for rank, dim in ((mk, 96), (mk + 1, 96), (mk, dl), (mk, dl + 1)):
+            q = torch.randn((1, 1, 256, dim), device="cuda").to(dtype)
+            kv = torch.randn((1, 1, 1128, dim), device="cuda").to(dtype)
+            what = f"K3 {dtype} at M={rank}, D={dim}, 1128 keys"
+            try:
+                flash_attention_lowrank_bias(
+                    q, kv, kv, torch.randn((1, 1, 256, rank), device="cuda"),
+                    torch.randn((rank, 1128), device="cuda"))
+                torch.cuda.synchronize()
+                launched = True
+                print(f"{what}: launched")
+            except ValueError as e:
+                print(f"{what}: refused ({e})")
+                launched = False
+            fits = lowrank_fits(dim, rank)
+            check(launched == fits, f"{what}: launched {launched}, "
+                                    f"predicate {fits}")
 
 
 @contextlib.contextmanager
@@ -2703,18 +2818,23 @@ def build_kernels():
 def ptxas_lines(log):
     """(kernel, "registers ...; spills ...") for each kernel in an nvcc
     ``-Xptxas -v`` log; the tensor-core attention's instantiations named
-    ``tc::attention_kernel<k-steps, bias>``."""
+    by their template arguments, ``tc::attention_kernel<k-steps, bias>``
+    (bf16) and ``tc::attention_f32_kernel<k-steps, bias, warps, keys>``."""
     import re
     out, kernel, spill = [], "?", ""
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             kernel = entry.group(1)
-            tc = re.fullmatch(r"_ZN2tc16attention_kernelILi(\d+)ELb(\d)E"
-                              r"EEvNS_6ParamsE", kernel)
+            tc = re.match(r"_ZN2tc(\d+)", kernel)
             if tc:
-                kernel = (f"tc::attention_kernel<{tc.group(1)}, "
-                          f"{'true' if tc.group(2) == '1' else 'false'}>")
+                start = tc.end()
+                name = kernel[start:start + int(tc.group(1))]
+                args = [("true" if v == "1" else "false") if t == "b" else v
+                        for t, v in re.findall(
+                            r"L([ib])(\d+)E",
+                            kernel[start + len(name):].split("EEv")[0])]
+                kernel = f"tc::{name}<{', '.join(args)}>"
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line:
@@ -2838,28 +2958,39 @@ def main() -> int:
         int8_runs.append(video_int8)
         del clips
         video = [runs for runs, _ in served] + [video_int8]
-        video += [video_card_vs_cpu(key) for key in ("MViT-v1", "MViT-v2")]
+        card_vs_cpu = [video_card_vs_cpu(key) for key in
+                       ("MViT-v1", "MViT-v2")]
+        video += card_vs_cpu
         video += [video_evaluate_phase(work, key) for key in
                   ("MViT-v1", "MViT-v2")]
         # the training paths, each of which launches K3 and K4
         trained_video = [step for _, step in served]
-        trained_video += [video_train_phase(key) for key in
-                          ("MViT-v1", "MViT-v2")]
-        trained_video.append(video_train_card_vs_cpu())
+        trained_f32 = [video_train_phase(key) for key in
+                       ("MViT-v1", "MViT-v2")]
+        trained_f32.append(video_train_card_vs_cpu())
+        trained_video += trained_f32
         clip_dir, annotation = write_video_run(work)
-        trained_video += [
+        experiments = [
             run_video_phase(clip_dir, annotation, work, "MViT-v1"),
             run_video_phase(clip_dir, annotation, work, "MViT-v2"),
             run_video_phase(clip_dir, annotation, work, "MViT-v2",
                             "bfloat16")]
+        trained_video += [runs for runs, _ in experiments]
         video += trained_video
+        # K3's launches in f32: the f32 card-vs-CPU forwards, the f32
+        # training steps and the f32 part of the run_video runs
+        k3_f32 = (sum(runs[K3] for runs in card_vs_cpu + trained_f32)
+                  + sum(n for _, n in experiments))
 
     # K1 and K2: per THAT forward (bf16 serving, batch 256) and per THAT
     # training step (f32, batch 16), 4 left-stream and 1 right-stream
     # launches; launches summed over every main path that ran them. K5:
-    # per WiMANS trace (3000, 270). K3: per MViT-v2 forward (bf16, batch
-    # 2, the bias on), its 16 launches; launches summed over the video
-    # serving, card-vs-CPU, evaluate and training runs of both variants.
+    # per WiMANS trace (3000, 270). K3 in bf16: per MViT-v2 forward
+    # (batch 2, the bias on), its 16 launches; launches summed over the
+    # video serving, evaluate and bf16 training runs of both variants and
+    # run_video's bf16 test passes. K3 in f32: per MViT-v2 f32 training
+    # step (batch 2, blocks 0-2 with the bias), its 3 launches; launches
+    # k3_f32.
     # K4's two kernels: per MViT-v2 training step (f32, batch 2), 3 each;
     # launches summed over every training run. P1's two instantiations: per
     # DETR w8a8 forward (bf16 serving, batch 256), 22 s8 and 54 bf16
@@ -2895,10 +3026,16 @@ def main() -> int:
         kernel_entry("flash_attention_lowrank_bias",
                      "flash_attention_lowrank.cu",
                      "multi_modal_csi_tpu/kernels/flash_attention.py:377",
-                     sum(runs[K3] for runs in video), k3_times,
+                     sum(runs[K3] for runs in video) - k3_f32, k3_times,
                      {f"{name}+bias": n
                       for name, (_, n) in LOWRANK_SHAPES.items()},
                      torch.bfloat16),
+        kernel_entry("flash_attention_lowrank_bias_f32",
+                     "flash_attention_lowrank.cu",
+                     "multi_modal_csi_tpu/kernels/flash_attention.py:377",
+                     k3_f32, k3_times,
+                     {f"{name}+bias": 1 for name in LOWRANK_BWD_SHAPES},
+                     torch.float32),
         k4_entry(DQ, "multi_modal_csi_tpu/kernels/flash_attention.py:480",
                  sum(runs[DQ] for runs in trained_video), k4_times, "dq"),
         k4_entry(DKV, "multi_modal_csi_tpu/kernels/flash_attention.py:492",

@@ -15,11 +15,14 @@ differentiable attention of MViT's training: K3 forward, K4 backward. Each
 source's header says what bounds its kernels on an H100 and what their
 design does about it.
 
-K3's source holds two kernels, chosen by q's dtype: bfloat16 (serving)
-launches the tensor-core kernel of ``csrc/tc_attention.cuh`` (one online
-pass, the bias in f32), float32 (training's forward) the CUDA-core kernel
-of two passes. A CUDA call that its instantiation refuses raises; it never
-runs the other one.
+K3's source holds two kernels, chosen by q's dtype, both bodies of
+``csrc/tc_attention.cuh`` on the tensor cores with one online-softmax pass
+over the keys: bfloat16 (serving) runs the bf16 body (bf16 products, the
+bias as 3xTF32), float32 (training's forward) the f32 body (QK^T and P.V
+as 3xTF32, so at f32 precision; the bias as this module's plain version
+forms it, one f32 FMA chain per logit; the weights never rounded). Both
+take D <= 128 and M <= 128 (``lowrank_fits``). A CUDA call that its
+instantiation refuses raises; it never runs the other one.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ DQ_NAME = "flash_attention_lowrank_bias_backward_dq"
 DKV_NAME = "flash_attention_lowrank_bias_backward_dkv"
 BWD_SOURCE = "flash_attention_lowrank_bwd"  # its csrc/ .cu
 MAX_HEAD_DIM = 128
-MAX_BIAS_RANK_BF16 = 128  # the bf16 kernel's factor columns (kMaxRank)
+MAX_BIAS_RANK = 128       # factor columns of both kernels (kMaxRank)
 TILE = 64                 # query rows and keys per tile of the K4 kernels
 BLOCKS_PER_SM = 2         # the dK/dV/dS grid aims at this many blocks an SM
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -85,6 +88,12 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+def lowrank_fits(d: int, m: int) -> bool:
+    """Whether the kernels of both dtypes take a head dim ``d`` and ``m``
+    bias factor columns (0: no bias)."""
+    return 0 < d <= MAX_HEAD_DIM and 0 <= m <= MAX_BIAS_RANK
 
 
 def _check(q, k, v, r, s) -> None:
@@ -135,8 +144,11 @@ def flash_attention_lowrank_bias(
     (B, H, Nq, M) and s (M, Nk), float32, or both None for no bias. Returns
     (B, H, Nq, D) in q's dtype and, with ``return_lse``, the row
     log-sum-exp (B, H, Nq) in float32. CPU tensors take the plain version;
-    CUDA tensors launch the kernel of their dtype or raise (both take
-    D <= 128; the bfloat16 one, on the tensor cores, M <= 128).
+    CUDA tensors launch the kernel of their dtype or raise. Both kernels
+    run on the tensor cores in one online-softmax pass and take D <= 128
+    and M <= 128: bfloat16 with bf16 products and the bias as 3xTF32,
+    float32 with QK^T and P.V as 3xTF32 (f32 precision) and the bias as
+    the plain version's f32 GEMM forms it.
     """
     _check(q, k, v, r, s)
     if q.device.type == "cpu":
@@ -158,8 +170,7 @@ def flash_attention_lowrank_bias(
         if err == _CUDA_ERROR_INVALID_VALUE:
             raise ValueError(f"{NAME}: the kernel refused B*H={b * h}, "
                              f"Nq={nq}, Nk={nk}, D={d}, M={m}; it takes "
-                             f"D <= {MAX_HEAD_DIM} and, in bfloat16, "
-                             f"M <= {MAX_BIAS_RANK_BF16}")
+                             f"D <= {MAX_HEAD_DIM} and M <= {MAX_BIAS_RANK}")
         if err != 0:
             raise RuntimeError(f"{NAME} kernel launch failed with CUDA error "
                                f"{err}")

@@ -41,7 +41,10 @@ and column in S):
   at the serving clip), ``flash_attention_lowrank_bias_trainable``: K3
   forward, the flash backward K4;
 - everywhere else the eager einsum path with ``_add_rel_pos``, in training
-  on the CPU too, as the JAX package trains there.
+  on the CPU too, as the JAX package trains there, and wherever the
+  kernels do not take the head dim or the bias's factor columns
+  (``lowrank_fits``: D <= 128, M <= 128; MViT's M is 37 or 51 at the
+  serving clip).
 
 Known difference from torchvision: the MLP uses flax's default GELU, the
 tanh approximation (``nn.layers.GELU``), as the JAX package does.
@@ -58,7 +61,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...kernels.flash_attention_lowrank import (
-    flash_attention_lowrank_bias, flash_attention_lowrank_bias_trainable)
+    flash_attention_lowrank_bias, flash_attention_lowrank_bias_trainable,
+    lowrank_fits)
 from ...nn.layers import (GELU, Conv3d, Dropout, DropPath, LayerNorm, Linear,
                           max_pool3d)
 
@@ -315,8 +319,9 @@ class MultiscaleAttention(nn.Module):
                   (self.rel_pos_h, self.rel_pos_w, self.rel_pos_t))
 
         nq = q.shape[2]
+        rank = 0 if tables is None else sum(k_thw)  # _rel_factors' columns
         use_flash = (use_train_flash(q) if self.training
-                     else nq >= FLASH_MIN_QUERIES)
+                     else nq >= FLASH_MIN_QUERIES) and lowrank_fits(d, rank)
         if use_flash:
             r = s = None
             if tables is not None:

@@ -5,6 +5,9 @@
   limits and hold at their boundary; past it the attention takes
   its eager branch (the JAX package's K2 takes XLA's backward there), so
   no shape that JAX runs is refused on the card.
+- K3's limits: ``lowrank_fits`` (kernels/flash_attention_lowrank.py, D
+  and the bias's factor columns M up to 128 in both dtypes) holds at its
+  boundary, and MViT's attention takes its eager branch past it.
 - MViT tables at a clip whose pooled size is odd: ``resize_mvit_tables``
   sizes them as the live model does (the pooling convs give ceilings), so
   a torchvision-layout checkpoint loads into an MViT built at (8, 48, 48).
@@ -17,6 +20,9 @@ import torch
 from multi_modal_csi_tpu_torch.core.weights import resize_mvit_tables
 from multi_modal_csi_tpu_torch.kernels.flash_attention import (
     MAX_SHARED_BYTES, TC_MAX_HEAD_DIM, backward_fits, forward_fits)
+from multi_modal_csi_tpu_torch.kernels.flash_attention_lowrank import (
+    MAX_BIAS_RANK, MAX_HEAD_DIM, lowrank_fits)
+from multi_modal_csi_tpu_torch.models.video import mvit
 from multi_modal_csi_tpu_torch.models.video.mvit import (_block_configs,
                                                          _pooled, patchified)
 from multi_modal_csi_tpu_torch.nn import layers as P
@@ -104,6 +110,39 @@ def test_attention_takes_eager_branch_past_the_boundary(training, dtype,
     tol = 2e-5 if dtype == torch.float32 else 2.0 ** -6
     torch.testing.assert_close(eager.float(), fused.float(), atol=tol,
                                rtol=tol)
+
+
+@pytest.mark.parametrize("d", [8, 96, MAX_HEAD_DIM])
+def test_lowrank_fits_at_its_boundary(d):
+    """K3 takes M up to 128 factor columns (0: no bias) and D up to 128."""
+    assert MAX_BIAS_RANK == 128
+    assert lowrank_fits(d, 0) and lowrank_fits(d, MAX_BIAS_RANK)
+    assert not lowrank_fits(d, MAX_BIAS_RANK + 1)
+    assert not lowrank_fits(MAX_HEAD_DIM + 1, 37)
+
+
+@pytest.mark.parametrize("grid", [(1, 63, 64), (1, 64, 64)],
+                         ids=["M=128", "M=129"])
+def test_mvit_attention_gate_at_the_bias_rank(grid, monkeypatch):
+    """MViT-v2's attention in eval mode at a key grid whose bias has
+    T + H + W = 128 factor columns calls K3; at 129 it takes the eager
+    branch. Both agree with the eager branch forced (f32, within 2e-5)."""
+    calls = []
+    real = mvit.flash_attention_lowrank_bias
+    monkeypatch.setattr(mvit, "flash_attention_lowrank_bias",
+                        lambda *a: calls.append(1) or real(*a))
+    attn = mvit.MultiscaleAttention(
+        8, 8, 1, (1, 1, 1), (1, 1, 1), False, True, True, True, grid,
+        generator=gen()).eval()
+    n = 1 + grid[0] * grid[1] * grid[2]
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (1, n, 8), dtype=np.float32))
+    got, _ = run(attn, x, grid)
+    assert len(calls) == (1 if sum(grid) <= MAX_BIAS_RANK else 0)
+    monkeypatch.setattr(mvit, "lowrank_fits", lambda d, m: False)
+    want, _ = run(attn, x, grid)
+    assert len(calls) == (1 if sum(grid) <= MAX_BIAS_RANK else 0)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.parametrize("key", ["MViT-v1", "MViT-v2"])
