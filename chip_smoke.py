@@ -290,11 +290,17 @@ DKV = "flash_attention_lowrank_bias_backward_dkv"
 LOWRANK_BWD_SHAPES = {name: LOWRANK_SHAPES[name][0]
                       for name in ("block0", "block1", "block2")}
 # the JAX package's own K4 test shapes (tests/test_kernels.py:114-141), a
-# bias wider than the kernels' chunk of 64, and the largest head dim
+# bias wider than the kernels' chunk of 64, the largest head dim, and
+# two more head dims
 LOWRANK_BWD_ODD = {"odd-300": (2, 2, 300, 130, 32, 11),
                    "odd-513": (1, 2, 513, 129, 8, 0),
                    "odd-wide-bias": (1, 2, 130, 70, 8, 70),
-                   "odd-d128": (1, 1, 200, 100, 128, 3)}
+                   "odd-d128": (1, 1, 200, 100, 128, 3),
+                   # the f32 dK/dV/dS body's other configurations: Q and
+                   # dO split once a tile with two warps a key strip
+                   # (D = 96, M = 70), and the span of 4 k-steps (D = 64)
+                   "odd-d96-m70": (1, 2, 300, 200, 96, 70),
+                   "odd-d64": (1, 2, 300, 130, 64, 11)}
 # K4 against its plain version, each gradient against its largest
 # magnitude: f32 5e-5 (sums over up to 72129 rows in another order; the
 # largest seen on an H100 was 1.2e-5, dK at block 0); bf16 2^-7, one
@@ -1331,7 +1337,10 @@ def lowrank_bwd_bound(shape, bias, dtype, part):
     over the HBM rate; its products over the peak of q's dtype (QK^T and
     dO V^T rebuilt, then dQ: 6 B*H*Nq*Nk*D for "dq"; dK and dV instead: 8;
     all five: 10) plus the f32 bias products (r s rebuilt, then dR: 4
-    B*H*Nq*Nk*M; dS instead: 4; all three: 6) over the f32 peak."""
+    B*H*Nq*Nk*M; dS instead: 4; all three: 6) over the f32 peak. The third
+    time is the operations bound with every product as three TF32
+    products (3xTF32) over the TF32 tensor-core peak, as the f32 dK/dV/dS
+    kernel computes them all; in bf16 it is the second."""
     b, h, nq, nk, d, m = shape
     bh, m = b * h, m if bias else 0
     item = torch.tensor([], dtype=dtype).element_size()
@@ -1344,7 +1353,28 @@ def lowrank_bwd_bound(shape, bias, dtype, part):
     pairs = bh * nq * nk
     ops_ms = 1e3 * (at_dtype * pairs * d / PEAK_FLOPS[dtype]
                     + in_f32 * pairs * m / PEAK_FLOPS[torch.float32])
-    return 1e3 * (reads + writes[part]) / PEAK_BYTES, ops_ms
+    tf32_ms = (1e3 * 3 * (at_dtype * d + in_f32 * m) * pairs / PEAK_TF32
+               if dtype == torch.float32 else ops_ms)
+    return 1e3 * (reads + writes[part]) / PEAK_BYTES, ops_ms, tf32_ms
+
+
+def lowrank_bwd_f64(q, k, v, r, s, do):
+    """K4's dK, dV and dS (None without a bias) computed in float64 from
+    the same inputs, the softmax and delta included (the kernel's and the
+    plain version's own rounding errors are measured against it)."""
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) / (q.shape[-1] ** 0.5)
+    if r is not None:
+        logits += torch.einsum("bhqm,mk->bhqk", r.double(), s.double())
+    w = torch.softmax(logits, dim=-1)
+    del logits
+    delta = (do * torch.einsum("bhqk,bhkd->bhqd", w, v)).sum(dim=-1)
+    dl = w * (torch.einsum("bhqd,bhkd->bhqk", do, v) - delta[..., None])
+    dv = torch.einsum("bhqk,bhqd->bhkd", w, do)
+    del w
+    dk = torch.einsum("bhqk,bhqd->bhkd", dl, q) / (q.shape[-1] ** 0.5)
+    ds = None if r is None else torch.einsum("bhqm,bhqk->mk", r.double(), dl)
+    return dk, dv, ds
 
 
 def phase_lowrank_backward(lowrank, backward, backward_reference):
@@ -1352,13 +1382,19 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
     and the odd shapes, f32 and bf16, with and without the bias, both fed
     the same out and LSE from K3: each gradient within LOWRANK_BWD_TOL of
     its largest magnitude. Then, at the training shapes in f32 (the
-    default train_dtype), times per call of each kernel and of its plain
-    part with CUDA events (plain, kernel, kernel, plain), beside the
-    backward of scaled_dot_product_attention with r @ s as a float mask
-    that takes a gradient (the mask made outside the timed call), and the
-    bounds; a head dim of 160 must be refused."""
+    default train_dtype), the distance of the dK/dV/dS kernel and of its
+    plain version from float64 (``lowrank_bwd_f64``), and times per call
+    of each kernel and of its plain part with CUDA events (plain, kernel,
+    kernel, plain), beside the backward of scaled_dot_product_attention
+    with r @ s as a float mask that takes a gradient (the mask made
+    outside the timed call), and the bounds (at the f32 peak and as
+    3xTF32). The f32 dK/dV/dS must give the same bits twice at block 1
+    with the bias (fixed-order partials, no atomics); a head dim of 160,
+    and an f32 dK/dV/dS launch at M = 130, must be refused."""
     import torch.nn.functional as F
     from multi_modal_csi_tpu_torch.kernels import flash_attention_lowrank
+    from multi_modal_csi_tpu_torch.kernels.flash_attention_lowrank import \
+        MAX_BIAS_RANK
     set_tf32(False)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     shapes = dict(LOWRANK_BWD_SHAPES)
@@ -1404,9 +1440,33 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
                 for g_name, (err, top) in errs.items():
                     check(err <= tol * top, f"K4 {label} {dtype} {g_name} "
                                             f"err {err} > {tol} x {top}")
-                del got, want
+                if dtype == torch.float32:   # the tensor-core body's grid
+                    keys = flash_attention_lowrank.dkv_keys(
+                        d, m if bias else 0, dtype)
+                    check(keys in (64, 128), f"K4 dkv {label} keys {keys}")
+                    splits = flash_attention_lowrank.dkv_splits(
+                        b * h * -(-nk // keys), nq, dtype,
+                        torch.cuda.get_device_properties(0)
+                        .multi_processor_count)
+                    print(f"K4 dkv {label} f32 grid: {keys} keys a block, "
+                          f"{splits} splits of the query range")
                 if dtype != torch.float32 or name not in LOWRANK_BWD_SHAPES:
+                    del got, want
                     continue
+                exact = lowrank_bwd_f64(q, k, v, r, s, do)
+
+                def share(g, x):
+                    return ((g.double() - x).abs().max()
+                            / x.abs().max()).item()
+
+                print(f"K4 dkv {label} f32 against the same function in "
+                      f"f64, of each gradient's max: " + ", ".join(
+                          f"{n} kernel {share(g, x):.3e} plain "
+                          f"{share(w, x):.3e}" for n, g, w, x in zip(
+                              ("dk", "dv", "ds"), got[1:3] + got[4:],
+                              want[1:3] + want[4:], exact)
+                          if x is not None))
+                del got, want, exact
 
                 def timed(fn):
                     return cuda_ms(fn, reps=LOWRANK_REPS, warmup=1)
@@ -1423,17 +1483,29 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
                     plain = [timed(lambda: plain_fn(*args))]
                     kern = [timed(lambda: kernel(*args)) for _ in range(2)]
                     plain.append(timed(lambda: plain_fn(*args)))
-                    bytes_ms, ops_ms = lowrank_bwd_bound(shape, bias, dtype,
-                                                         part)
+                    bytes_ms, ops_ms, tf32_ms = lowrank_bwd_bound(
+                        shape, bias, dtype, part)
                     row[part] = dict(
                         err=max(errs[g][0] for g in grads if g in errs),
                         ms=sum(kern) / 2, plain_ms=sum(plain) / 2,
-                        bytes_ms=bytes_ms, ops_ms=ops_ms)
+                        bytes_ms=bytes_ms, ops_ms=ops_ms, tf32_ms=tf32_ms)
                     print(f"K4 {part} {label} {dtype} per call: kernel "
                           f"{kern[0]:.3f}/{kern[1]:.3f} ms, plain "
                           f"{plain[0]:.3f}/{plain[1]:.3f} ms; bound: bytes "
                           f"{1e3 * bytes_ms:.1f} us, operations "
-                          f"{1e3 * ops_ms:.1f} us")
+                          f"{1e3 * ops_ms:.1f} us (3xTF32 "
+                          f"{1e3 * tf32_ms:.1f} us)")
+                if bias and name == "block1":
+                    # the same bits twice: fixed-order partials, no atomics
+                    first = flash_attention_lowrank.lowrank_backward_dkv(
+                        *args)
+                    again = flash_attention_lowrank.lowrank_backward_dkv(
+                        *args)
+                    same = all(torch.equal(a, b)
+                               for a, b in zip(first, again))
+                    print(f"K4 dkv {label} f32 twice: bit for bit {same}")
+                    check(same, f"K4 dkv {label} f32 differs run to run")
+                    del first, again
                 leaves = [t.detach().requires_grad_() for t in (q, k, v)]
                 if bias:
                     leaves.append((r @ s).to(dtype).requires_grad_())
@@ -1442,7 +1514,7 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
                 row["library_ms"] = timed(lambda: torch.autograd.grad(
                     lib_out, leaves, do, retain_graph=True))
                 del leaves, lib_out
-                row["bytes_ms"], row["ops_ms"] = lowrank_bwd_bound(
+                row["bytes_ms"], row["ops_ms"], _ = lowrank_bwd_bound(
                     shape, bias, dtype, "both")
                 results[label] = row
                 print(f"K4 {label} {dtype} per backward: kernels "
@@ -1465,6 +1537,13 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
               f" ms, sdpa backward "
               f"{sum(r['library_ms'] for r in rows):.3f} ms, bound "
               f"{sum(max(r['bytes_ms'], r['ops_ms']) for r in rows):.3f} ms")
+        bytes_ms = total("dkv", "bytes_ms")
+        print(f"K4 dkv per MViT-v{2 if bias else 1} f32 training step: "
+              f"kernel {total('dkv', 'ms'):.3f} ms, plain "
+              f"{total('dkv', 'plain_ms'):.3f} ms, bound "
+              f"{max(bytes_ms, total('dkv', 'ops_ms')):.3f} ms at the f32 "
+              f"peak, {max(bytes_ms, total('dkv', 'tf32_ms')):.3f} ms as "
+              f"3xTF32")
 
     z = torch.zeros((1, 1, 8, 160), device="cuda")
     try:
@@ -1475,6 +1554,18 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
         print(f"K4 D=160: refused ({e})")
         refused = True
     check(refused, "K4 launched with a head dim above 128")
+    m = MAX_BIAS_RANK + 2
+    r, s = torch.zeros((1, 1, 8, m), device="cuda"), torch.zeros(
+        (m, 8), device="cuda")
+    z = torch.zeros((1, 1, 8, 8), device="cuda")
+    w = torch.zeros((1, 1, 8), device="cuda")
+    try:
+        flash_attention_lowrank.lowrank_backward_dkv(z, z, z, r, s, z, w, w)
+        refused = False
+    except ValueError as e:
+        print(f"K4 dkv f32 M={m}: refused ({e})")
+        refused = True
+    check(refused, f"K4's f32 dK/dV/dS launched at M={m}")
     return results
 
 
@@ -2842,14 +2933,19 @@ def ptxas_lines(log):
     return out
 
 
-def kernel_entry(name, source, replaces, launches, times, per_call, dtype):
+def kernel_entry(name, source, replaces, launches, times, per_call, dtype,
+                 as_3xtf32=False):
     """The JSON description of one kernel: times and bound summed over the
-    launches of one model call (``per_call``: shape name -> launches)."""
+    launches of one model call (``per_call``: shape name -> launches).
+    ``as_3xtf32``: an f32 kernel on the tensor cores, bound with every
+    product as 3xTF32 over the TF32 peak (the f32-peak bound beside it as
+    ``bound_f32_peak_ms``)."""
     def total(field):
         return sum(n * times[(s, dtype)][field] for s, n in per_call.items())
 
-    bytes_ms, ops_ms = total("bytes_ms"), total("ops_ms")
-    return {
+    bytes_ms, f32_ms = total("bytes_ms"), total("ops_ms")
+    ops_ms = total("tf32_ms") if as_3xtf32 else f32_ms
+    entry = {
         "name": name, "route": "cuda",
         "source": f"multi_modal_csi_tpu_torch/kernels/csrc/{source}",
         "replaces": replaces, "launches": launches,
@@ -2859,21 +2955,29 @@ def kernel_entry(name, source, replaces, launches, times, per_call, dtype):
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": total("library_ms"),
     }
+    if as_3xtf32:
+        entry["bound_f32_peak_ms"] = max(bytes_ms, f32_ms)
+    return entry
 
 
-def k4_entry(name, replaces, launches, times, part):
+def k4_entry(name, replaces, launches, times, part, source, as_3xtf32):
     """The JSON description of one of K4's kernels: times and bound summed
     over one MViT-v2 f32 training step at batch 2 (one launch at each of
     blocks 0-2, with the bias). ``library_ms`` is the backward of
     scaled_dot_product_attention, which computes the gradients of both
-    kernels at once, so both entries carry it."""
+    kernels at once, so both entries carry it. The bound takes the peak of
+    the units the kernel runs on (``lowrank_bwd_bound``): the f32 peak on
+    the CUDA cores, with the 3xTF32 bound beside it as
+    ``bound_3xtf32_ms``; ``as_3xtf32`` (the tensor cores) every product as
+    3xTF32, with the f32-peak bound beside it as ``bound_f32_peak_ms``."""
     rows = [times[f"{block}+bias"] for block in LOWRANK_BWD_SHAPES]
     bytes_ms = sum(r[part]["bytes_ms"] for r in rows)
-    ops_ms = sum(r[part]["ops_ms"] for r in rows)
+    f32_ms = sum(r[part]["ops_ms"] for r in rows)
+    tf32_ms = sum(r[part]["tf32_ms"] for r in rows)
+    ops_ms, other = (tf32_ms, f32_ms) if as_3xtf32 else (f32_ms, tf32_ms)
     return {
         "name": name, "route": "cuda",
-        "source": "multi_modal_csi_tpu_torch/kernels/csrc/"
-                  "flash_attention_lowrank_bwd.cu",
+        "source": f"multi_modal_csi_tpu_torch/kernels/csrc/{source}",
         "replaces": replaces, "launches": launches,
         "max_abs_err": max(r[part]["err"] for r in rows),
         "ms": sum(r[part]["ms"] for r in rows),
@@ -2881,6 +2985,8 @@ def k4_entry(name, replaces, launches, times, part):
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": sum(r["library_ms"] for r in rows),
+        "bound_f32_peak_ms" if as_3xtf32 else "bound_3xtf32_ms":
+            max(bytes_ms, other),
     }
 
 
@@ -3035,11 +3141,15 @@ def main() -> int:
                      "multi_modal_csi_tpu/kernels/flash_attention.py:377",
                      k3_f32, k3_times,
                      {f"{name}+bias": 1 for name in LOWRANK_BWD_SHAPES},
-                     torch.float32),
+                     torch.float32, as_3xtf32=True),
         k4_entry(DQ, "multi_modal_csi_tpu/kernels/flash_attention.py:480",
-                 sum(runs[DQ] for runs in trained_video), k4_times, "dq"),
+                 sum(runs[DQ] for runs in trained_video), k4_times, "dq",
+                 "flash_attention_lowrank_bwd.cu", as_3xtf32=False),
+        # the f32 dK/dV/dS kernel's body; its C entry is in
+        # flash_attention_lowrank_bwd.cu
         k4_entry(DKV, "multi_modal_csi_tpu/kernels/flash_attention.py:492",
-                 sum(runs[DKV] for runs in trained_video), k4_times, "dkv"),
+                 sum(runs[DKV] for runs in trained_video), k4_times, "dkv",
+                 "tc_attention_bwd.cuh", as_3xtf32=True),
         p1_entry(S8, "tools/exp_pallas_int8.py:43",
                  sum(runs.get(S8, 0) for runs in int8_runs), DETR_S8,
                  torch.int8),

@@ -28,12 +28,19 @@
 // folded into the factors (_fold_pad) became loops bounded by the true Nq,
 // Nk and M.
 //
-// Design. Neither K and V (1128 keys of D = 96 are 866 KB in f32) nor Q
-// and dO (72129 rows) of one (b, h) fit in a block's shared memory, so both
-// kernels stream tiles of 64 and rebuild each (64 query x 64 key) block of
-// logits as the forward K3 (csrc/flash_attention_lowrank.cu) does: 256
-// threads as 16 x 16, each a 4 x 4 register tile, the transposed tiles read
-// as float4, the bias factors streamed in chunks of 64 columns.
+// Three kernels:
+//   - float32 dK/dV/dS (MViT training's default): the tensor-core body
+//     tc::attention_bwd_dkv_f32_kernel of tc_attention_bwd.cuh, every
+//     product at f32 precision as 3xTF32 (that header says how);
+//   - dq_kernel (both dtypes) and the bfloat16 dkv_kernel, on the CUDA
+//     cores, described below.
+//
+// Design of the CUDA-core kernels. Neither K and V (1128 keys of D = 96
+// are 866 KB in f32) nor Q and dO (72129 rows) of one (b, h) fit in a
+// block's shared memory, so both kernels stream tiles of 64 and rebuild
+// each (64 query x 64 key) block of logits: 256 threads as 16 x 16, each a
+// 4 x 4 register tile, the transposed tiles read as float4, the bias
+// factors streamed in chunks of 64 columns.
 //   - dq_kernel: one block per (b h, 64 query rows). Q^T, dO^T and (M <= 64)
 //     the R strip stay in shared memory; the key tiles stream. dl goes to
 //     shared memory, and each thread accumulates a 4 row x D/16 column slice
@@ -44,8 +51,7 @@
 //     split stream. w and dl go to shared memory, and each thread
 //     accumulates 4 keys x D/16 columns of dK and dV and 4 keys x 4 factor
 //     columns of dS. The query range is split over several blocks so that
-//     enough blocks run: MViT's block 0 at batch 2 has 2 x 18 key tiles,
-//     36 blocks for 132 SMs, and 8 splits make 288.
+//     enough blocks run.
 // Shared memory at D = 128: 187 KB (dQ) and 204 KB (dKV) of a block's
 // 227 KB, so one block per SM; 153 KB and 170 KB at MViT's D = 96.
 //
@@ -54,13 +60,13 @@
 // dR, dS); the bytes (q, k, v, dO, r and the gradients once) are a few tens
 // of MB, under 30 us at 3.35 TB/s. At MViT-v2's training blocks 0-2,
 // batch 2, f32, that is 10.45 ms of operations at 67 TFLOP/s: the work is
-// bound by operations. This first version runs every product on CUDA cores
-// in f32 and the two kernels each rebuild the logits and dO V^T (14 Nq Nk D
-// + 8 Nq Nk M in all), so it is limited by FMA issue; tensor cores (wgmma)
-// with TMA-staged tiles are the later step.
+// bound by operations. The CUDA-core kernels run every product in f32 FMA
+// and the two kernels each rebuild the logits and dO V^T (14 Nq Nk D
+// + 8 Nq Nk M in all), so they are limited by the rate of FMA instructions.
 //
-// Limits: D <= 128 (the tiles in shared memory); any Nq, Nk >= 1, M >= 0,
-// 1 <= splits <= ceil(Nq / 64). The launchers refuse other sizes with
+// Limits: D <= 128 (the tiles in shared memory); any Nq, Nk >= 1, M >= 0
+// (f32 dK/dV/dS: M <= 128); 1 <= splits <= ceil(Nq / 64) (f32 dK/dV/dS:
+// ceil(Nq / 32), its query tile). The launchers refuse other sizes with
 // cudaErrorInvalidValue and return cudaGetLastError() after the launch, so
 // a refused launch is seen.
 
@@ -69,6 +75,8 @@
 
 #include <climits>
 #include <cmath>
+
+#include "tc_attention_bwd.cuh"
 
 namespace {
 
@@ -320,7 +328,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // One block per (b h, 64 keys, split of the query tiles): partial dK, dV
-// and dS over the split's query rows.
+// and dS over the split's query rows. Instantiated for bfloat16 only;
+// float32 runs tc::attention_bwd_dkv_f32_kernel.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -589,14 +598,17 @@ int mmcsi_flash_attention_lowrank_bwd_dq(
 }
 
 // As above, with the f32 partials dk, dv (splits, bh, nk, d) and ds
-// (splits, bh, m, nk; may be null when m = 0); 1 <= splits <= ceil(nq / 64).
+// (splits, bh, m, nk; may be null when m = 0); 1 <= splits <= ceil(nq / 32)
+// in float32 (whose tensor-core body also refuses m > 128) and
+// ceil(nq / 64) in bfloat16.
 int mmcsi_flash_attention_lowrank_bwd_dkv(
     const void* q, const void* k, const void* v, const void* r,
     const void* s, const void* dout, const void* lse, const void* delta,
     void* dk, void* dv, void* ds, int bh, int nq, int nk, int d, int m,
     int splits, int dtype, void* stream) {
+  const int q_tile = dtype == 0 ? tc::kBwdRows : kTQ;
   if (!sizes_ok(bh, nq, nk, d, m, r, s) || (m > 0 && ds == nullptr) ||
-      splits < 1 || splits > (nq + kTQ - 1) / kTQ)
+      splits < 1 || splits > (nq + q_tile - 1) / q_tile)
     return (int)cudaErrorInvalidValue;
   const float* rf = static_cast<const float*>(r);
   const float* sf = static_cast<const float*>(s);
@@ -607,15 +619,40 @@ int mmcsi_flash_attention_lowrank_bwd_dkv(
   float* dsf = static_cast<float*>(ds);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0:
-      return launch_dkv<float>(q, k, v, rf, sf, dout, lf, df, dkf, dvf, dsf,
-                               bh, nq, nk, d, m, splits, st);
+    case 0: {
+      tc::BwdParams p = {};
+      p.q = static_cast<const float*>(q);
+      p.k = static_cast<const float*>(k);
+      p.v = static_cast<const float*>(v);
+      p.r = rf;
+      p.s = sf;
+      p.dout = static_cast<const float*>(dout);
+      p.lse = lf;
+      p.delta = df;
+      p.dk = dkf;
+      p.dv = dvf;
+      p.ds = dsf;
+      p.bh = bh;
+      p.nq = nq;
+      p.nk = nk;
+      p.d = d;
+      p.m = m;
+      p.splits = splits;
+      return tc::launch_bwd_dkv_f32(p, st);
+    }
     case 1:
       return launch_dkv<__nv_bfloat16>(q, k, v, rf, sf, dout, lf, df, dkf,
                                        dvf, dsf, bh, nq, nk, d, m, splits, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// Keys per block of the float32 dK/dV/dS kernel at head dim d and m bias
+// factor columns (128, or 64 where two warps share a key strip), 0 for
+// sizes it refuses: the wrapper's grid of splits is sized by it.
+int mmcsi_flash_attention_lowrank_bwd_dkv_keys(int d, int m) {
+  return tc::bwd_dkv_f32_keys(d, m);
 }
 
 }  // extern "C"

@@ -8,6 +8,7 @@
 //     low-rank bias and the row LSE);
 //   - attention_f32_kernel, float32 at f32 precision: K3's f32
 //     instantiation (MViT training's forward), QK^T and P.V as 3xTF32.
+// tc_attention_bwd.cuh builds K4's f32 dK/dV/dS body on the same pieces.
 //
 // Arithmetic of the bf16 body (the order
 // tests/test_torch_port_tc_attention_order.py holds against the TPU kernels
@@ -220,7 +221,18 @@ __device__ __forceinline__ void mma_tf32_new(float (&d)[4],
         "f"(0.f));
 }
 
-// d += a b at f32 precision: lo hi + hi lo + hi hi, in that order
+// d += a b at f32 precision: lo hi + hi lo + hi hi, in that order, the
+// factors given split
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ahi)[4],
+                                     const uint32_t (&alo)[4],
+                                     const uint32_t (&bhi)[2],
+                                     const uint32_t (&blo)[2]) {
+  mma_tf32(d, alo, bhi[0], bhi[1]);
+  mma_tf32(d, ahi, blo[0], blo[1]);
+  mma_tf32(d, ahi, bhi[0], bhi[1]);
+}
+
+// the same product with b split here
 __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
                                            const uint32_t (&ahi)[4],
                                            const uint32_t (&alo)[4], float b0,
@@ -228,17 +240,29 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   uint32_t bhi[2], blo[2];
   split_tf32(b0, bhi[0], blo[0]);
   split_tf32(b1, bhi[1], blo[1]);
-  mma_tf32(d, alo, bhi[0], bhi[1]);
-  mma_tf32(d, ahi, blo[0], blo[1]);
-  mma_tf32(d, ahi, bhi[0], bhi[1]);
+  mma3(d, ahi, alo, bhi, blo);
 }
 
-// The same product for the f32 body, with the sums kept apart: lo hi +
+// The same product for the f32 bodies, with the sums kept apart: lo hi +
 // hi lo accumulate in `small`, and hi hi is formed alone and added to
 // `big` in f32 (round to nearest). The tensor cores align and truncate
 // the addends of one mma to the largest of them, so the small terms added
 // straight into a large accumulator lose their low bits, always toward
 // zero; kept apart, each k-step truncates only at its own magnitude.
+__device__ __forceinline__ void mma3_apart(float (&big)[4], float (&small)[4],
+                                           const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4],
+                                           const uint32_t (&bhi)[2],
+                                           const uint32_t (&blo)[2]) {
+  mma_tf32(small, alo, bhi[0], bhi[1]);
+  mma_tf32(small, ahi, blo[0], blo[1]);
+  float hh[4];
+  mma_tf32_new(hh, ahi, bhi[0], bhi[1]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) big[e] += hh[e];
+}
+
+// the same with b split here
 __device__ __forceinline__ void mma_3xtf32_apart(float (&big)[4],
                                                  float (&small)[4],
                                                  const uint32_t (&ahi)[4],
@@ -247,12 +271,7 @@ __device__ __forceinline__ void mma_3xtf32_apart(float (&big)[4],
   uint32_t bhi[2], blo[2];
   split_tf32(b0, bhi[0], blo[0]);
   split_tf32(b1, bhi[1], blo[1]);
-  mma_tf32(small, alo, bhi[0], bhi[1]);
-  mma_tf32(small, ahi, blo[0], blo[1]);
-  float hh[4];
-  mma_tf32_new(hh, ahi, bhi[0], bhi[1]);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) big[e] += hh[e];
+  mma3_apart(big, small, ahi, alo, bhi, blo);
 }
 
 // two f32 rounded to bf16 (nearest even), lo in the low half

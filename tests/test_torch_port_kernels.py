@@ -88,10 +88,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 def test_kernel_sources_and_build_flags(tmp_path, monkeypatch):
     """Every kernel is a csrc/*.cu with plain C launchers, built for
-    sm_90a with ``-I csrc``; the shared header is tc_attention.cuh, the
-    tensor-core body of K1's and K3's bf16 kernels (mma.sync fed by
-    ldmatrix, cp.async copies); the library name changes with the source,
-    with a header it includes, or with the flags."""
+    sm_90a with ``-I csrc``; the shared headers are tc_attention.cuh, the
+    tensor-core bodies of K1's and K3's kernels (mma.sync fed by ldmatrix,
+    cp.async copies), and tc_attention_bwd.cuh, which includes it: K4's
+    f32 dK/dV/dS body (tf32 mma.sync); the library name changes with the
+    source, with a header it includes, or with the flags."""
     launchers = {
         "flash_attention": ["flash_attention"],
         "flash_attention_bwd": ["flash_attention_bwd"],
@@ -102,7 +103,8 @@ def test_kernel_sources_and_build_flags(tmp_path, monkeypatch):
         "int8_matmul": ["int8_matmul"]}
     assert sorted(p.stem for p in build.CSRC.glob("*.cu")) == sorted(
         launchers)
-    assert [p.name for p in build.CSRC.glob("*.cuh")] == ["tc_attention.cuh"]
+    assert sorted(p.name for p in build.CSRC.glob("*.cuh")) == [
+        "tc_attention.cuh", "tc_attention_bwd.cuh"]
     for stem, names in launchers.items():
         src = (build.CSRC / f"{stem}.cu").read_text()
         assert 'extern "C"' in src
@@ -117,6 +119,17 @@ def test_kernel_sources_and_build_flags(tmp_path, monkeypatch):
         assert "tc::launch" in bf16_case
         assert build._sources(stem) == [build.CSRC / f"{stem}.cu",
                                          build.CSRC / "tc_attention.cuh"]
+    bwd = (build.CSRC / "flash_attention_lowrank_bwd.cu").read_text()
+    f32_case = bwd[bwd.index("case 0: {"):bwd.index("case 1:", bwd.index(
+        "case 0: {"))]
+    assert "tc::launch_bwd_dkv_f32" in f32_case
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in header
+    bwd_header = (build.CSRC / "tc_attention_bwd.cuh").read_text()
+    assert '#include "tc_attention.cuh"' in bwd_header
+    assert "mma3(" in bwd_header and "cp_async" in bwd_header
+    assert build._sources("flash_attention_lowrank_bwd") == [
+        build.CSRC / "flash_attention_lowrank_bwd.cu",
+        build.CSRC / "tc_attention_bwd.cuh", build.CSRC / "tc_attention.cuh"]
     assert build._sources("int8_matmul") == [build.CSRC / "int8_matmul.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
@@ -124,16 +137,20 @@ def test_kernel_sources_and_build_flags(tmp_path, monkeypatch):
     assert command[command.index("-I") + 1] == str(build.CSRC)
     assert build._target("flash_attention") != build._target(
         "flash_attention_bwd")
-    # a copy of csrc/: editing the header renames both libraries that
-    # include it, and no other
+    # a copy of csrc/: editing a header renames the libraries that include
+    # it, directly or through the other header, and no other
     copy = tmp_path / "csrc"
     copy.mkdir()
     for path in build.CSRC.iterdir():
         (copy / path.name).write_bytes(path.read_bytes())
     monkeypatch.setattr(build, "CSRC", copy)
-    before = {stem: build._target(stem) for stem in launchers}
-    with open(copy / "tc_attention.cuh", "a") as f:
-        f.write("// edited\n")
-    after = {stem: build._target(stem) for stem in launchers}
-    assert {stem for stem in launchers if before[stem] != after[stem]} == {
-        "flash_attention", "flash_attention_lowrank"}
+    for edited, renamed in (
+            ("tc_attention_bwd.cuh", {"flash_attention_lowrank_bwd"}),
+            ("tc_attention.cuh", {"flash_attention", "flash_attention_lowrank",
+                                  "flash_attention_lowrank_bwd"})):
+        before = {stem: build._target(stem) for stem in launchers}
+        with open(copy / edited, "a") as f:
+            f.write("// edited\n")
+        after = {stem: build._target(stem) for stem in launchers}
+        assert {stem for stem in launchers
+                if before[stem] != after[stem]} == renamed

@@ -34,10 +34,26 @@ K3's f32 body (``f32_order``) makes the same pass at f32 precision:
   V split alike), added to the rescaled output; the division at the end.
 Held against JAX's K3 in f32 within ``F32_TOL`` 2e-5 and the LSE within
 1e-5 relative.
+
+K4's f32 dK/dV/dS body (``csrc/tc_attention_bwd.cuh``, ``f32_bwd_dkv_order``)
+takes the query range in tiles of 32 rows, split over blocks as the
+wrapper's ``dkv_splits`` says, with the keys as the rows of the products:
+- S^T = K Q^T as 3xTF32 (lo.hi + hi.lo summed apart, each k-step's hi.hi
+  added in f32), times 1/sqrt(D), plus the bias S^T R^T as 3xTF32 in one
+  sum; w = exp(logits - lse) in f32 (the LSE from the forward's logits,
+  whose bias is an FMA chain);
+- dP^T = V dO^T as 3xTF32 in one sum; dl = w (dP - delta);
+- per tile, dV = w^T dO, dK = dl^T Q and dS = dl^T R as 3xTF32, each
+  added to its split's sums in f32; dK times 1/sqrt(D) once per split;
+- the wrapper's sum of the splits' partials in order (dS also over B H).
+Held against ``jax.vjp`` of JAX's K4 in interpret mode within 1e-4 of each
+gradient's largest magnitude (the JAX test's own bound,
+``tests/test_torch_port_lowrank_backward.py``).
 """
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -45,7 +61,10 @@ import torch
 
 from multi_modal_csi_tpu.kernels.flash_attention import (
     flash_attention as jax_flash_attention,
-    flash_attention_lowrank_bias as jax_lowrank)
+    flash_attention_lowrank_bias as jax_lowrank,
+    flash_attention_lowrank_bias_trainable as jax_trainable)
+from multi_modal_csi_tpu_torch.kernels.flash_attention_lowrank import (
+    F32_QUERY_TILE, WAVE_SHARE, dkv_splits)
 
 torch.set_num_threads(1)
 
@@ -54,7 +73,9 @@ K1_TOL = 2.0 ** -6
 K3_SHARE = 2.0 ** -7
 LSE_RTOL = 1e-5
 F32_TOL = 2e-5
+BWD_TOL = 1e-4
 MAX_SHARED_BYTES = 232448
+H100_SMS = 132
 
 
 def tf32(x):
@@ -280,3 +301,147 @@ def test_k3_f32_order_matches_jax_kernel(name, bias):
     rel = (np.abs(lse.reshape(b, h, nq).numpy() - want_lse)
            / np.abs(want_lse)).max()
     assert rel <= LSE_RTOL, rel
+
+
+def _tf32_product(a_eq, b_eq, a, b):
+    """a . b as 3xTF32 in one sum: lo.hi + hi.lo + hi.hi (einsum
+    ``a_eq,b_eq``)."""
+    (a_hi, a_lo), (b_hi, b_lo) = split_tf32(a), split_tf32(b)
+    eq = f"{a_eq},{b_eq}"
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+            + torch.einsum(eq, a_hi, b_hi))
+
+
+def f32_bwd_dkv_order(q, k, v, r, s, do, lse, delta, splits):
+    """K4's f32 dK/dV/dS kernel on (G, Nq, D) q, do and (G, Nk, D) k, v
+    in f32, optional r (G, Nq, M) and s (M, Nk), the forward's LSE and
+    delta (G, Nq), the query tiles split ``splits`` ways. Returns the f32
+    dK, dV (G, Nk, D) and dS (M, Nk) or None."""
+    d = q.shape[-1]
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    pad = -d % 8
+    q, k, v, do = (torch.nn.functional.pad(t, (0, pad))
+                   for t in (q, k, v, do))
+    g, nq, span = q.shape
+    k_hi, k_lo = split_tf32(k)
+    bias = None if r is None else _tf32_product("km", "gqm->gkq", s.T, r)
+    tiles = -(-nq // F32_QUERY_TILE)
+    parts = []
+    for split in range(splits):
+        dk = torch.zeros_like(k)
+        dv = torch.zeros_like(k)
+        ds = None if r is None else torch.zeros((g, s.shape[1], r.shape[-1]))
+        for t in range(split * tiles // splits,
+                       (split + 1) * tiles // splits):
+            rows = slice(t * F32_QUERY_TILE, (t + 1) * F32_QUERY_TILE)
+            qt, dot = q[:, rows], do[:, rows]
+            q_hi, q_lo = split_tf32(qt)
+            big = torch.zeros((g, k.shape[1], qt.shape[1]))
+            for c in range(0, span, 8):
+                cols = slice(c, c + 8)
+                big = big + torch.einsum("gkd,gqd->gkq", k_hi[..., cols],
+                                         q_hi[..., cols])
+            small = (torch.einsum("gkd,gqd->gkq", k_lo, q_hi)
+                     + torch.einsum("gkd,gqd->gkq", k_hi, q_lo))
+            logits = (big + small) * scale
+            if bias is not None:
+                logits = logits + bias[:, :, rows]
+            w = torch.exp(logits - lse[:, None, rows])
+            dp = _tf32_product("gkd", "gqd->gkq", v, dot)
+            dl = w * (dp - delta[:, None, rows])
+            dv = dv + _tf32_product("gkq", "gqd->gkd", w, dot)
+            dk = dk + _tf32_product("gkq", "gqd->gkd", dl, qt)
+            if ds is not None:
+                ds = ds + _tf32_product("gkq", "gqm->gkm", dl, r[:, rows])
+        parts.append((dk * scale, dv, ds))
+    dk = torch.stack([p[0] for p in parts]).sum(dim=0)[..., :d]
+    dv = torch.stack([p[1] for p in parts]).sum(dim=0)[..., :d]
+    ds = None if r is None else torch.stack(
+        [p[2] for p in parts]).sum(dim=(0, 1)).T
+    return dk, dv, ds
+
+
+# (B, H, Nq, Nk, D, M): the JAX K4 test's shapes (tests/test_kernels.py,
+# bias factors scaled by 0.1 there and here) and one with MViT's zero
+# class-token row in r and column in s
+BWD_SHAPES = {"jax-bias": (2, 2, 300, 130, 32, 11),
+              "jax-no-bias": (1, 2, 513, 129, 8, 0),
+              "class-token": (2, 1, 257, 65, 16, 9)}
+
+
+@pytest.mark.parametrize("name", sorted(BWD_SHAPES))
+def test_k4_f32_bwd_dkv_order_matches_jax_kernel(name):
+    """K4's f32 dK/dV/dS order, fed the f32 forward order's output and
+    LSE, against jax.vjp of JAX's trainable K3/K4 in interpret mode: dK,
+    dV and dS within 1e-4 of each gradient's largest magnitude."""
+    b, h, nq, nk, d, m = BWD_SHAPES[name]
+    rng = np.random.default_rng(300 + d + m)
+    q, do = (_normal(rng, (b, h, nq, d)) for _ in range(2))
+    k, v = (_normal(rng, (b, h, nk, d)) for _ in range(2))
+    r = s = None
+    if m:
+        r, s = 0.1 * _normal(rng, (b, h, nq, m)), 0.1 * _normal(rng, (m, nk))
+        if name == "class-token":
+            r[:, :, 0] = 0.0
+            s[:, 0] = 0.0
+    args = [jnp.asarray(t) for t in (q, k, v)]
+    if m:
+        args += [jnp.asarray(r), jnp.asarray(s)]
+    _, vjp = jax.vjp(lambda *a: jax_trainable(*a, interpret=True), *args)
+    want = [np.asarray(x) for x in vjp(jnp.asarray(do))]
+    want = [want[1], want[2]] + ([want[4]] if m else [])
+
+    def groups(t, n):
+        return torch.from_numpy(t).reshape(b * h, n, -1)
+
+    tq, tk, tv, tdo = (groups(t, n) for t, n in
+                       ((q, nq), (k, nk), (v, nk), (do, nq)))
+    tr = None if r is None else groups(r, nq)
+    ts = None if s is None else torch.from_numpy(s)
+    out, lse = f32_order(tq, tk, tv, tr, ts)
+    delta = (tdo * out).sum(dim=-1)
+    # 128 keys a block at these widths, as the launcher's keys entry
+    # reports them (chip_smoke.py prints it at every f32 shape)
+    splits = dkv_splits(b * h * -(-nk // 128), nq, torch.float32, H100_SMS)
+    assert 1 < splits <= -(-nq // F32_QUERY_TILE)
+    dk, dv, ds = f32_bwd_dkv_order(tq, tk, tv, tr, ts, tdo, lse, delta,
+                                   splits)
+    got = [dk.reshape(b, h, nk, d), dv.reshape(b, h, nk, d)]
+    got += [ds] if m else []
+    for name_, g, w in zip(("dk", "dv", "ds"), got, want):
+        assert g.shape == w.shape, name_
+        err = np.abs(g.numpy() - w).max()
+        assert err <= BWD_TOL * np.abs(w).max(), (name_, err)
+
+
+# MViT's training blocks 0-2 at batch 2 (chip_smoke.py's
+# LOWRANK_BWD_SHAPES) and the JAX test's shapes, as (B*H, Nq, Nk); each
+# with both key blocks the f32 body takes (the launcher reports which)
+GRID_SHAPES = [(2, 72129, 1128), (4, 18033, 4509), (4, 18033, 1128),
+               (4, 300, 130), (2, 513, 129), (2, 130, 70), (1, 200, 100),
+               (1, 31, 5), (64, 72129, 4509)]
+
+
+@pytest.mark.parametrize("bh,nq,nk", GRID_SHAPES)
+def test_k4_f32_dkv_grid(bh, nq, nk):
+    """The f32 dK/dV/dS grid at 128 and at 64 keys a block: at most one
+    split a query tile of 32 rows; the fewest splits whose blocks keep
+    WAVE_SHARE of an H100's SMs busy over their waves (one block an SM),
+    which MViT's blocks reach, or where none does, the best share."""
+    tiles = -(-nq // F32_QUERY_TILE)
+    for keys in (128, 64):
+        key_blocks = bh * -(-nk // keys)
+        splits = dkv_splits(key_blocks, nq, torch.float32, H100_SMS)
+        assert 1 <= splits <= tiles
+
+        def share(n):
+            blocks = key_blocks * n
+            return blocks / (-(-blocks // H100_SMS) * H100_SMS)
+
+        shares = [share(n) for n in range(1, tiles + 1)]
+        if nq > 10000:   # MViT's blocks: enough tiles to fill the waves
+            assert share(splits) >= WAVE_SHARE
+        if share(splits) >= WAVE_SHARE:
+            assert all(x < WAVE_SHARE for x in shares[:splits - 1])
+        else:
+            assert share(splits) == max(shares)
