@@ -27,9 +27,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. K2 against its plain version, f32 and bf16, at THAT's and
    THAT_ENCODER's training shapes at batch 16 (and THAT's at 256), a
    ragged (3, 70, 10, 15) case with 97 keys and a cross case
-   (4, 128, 6, 45) with 300 keys; per-launch times as for K1, beside the
-   backward of scaled_dot_product_attention on the same inputs and the
-   bound; a Q, dO, K and V too large for shared memory must raise;
+   (4, 128, 6, 45) with 300 keys; f32 (the query pass and the dK/dV pass
+   of csrc/tc_attention_bwd.cuh) the same bits twice, and at
+   THAT_ENCODER's right shape each gradient's distance from float64 for
+   the kernel and the plain version; per-launch times as for K1 (f32:
+   each pass's device time from torch.profiler), per THAT and
+   THAT_ENCODER training step, beside the backward of
+   scaled_dot_product_attention on the same inputs and the bounds (f32:
+   at the f32 peak and as 3xTF32); a Q, dO, K and V too large for shared
+   memory, and an f32 head dim of 129, must raise;
 4. K5 against its plain version at one WiMANS trace (3000, 270), a ragged
    (2999, 270) one, a batch of 8 traces and a buffer not 16-byte aligned:
    the amplitude bit for bit, the phase within 4 ulp; the device time
@@ -118,7 +124,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    training and (32, 3000, 270) validation windows, activity labels,
    batch 16, 2 epochs, augmentation on, f32; exactly 5 K1 and 5 K2
    launches in one training step; windows trained per second after a
-   warm-up step; 5 steps under torch.profiler; then one bf16 epoch;
+   warm-up step; 5 steps under torch.profiler (K2's two passes' device
+   ms per step and share); then one bf16 epoch;
 8. one f32 THAT training step on the card against the CPU (TF32 off,
    batch 2, augmentation and dropout off, the CPU taking the card's side
    at every leaky-ReLU kink): loss and gradients;
@@ -426,16 +433,67 @@ def backward_bound(shape, nk, dtype):
     """The least times (ms) one attention backward needs on an H100 SXM:
     q, k, v and dO read once and dQ, dK, dV written once over the HBM
     rate, and the five products (QK^T and dO V^T recomputed, dQ, dK, dV:
-    10 * B*H*Nq*Nk*D operations) over the peak rate for the dtype."""
+    10 * B*H*Nq*Nk*D operations) over the peak rate for the dtype. The
+    third time is the operations bound with every product as three TF32
+    products (3xTF32) over the TF32 tensor-core peak, as the f32 kernels
+    compute them; in bf16 it is the second."""
     b, nq, h, d = shape
     item = torch.tensor([], dtype=dtype).element_size()
     nbytes = (3 * b * nq * h * d + 4 * b * nk * h * d) * item
     flops = 10.0 * b * h * nq * nk * d
-    return 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / PEAK_FLOPS[dtype]
+    ops_ms = 1e3 * flops / PEAK_FLOPS[dtype]
+    tf32_ms = (1e3 * 3 * flops / PEAK_TF32 if dtype == torch.float32
+               else ops_ms)
+    return 1e3 * nbytes / PEAK_BYTES, ops_ms, tf32_ms
+
+
+def backward_f64(q, k, v, do):
+    """K2's dQ, dK and dV computed in float64 from the same inputs (the
+    kernel's and the plain version's own rounding errors are measured
+    against it)."""
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    scale = 1.0 / q.shape[-1] ** 0.5
+    w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) * scale, dim=-1)
+    dw = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    dl = w * (dw - (dw * w).sum(dim=-1, keepdim=True))
+    return (torch.einsum("bhqk,bkhd->bqhd", dl, k) * scale,
+            torch.einsum("bhqk,bqhd->bkhd", dl, q) * scale,
+            torch.einsum("bhqk,bqhd->bkhd", w, do))
+
+
+def kernel_ms(fn, reps=20):
+    """Device ms per call of ``fn`` by CUDA kernel name, from
+    torch.profiler over ``reps`` calls after one untimed call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / reps
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+K2_PASSES = {"query": "attention_bwd_dq_f32_kernel",
+             "dkv": "attention_bwd_dkv_f32_kernel"}
+# the right stream's BWD_SHAPES entry of each model's training step
+K2_STEPS = {"THAT": "that-right-16", "THAT_ENCODER": "that-encoder-right-16"}
 
 
 def phase_backward(backward, backward_reference):
-    """K2 against its plain version; times at the training shapes."""
+    """K2 against its plain version at every shape and dtype, each
+    gradient within BWD_TOL of its largest magnitude; f32 (the query pass
+    and the dK/dV pass of the tensor-core backward body) the same bits
+    twice. Times at the training shapes (plain, kernel, kernel, plain,
+    with CUDA events), beside the backward of scaled_dot_product_attention
+    and the bounds (f32: at the f32 peak and as 3xTF32); in f32 each
+    pass's device time from the profiler, and at that-encoder-right-16 the
+    distance of the kernel and of its plain version from float64
+    (``backward_f64``). Beyond shared memory (Nk = 4096) and, in f32, past
+    the tensor-core spans (D = 129), K2 must refuse."""
     import torch.nn.functional as F
     set_tf32(False)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -463,6 +521,26 @@ def phase_backward(backward, backward_reference):
                       f"{tuple(g.shape)}")
                 check(err <= tol * top, f"K2 {name} {dtype} err {err} > "
                                         f"{tol} x {top}")
+            if dtype == torch.float32:
+                # the same bits twice: no atomics, every sum in one order
+                again = backward(q, k, v, do)
+                same = all(torch.equal(a, c) for a, c in zip(got, again))
+                check(same, f"K2 {name} f32 differs run to run")
+                del again
+            if dtype == torch.float32 and name == "that-encoder-right-16":
+                exact = backward_f64(q, k, v, do)
+
+                def share(g, x):
+                    return ((g.double() - x).abs().max()
+                            / x.abs().max()).item()
+
+                print(f"K2 {name} f32 against the same function in f64, of "
+                      f"each gradient's max: " + ", ".join(
+                          f"{n} kernel {share(g, x):.3e} plain "
+                          f"{share(w, x):.3e}" for n, g, w, x in zip(
+                              ("dq", "dk", "dv"), got, want, exact)))
+                del exact
+            del got, want
             if not name.startswith("that"):
                 continue
             plain = [cuda_ms(lambda: backward_reference(q, k, v, do))]
@@ -475,25 +553,55 @@ def phase_backward(backward, backward_reference):
             # out.backward(dot, retain_graph=True) without accumulating
             lib = cuda_ms(lambda: torch.autograd.grad(out, leaves, dot,
                                                       retain_graph=True))
-            bytes_ms, ops_ms = backward_bound(shape, nk, dtype)
-            results[(name, dtype)] = dict(
-                err=max(errs), ms=sum(kern) / 2, plain_ms=sum(plain) / 2,
-                library_ms=lib, bytes_ms=bytes_ms, ops_ms=ops_ms)
+            bytes_ms, ops_ms, tf32_ms = backward_bound(shape, nk, dtype)
+            row = dict(err=max(errs), ms=sum(kern) / 2,
+                       plain_ms=sum(plain) / 2, library_ms=lib,
+                       bytes_ms=bytes_ms, ops_ms=ops_ms, tf32_ms=tf32_ms)
+            passes = ""
+            if dtype == torch.float32:
+                by_kernel = kernel_ms(lambda: backward(q, k, v, do))
+                for part, kernel in K2_PASSES.items():
+                    row[f"{part}_ms"] = sum(t for key, t in by_kernel.items()
+                                            if kernel in key)
+                passes = (f" (profiler: query pass {row['query_ms']:.4f} ms,"
+                          f" dK/dV pass {row['dkv_ms']:.4f} ms)")
+            results[(name, dtype)] = row
             print(f"K2 {name} {dtype} per launch: kernel {kern[0]:.4f}/"
-                  f"{kern[1]:.4f} ms, plain {plain[0]:.4f}/{plain[1]:.4f} ms,"
-                  f" sdpa backward {lib:.4f} ms; bound: bytes "
-                  f"{1e3 * bytes_ms:.1f} us, operations {1e3 * ops_ms:.1f} us")
+                  f"{kern[1]:.4f} ms{passes}, plain {plain[0]:.4f}/"
+                  f"{plain[1]:.4f} ms, sdpa backward {lib:.4f} ms; bound: "
+                  f"bytes {1e3 * bytes_ms:.1f} us, operations "
+                  f"{1e3 * ops_ms:.1f} us"
+                  + (f" (3xTF32 {1e3 * tf32_ms:.1f} us)"
+                     if dtype == torch.float32 else ""))
 
-    # Q, dO, K and V of one (b, h) beyond the block's shared memory
-    q = torch.zeros((1, 64, 1, 27), device="cuda")
-    kv = torch.zeros((1, 4096, 1, 27), device="cuda")
-    try:
-        backward(q, kv, kv, q)
-        refused = False
-    except ValueError as e:
-        print(f"K2 Nk=4096 D=27: refused ({e})")
-        refused = True
-    check(refused, "K2 launched beyond shared memory")
+    for model, right in K2_STEPS.items():
+        rows = [results[(shape, torch.float32)] for shape in
+                ("that-left-16",) * 4 + (right,)]
+
+        def total(field):
+            return sum(r[field] for r in rows)
+
+        bytes_ms = total("bytes_ms")
+        print(f"K2 per {model} f32 training step at batch 16 (4 left + 1 "
+              f"right): kernel {total('ms'):.4f} ms (query pass "
+              f"{total('query_ms'):.4f}, dK/dV pass {total('dkv_ms'):.4f}),"
+              f" plain {total('plain_ms'):.4f} ms, sdpa backward "
+              f"{total('library_ms'):.4f} ms; bound "
+              f"{max(bytes_ms, total('ops_ms')):.4f} ms at the f32 peak, "
+              f"{max(bytes_ms, total('tf32_ms')):.4f} ms as 3xTF32")
+
+    # Q, dO, K and V of one (b, h) beyond the block's shared memory; f32
+    # past the tensor-core body's spans
+    for nk, d in ((4096, 27), (64, 129)):
+        q = torch.zeros((1, 64, 1, d), device="cuda")
+        kv = torch.zeros((1, nk, 1, d), device="cuda")
+        try:
+            backward(q, kv, kv, q)
+            refused = False
+        except ValueError as e:
+            print(f"K2 f32 Nk={nk} D={d}: refused ({e})")
+            refused = True
+        check(refused, f"K2 f32 launched at Nk={nk}, D={d}")
     return results
 
 
@@ -873,8 +981,15 @@ def train_phase_that(data):
     check(one == {"flash_attention": 5, "flash_attention_backward": 5},
           f"THAT training step launched {one}, expected 5 K1 and 5 K2")
     train_rate("THAT f32 training", step, bx, by, gen)
-    profile_device("THAT f32 training", lambda: step(bx, by, gen),
-                   PROFILED_STEPS, "step")
+    prof = profile_device("THAT f32 training", lambda: step(bx, by, gen),
+                          PROFILED_STEPS, "step")
+    k2 = {part: sum(t for name, t in prof["kernels"].items() if kernel in name)
+          for part, kernel in K2_PASSES.items()}
+    print(f"THAT f32 training: K2 {sum(k2.values()):.3f} ms per step (query "
+          f"pass {k2['query']:.3f}, dK/dV pass {k2['dkv']:.3f}), "
+          f"{100 * sum(k2.values()) / prof['device_ms']:.1f}% of the device "
+          f"time")
+    check(all(k2.values()), "THAT f32 training step ran no K2 pass")
     del model, step
 
     # the main path: fit, 2 epochs, f32
@@ -3113,12 +3228,15 @@ def main() -> int:
                          (that, trained, encoder, experiment,
                           encoder_int8)), fwd_times,
                      {"that-left": 4, "that-right": 1}, torch.bfloat16),
-        kernel_entry("flash_attention_backward", "flash_attention_bwd.cu",
+        # the f32 instantiation's two kernels (the query pass and dK/dV),
+        # both of tc_attention_bwd.cuh; its C entry is in
+        # flash_attention_bwd.cu
+        kernel_entry("flash_attention_backward", "tc_attention_bwd.cuh",
                      "multi_modal_csi_tpu/kernels/flash_attention.py:271",
                      trained["flash_attention_backward"]
                      + experiment["flash_attention_backward"], bwd_times,
                      {"that-left-16": 4, "that-right-16": 1},
-                     torch.float32),
+                     torch.float32, as_3xtf32=True),
         {"name": "csi_amplitude_phase", "route": "cuda",
          "source": "multi_modal_csi_tpu_torch/kernels/csrc/"
                    "csi_preprocess.cu",

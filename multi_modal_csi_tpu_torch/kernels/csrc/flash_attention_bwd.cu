@@ -16,11 +16,22 @@
 //
 // Layout: q, dO (B, Nq, H, D) and k, v (B, Nk, H, D), contiguous, as the
 // attention's projections produce them (token stride H*D). No transposes
-// outside the kernel.
+// outside the kernels.
 //
-// Design. dK and dV sum over every query row of a (b, h), so one block owns
-// one (b, h) and runs two passes over it, with no atomics and so a result
-// that does not depend on scheduling order:
+// Two instantiations, by dtype:
+//   - float32 (THAT training): two kernels of the tensor-core backward body
+//     of tc_attention_bwd.cuh, every product as 3xTF32 on mma.sync (that
+//     header says how): the query pass (dQ, and each row's LSE and delta
+//     into the caller's f32 work buffer), then the dK/dV pass, which reads
+//     them. One block of the dK/dV pass takes every query tile of its key
+//     block and writes the gradients in place: splitting the query range
+//     over blocks, as K4 does, was slower at every THAT shape on an H100
+//     (PERF.md).
+//   - bfloat16: the CUDA-core kernel below.
+//
+// Design of the bfloat16 kernel. dK and dV sum over every query row of a
+// (b, h), so one block owns one (b, h) and runs two passes over it, with no
+// atomics and so a result that does not depend on scheduling order:
 //   0. stage that (b, h)'s Q, dO, K and V in shared memory as f32, each with
 //      an odd row stride so lanes reading different rows hit different
 //      banks;
@@ -36,23 +47,22 @@
 // Pass 2 recomputes QK^T and dO V^T, so the kernel does 7 instead of the
 // 5 products of D-long dot products per (i, j).
 //
-// Bound on an H100 SXM. At THAT's training shapes (batch 16, f32: left
-// (16, 150, 10, 27) and right (16, 270, 10, 15)) one launch reads q, k, v,
-// dO and writes dQ, dK, dV: 7 x 2.6 MB = 18.1 MB, 5.4 us at 3.35 TB/s; its
-// 10*B*H*Nq*Nk*D operations (0.97 GFLOP left, 1.75 right) take 14.5 and
-// 26.1 us at the 67 TFLOP/s f32 peak, or 1.0 and 1.8 us at the 989 TFLOP/s
-// bf16 tensor-core peak. So f32 is bound by operations and bf16 by bytes.
-// This first version runs on CUDA cores in f32 (D = 27 and 15 are not
-// multiples of the tensor-core tile depth) with one shared-memory load per
-// FMA, so it is limited by shared-memory and FMA issue, and one block per
-// (b, h) gives only B*H blocks (160 at batch 16 on 132 SMs). Tensor cores
-// with D padded in shared memory, and splitting the key pass over several
-// blocks, are the later steps.
+// Bound on an H100 SXM. At THAT's training shapes (batch 16: left
+// (16, 150, 10, 27) and right (16, 270, 10, 15)) one f32 launch reads q, k,
+// v, dO and writes dQ, dK, dV: 7 x 2.6 MB = 18.1 MB, 5.4 us at 3.35 TB/s;
+// its 10*B*H*Nq*Nk*D operations (0.97 GFLOP left, 1.75 right) take 14.5
+// and 26.1 us at the 67 TFLOP/s f32 peak, 5.9 and 10.6 us as 3xTF32 at the
+// 495 TFLOP/s TF32 peak, or 1.0 and 1.8 us at the 989 TFLOP/s bf16
+// tensor-core peak. So f32 is bound by operations and bf16 by bytes. The
+// bf16 kernel runs on the CUDA cores with one shared-memory load per FMA,
+// so it is limited by shared-memory and FMA issue, and one block per (b,
+// h) gives only B*H blocks (160 at batch 16 on 132 SMs).
 //
-// Limits: Q, dO, K and V of one (b, h) and the per-warp rows must fit in
-// shared memory (232,448 bytes a block); the launcher refuses larger shapes
-// instead of running anything else. The launcher returns cudaGetLastError()
-// so a refused launch is seen.
+// Limits: both dtypes take the shapes whose Q, dO, K and V of one (b, h)
+// and the bf16 kernel's per-warp rows fit in shared memory (232,448 bytes
+// a block; smem_bytes below, the wrapper's backward_fits); float32 also
+// D <= 128. The launcher refuses other shapes instead of running anything
+// else, and returns cudaGetLastError() so a refused launch is seen.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,24 +70,14 @@
 #include <climits>
 #include <cmath>
 
+#include "tc_attention_bwd.cuh"
+
 namespace {
+
+typedef __nv_bfloat16 bf16;
 
 constexpr int kWarps = 8;
 constexpr size_t kMaxSharedBytes = 232448;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1)
@@ -90,9 +90,10 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Shared memory in floats: Q and dO (Nq rows), K and V (Nk rows), all at
-// the odd stride D | 1; the max, sum and delta of each query row; two rows
-// of max(Nq, Nk) per warp.
+// Shared memory of the bf16 kernel in floats, the entry check of both
+// dtypes: Q and dO (Nq rows), K and V (Nk rows), all at the odd stride
+// D | 1; the max, sum and delta of each query row; two rows of max(Nq, Nk)
+// per warp.
 size_t smem_bytes(int nq, int nk, int d) {
   const size_t stride = (size_t)(d | 1);
   const size_t row = (size_t)(nq > nk ? nq : nk);
@@ -102,13 +103,12 @@ size_t smem_bytes(int nq, int nk, int d) {
 
 // Load one (b, h) slice of a (B, N, H, D) tensor into shared rows of stride
 // ds.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, int n, int d,
-                                      int ds, size_t tok) {
+__device__ __forceinline__ void stage(float* dst, const bf16* src, int n,
+                                      int d, int ds, size_t tok) {
   for (int i = threadIdx.x; i < n * d; i += blockDim.x) {
     const int r = i / d;
     const int c = i - r * d;
-    dst[r * ds + c] = to_float(src[r * tok + c]);
+    dst[r * ds + c] = __bfloat162float(src[r * tok + c]);
   }
 }
 
@@ -120,15 +120,14 @@ __device__ __forceinline__ float dot(const float* a, const float* b, int d) {
   return s;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-    flash_attention_bwd_kernel(const T* __restrict__ q,
-                               const T* __restrict__ k,
-                               const T* __restrict__ v,
-                               const T* __restrict__ dout,
-                               T* __restrict__ dq, T* __restrict__ dk,
-                               T* __restrict__ dv, int nq, int nk, int heads,
-                               int d, float scale) {
+    flash_attention_bwd_kernel(const bf16* __restrict__ q,
+                               const bf16* __restrict__ k,
+                               const bf16* __restrict__ v,
+                               const bf16* __restrict__ dout,
+                               bf16* __restrict__ dq, bf16* __restrict__ dk,
+                               bf16* __restrict__ dv, int nq, int nk,
+                               int heads, int d, float scale) {
   extern __shared__ float smem[];
   const int ds = d | 1;
   const int row = nq > nk ? nq : nk;
@@ -207,13 +206,14 @@ __global__ void __launch_bounds__(kWarps * 32)
           acc = fmaf(r1[j], ks[(size_t)j * ds + c], acc);
       for (int o = dp; o < 32; o <<= 1)
         acc += __shfl_xor_sync(0xffffffffu, acc, o);
-      if (g == 0 && c < d) dq[out + c] = from_float<T>(acc * scale);
+      if (g == 0 && c < d) dq[out + c] = __float2bfloat16(acc * scale);
     }
     __syncwarp();  // the next row overwrites r0 and r1
   }
   __syncthreads();  // every row's max, sum and delta are in place
 
-  // pass 2: key rows; r0 holds dl, r1 holds w rounded to dO's dtype
+  // pass 2: key rows; r0 holds dl, r1 holds w rounded to bf16 (nearest
+  // even, as astype does)
   for (int j = warp; j < nk; j += kWarps) {
     const float* kj = ks + (size_t)j * ds;
     const float* vj = vs + (size_t)j * ds;
@@ -222,7 +222,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       const float w = expf(s - row_max[i]) / row_sum[i];
       const float dw = dot(dos + (size_t)i * ds, vj, d);
       r0[i] = w * (dw - row_delta[i]);
-      r1[i] = to_float(from_float<T>(w));
+      r1[i] = __bfloat162float(__float2bfloat16(w));
     }
     __syncwarp();
 
@@ -241,22 +241,21 @@ __global__ void __launch_bounds__(kWarps * 32)
         acc_v += __shfl_xor_sync(0xffffffffu, acc_v, o);
       }
       if (g == 0 && c < d) {
-        dk[out + c] = from_float<T>(acc_k * scale);
-        dv[out + c] = from_float<T>(acc_v);
+        dk[out + c] = __float2bfloat16(acc_k * scale);
+        dv[out + c] = __float2bfloat16(acc_v);
       }
     }
     __syncwarp();
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* dout,
-           void* dq, void* dk, void* dv, int batch, int nq, int nk, int heads,
-           int d, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v,
+                const void* dout, void* dq, void* dk, void* dv, int batch,
+                int nq, int nk, int heads, int d, cudaStream_t stream) {
   const size_t smem = smem_bytes(nq, nk, d);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_bwd_kernel<T>,
+        flash_attention_bwd_kernel,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
@@ -264,12 +263,12 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
   // the same scale as 1.0 / math.sqrt(d) rounded to f32
   const float scale = (float)(1.0 / std::sqrt((double)d));
-  flash_attention_bwd_kernel<T><<<(unsigned)blocks, kWarps * 32, smem,
-                                  stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), nq, nk,
-      heads, d, scale);
+  flash_attention_bwd_kernel<<<(unsigned)blocks, kWarps * 32, smem,
+                               stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      nq, nk, heads, d, scale);
   return (int)cudaGetLastError();
 }
 
@@ -278,25 +277,44 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, for q, k, v, dout and the three
-// gradients alike. Returns a cudaError_t (0 = launched);
-// cudaErrorInvalidValue for a non-positive size or for a (b, h) that does
-// not fit in shared memory.
+// gradients alike; float32 also takes `work`, f32 (2, batch x heads, nq),
+// for the rows' LSE and then delta (bfloat16 does not read it). Returns a
+// cudaError_t (0 = launched); cudaErrorInvalidValue for a non-positive
+// size, a (b, h) that does not fit in shared memory, or float32 at
+// d > 128.
 int mmcsi_flash_attention_bwd(const void* q, const void* k, const void* v,
                               const void* dout, void* dq, void* dk, void* dv,
-                              int batch, int nq, int nk, int heads, int d,
-                              int dtype, void* stream) {
+                              void* work, int batch, int nq, int nk,
+                              int heads, int d, int dtype, void* stream) {
   if (batch <= 0 || nq <= 0 || nk <= 0 || heads <= 0 || d <= 0)
     return (int)cudaErrorInvalidValue;
   if (smem_bytes(nq, nk, d) > kMaxSharedBytes)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0:
-      return launch<float>(q, k, v, dout, dq, dk, dv, batch, nq, nk, heads,
-                           d, s);
+    case 0: {
+      tc::BwdParams p = {};
+      p.q = static_cast<const float*>(q);
+      p.k = static_cast<const float*>(k);
+      p.v = static_cast<const float*>(v);
+      p.dout = static_cast<const float*>(dout);
+      p.bh = batch * heads;
+      p.lse = static_cast<float*>(work);
+      p.delta = p.lse + (long long)p.bh * nq;
+      p.dq = static_cast<float*>(dq);
+      p.dk = static_cast<float*>(dk);
+      p.dv = static_cast<float*>(dv);
+      p.heads = heads;
+      p.nq = nq;
+      p.nk = nk;
+      p.d = d;
+      p.row = heads * d;
+      p.splits = 1;  // the gradients in place
+      return tc::launch_bwd_f32(p, s);
+    }
     case 1:
-      return launch<__nv_bfloat16>(q, k, v, dout, dq, dk, dv, batch, nq, nk,
-                                   heads, d, s);
+      return launch_bf16(q, k, v, dout, dq, dk, dv, batch, nq, nk, heads, d,
+                         s);
     default:
       return (int)cudaErrorInvalidValue;
   }

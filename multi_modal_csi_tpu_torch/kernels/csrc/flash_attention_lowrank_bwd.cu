@@ -627,16 +627,19 @@ int mmcsi_flash_attention_lowrank_bwd_dkv(
       p.r = rf;
       p.s = sf;
       p.dout = static_cast<const float*>(dout);
-      p.lse = lf;
-      p.delta = df;
+      p.lse = const_cast<float*>(lf);  // read only by dK/dV/dS
+      p.delta = const_cast<float*>(df);
       p.dk = dkf;
       p.dv = dvf;
       p.ds = dsf;
+      p.part = (long long)bh * nk * d;
       p.bh = bh;
+      p.heads = 1;  // (BH, N, D): rows of D
       p.nq = nq;
       p.nk = nk;
       p.d = d;
       p.m = m;
+      p.row = d;
       p.splits = splits;
       return tc::launch_bwd_dkv_f32(p, st);
     }

@@ -14,8 +14,12 @@ bounds the kernel on an H100 and what its design does about it.
 K1's source holds two kernels, chosen by q's dtype: bfloat16 (serving)
 launches the tensor-core kernel of ``csrc/tc_attention.cuh`` (keys streamed
 in tiles, so any Nk; D <= 128), float32 (training) the CUDA-core kernel
-that stages one (batch, head)'s K and V in shared memory. A CUDA call that
-its instantiation refuses raises; it never runs the other one.
+that stages one (batch, head)'s K and V in shared memory. K2's float32
+instantiation (training) is two kernels of the tensor-core backward body
+``csrc/tc_attention_bwd.cuh`` (a query pass, then dK/dV; D <= 128), its
+bfloat16 one the CUDA-core kernel of ``csrc/flash_attention_bwd.cu``. A
+CUDA call that its instantiation refuses raises; it never runs the other
+one.
 """
 
 from __future__ import annotations
@@ -36,8 +40,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CUDA_ERROR_INVALID_VALUE = 1     # cudaErrorInvalidValue
 # a block's shared memory on an H100, the launchers' limit (kMaxSharedBytes)
 MAX_SHARED_BYTES = 232448
-_WARPS = 8                        # kWarps of both f32 kernels
-# the bf16 kernel's head-dim limit (csrc/tc_attention.cuh: 16 * kMaxSteps)
+_WARPS = 8                        # kWarps of the CUDA-core kernels
+# the tensor-core kernels' head-dim limit (csrc/tc_attention.cuh:
+# 16 * kMaxSteps): K1 in bf16, K2 in f32
 TC_MAX_HEAD_DIM = 128
 
 
@@ -54,12 +59,16 @@ def forward_fits(nk: int, d: int, dtype: torch.dtype) -> bool:
     return need <= MAX_SHARED_BYTES
 
 
-def backward_fits(nq: int, nk: int, d: int) -> bool:
-    """Whether K2's launcher takes Nq queries and Nk keys of head dim D:
-    its ``smem_bytes(nq, nk, d)`` (``csrc/flash_attention_bwd.cu``), term
-    for term, f32 Q and dO, K and V at the odd row stride D | 1, three
-    per-query rows and two rows of max(Nq, Nk) per warp, within the
-    block's shared memory."""
+def backward_fits(nq: int, nk: int, d: int,
+                  dtype: torch.dtype = torch.float32) -> bool:
+    """Whether K2's launcher takes Nq queries and Nk keys of head dim D in
+    ``dtype``: its entry check ``smem_bytes(nq, nk, d)``
+    (``csrc/flash_attention_bwd.cu``), term for term, f32 Q and dO, K and
+    V at the odd row stride D | 1, three per-query rows and two rows of
+    max(Nq, Nk) per warp, within the block's shared memory; float32 also
+    D <= 128 (the tensor-core body's spans)."""
+    if dtype == torch.float32 and d > TC_MAX_HEAD_DIM:
+        return False
     stride = d | 1
     need = 4 * (2 * nq * stride + 2 * nk * stride + 3 * nq
                 + 2 * _WARPS * max(nq, nk))
@@ -201,7 +210,9 @@ def flash_attention_backward(
     q, do: (B, Nq, H, D); k, v: (B, Nk, H, D), float32 or bfloat16. ``do``
     may have any layout and float dtype: it is made contiguous in q's
     dtype. Gradients come back in the inputs' dtype. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise.
+    plain version; CUDA tensors launch the kernel or raise (float32: the
+    query pass, then the dK/dV pass, into an f32 work buffer of the rows'
+    LSE and delta).
     """
     _check(q, k, v, BWD_NAME)
     if do.shape != q.shape or do.device != q.device:
@@ -210,11 +221,15 @@ def flash_attention_backward(
     do = do.to(q.dtype).contiguous()
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, do)
+    b, nq, h, _ = q.shape
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    work = torch.empty((2, b * h, nq) if q.dtype == torch.float32 else (0,),
+                       dtype=torch.float32, device=q.device)
     if dq.numel():
-        _launch(BWD_SOURCE, BWD_NAME, (q, k, v, do, dq, dk, dv), q, k.shape[1],
-                "Q, dO, K and V of one (batch, head) do not fit in a "
-                "block's shared memory (227 KB)")
+        _launch(BWD_SOURCE, BWD_NAME, (q, k, v, do, dq, dk, dv, work), q,
+                k.shape[1], "Q, dO, K and V of one (batch, head) do not fit "
+                "in a block's shared memory (227 KB), or float32 at D > "
+                f"{TC_MAX_HEAD_DIM}")
     return dq, dk, dv
 
 

@@ -439,7 +439,7 @@ class MultiheadAttention(nn.Module):
         if self.training:
             fused = flash_attention_trainable if (
                 shapes_ok and self.dropout == 0.0
-                and backward_fits(nq, nk, d)) else None
+                and backward_fits(nq, nk, d, act)) else None
         else:
             fused = flash_attention if shapes_ok else None
         # the fused branch projects straight into the serving dtype; the

@@ -91,8 +91,9 @@ def test_kernel_sources_and_build_flags(tmp_path, monkeypatch):
     sm_90a with ``-I csrc``; the shared headers are tc_attention.cuh, the
     tensor-core bodies of K1's and K3's kernels (mma.sync fed by ldmatrix,
     cp.async copies), and tc_attention_bwd.cuh, which includes it: K4's
-    f32 dK/dV/dS body (tf32 mma.sync); the library name changes with the
-    source, with a header it includes, or with the flags."""
+    f32 dK/dV/dS body and K2's f32 query pass and dK/dV pass (tf32
+    mma.sync); the library name changes with the source, with a header it
+    includes, or with the flags."""
     launchers = {
         "flash_attention": ["flash_attention"],
         "flash_attention_bwd": ["flash_attention_bwd"],
@@ -119,17 +120,20 @@ def test_kernel_sources_and_build_flags(tmp_path, monkeypatch):
         assert "tc::launch" in bf16_case
         assert build._sources(stem) == [build.CSRC / f"{stem}.cu",
                                          build.CSRC / "tc_attention.cuh"]
-    bwd = (build.CSRC / "flash_attention_lowrank_bwd.cu").read_text()
-    f32_case = bwd[bwd.index("case 0: {"):bwd.index("case 1:", bwd.index(
-        "case 0: {"))]
-    assert "tc::launch_bwd_dkv_f32" in f32_case
+    for stem, launcher in (("flash_attention_lowrank_bwd",
+                            "tc::launch_bwd_dkv_f32"),
+                           ("flash_attention_bwd", "tc::launch_bwd_f32(")):
+        bwd = (build.CSRC / f"{stem}.cu").read_text()
+        f32_case = bwd[bwd.index("case 0: {"):bwd.index(
+            "case 1:", bwd.index("case 0: {"))]
+        assert launcher in f32_case
+        assert build._sources(stem) == [
+            build.CSRC / f"{stem}.cu", build.CSRC / "tc_attention_bwd.cuh",
+            build.CSRC / "tc_attention.cuh"]
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in header
     bwd_header = (build.CSRC / "tc_attention_bwd.cuh").read_text()
     assert '#include "tc_attention.cuh"' in bwd_header
     assert "mma3(" in bwd_header and "cp_async" in bwd_header
-    assert build._sources("flash_attention_lowrank_bwd") == [
-        build.CSRC / "flash_attention_lowrank_bwd.cu",
-        build.CSRC / "tc_attention_bwd.cuh", build.CSRC / "tc_attention.cuh"]
     assert build._sources("int8_matmul") == [build.CSRC / "int8_matmul.cu"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
@@ -145,8 +149,10 @@ def test_kernel_sources_and_build_flags(tmp_path, monkeypatch):
         (copy / path.name).write_bytes(path.read_bytes())
     monkeypatch.setattr(build, "CSRC", copy)
     for edited, renamed in (
-            ("tc_attention_bwd.cuh", {"flash_attention_lowrank_bwd"}),
-            ("tc_attention.cuh", {"flash_attention", "flash_attention_lowrank",
+            ("tc_attention_bwd.cuh", {"flash_attention_bwd",
+                                      "flash_attention_lowrank_bwd"}),
+            ("tc_attention.cuh", {"flash_attention", "flash_attention_bwd",
+                                  "flash_attention_lowrank",
                                   "flash_attention_lowrank_bwd"})):
         before = {stem: build._target(stem) for stem in launchers}
         with open(copy / edited, "a") as f:

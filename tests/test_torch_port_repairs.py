@@ -1,10 +1,10 @@
 """Repairs of the port's open faults, on the CPU.
 
-- The attention gate and K1/K2's limits: ``forward_fits`` (per dtype) and
-  ``backward_fits`` (kernels/flash_attention.py) copy the launchers'
-  limits and hold at their boundary; past it the attention takes
-  its eager branch (the JAX package's K2 takes XLA's backward there), so
-  no shape that JAX runs is refused on the card.
+- The attention gate and K1/K2's limits: ``forward_fits`` and
+  ``backward_fits`` (kernels/flash_attention.py, per dtype) copy the
+  launchers' limits and hold at their boundary; past it the attention
+  takes its eager branch (the JAX package's K2 takes XLA's backward
+  there), so no shape that JAX runs is refused on the card.
 - K3's limits: ``lowrank_fits`` (kernels/flash_attention_lowrank.py, D
   and the bias's factor columns M up to 128 in both dtypes) holds at its
   boundary, and MViT's attention takes its eager branch past it.
@@ -57,6 +57,21 @@ def test_fit_predicates_at_their_boundary(d, dtype):
         assert (nk, n) == (933, 457)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_backward_fits_head_dim(dtype):
+    """K2's f32 instantiation (the tensor-core backward body) takes spans
+    up to D = 128; its bf16 one, on the CUDA cores, any D whose operands
+    fit. 64 tokens of D = 129 fit in shared memory, so only the span
+    refuses them in f32 (the training gate then takes the eager
+    branch)."""
+    assert backward_fits(64, 64, TC_MAX_HEAD_DIM, dtype)
+    assert backward_fits(64, 64, TC_MAX_HEAD_DIM + 1,
+                         dtype) == (dtype == torch.bfloat16)
+    assert 4 * (4 * 64 * (TC_MAX_HEAD_DIM + 1 | 1) + 3 * 64
+                + 16 * 64) <= MAX_SHARED_BYTES
+
+
 def _record(monkeypatch, name):
     calls = []
     real = getattr(P, name)
@@ -104,7 +119,7 @@ def test_attention_takes_eager_branch_past_the_boundary(training, dtype,
     calls.clear()
     with monkeypatch.context() as m:
         m.setattr(P, "forward_fits", lambda nk, d, dtype: True)
-        m.setattr(P, "backward_fits", lambda nq, nk, d: True)
+        m.setattr(P, "backward_fits", lambda nq, nk, d, dtype: True)
         fused = attend(d, n_out)
     assert len(calls) == 1
     tol = 2e-5 if dtype == torch.float32 else 2.0 ** -6
