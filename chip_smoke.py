@@ -21,9 +21,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    of D = 27 (past the f32 kernel's 933); then per-launch times
    with CUDA events in the order plain, kernel, kernel, plain, beside
    scaled_dot_product_attention's time on the same inputs (a yardstick the
-   port never calls) and the card's bound for the same work; an f32 K and
-   V too large for shared memory, and a bf16 head dim of 129, must
-   raise;
+   port never calls) and the card's bound for the same work; f32 also at
+   THAT's three shapes at the training batch of 16, timed likewise and
+   summed per THAT and THAT_ENCODER training step; an f32 K and V too
+   large for shared memory, and a bf16 head dim of 129, must raise;
 3. K2 against its plain version, f32 and bf16, at THAT's and
    THAT_ENCODER's training shapes at batch 16 (and THAT's at 256), a
    ragged (3, 70, 10, 15) case with 97 keys and a cross case
@@ -64,11 +65,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    three training block shapes of a (2, 45, 224, 224, 3) step and the JAX
    test's odd shapes, f32 and bf16, with and without the bias, both fed
    K3's out and LSE: each gradient within 5e-5 (f32) or 2^-7 (bf16) of
-   its largest magnitude; per-call times of each kernel at the training
-   shapes in f32 beside its plain part's, the backward of
+   its largest magnitude; in f32 (both kernels are bodies of
+   csrc/tc_attention_bwd.cuh) at the training shapes every gradient's
+   distance from float64 for the kernel and the plain version, both
+   kernels the same bits twice at block 1 with the bias, and per-call
+   times of each kernel beside its plain part's, the backward of
    scaled_dot_product_attention with r @ s as a float mask, and the
-   bounds, summed per MViT-v1 and v2 training step; a head dim of 160
-   must be refused;
+   bounds, summed per MViT-v1 and v2 training step; a head dim of 160,
+   and in f32 a bias of 130 factor columns, must be refused;
 4d. P1 (kernels/int8_matmul.py), both instantiations, against their
    plain versions at P1's own tile (256, 272) x (272, 424), every product
    of DETR's and THAT_ENCODER's bs256 int8 forwards and odd shapes (1 x 1
@@ -221,6 +225,9 @@ KERNEL_SHAPES = {          # name: (q shape (B, Nq, H, D), Nk)
 # K1 in bf16 only: the tensor-core kernel streams the keys, so 2048 keys
 # of THAT's D = 27 (past the f32 kernel's 933) run too
 KERNEL_BF16_SHAPES = {"long": ((4, 256, 10, 27), 2048)}
+# K1 in f32 at the training batch (TRAIN_BATCH), timed only: the THAT and
+# THAT_ENCODER shapes of a training step's forward
+K1_TRAIN_SHAPES = ("that-left", "that-right", "that-encoder-right")
 # K2, per gradient against the plain version's largest magnitude: f32 the
 # JAX package's bound for its own kernel (tests/test_kernels.py:165-168);
 # bf16 one rounding step of the largest value (both store bf16 gradients
@@ -309,8 +316,9 @@ LOWRANK_BWD_ODD = {"odd-300": (2, 2, 300, 130, 32, 11),
                    "odd-d96-m70": (1, 2, 300, 200, 96, 70),
                    "odd-d64": (1, 2, 300, 130, 64, 11)}
 # K4 against its plain version, each gradient against its largest
-# magnitude: f32 5e-5 (sums over up to 72129 rows in another order; the
-# largest seen on an H100 was 1.2e-5, dK at block 0); bf16 2^-7, one
+# magnitude: f32 5e-5 (sums over up to 72129 rows or 4509 keys in another
+# order; the largest seen on an H100 was 1.7e-5, dQ and dV at
+# odd-wide-bias); bf16 2^-7, one
 # rounding step of the largest value (dQ, dK and dV are stored in bf16 by
 # both)
 LOWRANK_BWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 2.0 ** -7}
@@ -412,6 +420,44 @@ def phase_kernel(flash_attention, flash_attention_reference):
                   f"{kern[1]:.4f} ms, plain {plain[0]:.4f}/{plain[1]:.4f} ms,"
                   f" sdpa {lib:.4f} ms; bound: bytes {1e3 * bytes_ms:.1f} us,"
                   f" operations {1e3 * ops_ms:.1f} us")
+
+    # f32 at THAT's training batch (a measurement: the f32 kernel runs in
+    # training's forward), per launch and per THAT and THAT_ENCODER step
+    # (4 left + 1 right launches), beside SDPA's f32 forward
+    for name in K1_TRAIN_SHAPES:
+        shape, nk = KERNEL_SHAPES[name]
+        b, nq, h, d = shape = (TRAIN_BATCH, *shape[1:])
+        q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda")
+                   for n in (nq, nk, nk))
+        got = flash_attention(q, k, v)
+        err = (got - flash_attention_reference(q, k, v)).abs().max().item()
+        check(err <= F32_TOL, f"K1 {name}-{b} f32 err {err} > {F32_TOL}")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        plain = [cuda_ms(lambda: flash_attention_reference(q, k, v))]
+        kern = [cuda_ms(lambda: flash_attention(q, k, v)) for _ in range(2)]
+        plain.append(cuda_ms(lambda: flash_attention_reference(q, k, v)))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        bytes_ms, ops_ms = attention_bound(shape, nk, torch.float32)
+        results[(f"{name}-{b}", torch.float32)] = dict(
+            err=err, ms=sum(kern) / 2, plain_ms=sum(plain) / 2,
+            library_ms=lib, bytes_ms=bytes_ms, ops_ms=ops_ms)
+        print(f"K1 {name}-{b} {shape} f32 per launch: max abs err "
+              f"{err:.3e}; kernel {kern[0]:.4f}/{kern[1]:.4f} ms, plain "
+              f"{plain[0]:.4f}/{plain[1]:.4f} ms, sdpa {lib:.4f} ms; bound:"
+              f" bytes {1e3 * bytes_ms:.1f} us, operations "
+              f"{1e3 * ops_ms:.1f} us")
+    for model, right in (("THAT", "that-right"),
+                         ("THAT_ENCODER", "that-encoder-right")):
+        rows = [results[(f"{n}-{TRAIN_BATCH}", torch.float32)]
+                for n in ("that-left",) * 4 + (right,)]
+
+        def total(field):
+            return sum(r[field] for r in rows)
+
+        print(f"K1 f32 per {model} training step at batch {TRAIN_BATCH} (4 "
+              f"left + 1 right): kernel {total('ms'):.4f} ms, plain "
+              f"{total('plain_ms'):.4f} ms, sdpa {total('library_ms'):.4f} "
+              f"ms, bound {max(total('bytes_ms'), total('ops_ms')):.4f} ms")
 
     # f32: K and V of one (b, h) beyond the block's shared memory; bf16: a
     # head dim past the tensor-core kernel's: refused
@@ -1474,9 +1520,10 @@ def lowrank_bwd_bound(shape, bias, dtype, part):
 
 
 def lowrank_bwd_f64(q, k, v, r, s, do):
-    """K4's dK, dV and dS (None without a bias) computed in float64 from
-    the same inputs, the softmax and delta included (the kernel's and the
-    plain version's own rounding errors are measured against it)."""
+    """K4's dQ, dK, dV, dR and dS (dR and dS None without a bias) computed
+    in float64 from the same inputs, the softmax and delta included (the
+    kernels' and the plain versions' own rounding errors are measured
+    against it)."""
     q, k, v, do = (t.double() for t in (q, k, v, do))
     logits = torch.einsum("bhqd,bhkd->bhqk", q, k) / (q.shape[-1] ** 0.5)
     if r is not None:
@@ -1488,8 +1535,12 @@ def lowrank_bwd_f64(q, k, v, r, s, do):
     dv = torch.einsum("bhqk,bhqd->bhkd", w, do)
     del w
     dk = torch.einsum("bhqk,bhqd->bhkd", dl, q) / (q.shape[-1] ** 0.5)
-    ds = None if r is None else torch.einsum("bhqm,bhqk->mk", r.double(), dl)
-    return dk, dv, ds
+    dq = torch.einsum("bhqk,bhkd->bhqd", dl, k) / (q.shape[-1] ** 0.5)
+    ds = dr = None
+    if r is not None:
+        ds = torch.einsum("bhqm,bhqk->mk", r.double(), dl)
+        dr = torch.einsum("bhqk,mk->bhqm", dl, s.double())
+    return dq, dk, dv, dr, ds
 
 
 def phase_lowrank_backward(lowrank, backward, backward_reference):
@@ -1497,15 +1548,17 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
     and the odd shapes, f32 and bf16, with and without the bias, both fed
     the same out and LSE from K3: each gradient within LOWRANK_BWD_TOL of
     its largest magnitude. Then, at the training shapes in f32 (the
-    default train_dtype), the distance of the dK/dV/dS kernel and of its
-    plain version from float64 (``lowrank_bwd_f64``), and times per call
-    of each kernel and of its plain part with CUDA events (plain, kernel,
+    default train_dtype), times per call of each kernel and of its plain
+    part with CUDA events (plain, kernel,
     kernel, plain), beside the backward of scaled_dot_product_attention
     with r @ s as a float mask that takes a gradient (the mask made
     outside the timed call), and the bounds (at the f32 peak and as
-    3xTF32). The f32 dK/dV/dS must give the same bits twice at block 1
-    with the bias (fixed-order partials, no atomics); a head dim of 160,
-    and an f32 dK/dV/dS launch at M = 130, must be refused."""
+    3xTF32). Both f32 kernels must give the same bits twice at block 1
+    with the bias (fixed-order partials, rows written once, no atomics);
+    at the training shapes the distance of each gradient of both kernels
+    and of their plain versions from float64 (``lowrank_bwd_f64``) is
+    printed; a head dim of 160, and an f32 launch of either kernel at
+    M = 130, must be refused."""
     import torch.nn.functional as F
     from multi_modal_csi_tpu_torch.kernels import flash_attention_lowrank
     from multi_modal_csi_tpu_torch.kernels.flash_attention_lowrank import \
@@ -1574,13 +1627,14 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
                     return ((g.double() - x).abs().max()
                             / x.abs().max()).item()
 
-                print(f"K4 dkv {label} f32 against the same function in "
-                      f"f64, of each gradient's max: " + ", ".join(
-                          f"{n} kernel {share(g, x):.3e} plain "
-                          f"{share(w, x):.3e}" for n, g, w, x in zip(
-                              ("dk", "dv", "ds"), got[1:3] + got[4:],
-                              want[1:3] + want[4:], exact)
-                          if x is not None))
+                for part, grads in (("dkv", ("dk", "dv", "ds")),
+                                    ("dq", ("dq", "dr"))):
+                    print(f"K4 {part} {label} f32 against the same function "
+                          f"in f64, of each gradient's max: " + ", ".join(
+                              f"{n} kernel {share(g, x):.3e} plain "
+                              f"{share(w, x):.3e}" for n, g, w, x in zip(
+                                  names, got, want, exact)
+                              if n in grads and x is not None))
                 del got, want, exact
 
                 def timed(fn):
@@ -1611,16 +1665,19 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
                           f"{1e3 * ops_ms:.1f} us (3xTF32 "
                           f"{1e3 * tf32_ms:.1f} us)")
                 if bias and name == "block1":
-                    # the same bits twice: fixed-order partials, no atomics
-                    first = flash_attention_lowrank.lowrank_backward_dkv(
-                        *args)
-                    again = flash_attention_lowrank.lowrank_backward_dkv(
-                        *args)
-                    same = all(torch.equal(a, b)
-                               for a, b in zip(first, again))
-                    print(f"K4 dkv {label} f32 twice: bit for bit {same}")
-                    check(same, f"K4 dkv {label} f32 differs run to run")
-                    del first, again
+                    # the same bits twice: fixed-order partials (dK/dV/dS)
+                    # and rows written once (dQ/dR), no atomics
+                    for part in ("dkv", "dq"):
+                        kernel = getattr(flash_attention_lowrank,
+                                         f"lowrank_backward_{part}")
+                        first, again = kernel(*args), kernel(*args)
+                        same = all(torch.equal(a, b)
+                                   for a, b in zip(first, again))
+                        print(f"K4 {part} {label} f32 twice: bit for bit "
+                              f"{same}")
+                        check(same, f"K4 {part} {label} f32 differs run to "
+                                    f"run")
+                        del first, again
                 leaves = [t.detach().requires_grad_() for t in (q, k, v)]
                 if bias:
                     leaves.append((r @ s).to(dtype).requires_grad_())
@@ -1652,13 +1709,14 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
               f" ms, sdpa backward "
               f"{sum(r['library_ms'] for r in rows):.3f} ms, bound "
               f"{sum(max(r['bytes_ms'], r['ops_ms']) for r in rows):.3f} ms")
-        bytes_ms = total("dkv", "bytes_ms")
-        print(f"K4 dkv per MViT-v{2 if bias else 1} f32 training step: "
-              f"kernel {total('dkv', 'ms'):.3f} ms, plain "
-              f"{total('dkv', 'plain_ms'):.3f} ms, bound "
-              f"{max(bytes_ms, total('dkv', 'ops_ms')):.3f} ms at the f32 "
-              f"peak, {max(bytes_ms, total('dkv', 'tf32_ms')):.3f} ms as "
-              f"3xTF32")
+        for part in ("dq", "dkv"):
+            bytes_ms = total(part, "bytes_ms")
+            print(f"K4 {part} per MViT-v{2 if bias else 1} f32 training "
+                  f"step: kernel {total(part, 'ms'):.3f} ms, plain "
+                  f"{total(part, 'plain_ms'):.3f} ms, bound "
+                  f"{max(bytes_ms, total(part, 'ops_ms')):.3f} ms at the "
+                  f"f32 peak, {max(bytes_ms, total(part, 'tf32_ms')):.3f} "
+                  f"ms as 3xTF32")
 
     z = torch.zeros((1, 1, 8, 160), device="cuda")
     try:
@@ -1681,6 +1739,13 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
         print(f"K4 dkv f32 M={m}: refused ({e})")
         refused = True
     check(refused, f"K4's f32 dK/dV/dS launched at M={m}")
+    try:
+        flash_attention_lowrank.lowrank_backward_dq(z, z, z, r, s, z, w, w)
+        refused = False
+    except ValueError as e:
+        print(f"K4 dq f32 M={m}: refused ({e})")
+        refused = True
+    check(refused, f"K4's f32 dQ/dR launched at M={m}")
     return results
 
 
@@ -3075,33 +3140,31 @@ def kernel_entry(name, source, replaces, launches, times, per_call, dtype,
     return entry
 
 
-def k4_entry(name, replaces, launches, times, part, source, as_3xtf32):
-    """The JSON description of one of K4's kernels: times and bound summed
-    over one MViT-v2 f32 training step at batch 2 (one launch at each of
-    blocks 0-2, with the bias). ``library_ms`` is the backward of
+def k4_entry(name, replaces, launches, times, part):
+    """The JSON description of one of K4's kernels, both bodies of
+    tc_attention_bwd.cuh on the tensor cores: times and bound summed over
+    one MViT-v2 f32 training step at batch 2 (one launch at each of blocks
+    0-2, with the bias). ``library_ms`` is the backward of
     scaled_dot_product_attention, which computes the gradients of both
-    kernels at once, so both entries carry it. The bound takes the peak of
-    the units the kernel runs on (``lowrank_bwd_bound``): the f32 peak on
-    the CUDA cores, with the 3xTF32 bound beside it as
-    ``bound_3xtf32_ms``; ``as_3xtf32`` (the tensor cores) every product as
-    3xTF32, with the f32-peak bound beside it as ``bound_f32_peak_ms``."""
+    kernels at once, so both entries carry it. The bound takes every
+    product as 3xTF32 (``lowrank_bwd_bound``), with the f32-peak bound
+    beside it as ``bound_f32_peak_ms``."""
     rows = [times[f"{block}+bias"] for block in LOWRANK_BWD_SHAPES]
     bytes_ms = sum(r[part]["bytes_ms"] for r in rows)
     f32_ms = sum(r[part]["ops_ms"] for r in rows)
     tf32_ms = sum(r[part]["tf32_ms"] for r in rows)
-    ops_ms, other = (tf32_ms, f32_ms) if as_3xtf32 else (f32_ms, tf32_ms)
     return {
         "name": name, "route": "cuda",
-        "source": f"multi_modal_csi_tpu_torch/kernels/csrc/{source}",
+        "source": "multi_modal_csi_tpu_torch/kernels/csrc/"
+                  "tc_attention_bwd.cuh",
         "replaces": replaces, "launches": launches,
         "max_abs_err": max(r[part]["err"] for r in rows),
         "ms": sum(r[part]["ms"] for r in rows),
         "plain_ms": sum(r[part]["plain_ms"] for r in rows),
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": max(bytes_ms, tf32_ms),
+        "bound_by": "bytes" if bytes_ms >= tf32_ms else "operations",
         "library_ms": sum(r["library_ms"] for r in rows),
-        "bound_f32_peak_ms" if as_3xtf32 else "bound_3xtf32_ms":
-            max(bytes_ms, other),
+        "bound_f32_peak_ms": max(bytes_ms, f32_ms),
     }
 
 
@@ -3260,14 +3323,12 @@ def main() -> int:
                      k3_f32, k3_times,
                      {f"{name}+bias": 1 for name in LOWRANK_BWD_SHAPES},
                      torch.float32, as_3xtf32=True),
+        # the f32 kernels' bodies (the query pass with the bias, and
+        # dK/dV/dS); their C entries are in flash_attention_lowrank_bwd.cu
         k4_entry(DQ, "multi_modal_csi_tpu/kernels/flash_attention.py:480",
-                 sum(runs[DQ] for runs in trained_video), k4_times, "dq",
-                 "flash_attention_lowrank_bwd.cu", as_3xtf32=False),
-        # the f32 dK/dV/dS kernel's body; its C entry is in
-        # flash_attention_lowrank_bwd.cu
+                 sum(runs[DQ] for runs in trained_video), k4_times, "dq"),
         k4_entry(DKV, "multi_modal_csi_tpu/kernels/flash_attention.py:492",
-                 sum(runs[DKV] for runs in trained_video), k4_times, "dkv",
-                 "tc_attention_bwd.cuh", as_3xtf32=True),
+                 sum(runs[DKV] for runs in trained_video), k4_times, "dkv"),
         p1_entry(S8, "tools/exp_pallas_int8.py:43",
                  sum(runs.get(S8, 0) for runs in int8_runs), DETR_S8,
                  torch.int8),

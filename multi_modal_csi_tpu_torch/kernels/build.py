@@ -25,6 +25,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# sources with many kernels, whose device code nvcc compiles in parallel
+# threads (one a core): K4's 50 f32 instantiations and its bf16 kernels
+SPLIT_COMPILE = {"flash_attention_lowrank_bwd"}
 
 # compiler output (register and shared-memory use from ``-Xptxas -v``) of
 # each library built by this process
@@ -59,19 +62,25 @@ def _sources(name: str) -> List[Path]:
     return found
 
 
+def _flags(name: str) -> List[str]:
+    """nvcc's flags for ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + (["--split-compile=0"] if name in SPLIT_COMPILE
+                         else [])
+
+
 def _target(name: str) -> Path:
     digest = hashlib.sha256()
     for path in _sources(name):
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _command(name: str, out: str) -> List[str]:
     """nvcc's argv building ``csrc/<name>.cu`` into ``out``; ``-I csrc``
     finds the shared headers."""
-    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", out,
+    return [_nvcc(), *_flags(name), "-I", str(CSRC), "-o", out,
             str(CSRC / f"{name}.cu")]
 
 

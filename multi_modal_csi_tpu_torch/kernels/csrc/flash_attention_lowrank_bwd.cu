@@ -28,12 +28,17 @@
 // folded into the factors (_fold_pad) became loops bounded by the true Nq,
 // Nk and M.
 //
-// Three kernels:
-//   - float32 dK/dV/dS (MViT training's default): the tensor-core body
-//     tc::attention_bwd_dkv_f32_kernel of tc_attention_bwd.cuh, every
-//     product at f32 precision as 3xTF32 (that header says how);
-//   - dq_kernel (both dtypes) and the bfloat16 dkv_kernel, on the CUDA
-//     cores, described below.
+// Four kernels, two a dtype:
+//   - float32 (MViT training's default), both on the tensor cores, every
+//     product at f32 precision as 3xTF32 (tc_attention_bwd.cuh says how):
+//     dQ/dR is its query pass with the bias,
+//     tc::attention_bwd_dq_lowrank_f32_kernel (8 warps of 16 query rows,
+//     one sweep over 32-key tiles, the forward's LSE and delta read once a
+//     row), and dK/dV/dS its key-major body,
+//     tc::attention_bwd_dkv_f32_kernel; each launcher refuses D > 128 or
+//     M > 128 and never runs another kernel;
+//   - bfloat16: dq_kernel and dkv_kernel, on the CUDA cores, described
+//     below.
 //
 // Design of the CUDA-core kernels. Neither K and V (1128 keys of D = 96
 // are 866 KB in f32) nor Q and dO (72129 rows) of one (b, h) fit in a
@@ -59,13 +64,14 @@
 // at q's dtype (QK^T, dO V^T, dQ, dK, dV) and 6 Nq Nk M in f32 (the bias,
 // dR, dS); the bytes (q, k, v, dO, r and the gradients once) are a few tens
 // of MB, under 30 us at 3.35 TB/s. At MViT-v2's training blocks 0-2,
-// batch 2, f32, that is 10.45 ms of operations at 67 TFLOP/s: the work is
-// bound by operations. The CUDA-core kernels run every product in f32 FMA
-// and the two kernels each rebuild the logits and dO V^T (14 Nq Nk D
-// + 8 Nq Nk M in all), so they are limited by the rate of FMA instructions.
+// batch 2, f32, that is 10.45 ms of operations at 67 TFLOP/s, or 5.88 ms
+// with every product as 3xTF32 at 495 TFLOP/s: the work is bound by
+// operations. Both kernels rebuild the logits and dO V^T (14 Nq Nk D
+// + 8 Nq Nk M in all); the CUDA-core ones run every product in f32 FMA
+// and are limited by the rate of FMA instructions.
 //
 // Limits: D <= 128 (the tiles in shared memory); any Nq, Nk >= 1, M >= 0
-// (f32 dK/dV/dS: M <= 128); 1 <= splits <= ceil(Nq / 64) (f32 dK/dV/dS:
+// (float32: M <= 128); 1 <= splits <= ceil(Nq / 64) (f32 dK/dV/dS:
 // ceil(Nq / 32), its query tile). The launchers refuse other sizes with
 // cudaErrorInvalidValue and return cudaGetLastError() after the launch, so
 // a refused launch is seen.
@@ -166,7 +172,8 @@ size_t smem_bytes(int d, int narrow) {
   return sizeof(float) * (size_t)(4 * d + narrow * 64) * kLd;
 }
 
-// One block per (b h, 64 query rows): dQ and dR.
+// One block per (b h, 64 query rows): dQ and dR. Instantiated for
+// bfloat16 only; float32 runs tc::attention_bwd_dq_lowrank_f32_kernel.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -527,6 +534,42 @@ bool sizes_ok(int bh, int nq, int nk, int d, int m, const void* r,
   return m == 0 || (r != nullptr && s != nullptr);
 }
 
+// the f32 tensor-core launchers' parameters: the inputs, one head a group
+// and a row of D ((BH, N, D))
+tc::BwdParams f32_params(const void* q, const void* k, const void* v,
+                         const float* r, const float* s, const void* dout,
+                         const float* lse, const float* delta, int bh, int nq,
+                         int nk, int d, int m) {
+  tc::BwdParams p = {};
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.r = r;
+  p.s = s;
+  p.dout = static_cast<const float*>(dout);
+  p.lse = const_cast<float*>(lse);  // read only by K4's kernels
+  p.delta = const_cast<float*>(delta);
+  p.bh = bh;
+  p.heads = 1;
+  p.nq = nq;
+  p.nk = nk;
+  p.d = d;
+  p.m = m;
+  p.row = d;
+  return p;
+}
+
+int launch_dq_f32(const void* q, const void* k, const void* v, const float* r,
+                  const float* s, const void* dout, const float* lse,
+                  const float* delta, void* dq, float* dr, int bh, int nq,
+                  int nk, int d, int m, cudaStream_t stream) {
+  tc::BwdParams p = f32_params(q, k, v, r, s, dout, lse, delta, bh, nq, nk,
+                               d, m);
+  p.dq = static_cast<float*>(dq);
+  p.dr = dr;
+  return tc::launch_bwd_dq_lowrank_f32(p, stream);
+}
+
 template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const float* r,
               const float* s, const void* dout, const float* lse,
@@ -570,8 +613,8 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and dq); r, s, lse,
 // delta and dr are float32; r, s and dr may be null when m = 0. bh = batch
 // x heads. Returns a cudaError_t (0 = launched); cudaErrorInvalidValue for
-// a non-positive size, a negative m, a missing factor, or a head dim above
-// 128.
+// a non-positive size, a negative m, a missing factor, a head dim above
+// 128, or in float32 (the tensor-core query pass) m above 128.
 int mmcsi_flash_attention_lowrank_bwd_dq(
     const void* q, const void* k, const void* v, const void* r,
     const void* s, const void* dout, const void* lse, const void* delta,
@@ -587,8 +630,8 @@ int mmcsi_flash_attention_lowrank_bwd_dq(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_dq<float>(q, k, v, rf, sf, dout, lf, df, dq, drf, bh, nq,
-                              nk, d, m, st);
+      return launch_dq_f32(q, k, v, rf, sf, dout, lf, df, dq, drf, bh, nq, nk,
+                           d, m, st);
     case 1:
       return launch_dq<__nv_bfloat16>(q, k, v, rf, sf, dout, lf, df, dq, drf,
                                       bh, nq, nk, d, m, st);
@@ -620,26 +663,12 @@ int mmcsi_flash_attention_lowrank_bwd_dkv(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: {
-      tc::BwdParams p = {};
-      p.q = static_cast<const float*>(q);
-      p.k = static_cast<const float*>(k);
-      p.v = static_cast<const float*>(v);
-      p.r = rf;
-      p.s = sf;
-      p.dout = static_cast<const float*>(dout);
-      p.lse = const_cast<float*>(lf);  // read only by dK/dV/dS
-      p.delta = const_cast<float*>(df);
+      tc::BwdParams p = f32_params(q, k, v, rf, sf, dout, lf, df, bh, nq, nk,
+                                   d, m);
       p.dk = dkf;
       p.dv = dvf;
       p.ds = dsf;
       p.part = (long long)bh * nk * d;
-      p.bh = bh;
-      p.heads = 1;  // (BH, N, D): rows of D
-      p.nq = nq;
-      p.nk = nk;
-      p.d = d;
-      p.m = m;
-      p.row = d;
       p.splits = splits;
       return tc::launch_bwd_dkv_f32(p, st);
     }

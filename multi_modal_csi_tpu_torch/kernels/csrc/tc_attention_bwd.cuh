@@ -10,7 +10,11 @@
 //     pass (THAT training's backward in float32; with the dK/dV pass it
 //     replaces flash_attention.py::flash_attention_trainable, :271, body
 //     _bwd_kernel_plain :163, pallas_call :247), launched by
-//     flash_attention_bwd.cu's dtype 0. See "The query pass" below.
+//     flash_attention_bwd.cu's dtype 0. See "The query pass" below;
+//   - tc::attention_bwd_dq_lowrank_f32_kernel, the same query pass with
+//     the bias, the forward's statistics and dR: K4's dQ/dR kernel in
+//     float32, launched by flash_attention_lowrank_bwd.cu's dtype 0. See
+//     "The query pass with the bias" below.
 //
 // What the dK/dV kernel computes, per (b h) and key: logits = (q.k) scale
 // [+ r.s]; w = exp(logits - lse), in f32 and never rounded; dw = dO.v;
@@ -29,11 +33,12 @@
 //
 // Bound on an H100 SXM. Per (query, key) pair the dK/dV kernel does four
 // products over D (S^T, dP^T, dV, dK: 8 D operations) and two over M (the
-// bias and dS: 4 M); the bytes (q, k, v, dO, r, s, lse, delta once, the
-// gradients once) are tens of MB, under 0.1 ms. So it is bound by
-// operations: at f32 precision every product is three TF32 products
-// (3xTF32) on the tensor cores, whose dense peak is 495 TFLOP/s, or one
-// f32 FMA on the CUDA cores (67 TFLOP/s).
+// bias and dS: 4 M), the dQ/dR kernel three over D (S, dP, dQ: 6 D) and
+// two over M (the bias and dR: 4 M); the bytes (q, k, v, dO, r, s, lse,
+// delta once, the gradients once) are tens of MB, under 0.1 ms. So both
+// are bound by operations: at f32 precision every product is three TF32
+// products (3xTF32) on the tensor cores, whose dense peak is 495 TFLOP/s,
+// or one f32 FMA on the CUDA cores (67 TFLOP/s).
 //
 // Design.
 //   - One block of 8 warps per (b h, key block, split of the query
@@ -112,8 +117,41 @@
 //     blocks.
 //   - Grid: B H ceil(Nq / 64) blocks (480 for THAT's left stream at batch
 //     16), 3 an SM at spans up to 32.
-// The bias (K4's dQ/dR) would add r.s to S and take the forward's LSE and
-// delta in place of sweep 1; it is not instantiated.
+//
+// The query pass with the bias (K4's dQ/dR kernel in float32, MViT
+// training's backward; it replaces flash_attention.py::
+// _tiled_bwd_dq_kernel, :480, pallas_call :591, on _bwd_tile_wdl :457),
+// launched by flash_attention_lowrank_bwd.cu's dtype 0:
+// tc::attention_bwd_dq_lowrank_f32_kernel. Per query row: logits =
+// (q.k) scale + r.s; w = exp(logits - lse) with the forward's LSE (K3's)
+// and the wrapper's delta, both read once a row; dl = w (dO.v - delta);
+// dQ = scale sum_k dl k and dR = sum_k dl s^T, each row written once,
+// straight into place: no partials, no atomics.
+//   - One sweep over key tiles of 32 (K, V and the tile's columns of s,
+//     (M, Nk), stream through a two-stage cp.async ring); Q, dO and the
+//     R rows stay in shared memory for the block. 8 warps of 16 query rows
+//     (128 a block, as K3's f32 forward) where the tiles fit in shared
+//     memory at the bucket's widest bias, else 4 (DqrShape); at MViT's
+//     D = 96 and M <= 56 that is 8 warps and 227.8 KB, one block an SM.
+//   - S and dP as in K2's pass (mma3_apart_t, mma3_t). The bias r.s is
+//     3xTF32 in one accumulator over the factor columns, R's rows the A
+//     operand and the tile's s columns the B operand, each mma adding the
+//     products of its counterpart in the dK/dV/dS body's S^T R^T (mma3_t),
+//     so both K4 kernels form the same logits; then S += r.s.
+//   - dl lies in the accumulators with the queries as rows and is the A
+//     fragment of both tile products as it lies: dQ += dl K (K's rows at
+//     keys 2t and 2t + 1) and dR += dl s^T (the s tile read across its
+//     rows at the same keys: one 8-byte load a fragment). Each is formed
+//     alone for the tile, one n-tile at a time (4 fresh registers), and
+//     added in f32, the order of K2's pass.
+//   - K and V, B operands read by every warp in three products, are split
+//     into tf32 hi (in place) and lo (beside the ring) once a tile by the
+//     block up to spans of 96; at 128 each warp splits what it loads. Q,
+//     dO, R and s are split as loaded (their lo planes would not fit).
+//   - Registers at D = 96, M = 51: dQ 48 floats a thread, dR 28, S, its
+//     small sums and dP 48, dl's split fragments 32.
+//   - Grid: B H ceil(Nq / 128) blocks (1128 at MViT-v2's block 0, 564 at
+//     blocks 1 and 2, over 132 SMs).
 
 #pragma once
 
@@ -147,7 +185,8 @@ struct BwdParams {
   const float* dout;   // q's layout
   float* lse;          // (BH, Nq): the query pass writes it, dK/dV reads
   float* delta;        // (BH, Nq)
-  float* dq;           // q's layout (the query pass)
+  float* dq;           // q's layout (the query passes)
+  float* dr;           // (BH, Nq, M): the query pass with the bias
   float* dk;           // k's layout, `part` elements a split
   float* dv;
   float* ds;           // (splits, BH, M, Nk)
@@ -158,6 +197,7 @@ struct BwdParams {
   int key_blocks;
   int q_tiles;
   int vec;             // f32 elements per copy of a row: 4, 2 or 1
+  int vec_s;           // f32 elements per copy of s: 4 or 1
   float scale;
 };
 
@@ -852,6 +892,289 @@ __global__ void __launch_bounds__(32 * kDqWarps, KS <= 2 ? 3 : 1)
 }
 
 // ----------------------------------------------------------------------
+// The query pass with the bias
+// ----------------------------------------------------------------------
+
+constexpr int kDqrKeys = 32;            // keys per tile
+constexpr int kDqrSld = kDqrKeys + 8;   // s tile row stride (8 mod 32: both
+                                        // of its B fragments hit 32 banks)
+
+// Warps a block (16 query rows each): 8 where the tiles fit in shared
+// memory at the m-tile bucket's widest bias (smem_bytes_dqr), else 4; K
+// and V split once a tile up to spans of 96.
+template <int KS, int MT>
+struct DqrShape {
+  static constexpr int WARPS = KS <= 4 || (KS == 6 && MT <= 7) ? 8 : 4;
+  static constexpr bool PRE = KS <= kF32WideSteps;
+};
+
+// dynamic shared memory of one block: Q, dO and the R rows, two ring
+// stages of K, V and the s tile, and (pre) K's and V's lo parts
+inline size_t smem_bytes_dqr(int ks, int m, int warps, bool pre) {
+  const size_t ld = 16 * ks + 4, rows = 16 * warps;
+  const size_t rs = m ? r_stride(m) : 0, m8 = round8(m);
+  return sizeof(float) * (rows * (2 * ld + rs) +
+                          2 * (2 * kDqrKeys * ld + m8 * kDqrSld) +
+                          (pre ? 2 * kDqrKeys * ld : 0));
+}
+
+template <int KS, int MT>
+__global__ void __launch_bounds__(32 * DqrShape<KS, MT>::WARPS, 1)
+    attention_bwd_dq_lowrank_f32_kernel(BwdParams p) {
+  constexpr bool BIAS = MT > 0;
+  constexpr int WARPS = DqrShape<KS, MT>::WARPS;
+  constexpr bool PRE = DqrShape<KS, MT>::PRE;
+  constexpr int THREADS = 32 * WARPS, ROWS = 16 * WARPS, KEYS = kDqrKeys;
+  constexpr int LD = 16 * KS + 4, SLD = kDqrSld;
+  constexpr int K8 = 2 * KS;    // k-steps of 8 over the span, and dQ's
+                                // n-tiles of 8 columns
+  constexpr int NT = KEYS / 8;  // n-tiles of 8 keys
+  constexpr int NM = BIAS ? MT : 1;  // dR's n-tiles of 8 factor columns
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int m8 = BIAS ? round8(p.m) : 0;
+  const int rs = BIAS ? r_stride(p.m) : 0;
+  float* sq = reinterpret_cast<float*>(smem_raw);  // [ROWS][LD]
+  float* sdo = sq + ROWS * LD;                     // [ROWS][LD]
+  float* sr = sdo + ROWS * LD;                     // [ROWS][rs]
+  float* ring = sr + ROWS * rs;                    // [2][stage]
+  // a stage: K [KEYS][LD], V [KEYS][LD], the s tile [m8][SLD]
+  const int stage = 2 * KEYS * LD + m8 * SLD;
+  float* kvlo = ring + 2 * stage;  // (pre) [2 KEYS][LD]: K's and V's lo
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int tile = blockIdx.x % p.q_tiles;
+  const int grp = blockIdx.x / p.q_tiles;
+  const int row0 = tile * ROWS;
+  const int rows = min(ROWS, p.nq - row0);
+  const int d = p.d;  // a multiple of the copy width
+  const int chunks = d / p.vec;
+  int cshift = 0;
+  while ((1 << cshift) < chunks) ++cshift;
+  const long long qoff = bwd_base(p, grp, p.nq) + (long long)row0 * p.row;
+  const long long kvoff = bwd_base(p, grp, p.nk);
+  const int tiles_k = (p.nk + KEYS - 1) / KEYS;
+
+  // the copies fill columns [0, D) of each row; the span's columns past D
+  // are zeroed once (Q and dO, adjacent, and both stages' K and V), so the
+  // padded products add nothing
+  if (d < 16 * KS) {
+    const int pad = 16 * KS - d;
+    for (int i = threadIdx.x; i < 2 * ROWS * pad; i += THREADS)
+      sq[(i / pad) * LD + d + i % pad] = 0.f;
+    for (int i = threadIdx.x; i < 4 * KEYS * pad; i += THREADS) {
+      const int row = i / pad;  // stage row / (2 KEYS), K and V adjacent
+      ring[(row / (2 * KEYS)) * stage + (row % (2 * KEYS)) * LD + d +
+           i % pad] = 0.f;
+    }
+  }
+
+  // key tile t into ring stage t & 1: its K and V rows and s columns
+  // (keys past Nk and factor rows past M zero-filled)
+  auto fetch = [&](int t) {
+    float* st = ring + (t & 1) * stage;
+    const int k0 = t * KEYS;
+    const int valid = min(KEYS, p.nk - k0);
+    const long long o = kvoff + (long long)k0 * p.row;
+    copy_rows<LD, KEYS, THREADS>(st, p.k + o, p.row, valid, chunks, cshift,
+                                 p.vec, p.k);
+    copy_rows<LD, KEYS, THREADS>(st + KEYS * LD, p.v + o, p.row, valid,
+                                 chunks, cshift, p.vec, p.v);
+    if constexpr (BIAS)
+      copy_s<KEYS, SLD, THREADS>(st + 2 * KEYS * LD, p.s, p.m, m8, p.nk, k0,
+                                 p.vec_s);
+  };
+
+  // prologue: Q, dO and the R rows with tile 0, then tile 1
+  copy_rows<LD, ROWS, THREADS>(sq, p.q + qoff, p.row, rows, chunks, cshift,
+                               p.vec, p.q);
+  copy_rows<LD, ROWS, THREADS>(sdo, p.dout + qoff, p.row, rows, chunks,
+                               cshift, p.vec, p.dout);
+  if constexpr (BIAS)
+    copy_r<ROWS, THREADS>(sr, p.r, grp, p.nq, row0, rows, p.m, rs);
+  fetch(0);
+  cp_commit();
+  if (tiles_k > 1) fetch(1);
+  cp_commit();
+
+  const bool idle = warp * 16 >= rows;  // a ragged last query tile
+  const int ao = (warp * 16 + g8) * LD + t4;  // this lane's A fragments
+  const int ro = (warp * 16 + g8) * rs + t4;  // and R's
+  // rows g8 and g8 + 8: the forward's LSE and delta
+  float lse[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = warp * 16 + g8 + 8 * i;
+    const long long o = (long long)grp * p.nq + row0 + row;
+    lse[i] = row < rows ? p.lse[o] : 0.f;
+    delta[i] = row < rows ? p.delta[o] : 0.f;
+  }
+  float dq[K8][4], dr[NM][4];
+#pragma unroll
+  for (int n = 0; n < K8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NM; ++i) dr[i][0] = dr[i][1] = dr[i][2] = dr[i][3] = 0.f;
+
+  for (int t = 0; t < tiles_k; ++t) {
+    cp_wait<1>();  // tile t has landed (t + 1 may be in flight)
+    __syncthreads();
+    const float* kt = ring + (t & 1) * stage;
+    const float* vt = kt + KEYS * LD;
+    const float* st = vt + KEYS * LD;
+    if constexpr (PRE) {  // K and V into tf32 hi (in place) and lo
+      split_rows<KS, LD, THREADS>(ring + (t & 1) * stage, kvlo, 2 * KEYS);
+      __syncthreads();
+    }
+    const float* klo = kvlo;
+    const float* vlo = kvlo + KEYS * LD;
+
+    if (!idle) {
+      // S = Q K^T with the small terms apart and dP = dO V^T; the B
+      // fragment of n-tile j is keys 8 j + g8 at columns 8 kk + t4 and + 4
+      float sc[NT][4], small[NT][4], dp[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = small[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < K8; ++kk) {
+        uint32_t qhi[4], qlo[4], ohi[4], olo[4];
+        load_a<false>(sq, nullptr, ao + 8 * kk, LD, qhi, qlo);
+        load_a<false>(sdo, nullptr, ao + 8 * kk, LD, ohi, olo);
+        const int bo = g8 * LD + 8 * kk + t4;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          uint32_t bhi[2], blo[2];
+          load_b<PRE>(kt, klo, bo + 8 * j * LD, bo + 8 * j * LD + 4, bhi,
+                      blo);
+          mma3_apart_t(sc[j], small[j], qhi, qlo, bhi, blo);
+          load_b<PRE>(vt, vlo, bo + 8 * j * LD, bo + 8 * j * LD + 4, bhi,
+                      blo);
+          mma3_t(dp[j], ohi, olo, bhi, blo);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[j][e] = (sc[j][e] + small[j][e]) * p.scale;
+
+      if constexpr (BIAS) {  // + r s: R S as 3xTF32 in one sum
+        float (&b)[NT][4] = small;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) b[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < MT; ++kk) {
+          if (8 * kk >= m8) break;
+          uint32_t ahi[4], alo[4];
+          load_a<false>(sr, nullptr, ro + 8 * kk, rs, ahi, alo);
+          // the B fragment of n-tile j: factor rows 8 kk + t4 and + 4 of
+          // the s tile at key 8 j + g8
+          const int so = (8 * kk + t4) * SLD + g8;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            uint32_t bhi[2], blo[2];
+            load_b<false>(st, nullptr, so + 8 * j, so + 8 * j + 4 * SLD, bhi,
+                          blo);
+            mma3_t(b[j], ahi, alo, bhi, blo);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] += b[j][e];
+      }
+      mask_keys(sc, t * KEYS, p.nk, t4);
+
+      // dl = w (dP - delta), w = exp(S - lse), split as the A fragment of
+      // k-step j: A columns t4 and t4 + 4 are keys 8 j + 2 t4 and + 1
+      uint32_t ahi[NT][4], alo[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        float dl[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dl[e] = expf(sc[j][e] - lse[e / 2]) * (dp[j][e] - delta[e / 2]);
+        split_tf32(dl[0], ahi[j][0], alo[j][0]);  // row g8, key 2 t4
+        split_tf32(dl[2], ahi[j][1], alo[j][1]);  // row g8 + 8
+        split_tf32(dl[1], ahi[j][2], alo[j][2]);  // key 2 t4 + 1
+        split_tf32(dl[3], ahi[j][3], alo[j][3]);
+      }
+
+      // dQ += dl K, the tile's product formed alone: K's B fragment reads
+      // keys 8 j + 2 t4 and + 1 at column 8 n + g8
+      const int ko = 2 * t4 * LD + g8;
+#pragma unroll
+      for (int n = 0; n < K8; ++n) {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          uint32_t bhi[2], blo[2];
+          const int o = ko + 8 * j * LD + 8 * n;
+          load_b<PRE>(kt, klo, o, o + LD, bhi, blo);
+          mma3(acc, ahi[j], alo[j], bhi, blo);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq[n][e] += acc[e];
+      }
+
+      // dR += dl s^T: the B fragment of n-tile i is factor row 8 i + g8 of
+      // the s tile at keys 8 j + 2 t4 and + 1, adjacent
+      if constexpr (BIAS) {
+        const int so = g8 * SLD + 2 * t4;
+#pragma unroll
+        for (int i = 0; i < NM; ++i) {
+          if (8 * i >= m8) break;
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const float2 x =
+                *reinterpret_cast<const float2*>(st + so + 8 * i * SLD + 8 * j);
+            uint32_t bhi[2], blo[2];
+            split_tf32(x.x, bhi[0], blo[0]);
+            split_tf32(x.y, bhi[1], blo[1]);
+            mma3(acc, ahi[j], alo[j], bhi, blo);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dr[i][e] += acc[e];
+        }
+      }
+    }
+
+    __syncthreads();  // every warp is done with this stage
+    if (t + 2 < tiles_k) fetch(t + 2);
+    cp_commit();  // an empty group keeps the wait count uniform
+  }
+
+  // dQ scaled once, in q's layout; dR as summed, (BH, Nq, M)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = warp * 16 + g8 + 8 * i;
+    if (row >= rows) continue;
+    const long long o = qoff + (long long)row * p.row;
+#pragma unroll
+    for (int n = 0; n < K8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * n + 2 * t4 + e;
+        if (c < d) p.dq[o + c] = dq[n][2 * i + e] * p.scale;
+      }
+    if constexpr (BIAS) {
+      const long long dro = ((long long)grp * p.nq + row0 + row) * p.m;
+#pragma unroll
+      for (int n = 0; n < NM; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * n + 2 * t4 + e;
+          if (c < p.m) p.dr[dro + c] = dr[n][2 * i + e];
+        }
+    }
+  }
+}
+
+// ----------------------------------------------------------------------
 // Launchers
 // ----------------------------------------------------------------------
 
@@ -890,6 +1213,27 @@ int launch_bwd_dq_f32_steps(BwdParams p, cudaStream_t stream) {
   if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
   attention_bwd_dq_f32_kernel<KS>
       <<<(unsigned)blocks, 32 * kDqWarps, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int KS, int MT>
+int launch_bwd_dq_lowrank_f32_steps(BwdParams p, cudaStream_t stream) {
+  constexpr int WARPS = DqrShape<KS, MT>::WARPS;
+  const size_t smem =
+      smem_bytes_dqr(KS, MT ? p.m : 0, WARPS, DqrShape<KS, MT>::PRE);
+  if (smem > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attention_bwd_dq_lowrank_f32_kernel<KS, MT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  p.vec_s = MT && p.nk % 4 == 0 && aligned(p.s, 16) ? 4 : 1;
+  p.q_tiles = (p.nq + 16 * WARPS - 1) / (16 * WARPS);
+  const long long blocks = (long long)p.bh * p.q_tiles;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  attention_bwd_dq_lowrank_f32_kernel<KS, MT>
+      <<<(unsigned)blocks, 32 * WARPS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -967,6 +1311,25 @@ int launch_bwd_dkv_f32(Params p, cudaStream_t stream) {
   const int err = bwd_prepare(p);
   if (err != 0) return err;
   return with_bwd_shape(p.d, p.m, BwdLaunch{p, stream});
+}
+
+struct DqrLaunch {
+  const BwdParams& p;
+  cudaStream_t stream;
+  template <int KS, int MT>
+  int run() const {
+    return launch_bwd_dq_lowrank_f32_steps<KS, MT>(p, stream);
+  }
+};
+
+// The f32 dQ/dR launcher (K4: 25 kernels), the query pass with the bias:
+// dQ into p.dq, dR into p.dr, from the LSE and delta at p.lse and
+// p.delta. Returns a cudaError_t.
+template <typename Params>
+int launch_bwd_dq_lowrank_f32(Params p, cudaStream_t stream) {
+  const int err = bwd_prepare(p);
+  if (err != 0) return err;
+  return with_bwd_shape(p.d, p.m, DqrLaunch{p, stream});
 }
 
 template <int KS>

@@ -10,10 +10,14 @@ version (``flash_attention_lowrank_bias_reference``) only for CPU tensors.
 ``csrc/flash_attention_lowrank_bwd.cu`` (dQ/dR, then dK/dV/dS; each
 wrapper, ``lowrank_backward_dq`` and ``lowrank_backward_dkv``, counts its
 own launches) and takes ``flash_attention_lowrank_bias_backward_reference``
-only for CPU tensors. In float32 the dK/dV/dS kernel is the tensor-core
-body of ``csrc/tc_attention_bwd.cuh`` (every product, the bias
-included, as 3xTF32; D <= 128 and M <= 128); the dQ/dR
-kernel and the bfloat16 dK/dV/dS run on the CUDA cores.
+only for CPU tensors. In float32 (MViT training's default) both run on
+the tensor cores, every product, the bias included, as 3xTF32, and take
+D <= 128 and M <= 128: dQ/dR on the query pass with the bias of
+``csrc/tc_attention_bwd.cuh`` (queries as the rows; the forward's LSE and
+delta read once a row; dQ and dR written once, in place), dK/dV/dS on its
+key-major body (f32 partials per split of the query range). In bfloat16
+both kernels run on the CUDA cores. A CUDA call that its instantiation
+refuses raises; it never runs the other one.
 ``flash_attention_lowrank_bias_trainable`` is the differentiable
 attention of MViT's training: K3 forward, K4 backward. Each
 source's header says what bounds its kernels on an H100 and what their
@@ -283,7 +287,7 @@ def _bwd_launch(kernel: str, name: str, tensors, ints, q) -> None:
     if err == _CUDA_ERROR_INVALID_VALUE:
         raise ValueError(f"{name}: the kernel refused the sizes (B*H, Nq, "
                          f"Nk, D, M...) {ints}; it takes D <= {MAX_HEAD_DIM}"
-                         f" (float32 dK/dV/dS also M <= {MAX_BIAS_RANK})")
+                         f" (float32 also M <= {MAX_BIAS_RANK})")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error "
                            f"{err}")
@@ -325,7 +329,8 @@ def dkv_splits(key_blocks: int, nq: int, dtype: torch.dtype,
 def lowrank_backward_dq(q, k, v, r, s, do, lse, delta):
     """(dQ, dR) of K4's first kernel: dQ in q's dtype, dR f32 (None
     without a bias). ``do`` contiguous in q's dtype; lse and delta
-    (B, H, Nq) f32. CPU tensors take the plain version."""
+    (B, H, Nq) f32. CPU tensors take the plain version; the float32
+    kernel (the tensor-core query pass) refuses M > 128 (ValueError)."""
     if q.device.type == "cpu":
         return lowrank_backward_dq_reference(q, k, v, r, s, do, lse, delta)
     b, h, nq, d = q.shape

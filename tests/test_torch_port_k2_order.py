@@ -33,7 +33,7 @@ import torch
 
 from multi_modal_csi_tpu.kernels.flash_attention import (
     flash_attention_trainable as jax_trainable)
-from test_torch_port_tc_attention_order import (_tf32_product,
+from test_torch_port_tc_attention_order import (_logits, _tf32_product,
                                                 f32_bwd_dkv_order,
                                                 split_tf32)
 
@@ -49,19 +49,6 @@ SHAPES = {"that-left": ((2, 150, 2, 27), 150),
           "that-right": ((2, 270, 2, 15), 270),
           "ragged": ((2, 70, 3, 15), 97),
           "cross": ((2, 128, 2, 45), 300)}
-
-
-def _logits(q_hi, q_lo, k_hi, k_lo, scale):
-    """(Q K^T) scale over the padded span as 3xTF32, the small terms
-    summed apart and each k-step's hi.hi added in f32."""
-    big = torch.zeros((q_hi.shape[0], q_hi.shape[1], k_hi.shape[1]))
-    for c in range(0, q_hi.shape[-1], 8):
-        cols = slice(c, c + 8)
-        big = big + torch.einsum("gqd,gkd->gqk", q_hi[..., cols],
-                                 k_hi[..., cols])
-    small = (torch.einsum("gqd,gkd->gqk", q_hi, k_lo)
-             + torch.einsum("gqd,gkd->gqk", q_lo, k_hi))
-    return (big + small) * scale
 
 
 def f32_bwd_k2_order(q, k, v, do):

@@ -91,9 +91,9 @@ def test_kernel_sources_and_build_flags(tmp_path, monkeypatch):
     sm_90a with ``-I csrc``; the shared headers are tc_attention.cuh, the
     tensor-core bodies of K1's and K3's kernels (mma.sync fed by ldmatrix,
     cp.async copies), and tc_attention_bwd.cuh, which includes it: K4's
-    f32 dK/dV/dS body and K2's f32 query pass and dK/dV pass (tf32
-    mma.sync); the library name changes with the source, with a header it
-    includes, or with the flags."""
+    f32 dK/dV/dS body and query pass with the bias (dQ/dR), and K2's f32
+    query pass and dK/dV pass (tf32 mma.sync); the library name changes
+    with the source, with a header it includes, or with the flags."""
     launchers = {
         "flash_attention": ["flash_attention"],
         "flash_attention_bwd": ["flash_attention_bwd"],
@@ -127,6 +127,15 @@ def test_kernel_sources_and_build_flags(tmp_path, monkeypatch):
         f32_case = bwd[bwd.index("case 0: {"):bwd.index(
             "case 1:", bwd.index("case 0: {"))]
         assert launcher in f32_case
+        if stem == "flash_attention_lowrank_bwd":
+            # the dQ/dR entry's float32 case: the query pass with the bias
+            dq_entry = bwd[bwd.index("int mmcsi_flash_attention_lowrank_bwd"
+                                     "_dq("):]
+            dq_f32 = dq_entry[dq_entry.index("case 0:"):
+                              dq_entry.index("case 1:")]
+            assert "launch_dq_f32(" in dq_f32
+            assert "tc::launch_bwd_dq_lowrank_f32(p, stream)" in bwd
+            assert "dq_kernel<float>" not in bwd
         assert build._sources(stem) == [
             build.CSRC / f"{stem}.cu", build.CSRC / "tc_attention_bwd.cuh",
             build.CSRC / "tc_attention.cuh"]
@@ -139,6 +148,10 @@ def test_kernel_sources_and_build_flags(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
     command = build._command("flash_attention", "out.so")
     assert command[command.index("-I") + 1] == str(build.CSRC)
+    # K4's source, with 50 f32 kernels, is compiled in parallel threads
+    assert "--split-compile=0" in build._command(
+        "flash_attention_lowrank_bwd", "out.so")
+    assert "--split-compile=0" not in command
     assert build._target("flash_attention") != build._target(
         "flash_attention_bwd")
     # a copy of csrc/: editing a header renames the libraries that include

@@ -49,7 +49,21 @@ wrapper's ``dkv_splits`` says, with the keys as the rows of the products:
 Held against ``jax.vjp`` of JAX's K4 in interpret mode within 1e-4 of each
 gradient's largest magnitude (the JAX test's own bound,
 ``tests/test_torch_port_lowrank_backward.py``).
+
+K4's f32 dQ/dR kernel, the query pass with the bias of the same header
+(``f32_bwd_dq_order``), takes one sweep over key tiles of 32 with the
+queries as the rows of the products:
+- S = Q K^T as K2's query pass forms it (3xTF32, lo.hi + hi.lo summed
+  apart, each k-step's hi.hi added in f32), times 1/sqrt(D), plus the
+  bias R S as 3xTF32 in one sum; w = exp(S - lse) with the forward's LSE;
+- dP = dO V^T as 3xTF32 in one sum; dl = w (dP - delta) with the
+  wrapper's delta;
+- per tile, dQ = dl K and dR = dl S^T as 3xTF32, each added to the row's
+  sums in f32; dQ times 1/sqrt(D) at the end.
+Held against the same ``jax.vjp`` within the same 1e-4.
 """
+
+import functools
 
 import math
 
@@ -74,6 +88,7 @@ K3_SHARE = 2.0 ** -7
 LSE_RTOL = 1e-5
 F32_TOL = 2e-5
 BWD_TOL = 1e-4
+DQ_KEY_TILE = 32    # kDqrKeys of the query pass with the bias
 MAX_SHARED_BYTES = 232448
 H100_SMS = 132
 
@@ -312,6 +327,46 @@ def _tf32_product(a_eq, b_eq, a, b):
             + torch.einsum(eq, a_hi, b_hi))
 
 
+def _logits(q_hi, q_lo, k_hi, k_lo, scale):
+    """(Q K^T) scale over the padded span as 3xTF32, the small terms
+    summed apart and each k-step's hi.hi added in f32 (K2's and K4's
+    query passes)."""
+    big = torch.zeros((q_hi.shape[0], q_hi.shape[1], k_hi.shape[1]))
+    for c in range(0, q_hi.shape[-1], 8):
+        cols = slice(c, c + 8)
+        big = big + torch.einsum("gqd,gkd->gqk", q_hi[..., cols],
+                                 k_hi[..., cols])
+    small = (torch.einsum("gqd,gkd->gqk", q_hi, k_lo)
+             + torch.einsum("gqd,gkd->gqk", q_lo, k_hi))
+    return (big + small) * scale
+
+
+def f32_bwd_dq_order(q, k, v, r, s, do, lse, delta):
+    """K4's f32 dQ/dR kernel on (G, Nq, D) q, do and (G, Nk, D) k, v in
+    f32, optional r (G, Nq, M) and s (M, Nk), the forward's LSE and delta
+    (G, Nq). Returns the f32 dQ (G, Nq, D) and dR (G, Nq, M) or None."""
+    d = q.shape[-1]
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    pad = -d % 8
+    q, k, v, do = (torch.nn.functional.pad(t, (0, pad))
+                   for t in (q, k, v, do))
+    (q_hi, q_lo), (k_hi, k_lo) = split_tf32(q), split_tf32(k)
+    dq = torch.zeros_like(q)
+    dr = None if r is None else torch.zeros_like(r)
+    for k0 in range(0, k.shape[1], DQ_KEY_TILE):
+        keys = slice(k0, k0 + DQ_KEY_TILE)
+        logits = _logits(q_hi, q_lo, k_hi[:, keys], k_lo[:, keys], scale)
+        if r is not None:
+            logits = logits + _tf32_product("gqm", "mk->gqk", r, s[:, keys])
+        w = torch.exp(logits - lse[..., None])
+        dp = _tf32_product("gqd", "gkd->gqk", do, v[:, keys])
+        dl = w * (dp - delta[..., None])
+        dq = dq + _tf32_product("gqk", "gkd->gqd", dl, k[:, keys])
+        if dr is not None:
+            dr = dr + _tf32_product("gqk", "mk->gqm", dl, s[:, keys])
+    return (dq * scale)[..., :d], dr
+
+
 def f32_bwd_dkv_order(q, k, v, r, s, do, lse, delta, splits):
     """K4's f32 dK/dV/dS kernel on (G, Nq, D) q, do and (G, Nk, D) k, v
     in f32, optional r (G, Nq, M) and s (M, Nk), the forward's LSE and
@@ -369,11 +424,12 @@ BWD_SHAPES = {"jax-bias": (2, 2, 300, 130, 32, 11),
               "class-token": (2, 1, 257, 65, 16, 9)}
 
 
-@pytest.mark.parametrize("name", sorted(BWD_SHAPES))
-def test_k4_f32_bwd_dkv_order_matches_jax_kernel(name):
-    """K4's f32 dK/dV/dS order, fed the f32 forward order's output and
-    LSE, against jax.vjp of JAX's trainable K3/K4 in interpret mode: dK,
-    dV and dS within 1e-4 of each gradient's largest magnitude."""
+@functools.lru_cache(maxsize=None)
+def _k4_case(name):
+    """BWD_SHAPES[name]'s seeded inputs as (B H, N, .) torch groups, the
+    f32 forward order's output and LSE, delta, and the gradients of
+    jax.vjp of JAX's trainable K3/K4 in interpret mode (dQ, dK, dV and,
+    with a bias, dR and dS)."""
     b, h, nq, nk, d, m = BWD_SHAPES[name]
     rng = np.random.default_rng(300 + d + m)
     q, do = (_normal(rng, (b, h, nq, d)) for _ in range(2))
@@ -389,7 +445,6 @@ def test_k4_f32_bwd_dkv_order_matches_jax_kernel(name):
         args += [jnp.asarray(r), jnp.asarray(s)]
     _, vjp = jax.vjp(lambda *a: jax_trainable(*a, interpret=True), *args)
     want = [np.asarray(x) for x in vjp(jnp.asarray(do))]
-    want = [want[1], want[2]] + ([want[4]] if m else [])
 
     def groups(t, n):
         return torch.from_numpy(t).reshape(b * h, n, -1)
@@ -400,15 +455,44 @@ def test_k4_f32_bwd_dkv_order_matches_jax_kernel(name):
     ts = None if s is None else torch.from_numpy(s)
     out, lse = f32_order(tq, tk, tv, tr, ts)
     delta = (tdo * out).sum(dim=-1)
+    return (tq, tk, tv, tr, ts, tdo, lse, delta), want
+
+
+@pytest.mark.parametrize("name", sorted(BWD_SHAPES))
+def test_k4_f32_bwd_dkv_order_matches_jax_kernel(name):
+    """K4's f32 dK/dV/dS order, fed the f32 forward order's output and
+    LSE, against jax.vjp of JAX's trainable K3/K4 in interpret mode: dK,
+    dV and dS within 1e-4 of each gradient's largest magnitude."""
+    b, h, nq, nk, d, m = BWD_SHAPES[name]
+    args, want = _k4_case(name)
+    want = [want[1], want[2]] + ([want[4]] if m else [])
     # 128 keys a block at these widths, as the launcher's keys entry
     # reports them (chip_smoke.py prints it at every f32 shape)
     splits = dkv_splits(b * h * -(-nk // 128), nq, torch.float32, H100_SMS)
     assert 1 < splits <= -(-nq // F32_QUERY_TILE)
-    dk, dv, ds = f32_bwd_dkv_order(tq, tk, tv, tr, ts, tdo, lse, delta,
-                                   splits)
+    dk, dv, ds = f32_bwd_dkv_order(*args, splits)
     got = [dk.reshape(b, h, nk, d), dv.reshape(b, h, nk, d)]
     got += [ds] if m else []
     for name_, g, w in zip(("dk", "dv", "ds"), got, want):
+        assert g.shape == w.shape, name_
+        err = np.abs(g.numpy() - w).max()
+        assert err <= BWD_TOL * np.abs(w).max(), (name_, err)
+
+
+@pytest.mark.parametrize("name", sorted(BWD_SHAPES))
+def test_k4_f32_bwd_dq_order_matches_jax_kernel(name):
+    """K4's f32 dQ/dR order (the query pass with the bias), fed the f32
+    forward order's output and LSE, against jax.vjp of JAX's trainable
+    K3/K4 in interpret mode: dQ and dR within 1e-4 of each gradient's
+    largest magnitude."""
+    b, h, nq, nk, d, m = BWD_SHAPES[name]
+    args, want = _k4_case(name)
+    dq, dr = f32_bwd_dq_order(*args)
+    got = [dq.reshape(b, h, nq, d)]
+    got += [dr.reshape(b, h, nq, m)] if m else []
+    want = [want[0]] + ([want[3]] if m else [])
+    assert (dr is None) == (m == 0)
+    for name_, g, w in zip(("dq", "dr"), got, want):
         assert g.shape == w.shape, name_
         err = np.abs(g.numpy() - w).max()
         assert err <= BWD_TOL * np.abs(w).max(), (name_, err)
