@@ -14,17 +14,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    csrc/ with one nvcc each, started together, timed, with ptxas's line
    (registers, spills, static shared memory) for each kernel;
 2. K1 against its plain PyTorch version on the card, f32 and bf16 (the
-   bf16 one is the tensor-core kernel of csrc/tc_attention.cuh), at
-   THAT's left (256, 150, 10, 27) and right (256, 270, 10, 15) shapes,
-   THAT_ENCODER's right (256, 270, 10, 27), a ragged (3, 64, 10, 15) case
-   and a cross case (Nq 128, Nk 420, 6 heads of 45), and in bf16 2048 keys
-   of D = 27 (past the f32 kernel's 933); then per-launch times
-   with CUDA events in the order plain, kernel, kernel, plain, beside
-   scaled_dot_product_attention's time on the same inputs (a yardstick the
-   port never calls) and the card's bound for the same work; f32 also at
-   THAT's three shapes at the training batch of 16, timed likewise and
-   summed per THAT and THAT_ENCODER training step; an f32 K and V too
-   large for shared memory, and a bf16 head dim of 129, must raise;
+   two bodies of csrc/tc_attention.cuh: f32 as 3xTF32 on the tensor
+   cores), at THAT's left (256, 150, 10, 27) and right (256, 270, 10, 15)
+   shapes, THAT_ENCODER's right (256, 270, 10, 27), a ragged
+   (3, 64, 10, 15) case, a cross case (Nq 128, Nk 420, 6 heads of 45) and
+   2048 keys of D = 27, and in f32 THAT's three shapes at the training
+   batch of 16; f32 the same bits twice and the kernel's and plain
+   version's distance from float64 at THAT_ENCODER's right shape at 16;
+   then per-launch times with CUDA events in the order plain, kernel,
+   kernel, plain, beside scaled_dot_product_attention's time on the same
+   inputs (a yardstick the port never calls) and the card's bound for the
+   same work (f32: at the f32 peak and as 3xTF32); in f32 also each call's
+   device time from torch.profiler (kernel, plain, SDPA's own kernels),
+   summed per THAT and THAT_ENCODER training step; a head dim of 129 must
+   raise in both dtypes, and 4096 keys of D = 27 launch in f32;
 3. K2 against its plain version, f32 and bf16, at THAT's and
    THAT_ENCODER's training shapes at batch 16 (and THAT's at 256), a
    ragged (3, 70, 10, 15) case with 97 keys and a cross case
@@ -33,7 +36,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    THAT_ENCODER's right shape each gradient's distance from float64 for
    the kernel and the plain version; per-launch times as for K1 (f32:
    each pass's device time from torch.profiler), per THAT and
-   THAT_ENCODER training step, beside the backward of
+   THAT_ENCODER training step in each dtype, beside the backward of
    scaled_dot_product_attention on the same inputs and the bounds (f32:
    at the f32 peak and as 3xTF32); a Q, dO, K and V too large for shared
    memory, and an f32 head dim of 129, must raise;
@@ -68,9 +71,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    its largest magnitude; in f32 (both kernels are bodies of
    csrc/tc_attention_bwd.cuh) at the training shapes every gradient's
    distance from float64 for the kernel and the plain version, both
-   kernels the same bits twice at block 1 with the bias, and per-call
-   times of each kernel beside its plain part's, the backward of
-   scaled_dot_product_attention with r @ s as a float mask, and the
+   kernels the same bits twice at block 1 with the bias; in both dtypes
+   per-call times of each kernel beside its plain part's, the backward of
+   scaled_dot_product_attention with r @ s as a mask of the dtype, and the
    bounds, summed per MViT-v1 and v2 training step; a head dim of 160,
    and in f32 a bias of 130 factor columns, must be refused;
 4d. P1 (kernels/int8_matmul.py), both instantiations, against their
@@ -91,10 +94,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    matmul plus the eager epilogue) and the bound; a bf16 operand whose
    rows no 4-byte copy divides must be refused, raising;
 4e. K1 and K2 at the largest shapes their fit predicates admit, each
-   instantiation: K1 f32 and K2 at one head of 27 (one key or token
-   more: refused with ValueError), K1 bf16 at 4096 keys of a head of 128
-   (a head of 129: refused), K3 in both dtypes at a bias of 128 factor
-   columns and a head of 128 (129 of either: refused);
+   instantiation: K2 at one head of 27 (one token more: refused with
+   ValueError), K1 in both dtypes at 4096 keys of a head of 128 (a head
+   of 129: refused), K3 in both dtypes at a bias of 128 factor columns
+   and a head of 128 (129 of either: refused);
 5. preprocessing on the card (cli/preprocess_csi.py, the default device):
    4 synthetic WiMANS .mat traces of 3000 packets to amplitude and phase
    files, exactly 4 K5 launches, seconds per trace by stage (.mat parse,
@@ -126,10 +129,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    --quant auto --calib F.npy once;
 7. THAT training at full width through ``fit``: seeded (80, 3000, 270)
    training and (32, 3000, 270) validation windows, activity labels,
-   batch 16, 2 epochs, augmentation on, f32; exactly 5 K1 and 5 K2
-   launches in one training step; windows trained per second after a
-   warm-up step; 5 steps under torch.profiler (K2's two passes' device
-   ms per step and share); then one bf16 epoch;
+   batch 16, 2 epochs, augmentation on, f32; exactly 5 K1 (f32) and 5
+   K2 launches in one training step; windows trained per second after a
+   warm-up step; 5 steps under torch.profiler (K1's and K2's two passes'
+   device ms per step and share); then one bf16 epoch;
 8. one f32 THAT training step on the card against the CPU (TF32 off,
    batch 2, augmentation and dropout off, the CPU taking the card's side
    at every leaky-ReLU kink): loss and gradients;
@@ -141,7 +144,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    environment, an amplitude cache of the 4 traces of phase 5 and 44
    windows of 2500 to 3000 steps, 2 epochs at batch 16, the final test
    pass in bf16; the result JSON read back with the JAX runner's keys;
-   THAT_ENCODER's exact K1 and K2 launch counts, none for DETR;
+   THAT_ENCODER's exact K1 (f32 and bf16) and K2 launch counts, none for
+   DETR;
 11. MViT-v1 and MViT-v2 serving at full width (runners/video.py,
    core/serving.py::VideoServer), bf16, batch 2: seeded weights, ragged
    requests of 2, 1 and 3 seeded (45, 224, 224, 3) clips, exactly 16 K3
@@ -179,8 +183,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    1, one epoch at batch 2, the final test pass in bf16; the result JSON
    read back with the JAX runner's keys; exact K3 and K4 launch counts;
 17. one JSON line describing each kernel (every TPU kernel of the repo
-   is ported, and P1's prologue; K3 with one entry per dtype), then the
-   card's name and power limit, then the result line.
+   is ported, and P1's prologue; K1 and K3 with one entry per dtype),
+   then the card's name and power limit, then the result line.
 
 Exits non-zero without a result when no CUDA device is available.
 """
@@ -212,6 +216,7 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
               torch.int8: 1979e12}
 PEAK_TF32 = 495e12        # dense TF32 tensor cores: K3's bf16 bias
+DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 RESIDENT_ROUNDS = 3        # timings of the requests already on the card
 PROFILED_FORWARDS = 5
 TOP_KERNELS = 12           # listed from the profile, by device time
@@ -222,12 +227,13 @@ KERNEL_SHAPES = {          # name: (q shape (B, Nq, H, D), Nk)
     "ragged": ((3, 64, 10, 15), 64),
     "cross": ((4, 128, 6, 45), 420),
 }
-# K1 in bf16 only: the tensor-core kernel streams the keys, so 2048 keys
-# of THAT's D = 27 (past the f32 kernel's 933) run too
-KERNEL_BF16_SHAPES = {"long": ((4, 256, 10, 27), 2048)}
-# K1 in f32 at the training batch (TRAIN_BATCH), timed only: the THAT and
+# K1 in both dtypes at 2048 keys of THAT's D = 27: both tensor-core
+# bodies stream the keys (the f32 kernel before them stopped at 933)
+KERNEL_LONG_SHAPES = {"long": ((4, 256, 10, 27), 2048)}
+# K1 in f32 at the training batch (TRAIN_BATCH): the THAT and
 # THAT_ENCODER shapes of a training step's forward
 K1_TRAIN_SHAPES = ("that-left", "that-right", "that-encoder-right")
+K1_F32 = "attention_f32_kernel"     # the f32 body's kernel name
 # K2, per gradient against the plain version's largest magnitude: f32 the
 # JAX package's bound for its own kernel (tests/test_kernels.py:165-168);
 # bf16 one rounding step of the largest value (both store bf16 gradients
@@ -368,26 +374,54 @@ def attention_bound(shape, nk, dtype):
     """The least times (ms) one attention call needs on an H100 SXM: q, k,
     v read once and the output written once over the HBM rate, and the
     QK^T and PV products (2 * 2 * B*H*Nq*Nk*D operations) over the peak
-    rate for the dtype. The bound is the larger of the two."""
+    rate for the dtype. The bound is the larger of the two. The third time
+    is the operations bound with every product as three TF32 products
+    (3xTF32) over the TF32 tensor-core peak, as the f32 kernel computes
+    them; in bf16 it is the second."""
     b, nq, h, d = shape
     item = torch.tensor([], dtype=dtype).element_size()
     nbytes = (2 * b * nq * h * d + 2 * b * nk * h * d) * item
     flops = 4.0 * b * h * nq * nk * d
-    return 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / PEAK_FLOPS[dtype]
+    ops_ms = 1e3 * flops / PEAK_FLOPS[dtype]
+    tf32_ms = (1e3 * 3 * flops / PEAK_TF32 if dtype == torch.float32
+               else ops_ms)
+    return 1e3 * nbytes / PEAK_BYTES, ops_ms, tf32_ms
+
+
+def attention_f64(q, k, v):
+    """K1's function computed in float64 (the f32 kernel's and the plain
+    version's own rounding errors are measured against it)."""
+    q, k, v = (t.double() for t in (q, k, v))
+    w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k)
+                      / q.shape[-1] ** 0.5, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
 
 def phase_kernel(flash_attention, flash_attention_reference):
-    """K1 against its plain version; times at the main path's shapes."""
+    """K1 against its plain version at every shape, f32 within F32_TOL and
+    bf16 within BF16_TOL; f32 the same bits twice and its distance from
+    float64 at that-encoder-right-16. Times at the main path's shapes
+    (CUDA events: plain, kernel, kernel, plain) beside
+    scaled_dot_product_attention and the bounds; in f32 also each call's
+    device time from the profiler (the f32 kernel, the plain version and
+    SDPA's own kernels). A head dim of 129 must be refused in both dtypes;
+    4096 keys of D = 27 launch in f32."""
     import torch.nn.functional as F
     from multi_modal_csi_tpu_torch.kernels.flash_attention import (
         TC_MAX_HEAD_DIM)
     set_tf32(False)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
-    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        shapes = dict(KERNEL_SHAPES)
-        if dtype == torch.bfloat16:
-            shapes.update(KERNEL_BF16_SHAPES)
+    train = {f"{name}-{TRAIN_BATCH}": ((TRAIN_BATCH, *shape[1:]), nk)
+             for name, (shape, nk) in KERNEL_SHAPES.items()
+             if name in K1_TRAIN_SHAPES}
+    # in this order the inputs of every case that ran before the f32
+    # kernel's long and training cases are drawn as they were
+    groups = ((torch.float32, KERNEL_SHAPES),
+              (torch.bfloat16, {**KERNEL_SHAPES, **KERNEL_LONG_SHAPES}),
+              (torch.float32, train), (torch.float32, KERNEL_LONG_SHAPES))
+    for dtype, shapes in groups:
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
         for name, (shape, nk) in shapes.items():
             b, nq, h, d = shape
             q = torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -404,48 +438,62 @@ def phase_kernel(flash_attention, flash_attention_reference):
             check(got.dtype == dtype and got.shape == q.shape,
                   f"K1 {name} {dtype} output {got.dtype} {tuple(got.shape)}")
             check(err <= tol, f"K1 {name} {dtype} err {err} > {tol}")
+            if (dtype == torch.float32
+                    and name == f"that-encoder-right-{TRAIN_BATCH}"):
+                # the same bits twice: every sum in one order, no atomics
+                same = torch.equal(got, flash_attention(q, k, v))
+                print(f"K1 {name} f32 twice: bit for bit {same}")
+                check(same, f"K1 {name} f32 differs run to run")
+                exact = attention_f64(q, k, v)
+                top = exact.abs().max()
+                print(f"K1 {name} f32 against the same function in f64, "
+                      f"of the output's max: kernel "
+                      f"{((got.double() - exact).abs().max() / top):.3e}, "
+                      f"plain {((want.double() - exact).abs().max() / top):.3e}")
+                del exact
             if not name.startswith("that"):
                 continue
+            del got, want
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             plain = [cuda_ms(lambda: flash_attention_reference(q, k, v))]
             kern = [cuda_ms(lambda: flash_attention(q, k, v))
                     for _ in range(2)]
             plain.append(cuda_ms(lambda: flash_attention_reference(q, k, v)))
             lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-            bytes_ms, ops_ms = attention_bound(shape, nk, dtype)
-            results[(name, dtype)] = dict(
-                err=err, ms=sum(kern) / 2, plain_ms=sum(plain) / 2,
-                library_ms=lib, bytes_ms=bytes_ms, ops_ms=ops_ms)
-            print(f"K1 {name} {dtype} per launch: kernel {kern[0]:.4f}/"
-                  f"{kern[1]:.4f} ms, plain {plain[0]:.4f}/{plain[1]:.4f} ms,"
-                  f" sdpa {lib:.4f} ms; bound: bytes {1e3 * bytes_ms:.1f} us,"
-                  f" operations {1e3 * ops_ms:.1f} us")
+            bytes_ms, ops_ms, tf32_ms = attention_bound(shape, nk, dtype)
+            row = dict(err=err, ms=sum(kern) / 2, plain_ms=sum(plain) / 2,
+                       library_ms=lib, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                       tf32_ms=tf32_ms)
+            device = ""
+            if dtype == torch.float32:
+                # device time: CUDA events around short launches also
+                # count the host's gaps between them
+                by_kernel = kernel_ms(lambda: flash_attention(q, k, v))
+                check(all(K1_F32 in key for key in by_kernel),
+                      f"K1 {name} f32 ran {sorted(by_kernel)}")
+                sdpa = kernel_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt))
+                row.update(event_ms=row["ms"], plain_event_ms=row[
+                    "plain_ms"], library_event_ms=lib,
+                    ms=sum(by_kernel.values()),
+                    plain_ms=device_ms(lambda: flash_attention_reference(
+                        q, k, v)),
+                    library_ms=sum(sdpa.values()))
+                device = (f"; device time (profiler): kernel "
+                          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}"
+                          f" ms, sdpa {row['library_ms']:.4f} ms ("
+                          + "; ".join(f"{key[:60]} {t:.4f}"
+                                      for key, t in sdpa.items()) + ")")
+            results[(name, dtype)] = row
+            print(f"K1 {name} {tuple(shape)} {dtype} per launch: kernel "
+                  f"{kern[0]:.4f}/{kern[1]:.4f} ms, plain {plain[0]:.4f}/"
+                  f"{plain[1]:.4f} ms, sdpa {lib:.4f} ms (CUDA events)"
+                  f"{device}; bound: bytes {1e3 * bytes_ms:.1f} us, "
+                  f"operations {1e3 * ops_ms:.1f} us"
+                  + (f" (3xTF32 {1e3 * tf32_ms:.1f} us)"
+                     if dtype == torch.float32 else ""))
 
-    # f32 at THAT's training batch (a measurement: the f32 kernel runs in
-    # training's forward), per launch and per THAT and THAT_ENCODER step
-    # (4 left + 1 right launches), beside SDPA's f32 forward
-    for name in K1_TRAIN_SHAPES:
-        shape, nk = KERNEL_SHAPES[name]
-        b, nq, h, d = shape = (TRAIN_BATCH, *shape[1:])
-        q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda")
-                   for n in (nq, nk, nk))
-        got = flash_attention(q, k, v)
-        err = (got - flash_attention_reference(q, k, v)).abs().max().item()
-        check(err <= F32_TOL, f"K1 {name}-{b} f32 err {err} > {F32_TOL}")
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        plain = [cuda_ms(lambda: flash_attention_reference(q, k, v))]
-        kern = [cuda_ms(lambda: flash_attention(q, k, v)) for _ in range(2)]
-        plain.append(cuda_ms(lambda: flash_attention_reference(q, k, v)))
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-        bytes_ms, ops_ms = attention_bound(shape, nk, torch.float32)
-        results[(f"{name}-{b}", torch.float32)] = dict(
-            err=err, ms=sum(kern) / 2, plain_ms=sum(plain) / 2,
-            library_ms=lib, bytes_ms=bytes_ms, ops_ms=ops_ms)
-        print(f"K1 {name}-{b} {shape} f32 per launch: max abs err "
-              f"{err:.3e}; kernel {kern[0]:.4f}/{kern[1]:.4f} ms, plain "
-              f"{plain[0]:.4f}/{plain[1]:.4f} ms, sdpa {lib:.4f} ms; bound:"
-              f" bytes {1e3 * bytes_ms:.1f} us, operations "
-              f"{1e3 * ops_ms:.1f} us")
+    # per THAT and THAT_ENCODER training step (4 left + 1 right launches)
     for model, right in (("THAT", "that-right"),
                          ("THAT_ENCODER", "that-encoder-right")):
         rows = [results[(f"{n}-{TRAIN_BATCH}", torch.float32)]
@@ -454,24 +502,34 @@ def phase_kernel(flash_attention, flash_attention_reference):
         def total(field):
             return sum(r[field] for r in rows)
 
+        bytes_ms = total("bytes_ms")
         print(f"K1 f32 per {model} training step at batch {TRAIN_BATCH} (4 "
-              f"left + 1 right): kernel {total('ms'):.4f} ms, plain "
-              f"{total('plain_ms'):.4f} ms, sdpa {total('library_ms'):.4f} "
-              f"ms, bound {max(total('bytes_ms'), total('ops_ms')):.4f} ms")
+              f"left + 1 right), device time: kernel {total('ms'):.4f} ms, "
+              f"plain {total('plain_ms'):.4f} ms, sdpa "
+              f"{total('library_ms'):.4f} ms; CUDA events: kernel "
+              f"{total('event_ms'):.4f} ms, sdpa "
+              f"{total('library_event_ms'):.4f} ms; bound "
+              f"{max(bytes_ms, total('ops_ms')):.4f} ms at the f32 peak, "
+              f"{max(bytes_ms, total('tf32_ms')):.4f} ms as 3xTF32")
 
-    # f32: K and V of one (b, h) beyond the block's shared memory; bf16: a
-    # head dim past the tensor-core kernel's: refused
-    for dtype, nk, d in ((torch.float32, 4096, 27),
-                         (torch.bfloat16, 64, TC_MAX_HEAD_DIM + 1)):
-        q = torch.zeros((1, 64, 1, d), device="cuda", dtype=dtype)
-        kv = torch.zeros((1, nk, 1, d), device="cuda", dtype=dtype)
+    # a head dim past the tensor-core bodies' spans: refused in both
+    # dtypes; in f32, 4096 keys of THAT's head dim launch (keys stream)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros((1, 64, 1, TC_MAX_HEAD_DIM + 1), device="cuda",
+                        dtype=dtype)
         try:
-            flash_attention(q, kv, kv)
+            flash_attention(q, q, q)
             refused = False
         except ValueError as e:
-            print(f"K1 {dtype} Nk={nk} D={d}: refused ({e})")
+            print(f"K1 {dtype} D={TC_MAX_HEAD_DIM + 1}: refused ({e})")
             refused = True
-        check(refused, f"K1 {dtype} launched at Nk={nk}, D={d}")
+        check(refused, f"K1 {dtype} launched at D={TC_MAX_HEAD_DIM + 1}")
+    q = torch.randn((1, 64, 1, 27), generator=gen, device="cuda")
+    kv = torch.randn((1, 4096, 1, 27), generator=gen, device="cuda")
+    err = (flash_attention(q, kv, kv)
+           - flash_attention_reference(q, kv, kv)).abs().max().item()
+    print(f"K1 f32 Nk=4096 D=27: launched, max abs err {err:.3e}")
+    check(err <= F32_TOL, f"K1 f32 Nk=4096 err {err} > {F32_TOL}")
     return results
 
 
@@ -535,7 +593,8 @@ def phase_backward(backward, backward_reference):
     and the dK/dV pass of the tensor-core backward body) the same bits
     twice. Times at the training shapes (plain, kernel, kernel, plain,
     with CUDA events), beside the backward of scaled_dot_product_attention
-    and the bounds (f32: at the f32 peak and as 3xTF32); in f32 each
+    and the bounds (f32: at the f32 peak and as 3xTF32), summed per THAT
+    and THAT_ENCODER training step in each dtype; in f32 each
     pass's device time from the profiler, and at that-encoder-right-16 the
     distance of the kernel and of its plain version from float64
     (``backward_f64``). Beyond shared memory (Nk = 4096) and, in f32, past
@@ -635,6 +694,15 @@ def phase_backward(backward, backward_reference):
               f"{total('library_ms'):.4f} ms; bound "
               f"{max(bytes_ms, total('ops_ms')):.4f} ms at the f32 peak, "
               f"{max(bytes_ms, total('tf32_ms')):.4f} ms as 3xTF32")
+        # bf16 training (train_dtype="bfloat16"): K2's CUDA-core kernel
+        rows = [results[(shape, torch.bfloat16)] for shape in
+                ("that-left-16",) * 4 + (right,)]
+        print(f"K2 per {model} bf16 training step at batch 16 (4 left + 1 "
+              f"right): kernel {total('ms'):.4f} ms, plain "
+              f"{total('plain_ms'):.4f} ms, sdpa backward "
+              f"{total('library_ms'):.4f} ms; bound "
+              f"{max(total('bytes_ms'), total('ops_ms')):.4f} ms at the "
+              f"bf16 peak")
 
     # Q, dO, K and V of one (b, h) beyond the block's shared memory; f32
     # past the tensor-core body's spans
@@ -1024,7 +1092,7 @@ def train_phase_that(data):
     torch.cuda.synchronize()
     one = dict(kernels.LAUNCH_COUNTS)
     print(f"THAT training: launches in one step: {one}")
-    check(one == {"flash_attention": 5, "flash_attention_backward": 5},
+    check(one == {"flash_attention_f32": 5, "flash_attention_backward": 5},
           f"THAT training step launched {one}, expected 5 K1 and 5 K2")
     train_rate("THAT f32 training", step, bx, by, gen)
     prof = profile_device("THAT f32 training", lambda: step(bx, by, gen),
@@ -1036,6 +1104,11 @@ def train_phase_that(data):
           f"{100 * sum(k2.values()) / prof['device_ms']:.1f}% of the device "
           f"time")
     check(all(k2.values()), "THAT f32 training step ran no K2 pass")
+    k1 = sum(t for name, t in prof["kernels"].items() if K1_F32 in name)
+    print(f"THAT f32 training: K1 {k1:.3f} ms per step "
+          f"({K1_F32}), {100 * k1 / prof['device_ms']:.1f}% of the device "
+          f"time")
+    check(k1 > 0, "THAT f32 training step ran no K1 f32 kernel")
     del model, step
 
     # the main path: fit, 2 epochs, f32
@@ -1062,7 +1135,7 @@ def train_phase_that(data):
           "THAT fit losses not finite")
     # 5 K2 per step; 5 K1 per step and per validation forward (one chunk
     # of VALID_WINDOWS a epoch)
-    want = {"flash_attention": 5 * steps + 5 * 2,
+    want = {"flash_attention_f32": 5 * steps + 5 * 2,
             "flash_attention_backward": 5 * steps}
     check(launches == want, f"THAT fit launched {launches}, expected {want}")
     del model
@@ -1080,7 +1153,8 @@ def train_phase_that(data):
           "THAT bf16 fit left parameters outside bf16")
     check(math.isfinite(h["train_loss"]) and math.isfinite(h["test_loss"]),
           "THAT bf16 fit losses not finite")
-    check(bf16.get("flash_attention_backward") == 5 * steps // 2,
+    check(bf16.get("flash_attention_backward") == 5 * steps // 2
+          and "flash_attention_f32" not in bf16,
           f"THAT bf16 fit launched {bf16}")
     return launches
 
@@ -1236,10 +1310,13 @@ def run_csi_phase(work, converted_amp):
     n_train, rest = len(env_split(idx, idx)[0]), env_split(idx, idx)[1]
     n_valid, n_test = (len(a) for a in valid_test_split(rest, rest)[:2])
     steps = RUN_EPOCHS * (math.ceil(n_train / TRAIN_BATCH) - 1)
-    chunks = RUN_EPOCHS * math.ceil(n_valid / 512) + math.ceil(n_test / 512)
+    # f32: the training steps and the validation chunks; bf16: the final
+    # test pass in the serving dtype
+    chunks = RUN_EPOCHS * math.ceil(n_valid / 512)
     out = {}
     for key, want in (("THAT_ENCODER",
-                       {"flash_attention": 5 * steps + 5 * chunks,
+                       {"flash_attention_f32": 5 * steps + 5 * chunks,
+                        "flash_attention": 5 * math.ceil(n_test / 512),
                         "flash_attention_backward": 5 * steps}),
                       ("DETR", {})):
         save = os.path.join(work, "results", f"{key}.json")
@@ -1547,13 +1624,14 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
     """K4 against its plain version at MViT's three training block shapes
     and the odd shapes, f32 and bf16, with and without the bias, both fed
     the same out and LSE from K3: each gradient within LOWRANK_BWD_TOL of
-    its largest magnitude. Then, at the training shapes in f32 (the
-    default train_dtype), times per call of each kernel and of its plain
-    part with CUDA events (plain, kernel,
+    its largest magnitude. Then, at the training shapes in both dtypes
+    (f32 the default train_dtype, bf16 the opt-in one), times per call of
+    each kernel and of its plain part with CUDA events (plain, kernel,
     kernel, plain), beside the backward of scaled_dot_product_attention
-    with r @ s as a float mask that takes a gradient (the mask made
-    outside the timed call), and the bounds (at the f32 peak and as
-    3xTF32). Both f32 kernels must give the same bits twice at block 1
+    with r @ s as a mask of the dtype that takes a gradient (the mask made
+    outside the timed call), and the bounds (f32: at the f32 peak and as
+    3xTF32), summed per MViT-v1 and v2 training step; results keyed by
+    (label, dtype). Both f32 kernels must give the same bits twice at block 1
     with the bias (fixed-order partials, rows written once, no atomics);
     at the training shapes the distance of each gradient of both kernels
     and of their plain versions from float64 (``lowrank_bwd_f64``) is
@@ -1618,24 +1696,27 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
                         .multi_processor_count)
                     print(f"K4 dkv {label} f32 grid: {keys} keys a block, "
                           f"{splits} splits of the query range")
-                if dtype != torch.float32 or name not in LOWRANK_BWD_SHAPES:
+                if name not in LOWRANK_BWD_SHAPES:
                     del got, want
                     continue
-                exact = lowrank_bwd_f64(q, k, v, r, s, do)
+                if dtype == torch.float32:
+                    exact = lowrank_bwd_f64(q, k, v, r, s, do)
 
-                def share(g, x):
-                    return ((g.double() - x).abs().max()
-                            / x.abs().max()).item()
+                    def share(g, x):
+                        return ((g.double() - x).abs().max()
+                                / x.abs().max()).item()
 
-                for part, grads in (("dkv", ("dk", "dv", "ds")),
-                                    ("dq", ("dq", "dr"))):
-                    print(f"K4 {part} {label} f32 against the same function "
-                          f"in f64, of each gradient's max: " + ", ".join(
-                              f"{n} kernel {share(g, x):.3e} plain "
-                              f"{share(w, x):.3e}" for n, g, w, x in zip(
-                                  names, got, want, exact)
-                              if n in grads and x is not None))
-                del got, want, exact
+                    for part, grads in (("dkv", ("dk", "dv", "ds")),
+                                        ("dq", ("dq", "dr"))):
+                        print(f"K4 {part} {label} f32 against the same "
+                              f"function in f64, of each gradient's max: "
+                              + ", ".join(
+                                  f"{n} kernel {share(g, x):.3e} plain "
+                                  f"{share(w, x):.3e}" for n, g, w, x in zip(
+                                      names, got, want, exact)
+                                  if n in grads and x is not None))
+                    del exact
+                del got, want
 
                 def timed(fn):
                     return cuda_ms(fn, reps=LOWRANK_REPS, warmup=1)
@@ -1662,9 +1743,10 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
                           f"{kern[0]:.3f}/{kern[1]:.3f} ms, plain "
                           f"{plain[0]:.3f}/{plain[1]:.3f} ms; bound: bytes "
                           f"{1e3 * bytes_ms:.1f} us, operations "
-                          f"{1e3 * ops_ms:.1f} us (3xTF32 "
-                          f"{1e3 * tf32_ms:.1f} us)")
-                if bias and name == "block1":
+                          f"{1e3 * ops_ms:.1f} us"
+                          + (f" (3xTF32 {1e3 * tf32_ms:.1f} us)"
+                             if dtype == torch.float32 else ""))
+                if bias and name == "block1" and dtype == torch.float32:
                     # the same bits twice: fixed-order partials (dK/dV/dS)
                     # and rows written once (dQ/dR), no atomics
                     for part in ("dkv", "dq"):
@@ -1688,20 +1770,22 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
                 del leaves, lib_out
                 row["bytes_ms"], row["ops_ms"], _ = lowrank_bwd_bound(
                     shape, bias, dtype, "both")
-                results[label] = row
+                results[(label, dtype)] = row
                 print(f"K4 {label} {dtype} per backward: kernels "
                       f"{row['dq']['ms'] + row['dkv']['ms']:.3f} ms, plain "
                       f"{row['dq']['plain_ms'] + row['dkv']['plain_ms']:.3f}"
                       f" ms, sdpa backward {row['library_ms']:.3f} ms; "
                       f"bound {max(row['bytes_ms'], row['ops_ms']):.3f} ms")
-    for bias in (False, True):
-        rows = [results[f"{name}{'+bias' if bias else ''}"]
+    for dtype, bias in ((d, b) for d in LOWRANK_BWD_TOL
+                        for b in (False, True)):
+        rows = [results[(f"{name}{'+bias' if bias else ''}", dtype)]
                 for name in LOWRANK_BWD_SHAPES]
+        step = f"MViT-v{2 if bias else 1} {DTYPE_NAMES[dtype]}"
 
         def total(part, field):
             return sum(r[part][field] for r in rows)
 
-        print(f"K4 per MViT-v{2 if bias else 1} f32 training step at batch "
+        print(f"K4 per {step} training step at batch "
               f"2 ({K4_PER_STEP} backwards): kernels "
               f"{total('dq', 'ms') + total('dkv', 'ms'):.3f} ms (dq "
               f"{total('dq', 'ms'):.3f}, dkv {total('dkv', 'ms'):.3f}), "
@@ -1711,12 +1795,13 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
               f"{sum(max(r['bytes_ms'], r['ops_ms']) for r in rows):.3f} ms")
         for part in ("dq", "dkv"):
             bytes_ms = total(part, "bytes_ms")
-            print(f"K4 {part} per MViT-v{2 if bias else 1} f32 training "
+            print(f"K4 {part} per {step} training "
                   f"step: kernel {total(part, 'ms'):.3f} ms, plain "
                   f"{total(part, 'plain_ms'):.3f} ms, bound "
                   f"{max(bytes_ms, total(part, 'ops_ms')):.3f} ms at the "
-                  f"f32 peak, {max(bytes_ms, total(part, 'tf32_ms')):.3f} "
-                  f"ms as 3xTF32")
+                  f"{DTYPE_NAMES[dtype]} peak"
+                  + (f", {max(bytes_ms, total(part, 'tf32_ms')):.3f} ms as "
+                     f"3xTF32" if dtype == torch.float32 else ""))
 
     z = torch.zeros((1, 1, 8, 160), device="cuda")
     try:
@@ -2367,12 +2452,12 @@ def phase_p1():
 
 def phase_fits():
     """Each instantiation at the largest shape that its fit predicate
-    admits: launched; one step beyond: refused with ValueError. K1 f32
-    and K2 (f32) at one head of D = 27, THAT's, one key (token) more; K1
-    bf16, which streams the keys, at 4096 keys of a head of 128, and a
-    head of 129; K3 in both dtypes at the largest bias rank M and head dim
-    D that ``lowrank_fits`` admits, and one more of each. The predicates
-    and the C launchers agree."""
+    admits: launched; one step beyond: refused with ValueError. K2 (f32)
+    at one head of D = 27, THAT's, one token more; K1 in both dtypes,
+    whose tensor-core bodies stream the keys, at 4096 keys of a head of
+    128, and a head of 129; K3 in both dtypes at the largest bias rank M
+    and head dim D that ``lowrank_fits`` admits, and one more of each. The
+    predicates and the C launchers agree."""
     from multi_modal_csi_tpu_torch.kernels.flash_attention import (
         backward_fits, flash_attention, flash_attention_backward,
         forward_fits)
@@ -2380,11 +2465,11 @@ def phase_fits():
         flash_attention_lowrank_bias, lowrank_fits)
     f32, bf16 = torch.float32, torch.bfloat16
     d = 27
-    nk = max(n for n in range(1, 4096) if forward_fits(n, d, f32))
     nt = max(n for n in range(1, 4096) if backward_fits(n, n, d))
-    dk = max(n for n in range(1, 512) if forward_fits(4096, n, bf16))
-    print(f"fit predicates: K1 f32 up to Nk={nk} at D={d}, K2 up to "
-          f"Nq=Nk={nt} at D={d}, K1 bf16 up to D={dk} at any Nk")
+    dk = {dtype: max(n for n in range(1, 512) if forward_fits(4096, n, dtype))
+          for dtype in (f32, bf16)}
+    print(f"fit predicates: K2 up to Nq=Nk={nt} at D={d}, K1 up to D="
+          f"{dk[f32]} (f32) and {dk[bf16]} (bf16) at any Nk")
 
     def k1(size, dim, dtype):
         t = torch.randn((1, size, 1, dim), device="cuda").to(dtype)
@@ -2394,9 +2479,9 @@ def phase_fits():
         t = torch.randn((1, size, 1, dim), device="cuda").to(dtype)
         flash_attention_backward(t, t, t, t)
 
-    cases = [("K1 f32", k1, f32, n, d, n == nk) for n in (nk, nk + 1)]
-    cases += [("K2", k2, f32, n, d, n == nt) for n in (nt, nt + 1)]
-    cases += [("K1 bf16", k1, bf16, 4096, n, n == dk) for n in (dk, dk + 1)]
+    cases = [("K2", k2, f32, n, d, n == nt) for n in (nt, nt + 1)]
+    cases += [(f"K1 {DTYPE_NAMES[dtype]}", k1, dtype, 4096, n, n == dk[dtype])
+              for dtype in (f32, bf16) for n in (dk[dtype], dk[dtype] + 1)]
     for what, call, dtype, size, dim, fits in cases:
         try:
             call(size, dim, dtype)
@@ -3090,7 +3175,8 @@ def ptxas_lines(log):
     """(kernel, "registers ...; spills ...") for each kernel in an nvcc
     ``-Xptxas -v`` log; the tensor-core attention's instantiations named
     by their template arguments, ``tc::attention_kernel<k-steps, bias>``
-    (bf16) and ``tc::attention_f32_kernel<k-steps, bias, warps, keys>``."""
+    (bf16) and ``tc::attention_f32_kernel<k-steps, bias, warps, keys,
+    blocks an SM>``."""
     import re
     out, kernel, spill = [], "?", ""
     for line in log.splitlines():
@@ -3149,7 +3235,8 @@ def k4_entry(name, replaces, launches, times, part):
     kernels at once, so both entries carry it. The bound takes every
     product as 3xTF32 (``lowrank_bwd_bound``), with the f32-peak bound
     beside it as ``bound_f32_peak_ms``."""
-    rows = [times[f"{block}+bias"] for block in LOWRANK_BWD_SHAPES]
+    rows = [times[(f"{block}+bias", torch.float32)]
+            for block in LOWRANK_BWD_SHAPES]
     bytes_ms = sum(r[part]["bytes_ms"] for r in rows)
     f32_ms = sum(r[part]["ops_ms"] for r in rows)
     tf32_ms = sum(r[part]["tf32_ms"] for r in rows)
@@ -3266,9 +3353,10 @@ def main() -> int:
         k3_f32 = (sum(runs[K3] for runs in card_vs_cpu + trained_f32)
                   + sum(n for _, n in experiments))
 
-    # K1 and K2: per THAT forward (bf16 serving, batch 256) and per THAT
-    # training step (f32, batch 16), 4 left-stream and 1 right-stream
-    # launches; launches summed over every main path that ran them. K5:
+    # K1 bf16: per THAT forward (serving, batch 256); K1 f32 and K2: per
+    # THAT training step (f32, batch 16); 4 left-stream and 1 right-stream
+    # launches each; launches summed over every main path that ran them
+    # (K1's two dtypes are counted apart). K5:
     # per WiMANS trace (3000, 270). K3 in bf16: per MViT-v2 forward
     # (batch 2, the bias on), its 16 launches; launches summed over the
     # video serving, evaluate and bf16 training runs of both variants and
@@ -3291,6 +3379,14 @@ def main() -> int:
                          (that, trained, encoder, experiment,
                           encoder_int8)), fwd_times,
                      {"that-left": 4, "that-right": 1}, torch.bfloat16),
+        # the f32 instantiation, the f32 body of tc_attention.cuh; its C
+        # entry is in flash_attention.cu; times are device times
+        kernel_entry("flash_attention_f32", "tc_attention.cuh",
+                     "multi_modal_csi_tpu/kernels/flash_attention.py:108",
+                     sum(runs.get("flash_attention_f32", 0) for runs in
+                         (trained, experiment)), fwd_times,
+                     {"that-left-16": 4, "that-right-16": 1},
+                     torch.float32, as_3xtf32=True),
         # the f32 instantiation's two kernels (the query pass and dK/dV),
         # both of tc_attention_bwd.cuh; its C entry is in
         # flash_attention_bwd.cu

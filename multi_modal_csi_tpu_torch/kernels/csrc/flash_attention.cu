@@ -1,12 +1,13 @@
-// Fused multi-head attention softmax(q k^T / sqrt(D)) v for the THAT-family
-// serving shapes, written by hand for Hopper (sm_90a).
+// Fused multi-head attention softmax(q k^T / sqrt(D)) v for the THAT
+// family's serving (bf16) and training (f32) shapes, written by hand for
+// Hopper (sm_90a).
 //
 // Replaces the TPU kernel multi_modal_csi_tpu/kernels/flash_attention.py::
 // flash_attention (body _kernel, pallas_call at :144). Its arithmetic:
 //   - logits in f32 (bf16 products are exact in f32), times 1/sqrt(D) with
 //     the true head dim D;
 //   - row max, exp and sum in f32; weights = exp / sum, rounded to v's dtype
-//     (the bf16 kernel rounds exp and divides by the sum at the end);
+//     (both instantiations here divide by the sum at the end instead);
 //   - P.V accumulated in f32; output stored in q's dtype.
 // No mask, no dropout.
 //
@@ -30,17 +31,24 @@
 // (D = 15) positions; the stray positions are zeroed in the fragments. Keys
 // stream, so any Nk runs; the launcher refuses only D > 128.
 //
-// float32 (training): one block per (b, h, tile of 64 query rows); 8 warps,
-// one query row per warp at a time. The block stages that (b, h)'s whole K
-// and V in shared memory as f32 (K with an odd row stride, so lanes reading
-// different keys hit different banks), then each warp
-//   1. computes its row's Nk logits, one key per lane, into a per-warp
-//      shared-memory row;
-//   2. reduces max and sum with warp shuffles and rounds the weights;
-//   3. forms the output with lanes over the head dim; when D <= 16, two lane
-//      groups split the keys and a shuffle adds their halves.
-// K and V of one (b, h) must fit in shared memory (232,448 bytes a block);
-// the launcher refuses larger Nk*D instead of running anything else.
+// float32 (training): the f32 body of tc_attention.cuh, the one K3's f32
+// instantiation runs, at f32 precision on the tensor cores: the same blocks
+// over (b, query tile, h), h fastest, and the same streamed key tiles and
+// online softmax, with q.k as 3xTF32 mma.sync m16n8k8 (each f32 factor split
+// into tf32 hi + lo; lo.hi + hi.lo summed apart from each k-step's hi.hi),
+// the weights exp(logit - m) kept in f32, each key tile's P.V as 3xTF32
+// added to the rescaled output, and the division by l at the end. The TPU
+// kernel (and the plain version) divide before P.V instead; both orders are
+// f32-exact to about 2^-22 a product. A head's row of D = 27 or 15 floats
+// sits at an odd offset 27 h or 15 h of its token row, so the launcher takes
+// the widest copy that divides D, the row and the base addresses (4-byte
+// cp.async at THAT's heads); no head is shifted and no neighbouring head's
+// element is read, and the span's columns past D are zeroed once in shared
+// memory. Keys stream, so any Nk runs; the launcher refuses only D > 128.
+// The configuration is the launcher's rule, tc::launch_f32_span: THAT's
+// heads span one or two k-steps of 16, so a block's work is small and the
+// rule takes 4 warps over 64 query rows with 32-key tiles and registers
+// for 4 blocks an SM, for the number of warps in flight.
 //
 // Bound on an H100 SXM. At the THAT serving shapes (bs256, bf16: left
 // (256, 150, 10, 27), right (256, 270, 10, 15)) one launch reads q, k, v
@@ -49,159 +57,29 @@
 // tensor-core peak. So the work is bound by bytes, and the bf16 kernel is
 // judged by how close it comes to reading q, k and v once at full rate: the
 // query tiles of one (b, h) re-read its K and V from L2, not from memory,
-// and the 4-byte pieces of neighbouring heads share sectors. The f32 kernel
-// runs its products on CUDA cores and is limited by its FMA rate.
+// and the 4-byte pieces of neighbouring heads share sectors.
+// f32 at THAT's training batch of 16: left (16, 150, 10, 27) moves 10.4 MB
+// (3.1 us) for 0.39 GFLOP, 5.8 us at the 67 TFLOP/s f32 peak and 2.4 us as
+// 3xTF32 (three TF32 products over the 495 TFLOP/s TF32 peak); right
+// (16, 270, 10, 15) 10.4 MB (3.1 us) for 0.70 GFLOP, 10.4 or 4.2 us;
+// THAT_ENCODER's right (16, 270, 10, 27) 18.7 MB (5.6 us) for 1.26 GFLOP,
+// 18.8 or 7.6 us. Per THAT step (4 left + 1 right) that is 0.034 ms at
+// the f32 peak and 0.017 as 3xTF32 (THAT_ENCODER 0.042 and 0.020): a few
+// microseconds a launch, so the kernel is held by latency (the prologue's
+// copies, a few key tiles a row block in sequence) and by how many blocks
+// the card holds at once, not by either rate.
 //
 // The launcher returns cudaGetLastError() so a refused launch is seen.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <climits>
-#include <cmath>
-
 #include "tc_attention.cuh"
-
-namespace {
-
-constexpr int kWarps = 8;
-constexpr int kRowsPerBlock = 64;
-constexpr size_t kMaxSharedBytes = 232448;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Shared memory in floats: K (Nk rows at odd stride), V (Nk x D), one
-// weight row (Nk) and one query row (D) per warp.
-size_t smem_bytes(int nk, int d) {
-  return sizeof(float) * ((size_t)nk * (d | 1) + (size_t)nk * d +
-                          (size_t)kWarps * nk + (size_t)kWarps * d);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out,
-                           int nq, int nk, int heads, int d, int tiles,
-                           float scale) {
-  extern __shared__ float smem[];
-  const int k_stride = d | 1;
-  float* ks = smem;
-  float* vs = ks + (size_t)nk * k_stride;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* ws = vs + (size_t)nk * d + (size_t)warp * nk;
-  float* qs = vs + (size_t)nk * d + (size_t)kWarps * nk + (size_t)warp * d;
-
-  const int bh = blockIdx.x / tiles;
-  const int tile = blockIdx.x - bh * tiles;
-  const int b = bh / heads;
-  const int h = bh - b * heads;
-  const size_t tok = (size_t)heads * d;  // stride between tokens
-
-  const T* kb = k + (size_t)b * nk * tok + (size_t)h * d;
-  const T* vb = v + (size_t)b * nk * tok + (size_t)h * d;
-  for (int i = threadIdx.x; i < nk * d; i += blockDim.x) {
-    const int j = i / d;
-    const int c = i - j * d;
-    ks[j * k_stride + c] = to_float(kb[j * tok + c]);
-    vs[i] = to_float(vb[j * tok + c]);
-  }
-  __syncthreads();
-
-  // P.V lane split: dp lanes over the head dim (the smallest power of two
-  // >= D, at most 32), 32 / dp groups over the keys.
-  int dp = 1;
-  while (dp < d && dp < 32) dp *= 2;
-  const int groups = 32 / dp;
-  const int g = lane / dp;
-  const int c0 = lane - g * dp;
-
-  const int row_end = min(nq, (tile + 1) * kRowsPerBlock);
-  for (int row = tile * kRowsPerBlock + warp; row < row_end; row += kWarps) {
-    const size_t qoff = ((size_t)b * nq + row) * tok + (size_t)h * d;
-    for (int c = lane; c < d; c += 32) qs[c] = to_float(q[qoff + c]);
-    __syncwarp();
-
-    float m = -INFINITY;
-    for (int j = lane; j < nk; j += 32) {
-      const float* kr = ks + j * k_stride;
-      float s = 0.f;
-      for (int c = 0; c < d; ++c) s = fmaf(qs[c], kr[c], s);
-      s *= scale;
-      ws[j] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float l = 0.f;
-    for (int j = lane; j < nk; j += 32) {
-      const float e = expf(ws[j] - m);
-      ws[j] = e;
-      l += e;
-    }
-    l = warp_sum(l);
-    for (int j = lane; j < nk; j += 32)
-      ws[j] = to_float(from_float<T>(ws[j] / l));
-    __syncwarp();
-
-    for (int base = 0; base < d; base += dp) {
-      const int c = base + c0;
-      float acc = 0.f;
-      if (c < d)
-        for (int j = g; j < nk; j += groups)
-          acc = fmaf(ws[j], vs[j * d + c], acc);
-      for (int o = dp; o < 32; o <<= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, o);
-      if (g == 0 && c < d) out[qoff + c] = from_float<T>(acc);
-    }
-    __syncwarp();  // the next row overwrites qs and ws
-  }
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int batch,
-           int nq, int nk, int heads, int d, cudaStream_t stream) {
-  const size_t smem = smem_bytes(nk, d);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int tiles = (nq + kRowsPerBlock - 1) / kRowsPerBlock;
-  const long long blocks = (long long)batch * heads * tiles;
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  // the same scale as 1.0 / math.sqrt(d) rounded to f32
-  const float scale = (float)(1.0 / std::sqrt((double)d));
-  flash_attention_kernel<T><<<(unsigned)blocks, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), nq, nk, heads, d, tiles,
-      scale);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched);
-// cudaErrorInvalidValue for a non-positive size, for f32 K and V that do
-// not fit in shared memory, or for a bf16 head dim above 128.
+// cudaErrorInvalidValue for a non-positive size or a head dim above 128.
 int mmcsi_flash_attention(const void* q, const void* k, const void* v,
                           void* out, int batch, int nq, int nk, int heads,
                           int d, int dtype, void* stream) {
@@ -209,10 +87,20 @@ int mmcsi_flash_attention(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0:
-      if (smem_bytes(nk, d) > kMaxSharedBytes)
-        return (int)cudaErrorInvalidValue;
-      return launch<float>(q, k, v, out, batch, nq, nk, heads, d, s);
+    case 0: {
+      tc::ParamsOf<float> p = {};  // r, s and lse null: no bias, no LSE
+      p.q = static_cast<const float*>(q);
+      p.k = static_cast<const float*>(k);
+      p.v = static_cast<const float*>(v);
+      p.out = static_cast<float*>(out);
+      p.groups = batch;
+      p.heads = heads;
+      p.nq = nq;
+      p.nk = nk;
+      p.d = d;
+      p.row = heads * d;
+      return tc::launch_f32<false>(p, s);
+    }
     case 1: {
       tc::Params p = {};
       p.q = static_cast<const tc::bf16*>(q);

@@ -6,8 +6,9 @@
 //     (flash_attention.cu, the THAT family's (B, N, H, D) layout) and K3
 //     (flash_attention_lowrank.cu, MViT's (B, H, N, D) layout with the f32
 //     low-rank bias and the row LSE);
-//   - attention_f32_kernel, float32 at f32 precision: K3's f32
-//     instantiation (MViT training's forward), QK^T and P.V as 3xTF32.
+//   - attention_f32_kernel, float32 at f32 precision: the f32
+//     instantiations of K1 (THAT training's forward) and K3 (MViT
+//     training's forward), QK^T and P.V as 3xTF32.
 // tc_attention_bwd.cuh builds K4's f32 dK/dV/dS body on the same pieces.
 //
 // Arithmetic of the bf16 body (the order
@@ -50,9 +51,13 @@
 // blocks (at most 170 registers a thread, no spills); else 2.
 //
 // Tiles of the f32 body. WARPS warps take 16 * WARPS query rows and key
-// tiles of KEYS: 8 warps over 128 rows and tiles of 64, one block an SM,
-// where those tiles fit (D <= 96 and, at D = 96, M <= 64: MViT's shapes);
-// else 4 warps over 64 rows and tiles of 32, two blocks an SM at D = 96.
+// tiles of KEYS, with registers budgeted for MINB blocks an SM
+// (picked by the launcher's rule, launch_f32_span): 8 warps over 128
+// rows and tiles of 64, one block an SM, where those tiles fit (D <= 96
+// and, at D = 96, M <= 64: MViT's shapes); else 4 warps over 64 rows and
+// tiles of 32, two blocks an SM at D = 96; and for spans of 16 or 32
+// without the bias (K1's heads) 4 warps over 64 rows and tiles of 32 with
+// registers for 4 blocks an SM.
 // ldmatrix moves 16-bit data, so the tf32 fragments are 32-bit shared
 // loads: K, V and Q have a row stride of 16 * KS + 4 floats (4 mod 8), so
 // the 8 keys x 4 columns of a K fragment, the 4 x 8 of a V fragment and
@@ -66,9 +71,9 @@
 // permutes the keys of each k-step alike on both sides of the product.
 //
 // Alignment. A head's row starts at an element offset o (h * D in K1's
-// token-major layout). The launcher picks the widest copy of 8, 4 or 2
-// bf16 (16, 8 or 4 bytes), or of 4, 2 or 1 f32, that divides the row
-// strides and the base addresses; row i of a tile is then copied from o - sh
+// token-major layout). The bf16 launcher picks the widest copy of 8, 4 or 2
+// bf16 (16, 8 or 4 bytes) that divides the row strides and the base
+// addresses; row i of a tile is then copied from o - sh
 // on, sh = o mod the copy width, so a head of D = 27 at an odd offset still
 // moves in aligned 4-byte pieces (and D = 96 in 16-byte pieces). In shared
 // memory the head's element c lands at position sh + c; the positions
@@ -76,10 +81,12 @@
 // are zeroed in the Q and K fragments (registers), so the padded products
 // are exact; V's stray columns feed only output columns that are never
 // stored. A bf16 copy width of 1 (odd row strides) loads synchronously.
-// The f32 body takes only a copy width that divides D (K3's rows are D
-// long), so no head is shifted, and zeroes the span's columns past D in
-// shared memory once instead of masking each fragment. Keys and rows past
-// the ends are zero-filled by cp.async and the keys' logits set to -inf.
+// The f32 body takes the widest copy of 4, 2 or 1 floats that divides D,
+// the row stride and the base addresses (prepare_f32: 1 float at K1's D =
+// 27 or 15, 4 at K3's D = 96), so no head is shifted, and zeroes the
+// span's columns past D in shared memory once instead of masking each
+// fragment. Keys and rows past the ends are zero-filled by cp.async and
+// the keys' logits set to -inf.
 
 #pragma once
 
@@ -377,8 +384,8 @@ __device__ __forceinline__ void copy_s(float* dst, const float* s, int m,
 // the bias factor columns padded to the tf32 mma depth of 8, and the R
 // strip's row stride (4 mod 8 floats: the A fragments' rows hit
 // different banks)
-__host__ __device__ inline int round8(int m) { return (m + 7) & ~7; }
-__host__ __device__ inline int r_stride(int m) { return round8(m) + 4; }
+__host__ __device__ constexpr int round8(int m) { return (m + 7) & ~7; }
+__host__ __device__ constexpr int r_stride(int m) { return round8(m) + 4; }
 
 // the R strip of ROWS rows from row0 of group grp, columns [0, rs), the
 // columns >= m and rows >= rows zeroed
@@ -715,15 +722,14 @@ inline bool aligned(const void* ptr, int bytes) {
   return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
 }
 
-// the widest copy (elements) of at most `widest` that divides the row
+// the bf16 body's widest copy (8, 4, 2 or 1 elements) that divides the row
 // stride and the base addresses and keeps every head's shifted span within
 // 128 positions (a copy of 1 always does, as D <= 128); sets p.vec and
 // returns the span in k-steps of 16
-template <typename T>
-int pick_copy(ParamsOf<T>& p, int widest) {
+inline int pick_copy(Params& p) {
   p.vec = 1;
-  for (int vec = widest; vec >= 1; vec /= 2) {
-    const int bytes = (int)sizeof(T) * vec;
+  for (int vec = 8; vec >= 1; vec /= 2) {
+    const int bytes = (int)sizeof(bf16) * vec;
     if (p.row % vec || !aligned(p.q, bytes) || !aligned(p.k, bytes) ||
         !aligned(p.v, bytes))
       continue;
@@ -745,7 +751,7 @@ template <bool BIAS>
 int launch(Params p, cudaStream_t stream) {
   if (p.d > 16 * kMaxSteps) return (int)cudaErrorInvalidValue;
   if (BIAS && (p.m <= 0 || p.m > kMaxRank)) return (int)cudaErrorInvalidValue;
-  const int steps = pick_copy(p, 8);  // a copy of 1 loads synchronously
+  const int steps = pick_copy(p);  // a copy of 1 loads synchronously
   p.vec_s = BIAS && p.nk % 4 == 0 && aligned(p.s, 16) ? 4 : 1;
   p.tiles = (p.nq + kRows - 1) / kRows;
   p.scale = (float)(1.0 / std::sqrt((double)p.d));  // 1.0 / math.sqrt(d)
@@ -770,7 +776,7 @@ int launch(Params p, cudaStream_t stream) {
 // (rows of 16 * ks + 4 floats), and with the bias the R strip and the S
 // ring
 template <int WARPS, int KEYS>
-size_t smem_bytes_f32(int ks, int m) {
+constexpr size_t smem_bytes_f32(int ks, int m) {
   const size_t rows = 2 * 2 * (size_t)KEYS + 16 * WARPS;
   return sizeof(float) *
          (rows * (16 * ks + 4) +
@@ -779,9 +785,9 @@ size_t smem_bytes_f32(int ks, int m) {
              : 0));
 }
 
-// 2 blocks of 4 warps an SM, or 1 of 8 (see Tiles above)
-template <int KS, bool BIAS, int WARPS, int KEYS>
-__global__ void __launch_bounds__(32 * WARPS, WARPS == 4 ? 2 : 1)
+// MINB blocks of WARPS warps an SM (see launch_f32_span below)
+template <int KS, bool BIAS, int WARPS, int KEYS, int MINB>
+__global__ void __launch_bounds__(32 * WARPS, MINB)
     attention_f32_kernel(ParamsOf<float> p) {
   constexpr int THREADS = 32 * WARPS, ROWS = 16 * WARPS;
   constexpr int SLD = KEYS + 8;  // the S chunk's row stride
@@ -807,7 +813,7 @@ __global__ void __launch_bounds__(32 * WARPS, WARPS == 4 ? 2 : 1)
   const int grp = bid / p.tiles;
   const int row0 = tile * ROWS;
   const int rows = min(ROWS, p.nq - row0);
-  const int d = p.d;  // a multiple of the copy width (see launch_f32)
+  const int d = p.d;  // a multiple of the copy width (see prepare_f32)
   const int chunks = d / p.vec;
   int cshift = 0;
   while ((1 << cshift) < chunks) ++cshift;
@@ -949,51 +955,82 @@ __global__ void __launch_bounds__(32 * WARPS, WARPS == 4 ? 2 : 1)
   finish(p, o, m_run, l_run, grp, h, row0, rows, warp * 16, 0, g8, t4);
 }
 
-template <int KS, bool BIAS, int WARPS, int KEYS>
+template <int KS, bool BIAS, int WARPS, int KEYS, int MINB>
 int launch_f32_steps(ParamsOf<float> p, cudaStream_t stream) {
   const size_t smem = smem_bytes_f32<WARPS, KEYS>(KS, BIAS ? p.m : 0);
   if (smem > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        attention_f32_kernel<KS, BIAS, WARPS, KEYS>,
+        attention_f32_kernel<KS, BIAS, WARPS, KEYS, MINB>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   p.tiles = (p.nq + 16 * WARPS - 1) / (16 * WARPS);
   const long long blocks = (long long)p.groups * p.heads * p.tiles;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  attention_f32_kernel<KS, BIAS, WARPS, KEYS>
+  attention_f32_kernel<KS, BIAS, WARPS, KEYS, MINB>
       <<<(unsigned)blocks, 32 * WARPS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-// One span's f32 launch: 8 warps (128 query rows, key tiles of 64) where
-// those tiles fit in shared memory at spans up to kF32WideSteps, else 4
-// (64 rows, tiles of 32).
+// The launcher's rule over the f32 body's configurations (warps of 16
+// query rows, keys a tile, and the blocks an SM that __launch_bounds__
+// budgets registers for: 65536 / (32 warps blocks) a thread, at most 255).
+// Without the bias, at spans of one or two k-steps (K1's heads of D = 15
+// and 27): 4 warps over 64 rows, 32-key tiles and registers for 4 blocks
+// an SM. A block of such a head does little work, so the blocks in flight
+// decide: 16 warps an SM at 99-128 registers without spills, against 8 in
+// one block at 160-197. Of six candidates timed on an H100 it was the
+// fastest per THAT and THAT_ENCODER training step at batch 16, 256 and
+// 512 (probes/k1_f32_configs.py, PERF.md section 6), so the rule reads
+// neither Nq nor the SM count. Else 8 warps over 128 rows and 64-key
+// tiles where they fit in shared memory at spans up to kF32WideSteps
+// (MViT's D = 96), else 4 warps and 32-key tiles. A configuration's row
+// tile never changes a row's arithmetic; its key tile does (where the
+// online softmax rescales). Each span builds only the configurations the
+// rule can reach: one without the bias.
+constexpr int kF32SmallSteps = 2;
 template <int KS, bool BIAS>
 int launch_f32_span(const ParamsOf<float>& p, cudaStream_t stream) {
-  if constexpr (KS <= kF32WideSteps)
-    if (smem_bytes_f32<8, 64>(KS, BIAS ? p.m : 0) <= kMaxSharedBytes)
-      return launch_f32_steps<KS, BIAS, 8, 64>(p, stream);
-  return launch_f32_steps<KS, BIAS, 4, 32>(p, stream);
+  if constexpr (KS <= kF32SmallSteps && !BIAS) {
+    return launch_f32_steps<KS, BIAS, 4, 32, 4>(p, stream);
+  } else if constexpr (KS <= kF32WideSteps && !BIAS) {
+    static_assert(smem_bytes_f32<8, 64>(KS, 0) <= kMaxSharedBytes);
+    return launch_f32_steps<KS, BIAS, 8, 64, 1>(p, stream);
+  } else {
+    if constexpr (KS <= kF32WideSteps)
+      if (smem_bytes_f32<8, 64>(KS, p.m) <= kMaxSharedBytes)
+        return launch_f32_steps<KS, BIAS, 8, 64, 1>(p, stream);
+    return launch_f32_steps<KS, BIAS, 4, 32, 2>(p, stream);
+  }
 }
 
-// The f32 launcher: the copy width (4, 2 or 1 floats) and the span as in
-// the bf16 one; D <= 128 and, with the bias, at most kMaxRank factor
-// columns; the configuration as in launch_f32_span. The f32 body copies
-// whole rows of D and no neighbouring head's columns, so it takes a copy
-// width that divides D (always so in K3's layout, where the row is D); a
-// head at a shifted offset, as in K1's layout at an odd D, is refused.
-// Returns a cudaError_t.
+// The f32 sizes (D <= 128 and, with the bias, at most kMaxRank factor
+// columns, else cudaErrorInvalidValue), the copy width (the widest of 4,
+// 2 or 1 floats that divides D, the row stride and the base addresses, so
+// no head is shifted: 1 float at K1's D = 27 and 15) and the scale. Returns
+// the span in k-steps of 16, or 0 for refused sizes.
 template <bool BIAS>
-int launch_f32(ParamsOf<float> p, cudaStream_t stream) {
-  if (p.d > 16 * kMaxSteps) return (int)cudaErrorInvalidValue;
-  if (BIAS && (p.m <= 0 || p.m > kMaxRank)) return (int)cudaErrorInvalidValue;
-  const int steps = pick_copy(p, 4);
-  if (p.d % p.vec) return (int)cudaErrorInvalidValue;
+int prepare_f32(ParamsOf<float>& p) {
+  if (p.d <= 0 || p.d > 16 * kMaxSteps) return 0;
+  if (BIAS && (p.m <= 0 || p.m > kMaxRank)) return 0;
+  p.vec = 1;
+  for (int vec = 4; vec > 1; vec /= 2)
+    if (p.d % vec == 0 && p.row % vec == 0 && aligned(p.q, 4 * vec) &&
+        aligned(p.k, 4 * vec) && aligned(p.v, 4 * vec)) {
+      p.vec = vec;
+      break;
+    }
   p.vec_s = BIAS && p.nk % 4 == 0 && aligned(p.s, 16) ? 4 : 1;
   p.scale = (float)(1.0 / std::sqrt((double)p.d));  // 1.0 / math.sqrt(d)
-  switch (steps) {
+  return (p.d + 15) / 16;
+}
+
+// The f32 launcher: prepare_f32, then the configuration launch_f32_span
+// picks. Returns a cudaError_t.
+template <bool BIAS>
+int launch_f32(ParamsOf<float> p, cudaStream_t stream) {
+  switch (prepare_f32<BIAS>(p)) {
     case 1: return launch_f32_span<1, BIAS>(p, stream);
     case 2: return launch_f32_span<2, BIAS>(p, stream);
     case 3: return launch_f32_span<3, BIAS>(p, stream);

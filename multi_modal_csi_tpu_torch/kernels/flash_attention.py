@@ -11,10 +11,12 @@ version (``flash_attention_reference``,
 its forward is K1 and its backward K2. Each source's header says what
 bounds the kernel on an H100 and what its design does about it.
 
-K1's source holds two kernels, chosen by q's dtype: bfloat16 (serving)
-launches the tensor-core kernel of ``csrc/tc_attention.cuh`` (keys streamed
-in tiles, so any Nk; D <= 128), float32 (training) the CUDA-core kernel
-that stages one (batch, head)'s K and V in shared memory. K2's float32
+K1's source launches one of the two bodies of ``csrc/tc_attention.cuh``,
+chosen by q's dtype: bfloat16 (serving) the bf16 tensor-core kernel,
+float32 (training) the f32 body, its products as 3xTF32 on the tensor
+cores; both stream the keys in tiles, so any Nk, and take D <= 128. Their
+launches count apart, ``flash_attention`` (bf16) and
+``flash_attention_f32``. K2's float32
 instantiation (training) is two kernels of the tensor-core backward body
 ``csrc/tc_attention_bwd.cuh`` (a query pass, then dK/dV; D <= 128), its
 bfloat16 one the CUDA-core kernel of ``csrc/flash_attention_bwd.cu``. A
@@ -34,29 +36,24 @@ import torch
 from . import build, count_launch
 
 NAME = "flash_attention"
+F32_NAME = "flash_attention_f32"    # K1's f32 launches, counted apart
 BWD_NAME = "flash_attention_backward"
 BWD_SOURCE = "flash_attention_bwd"    # csrc/flash_attention_bwd.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CUDA_ERROR_INVALID_VALUE = 1     # cudaErrorInvalidValue
 # a block's shared memory on an H100, the launchers' limit (kMaxSharedBytes)
 MAX_SHARED_BYTES = 232448
-_WARPS = 8                        # kWarps of the CUDA-core kernels
+_WARPS = 8                        # kWarps of K2's bf16 CUDA-core kernel
 # the tensor-core kernels' head-dim limit (csrc/tc_attention.cuh:
-# 16 * kMaxSteps): K1 in bf16, K2 in f32
+# 16 * kMaxSteps): K1 in both dtypes, K2 in f32
 TC_MAX_HEAD_DIM = 128
 
 
 def forward_fits(nk: int, d: int, dtype: torch.dtype) -> bool:
-    """Whether K1's launcher takes Nk keys of head dim D in ``dtype``, term
-    for term its limit (``csrc/flash_attention.cu``). bfloat16: the
-    tensor-core kernel streams the keys, so any Nk, and takes D <= 128.
-    float32: ``smem_bytes(nk, d)``, f32 K at the odd row stride D | 1, V,
-    one weight row and one query row per warp, within the block's shared
-    memory."""
-    if dtype == torch.bfloat16:
-        return d <= TC_MAX_HEAD_DIM
-    need = 4 * (nk * (d | 1) + nk * d + _WARPS * nk + _WARPS * d)
-    return need <= MAX_SHARED_BYTES
+    """Whether K1's launcher takes Nk keys of head dim D in ``dtype``, its
+    limit (``csrc/flash_attention.cu``): both tensor-core bodies stream
+    the keys, so any Nk, and take D <= 128."""
+    return d <= TC_MAX_HEAD_DIM
 
 
 def backward_fits(nq: int, nk: int, d: int,
@@ -193,11 +190,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
         return flash_attention_reference(q, k, v)
     out = torch.empty_like(q)
     if out.numel():
-        _launch(NAME, NAME, (q, k, v, out), q, k.shape[1],
-                f"the bfloat16 kernel takes D <= {TC_MAX_HEAD_DIM}"
-                if q.dtype == torch.bfloat16 else
-                "K and V of one (batch, head) do not fit in a block's "
-                "shared memory (227 KB)")
+        _launch(NAME, NAME if q.dtype == torch.bfloat16 else F32_NAME,
+                (q, k, v, out), q, k.shape[1],
+                f"the tensor-core kernels take D <= {TC_MAX_HEAD_DIM}")
     return out
 
 

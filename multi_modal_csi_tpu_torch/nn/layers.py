@@ -385,9 +385,9 @@ class MultiheadAttention(nn.Module):
     With at least 64 query and 64 key tokens, attention runs in the fused
     kernels (``kernels/flash_attention.py``), as in the JAX package
     (``nn/layers.py:433-437`` there): in eval mode K1 in the serving
-    dtype, when its kernel for that dtype takes the shape (``forward_fits``:
-    any Nk in bf16, K and V in shared memory in f32); in training, when
-    ``dropout`` is 0 and K2's operands fit too (``backward_fits``),
+    dtype, when its kernel takes the head dim (``forward_fits``: D <= 128;
+    any Nk in either dtype, as JAX's gate); in training, when ``dropout``
+    is 0 and K2's operands fit too (``backward_fits``),
     ``flash_attention_trainable`` (K1 forward, K2 backward). The gate looks
     at shapes and dtypes, never at the device: on CPU tensors the kernels'
     plain versions run. Other shapes take the eager branch, which in bf16

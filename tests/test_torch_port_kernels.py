@@ -89,8 +89,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 def test_kernel_sources_and_build_flags(tmp_path, monkeypatch):
     """Every kernel is a csrc/*.cu with plain C launchers, built for
     sm_90a with ``-I csrc``; the shared headers are tc_attention.cuh, the
-    tensor-core bodies of K1's and K3's kernels (mma.sync fed by ldmatrix,
-    cp.async copies), and tc_attention_bwd.cuh, which includes it: K4's
+    tensor-core bodies of K1's and K3's kernels in both dtypes (mma.sync
+    fed by ldmatrix, cp.async copies), and tc_attention_bwd.cuh, which
+    includes it: K4's
     f32 dK/dV/dS body and query pass with the bias (dQ/dR), and K2's f32
     query pass and dK/dV pass (tf32 mma.sync); the library name changes
     with the source, with a header it includes, or with the flags."""
@@ -118,6 +119,10 @@ def test_kernel_sources_and_build_flags(tmp_path, monkeypatch):
         src = (build.CSRC / f"{stem}.cu").read_text()
         bf16_case = src[src.index("case 1:"):]
         assert "tc::launch" in bf16_case
+        # float32: the f32 body of tc_attention.cuh; no kernel of its own
+        assert "tc::launch_f32<false>(" in src[src.index("case 0:"):
+                                               src.index("case 1:")]
+        assert "__global__" not in src
         assert build._sources(stem) == [build.CSRC / f"{stem}.cu",
                                          build.CSRC / "tc_attention.cuh"]
     for stem, launcher in (("flash_attention_lowrank_bwd",

@@ -4,7 +4,8 @@
   ``backward_fits`` (kernels/flash_attention.py, per dtype) copy the
   launchers' limits and hold at their boundary; past it the attention
   takes its eager branch (the JAX package's K2 takes XLA's backward
-  there), so no shape that JAX runs is refused on the card.
+  there), so no shape that JAX runs is refused on the card. K1 takes any
+  Nk in both dtypes, as JAX's eval gate does.
 - K3's limits: ``lowrank_fits`` (kernels/flash_attention_lowrank.py, D
   and the bias's factor columns M up to 128 in both dtypes) holds at its
   boundary, and MViT's attention takes its eager branch past it.
@@ -37,24 +38,21 @@ torch.set_num_threads(1)
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("d", [15, 27, 45])
 def test_fit_predicates_at_their_boundary(d, dtype):
-    """The largest Nk (and Nq = Nk) that fits, and one more, against the
-    launchers' formulas and the 232,448-byte limit. K1 in bf16 streams the
-    keys (any Nk) and takes D <= 128; K2 has one kernel for both dtypes."""
+    """K2: the largest Nq = Nk that fits, and one more, against its
+    launcher's formula (Q, dO, K and V at the odd row stride D | 1, three
+    per-query rows and two rows of max(Nq, Nk) per warp of 8) and the
+    232,448-byte limit. K1 in either dtype streams the keys through a
+    tensor-core body (any Nk, past the 933 keys at D = 27 of the f32
+    kernel before it) and takes D <= 128."""
     assert MAX_SHARED_BYTES == 232448
-    n = max(n for n in range(1, 20000) if backward_fits(n, n, d))
-    assert not backward_fits(n + 1, n + 1, d)
-    if dtype == torch.bfloat16:
-        assert all(forward_fits(nk, d, dtype) for nk in (1, 933, 934, 10**6))
-        assert forward_fits(1, TC_MAX_HEAD_DIM, dtype)
-        assert not forward_fits(1, TC_MAX_HEAD_DIM + 1, dtype)
-        if d == 27:
-            assert n == 457
-        return
-    nk = max(n for n in range(1, 20000) if forward_fits(n, d, dtype))
-    assert not forward_fits(nk + 1, d, dtype)
-    assert 4 * (nk * (d | 1) + nk * d + 8 * nk + 8 * d) <= MAX_SHARED_BYTES
-    if d == 27:                 # THAT's heads: about 934 keys, 457 tokens
-        assert (nk, n) == (933, 457)
+    n = max(n for n in range(1, 20000) if backward_fits(n, n, d, dtype))
+    assert not backward_fits(n + 1, n + 1, d, dtype)
+    assert 4 * (4 * n * (d | 1) + 3 * n + 16 * n) <= MAX_SHARED_BYTES
+    assert all(forward_fits(nk, d, dtype) for nk in (1, 933, 934, 10**6))
+    assert forward_fits(1, TC_MAX_HEAD_DIM, dtype)
+    assert not forward_fits(1, TC_MAX_HEAD_DIM + 1, dtype)
+    if d == 27:                 # THAT's heads: 457 tokens in training
+        assert n == 457
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -87,12 +85,11 @@ def test_attention_takes_eager_branch_past_the_boundary(training, dtype,
     """One head: the fused branch at the largest fitting shape, the eager
     branch one step beyond; both agree (f32 within 2e-5; bf16, where the
     eager branch rounds the logits to bf16, within BF16_TOL 2^-6 of
-    chip_smoke.py). At D = 27 in f32 the step is a token (933 keys in
-    eval, 457 in training); in bf16 eval K1 streams the keys, so 934 keys
-    fuse and the step is the head dim (128 to 129); bf16 training keeps
-    K2's 457."""
-    d, last = 27, 933 if not training else 457
-    if dtype == torch.bfloat16 and not training:
+    chip_smoke.py). In eval K1 streams the keys in either dtype, so 934
+    keys of D = 27 fuse and the step is the head dim (128 to 129), as JAX's
+    gate; training keeps K2's 457 tokens at D = 27."""
+    d, last = 27, 457
+    if not training:
         d, last = TC_MAX_HEAD_DIM, 934
     name = "flash_attention_trainable" if training else "flash_attention"
     calls = _record(monkeypatch, name)
@@ -103,9 +100,9 @@ def test_attention_takes_eager_branch_past_the_boundary(training, dtype,
             (1, n, d), dtype=np.float32))
         return run(mha.to(dtype), *(x.to(dtype),) * 3)
 
-    if dtype == torch.bfloat16 and not training:
+    if not training:
         attend(27, last)
-        assert len(calls) == 1         # past f32's 933 keys: fused
+        assert len(calls) == 1         # past the old f32 kernel's 933
         calls.clear()
         attend(d, 64)
         attend(d + 1, 64)

@@ -1,7 +1,7 @@
 """The arithmetic order of the tensor-core attention kernels (K1,
 ``csrc/flash_attention.cu``, and K3, ``csrc/flash_attention_lowrank.cu``,
-both on ``csrc/tc_attention.cuh``: the bf16 body of both and K3's f32
-body), emulated in PyTorch on the CPU and held against the JAX package's
+both on ``csrc/tc_attention.cuh``: the bf16 body and the f32 body of
+both), emulated in PyTorch on the CPU and held against the JAX package's
 Pallas kernels in interpret mode.
 
 The CUDA kernels run only on the card; this test holds their order of
@@ -33,7 +33,10 @@ K3's f32 body (``f32_order``) makes the same pass at f32 precision:
 - f32 weights, never rounded; each tile's P.V as 3xTF32 (the weights and
   V split alike), added to the rescaled output; the division at the end.
 Held against JAX's K3 in f32 within ``F32_TOL`` 2e-5 and the LSE within
-1e-5 relative.
+1e-5 relative. K1's f32 instantiation runs the same body without the bias,
+in the key tile its launcher's rule picks (``f32_key_tile``: 32 at
+THAT's heads), on the (B, N, H, D) layout; held against JAX's K1 in f32
+within the same 2e-5.
 
 K4's f32 dK/dV/dS body (``csrc/tc_attention_bwd.cuh``, ``f32_bwd_dkv_order``)
 takes the query range in tiles of 32 rows, split over blocks as the
@@ -203,10 +206,15 @@ def test_k3_order_matches_jax_kernel(d, bias):
 
 
 def f32_key_tile(d, m):
-    """The f32 launcher's key tile: 64 where the 8-warp configuration's
-    shared memory fits (the K, V ring and the Q tile at a row stride of
+    """The f32 launcher's key tile (``csrc/tc_attention.cuh``,
+    ``launch_f32_span``): 32 at spans of one or two k-steps of 16 without
+    the bias (4 warps over 64 rows with registers for 4 blocks an SM:
+    K1's THAT heads); else 64 where the 8-warp configuration's shared
+    memory fits (the K, V ring and the Q tile at a row stride of
     16 ceil(D/16) + 4 floats, the R strip and the S ring), else 32."""
     ks = -(-d // 16)
+    if ks <= 2 and not m:
+        return 32
     m8 = -(-m // 8) * 8
     rows = 2 * 2 * 64 + 128
     need = 4 * (rows * (16 * ks + 4)
@@ -226,8 +234,10 @@ def _fma_chain(r, s):
 
 
 def f32_order(q, k, v, r=None, s=None):
-    """K3's f32 kernel on (G, Nq, D) q and (G, Nk, D) k, v in f32, with
-    optional r (G, Nq, M) and s (M, Nk). Returns the f32 output and LSE."""
+    """The f32 body (K3's and K1's f32 kernels) on (G, Nq, D) q and
+    (G, Nk, D) k, v in f32, with optional r (G, Nq, M) and s (M, Nk), in
+    the launcher's key tiles (``f32_key_tile``). Returns the f32 output
+    and LSE."""
     d = q.shape[-1]
     tile = f32_key_tile(d, 0 if r is None else r.shape[-1])
     scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
@@ -269,7 +279,8 @@ def f32_order(q, k, v, r=None, s=None):
 # chip_smoke.py's LOWRANK_ODD (the JAX package's K3 test shapes) as
 # (B, H, Nq, Nk, D, M), and two MViT-width heads of 200 rows, not a
 # multiple of either query tile: M = 37 (64-key tiles) and M = 70 (past
-# the 8-warp configuration's shared memory: 32-key tiles)
+# the 8-warp configuration's shared memory: 32-key tiles); without the
+# bias, heads of D <= 32 take 32-key tiles too
 F32_SHAPES = {"odd-300": (2, 1, 300, 37, 16, 5),
               "odd-513": (1, 2, 513, 129, 8, 11),
               "odd-257": (2, 4, 257, 128, 24, 9),
@@ -309,13 +320,37 @@ def test_k3_f32_order_matches_jax_kernel(name, bias):
                          None if r is None else groups(r, nq),
                          None if s is None else torch.from_numpy(s))
     got = out.reshape(b, h, nq, d).numpy()
-    assert f32_key_tile(d, m if bias else 0) == (32 if name == "d96-m70"
-                                                 and bias else 64)
+    assert f32_key_tile(d, m if bias else 0) == (
+        32 if (name == "d96-m70" and bias) or (d <= 32 and not bias)
+        else 64)
     err = np.abs(got - want).max()
     assert err <= F32_TOL, err
     rel = (np.abs(lse.reshape(b, h, nq).numpy() - want_lse)
            / np.abs(want_lse)).max()
     assert rel <= LSE_RTOL, rel
+
+
+@pytest.mark.parametrize("d", [8, 15, 24, 27, 45])
+def test_k1_f32_order_matches_jax_kernel(d):
+    """K1's f32 order (the f32 body in the key tile its launcher picks)
+    against JAX's K1 in f32 in interpret mode, within F32_TOL 2e-5: the
+    (B, N, H, D) layout with 3 heads, so the heads sit at offsets h D of
+    each token row, and 150 queries and 97 keys, neither a multiple of a
+    tile."""
+    rng = np.random.default_rng(400 + d)
+    b, nq, nk, h = 2, 150, 97, 3
+    q, k, v = (_normal(rng, (b, n, h, d)) for n in (nq, nk, nk))
+    want = np.asarray(jax_flash_attention(
+        *(jnp.asarray(t) for t in (q, k, v)), interpret=True))
+
+    def heads(t):
+        return torch.from_numpy(t).permute(0, 2, 1, 3).reshape(b * h, -1, d)
+
+    out, _ = f32_order(heads(q), heads(k), heads(v))
+    got = out.reshape(b, h, nq, d).permute(0, 2, 1, 3).numpy()
+    assert want.dtype == np.float32
+    err = np.abs(got - want).max()
+    assert err <= F32_TOL, err
 
 
 def _tf32_product(a_eq, b_eq, a, b):
