@@ -328,6 +328,10 @@ LOWRANK_BWD_ODD = {"odd-300": (2, 2, 300, 130, 32, 11),
 # rounding step of the largest value (dQ, dK and dV are stored in bf16 by
 # both)
 LOWRANK_BWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 2.0 ** -7}
+# the bf16 dK/dV/dS kernel's distance from float64 at MViT's training
+# blocks, at most this many times its plain version's (both round dK and
+# dV to bf16; the kernel keeps 16 bits of w and dl in its products)
+BF16_F64_RATIO = 2.0
 K4_PER_STEP = 3            # MViT blocks at the training gate
 VIDEO_TRAIN_BATCH = 2      # the JAX bench's (tools/bench_video_training.py)
 VIDEO_CLI_BATCH = 8        # the JAX CLI's (cli/run_video.py:36)
@@ -1576,9 +1580,11 @@ def lowrank_bwd_bound(shape, bias, dtype, part):
     dO V^T rebuilt, then dQ: 6 B*H*Nq*Nk*D for "dq"; dK and dV instead: 8;
     all five: 10) plus the f32 bias products (r s rebuilt, then dR: 4
     B*H*Nq*Nk*M; dS instead: 4; all three: 6) over the f32 peak. The third
-    time is the operations bound with every product as three TF32
-    products (3xTF32) over the TF32 tensor-core peak, as the f32 dK/dV/dS
-    kernel computes them all; in bf16 it is the second."""
+    time is the operations bound in the tensor-core kernels' form: in f32
+    every product as three TF32 products (3xTF32) over the TF32 peak, as
+    the f32 kernels compute them all; in bf16 the head-dim products over
+    the bf16 peak and the bias products as 3xTF32, as the bf16 dK/dV/dS
+    kernel computes them (and K3's bf16 bound counts its bias)."""
     b, h, nq, nk, d, m = shape
     bh, m = b * h, m if bias else 0
     item = torch.tensor([], dtype=dtype).element_size()
@@ -1592,7 +1598,9 @@ def lowrank_bwd_bound(shape, bias, dtype, part):
     ops_ms = 1e3 * (at_dtype * pairs * d / PEAK_FLOPS[dtype]
                     + in_f32 * pairs * m / PEAK_FLOPS[torch.float32])
     tf32_ms = (1e3 * 3 * (at_dtype * d + in_f32 * m) * pairs / PEAK_TF32
-               if dtype == torch.float32 else ops_ms)
+               if dtype == torch.float32 else
+               1e3 * (at_dtype * pairs * d / PEAK_FLOPS[dtype]
+                      + 3 * in_f32 * pairs * m / PEAK_TF32))
     return 1e3 * (reads + writes[part]) / PEAK_BYTES, ops_ms, tf32_ms
 
 
@@ -1631,12 +1639,15 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
     with r @ s as a mask of the dtype that takes a gradient (the mask made
     outside the timed call), and the bounds (f32: at the f32 peak and as
     3xTF32), summed per MViT-v1 and v2 training step; results keyed by
-    (label, dtype). Both f32 kernels must give the same bits twice at block 1
-    with the bias (fixed-order partials, rows written once, no atomics);
-    at the training shapes the distance of each gradient of both kernels
-    and of their plain versions from float64 (``lowrank_bwd_f64``) is
-    printed; a head dim of 160, and an f32 launch of either kernel at
-    M = 130, must be refused."""
+    (label, dtype). Both f32 kernels and the bf16 dK/dV/dS kernel must
+    give the same bits twice at block 1 with the bias (fixed-order
+    partials, rows written once, no atomics); at the training shapes the
+    distance of each gradient of both kernels and of their plain versions
+    from float64 (``lowrank_bwd_f64``) is printed in both dtypes, and the
+    bf16 dK/dV/dS kernel's must be at most BF16_F64_RATIO times its plain
+    version's; a head dim of 160 in both dtypes, and a launch of the f32
+    kernels or of the bf16 dK/dV/dS kernel at M = 130, must be
+    refused."""
     import torch.nn.functional as F
     from multi_modal_csi_tpu_torch.kernels import flash_attention_lowrank
     from multi_modal_csi_tpu_torch.kernels.flash_attention_lowrank import \
@@ -1686,36 +1697,44 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
                 for g_name, (err, top) in errs.items():
                     check(err <= tol * top, f"K4 {label} {dtype} {g_name} "
                                             f"err {err} > {tol} x {top}")
-                if dtype == torch.float32:   # the tensor-core body's grid
-                    keys = flash_attention_lowrank.dkv_keys(
-                        d, m if bias else 0, dtype)
-                    check(keys in (64, 128), f"K4 dkv {label} keys {keys}")
-                    splits = flash_attention_lowrank.dkv_splits(
-                        b * h * -(-nk // keys), nq, dtype,
-                        torch.cuda.get_device_properties(0)
-                        .multi_processor_count)
-                    print(f"K4 dkv {label} f32 grid: {keys} keys a block, "
-                          f"{splits} splits of the query range")
+                # the tensor-core dK/dV/dS body's grid
+                keys = flash_attention_lowrank.dkv_keys(
+                    d, m if bias else 0, dtype)
+                check(keys in (64, 128), f"K4 dkv {label} keys {keys}")
+                splits = flash_attention_lowrank.dkv_splits(
+                    b * h * -(-nk // keys), nq,
+                    torch.cuda.get_device_properties(0).multi_processor_count)
+                print(f"K4 dkv {label} {DTYPE_NAMES[dtype]} grid: {keys} keys"
+                      f" a block, {splits} splits of the query range")
                 if name not in LOWRANK_BWD_SHAPES:
                     del got, want
                     continue
-                if dtype == torch.float32:
-                    exact = lowrank_bwd_f64(q, k, v, r, s, do)
+                exact = lowrank_bwd_f64(q, k, v, r, s, do)
 
-                    def share(g, x):
-                        return ((g.double() - x).abs().max()
-                                / x.abs().max()).item()
+                def share(g, x):
+                    return ((g.double() - x).abs().max()
+                            / x.abs().max()).item()
 
-                    for part, grads in (("dkv", ("dk", "dv", "ds")),
-                                        ("dq", ("dq", "dr"))):
-                        print(f"K4 {part} {label} f32 against the same "
-                              f"function in f64, of each gradient's max: "
-                              + ", ".join(
-                                  f"{n} kernel {share(g, x):.3e} plain "
-                                  f"{share(w, x):.3e}" for n, g, w, x in zip(
-                                      names, got, want, exact)
-                                  if n in grads and x is not None))
-                    del exact
+                shares = {n: (share(g, x), share(w, x)) for n, g, w, x in
+                          zip(names, got, want, exact) if x is not None}
+                del exact
+                for part, grads in (("dkv", ("dk", "dv", "ds")),
+                                    ("dq", ("dq", "dr"))):
+                    print(f"K4 {part} {label} {DTYPE_NAMES[dtype]} against "
+                          f"the same function in f64, of each gradient's "
+                          f"max: " + ", ".join(
+                              f"{n} kernel {shares[n][0]:.3e} plain "
+                              f"{shares[n][1]:.3e}" for n in grads
+                              if n in shares))
+                if dtype == torch.bfloat16:
+                    for n in ("dk", "dv", "ds"):
+                        if n in shares:
+                            check(shares[n][0]
+                                  <= BF16_F64_RATIO * shares[n][1],
+                                  f"K4 dkv {label} bf16 {n}: "
+                                  f"{shares[n][0]} from float64, over "
+                                  f"{BF16_F64_RATIO} x the plain version's "
+                                  f"{shares[n][1]}")
                 del got, want
 
                 def timed(fn):
@@ -1743,22 +1762,25 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
                           f"{kern[0]:.3f}/{kern[1]:.3f} ms, plain "
                           f"{plain[0]:.3f}/{plain[1]:.3f} ms; bound: bytes "
                           f"{1e3 * bytes_ms:.1f} us, operations "
-                          f"{1e3 * ops_ms:.1f} us"
-                          + (f" (3xTF32 {1e3 * tf32_ms:.1f} us)"
-                             if dtype == torch.float32 else ""))
-                if bias and name == "block1" and dtype == torch.float32:
+                          f"{1e3 * ops_ms:.1f} us ("
+                          + ("3xTF32" if dtype == torch.float32 else
+                             "the bias as 3xTF32")
+                          + f" {1e3 * tf32_ms:.1f} us)")
+                if bias and name == "block1":
                     # the same bits twice: fixed-order partials (dK/dV/dS)
-                    # and rows written once (dQ/dR), no atomics
-                    for part in ("dkv", "dq"):
+                    # and rows written once (dQ/dR), no atomics; bf16's
+                    # dQ/dR is the CUDA-core kernel
+                    for part in (("dkv", "dq") if dtype == torch.float32
+                                 else ("dkv",)):
                         kernel = getattr(flash_attention_lowrank,
                                          f"lowrank_backward_{part}")
                         first, again = kernel(*args), kernel(*args)
                         same = all(torch.equal(a, b)
                                    for a, b in zip(first, again))
-                        print(f"K4 {part} {label} f32 twice: bit for bit "
-                              f"{same}")
-                        check(same, f"K4 {part} {label} f32 differs run to "
-                                    f"run")
+                        print(f"K4 {part} {label} {DTYPE_NAMES[dtype]} "
+                              f"twice: bit for bit {same}")
+                        check(same, f"K4 {part} {label} {dtype} differs run "
+                                    f"to run")
                         del first, again
                 leaves = [t.detach().requires_grad_() for t in (q, k, v)]
                 if bias:
@@ -1800,30 +1822,36 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
                   f"{total(part, 'plain_ms'):.3f} ms, bound "
                   f"{max(bytes_ms, total(part, 'ops_ms')):.3f} ms at the "
                   f"{DTYPE_NAMES[dtype]} peak"
-                  + (f", {max(bytes_ms, total(part, 'tf32_ms')):.3f} ms as "
-                     f"3xTF32" if dtype == torch.float32 else ""))
+                  + (" (the bias at the f32 peak)"
+                     if dtype == torch.bfloat16 else "")
+                  + f", {max(bytes_ms, total(part, 'tf32_ms')):.3f} ms as "
+                  + ("3xTF32" if dtype == torch.float32 else
+                     "the kernel forms it (the bias as 3xTF32)"))
 
-    z = torch.zeros((1, 1, 8, 160), device="cuda")
-    try:
-        backward(z, z, z, None, None, z, torch.zeros((1, 1, 8),
-                                                     device="cuda"), z)
-        refused = False
-    except ValueError as e:
-        print(f"K4 D=160: refused ({e})")
-        refused = True
-    check(refused, "K4 launched with a head dim above 128")
+    w = torch.zeros((1, 1, 8), device="cuda")
+    for dtype in LOWRANK_BWD_TOL:
+        z = torch.zeros((1, 1, 8, 160), device="cuda", dtype=dtype)
+        try:
+            backward(z, z, z, None, None, z, w, z)
+            refused = False
+        except ValueError as e:
+            print(f"K4 {DTYPE_NAMES[dtype]} D=160: refused ({e})")
+            refused = True
+        check(refused, f"K4 {dtype} launched with a head dim above 128")
     m = MAX_BIAS_RANK + 2
     r, s = torch.zeros((1, 1, 8, m), device="cuda"), torch.zeros(
         (m, 8), device="cuda")
+    for dtype in LOWRANK_BWD_TOL:
+        z = torch.zeros((1, 1, 8, 8), device="cuda", dtype=dtype)
+        try:
+            flash_attention_lowrank.lowrank_backward_dkv(z, z, z, r, s, z, w,
+                                                         w)
+            refused = False
+        except ValueError as e:
+            print(f"K4 dkv {DTYPE_NAMES[dtype]} M={m}: refused ({e})")
+            refused = True
+        check(refused, f"K4's {dtype} dK/dV/dS launched at M={m}")
     z = torch.zeros((1, 1, 8, 8), device="cuda")
-    w = torch.zeros((1, 1, 8), device="cuda")
-    try:
-        flash_attention_lowrank.lowrank_backward_dkv(z, z, z, r, s, z, w, w)
-        refused = False
-    except ValueError as e:
-        print(f"K4 dkv f32 M={m}: refused ({e})")
-        refused = True
-    check(refused, f"K4's f32 dK/dV/dS launched at M={m}")
     try:
         flash_attention_lowrank.lowrank_backward_dq(z, z, z, r, s, z, w, w)
         refused = False
@@ -3226,32 +3254,32 @@ def kernel_entry(name, source, replaces, launches, times, per_call, dtype,
     return entry
 
 
-def k4_entry(name, replaces, launches, times, part):
-    """The JSON description of one of K4's kernels, both bodies of
-    tc_attention_bwd.cuh on the tensor cores: times and bound summed over
-    one MViT-v2 f32 training step at batch 2 (one launch at each of blocks
-    0-2, with the bias). ``library_ms`` is the backward of
-    scaled_dot_product_attention, which computes the gradients of both
-    kernels at once, so both entries carry it. The bound takes every
-    product as 3xTF32 (``lowrank_bwd_bound``), with the f32-peak bound
-    beside it as ``bound_f32_peak_ms``."""
-    rows = [times[(f"{block}+bias", torch.float32)]
-            for block in LOWRANK_BWD_SHAPES]
+def k4_entry(name, source, replaces, launches, times, part, dtype):
+    """The JSON description of one of K4's kernels in ``dtype``: times and
+    bound summed over one MViT-v2 training step of that dtype at batch 2
+    (one launch at each of blocks 0-2, with the bias). ``library_ms`` is
+    the backward of scaled_dot_product_attention in the dtype, which
+    computes the gradients of both kernels at once, so both entries of a
+    dtype carry it. ``bound_ms`` is the bound in the tensor-core kernels'
+    form (``lowrank_bwd_bound``'s third time: f32 every product as 3xTF32;
+    bf16 the head-dim products at the bf16 peak, the bias as 3xTF32), with
+    the bound at the dtype's peak beside it (``bound_f32_peak_ms``; bf16
+    ``bound_bf16_peak_ms``, the bias at the f32 peak)."""
+    rows = [times[(f"{block}+bias", dtype)] for block in LOWRANK_BWD_SHAPES]
     bytes_ms = sum(r[part]["bytes_ms"] for r in rows)
-    f32_ms = sum(r[part]["ops_ms"] for r in rows)
-    tf32_ms = sum(r[part]["tf32_ms"] for r in rows)
+    peak_ms = sum(r[part]["ops_ms"] for r in rows)
+    form_ms = sum(r[part]["tf32_ms"] for r in rows)
     return {
         "name": name, "route": "cuda",
-        "source": "multi_modal_csi_tpu_torch/kernels/csrc/"
-                  "tc_attention_bwd.cuh",
+        "source": f"multi_modal_csi_tpu_torch/kernels/csrc/{source}",
         "replaces": replaces, "launches": launches,
         "max_abs_err": max(r[part]["err"] for r in rows),
         "ms": sum(r[part]["ms"] for r in rows),
         "plain_ms": sum(r[part]["plain_ms"] for r in rows),
-        "bound_ms": max(bytes_ms, tf32_ms),
-        "bound_by": "bytes" if bytes_ms >= tf32_ms else "operations",
+        "bound_ms": max(bytes_ms, form_ms),
+        "bound_by": "bytes" if bytes_ms >= form_ms else "operations",
         "library_ms": sum(r["library_ms"] for r in rows),
-        "bound_f32_peak_ms": max(bytes_ms, f32_ms),
+        f"bound_{DTYPE_NAMES[dtype]}_peak_ms": max(bytes_ms, peak_ms),
     }
 
 
@@ -3334,23 +3362,23 @@ def main() -> int:
         video += card_vs_cpu
         video += [video_evaluate_phase(work, key) for key in
                   ("MViT-v1", "MViT-v2")]
-        # the training paths, each of which launches K3 and K4
-        trained_video = [step for _, step in served]
-        trained_f32 = [video_train_phase(key) for key in
-                       ("MViT-v1", "MViT-v2")]
-        trained_f32.append(video_train_card_vs_cpu())
-        trained_video += trained_f32
+        # the training paths, each of which launches K3 and K4 (in bf16
+        # the serving phases' training steps and the bf16 run_video run)
+        steps_f32 = [video_train_phase(key) for key in
+                     ("MViT-v1", "MViT-v2")]
+        steps_f32.append(video_train_card_vs_cpu())
         clip_dir, annotation = write_video_run(work)
         experiments = [
             run_video_phase(clip_dir, annotation, work, "MViT-v1"),
             run_video_phase(clip_dir, annotation, work, "MViT-v2"),
             run_video_phase(clip_dir, annotation, work, "MViT-v2",
                             "bfloat16")]
-        trained_video += [runs for runs, _ in experiments]
-        video += trained_video
+        trained_f32 = steps_f32 + [runs for runs, _ in experiments[:2]]
+        trained_bf16 = [step for _, step in served] + [experiments[2][0]]
+        video += trained_bf16 + trained_f32
         # K3's launches in f32: the f32 card-vs-CPU forwards, the f32
         # training steps and the f32 part of the run_video runs
-        k3_f32 = (sum(runs[K3] for runs in card_vs_cpu + trained_f32)
+        k3_f32 = (sum(runs[K3] for runs in card_vs_cpu + steps_f32)
                   + sum(n for _, n in experiments))
 
     # K1 bf16: per THAT forward (serving, batch 256); K1 f32 and K2: per
@@ -3363,8 +3391,11 @@ def main() -> int:
     # run_video's bf16 test passes. K3 in f32: per MViT-v2 f32 training
     # step (batch 2, blocks 0-2 with the bias), its 3 launches; launches
     # k3_f32.
-    # K4's two kernels: per MViT-v2 training step (f32, batch 2), 3 each;
-    # launches summed over every training run. P1's two instantiations: per
+    # K4's two kernels in each dtype: per MViT-v2 training step of the
+    # dtype (batch 2), 3 each; launches summed over the dtype's training
+    # runs (f32: fit_video, the card-vs-CPU step and two run_video runs;
+    # bf16: the serving phases' steps and one run_video run). P1's two
+    # instantiations: per
     # DETR w8a8 forward (bf16 serving, batch 256), 22 s8 and 54 bf16
     # products, as bare products (as the TPU kernels compute them; the
     # main path runs them fused); launches summed over the int8 serving
@@ -3420,11 +3451,25 @@ def main() -> int:
                      {f"{name}+bias": 1 for name in LOWRANK_BWD_SHAPES},
                      torch.float32, as_3xtf32=True),
         # the f32 kernels' bodies (the query pass with the bias, and
-        # dK/dV/dS); their C entries are in flash_attention_lowrank_bwd.cu
-        k4_entry(DQ, "multi_modal_csi_tpu/kernels/flash_attention.py:480",
-                 sum(runs[DQ] for runs in trained_video), k4_times, "dq"),
-        k4_entry(DKV, "multi_modal_csi_tpu/kernels/flash_attention.py:492",
-                 sum(runs[DKV] for runs in trained_video), k4_times, "dkv"),
+        # dK/dV/dS) and the bf16 dK/dV/dS body are tc_attention_bwd.cuh's;
+        # bf16 dQ/dR is the CUDA-core kernel; every C entry is in
+        # flash_attention_lowrank_bwd.cu
+        k4_entry(DQ, "tc_attention_bwd.cuh",
+                 "multi_modal_csi_tpu/kernels/flash_attention.py:480",
+                 sum(runs[DQ] for runs in trained_f32), k4_times, "dq",
+                 torch.float32),
+        k4_entry(DKV, "tc_attention_bwd.cuh",
+                 "multi_modal_csi_tpu/kernels/flash_attention.py:492",
+                 sum(runs[DKV] for runs in trained_f32), k4_times, "dkv",
+                 torch.float32),
+        k4_entry(f"{DQ}_bf16", "flash_attention_lowrank_bwd.cu",
+                 "multi_modal_csi_tpu/kernels/flash_attention.py:480",
+                 sum(runs[DQ] for runs in trained_bf16), k4_times, "dq",
+                 torch.bfloat16),
+        k4_entry(f"{DKV}_bf16", "tc_attention_bwd.cuh",
+                 "multi_modal_csi_tpu/kernels/flash_attention.py:492",
+                 sum(runs[DKV] for runs in trained_bf16), k4_times, "dkv",
+                 torch.bfloat16),
         p1_entry(S8, "tools/exp_pallas_int8.py:43",
                  sum(runs.get(S8, 0) for runs in int8_runs), DETR_S8,
                  torch.int8),

@@ -28,37 +28,32 @@
 // folded into the factors (_fold_pad) became loops bounded by the true Nq,
 // Nk and M.
 //
-// Four kernels, two a dtype:
-//   - float32 (MViT training's default), both on the tensor cores, every
-//     product at f32 precision as 3xTF32 (tc_attention_bwd.cuh says how):
-//     dQ/dR is its query pass with the bias,
-//     tc::attention_bwd_dq_lowrank_f32_kernel (8 warps of 16 query rows,
-//     one sweep over 32-key tiles, the forward's LSE and delta read once a
-//     row), and dK/dV/dS its key-major body,
-//     tc::attention_bwd_dkv_f32_kernel; each launcher refuses D > 128 or
-//     M > 128 and never runs another kernel;
-//   - bfloat16: dq_kernel and dkv_kernel, on the CUDA cores, described
-//     below.
+// What runs where (tc_attention_bwd.cuh says how each tensor-core body
+// works); each launcher refuses D > 128 or M > 128 and never runs another
+// kernel:
+//   - float32 (MViT training's default), both kernels on the tensor cores,
+//     every product at f32 precision as 3xTF32: dQ/dR is the query pass
+//     with the bias, tc::attention_bwd_dq_lowrank_f32_kernel (8 warps of
+//     16 query rows, one sweep over 32-key tiles, the forward's LSE and
+//     delta read once a row), and dK/dV/dS the key-major body,
+//     tc::attention_bwd_dkv_f32_kernel;
+//   - bfloat16 (bf16 training, opt-in): dK/dV/dS is the bf16 key-major
+//     body, tc::attention_bwd_dkv_bf16_kernel (S^T, dP^T, dV and dK as
+//     bf16 mma.sync m16n8k16, w and dl split into bf16 hi + lo; the bias
+//     and dS as 3xTF32); dQ/dR is still dq_kernel below, on the CUDA
+//     cores (M <= 128 is not its limit: it streams the bias in chunks).
 //
-// Design of the CUDA-core kernels. Neither K and V (1128 keys of D = 96
-// are 866 KB in f32) nor Q and dO (72129 rows) of one (b, h) fit in a
-// block's shared memory, so both kernels stream tiles of 64 and rebuild
-// each (64 query x 64 key) block of logits: 256 threads as 16 x 16, each a
-// 4 x 4 register tile, the transposed tiles read as float4, the bias
-// factors streamed in chunks of 64 columns.
-//   - dq_kernel: one block per (b h, 64 query rows). Q^T, dO^T and (M <= 64)
-//     the R strip stay in shared memory; the key tiles stream. dl goes to
-//     shared memory, and each thread accumulates a 4 row x D/16 column slice
-//     of dQ and a 4 x 4 slice of dR (M <= 64) in registers; for M > 64 each
-//     chunk's dR is added to the block's own rows in device memory.
-//   - dkv_kernel: one block per (b h, 64 keys, split): K^T, V^T and (M <= 64)
-//     the S columns stay in shared memory; the query tiles of the block's
-//     split stream. w and dl go to shared memory, and each thread
-//     accumulates 4 keys x D/16 columns of dK and dV and 4 keys x 4 factor
-//     columns of dS. The query range is split over several blocks so that
-//     enough blocks run.
-// Shared memory at D = 128: 187 KB (dQ) and 204 KB (dKV) of a block's
-// 227 KB, so one block per SM; 153 KB and 170 KB at MViT's D = 96.
+// dq_kernel (bfloat16 only). Neither K and V (1128 keys of D = 96 are 866
+// KB in f32) nor Q and dO (72129 rows) of one (b, h) fit in a block's
+// shared memory, so it streams key tiles of 64 and rebuilds each (64 query
+// x 64 key) block of logits: one block per (b h, 64 query rows), 256
+// threads as 16 x 16, each a 4 x 4 register tile, the transposed tiles read
+// as float4, the bias factors streamed in chunks of 64 columns. Q^T, dO^T
+// and (M <= 64) the R strip stay in shared memory (153 KB at MViT's D = 96,
+// 187 KB at D = 128: one block an SM). dl goes to shared memory, and each
+// thread accumulates a 4 row x D/16 column slice of dQ and a 4 x 4 slice
+// of dR (M <= 64) in registers; for M > 64 each chunk's dR is added to the
+// block's own rows in device memory.
 //
 // Bound on an H100 SXM. The backward's products are 10 Nq Nk D operations
 // at q's dtype (QK^T, dO V^T, dQ, dK, dV) and 6 Nq Nk M in f32 (the bias,
@@ -66,15 +61,15 @@
 // of MB, under 30 us at 3.35 TB/s. At MViT-v2's training blocks 0-2,
 // batch 2, f32, that is 10.45 ms of operations at 67 TFLOP/s, or 5.88 ms
 // with every product as 3xTF32 at 495 TFLOP/s: the work is bound by
-// operations. Both kernels rebuild the logits and dO V^T (14 Nq Nk D
-// + 8 Nq Nk M in all); the CUDA-core ones run every product in f32 FMA
-// and are limited by the rate of FMA instructions.
+// operations. Every kernel rebuilds the logits and dO V^T (14 Nq Nk D
+// + 8 Nq Nk M in all); dq_kernel runs every product as an f32 FMA and is
+// limited by the rate of FMA instructions.
 //
 // Limits: D <= 128 (the tiles in shared memory); any Nq, Nk >= 1, M >= 0
-// (float32: M <= 128); 1 <= splits <= ceil(Nq / 64) (f32 dK/dV/dS:
-// ceil(Nq / 32), its query tile). The launchers refuse other sizes with
-// cudaErrorInvalidValue and return cudaGetLastError() after the launch, so
-// a refused launch is seen.
+// (M <= 128 but in dq_kernel); dK/dV/dS 1 <= splits <= ceil(Nq / 32), its
+// query tile. The launchers refuse other sizes with cudaErrorInvalidValue
+// and return cudaGetLastError() after the launch, so a refused launch is
+// seen.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -166,10 +161,10 @@ __device__ __forceinline__ void load_s(float* dst, const float* s, int n,
   }
 }
 
-// Shared memory: four (D x kLd) f32 tiles and `narrow` (64 x kLd) ones,
-// three in dq_kernel and four in dkv_kernel.
-size_t smem_bytes(int d, int narrow) {
-  return sizeof(float) * (size_t)(4 * d + narrow * 64) * kLd;
+// dq_kernel's shared memory: four (D x kLd) f32 tiles and three
+// (64 x kLd) ones
+size_t smem_bytes(int d) {
+  return sizeof(float) * (size_t)(4 * d + 3 * 64) * kLd;
 }
 
 // One block per (b h, 64 query rows): dQ and dR. Instantiated for
@@ -334,189 +329,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// One block per (b h, 64 keys, split of the query tiles): partial dK, dV
-// and dS over the split's query rows. Instantiated for bfloat16 only;
-// float32 runs tc::attention_bwd_dkv_f32_kernel.
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-    dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const float* __restrict__ r,
-               const float* __restrict__ s, const T* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               float* __restrict__ dk, float* __restrict__ dv,
-               float* __restrict__ ds, int bh_all, int nq, int nk, int d,
-               int m_dim, int key_tiles, int splits, float scale) {
-  extern __shared__ float smem[];
-  float* ks = smem;             // K^T   ks[c * kLd + key]
-  float* vs = ks + d * kLd;     // V^T   vs[c * kLd + key]
-  float* qs = vs + d * kLd;     // Q^T   qs[c * kLd + row]
-  float* dos = qs + d * kLd;    // dO^T  dos[c * kLd + row]
-  float* ss = dos + d * kLd;    // S     ss[m * kLd + key]
-  float* rs = ss + kMC * kLd;   // R^T   rs[m * kLd + row]
-  float* ws = rs + kMC * kLd;   // w     ws[row * kLd + key]
-  float* dls = ws + kTQ * kLd;  // dl    dls[row * kLd + key]
-
-  const int split = blockIdx.x % splits;
-  const int rest = blockIdx.x / splits;
-  const int bh = rest / key_tiles;
-  const int k0 = (rest - bh * key_tiles) * kTK;
-  const int keys = min(kTK, nk - k0);
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const int q_tiles = (nq + kTQ - 1) / kTQ;
-  const int t_begin = (int)((long long)split * q_tiles / splits);
-  const int t_end = (int)((long long)(split + 1) * q_tiles / splits);
-  const bool s_resident = m_dim <= kMC;
-  const size_t part = (size_t)split * bh_all + bh;
-
-  load_t(ks, k + ((size_t)bh * nk + k0) * d, keys, d);
-  load_t(vs, v + ((size_t)bh * nk + k0) * d, keys, d);
-  if (m_dim && s_resident) load_s(ss, s, keys, nk, k0, 0, m_dim);
-  float* dsb = m_dim ? ds + part * m_dim * nk : nullptr;
-  if (!s_resident) {
-    // dS over several chunks is summed in device memory: start at zero
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = ty * 4 + i;
-      if (key < keys)
-        for (int m = tx; m < m_dim; m += 16)
-          dsb[(size_t)m * nk + k0 + key] = 0.f;
-    }
-  }
-
-  const int cols = (d + 15) / 16;
-  float dk_acc[4][kMaxCols] = {}, dv_acc[4][kMaxCols] = {};
-  float ds_acc[4][4] = {};
-  for (int t = t_begin; t < t_end; ++t) {
-    const int row0 = t * kTQ;
-    const int rows = min(kTQ, nq - row0);
-    const size_t qoff = (size_t)bh * nq + row0;
-    const float* rb = m_dim ? r + qoff * m_dim : nullptr;
-    __syncthreads();  // the previous tile's readers are done
-    load_t(qs, q + qoff * d, rows, d);
-    load_t(dos, dout + qoff * d, rows, d);
-
-    float bias[4][4] = {};
-    for (int m0 = 0; m0 < m_dim; m0 += kMC) {
-      const int mc = min(kMC, m_dim - m0);
-      if (m0 > 0) __syncthreads();  // the previous chunk's readers are done
-      if (!s_resident) load_s(ss, s, keys, nk, k0, m0, mc);
-      load_cols(rs, rb, rows, m_dim, m0, mc);
-      __syncthreads();
-      outer_sum(bias, rs, ss, mc);
-    }
-    if (m_dim == 0) __syncthreads();
-    float lg[4][4] = {}, dw[4][4] = {};
-    outer_sum(lg, qs, ks, d);
-    outer_sum(dw, dos, vs, d);
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = ty * 4 + i;
-      const float l = row < rows ? lse[qoff + row] : 0.f;
-      const float dl_ = row < rows ? delta[qoff + row] : 0.f;
-      float wv[4], dlv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wv[j] = row < rows && tx * 4 + j < keys
-                    ? expf(lg[i][j] * scale + bias[i][j] - l)
-                    : 0.f;
-        dlv[j] = wv[j] * (dw[i][j] - dl_);
-      }
-      *reinterpret_cast<float4*>(ws + row * kLd + tx * 4) =
-          make_float4(wv[0], wv[1], wv[2], wv[3]);
-      *reinterpret_cast<float4*>(dls + row * kLd + tx * 4) =
-          make_float4(dlv[0], dlv[1], dlv[2], dlv[3]);
-    }
-    __syncthreads();
-
-    // dV += w^T dO, dK += dl^T Q (scaled at the end), dS += R^T dl; this
-    // thread: keys ty*4 + i, head-dim columns tx + 16 j, factor columns
-    // tx + 16 j
-    for (int row = 0; row < rows; ++row) {
-      float w4[4], d4[4];
-      unpack(*reinterpret_cast<const float4*>(ws + row * kLd + ty * 4), w4);
-      unpack(*reinterpret_cast<const float4*>(dls + row * kLd + ty * 4), d4);
-#pragma unroll
-      for (int j = 0; j < kMaxCols; ++j) {
-        if (j < cols) {
-          const int c = min(tx + 16 * j, d - 1);
-          const float o = dos[c * kLd + row];
-          const float x = qs[c * kLd + row];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dv_acc[i][j] = fmaf(w4[i], o, dv_acc[i][j]);
-            dk_acc[i][j] = fmaf(d4[i], x, dk_acc[i][j]);
-          }
-        }
-      }
-      if (m_dim && s_resident) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float x = rs[min(tx + 16 * j, m_dim - 1) * kLd + row];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            ds_acc[i][j] = fmaf(d4[i], x, ds_acc[i][j]);
-        }
-      }
-    }
-    if (m_dim && !s_resident) {
-      for (int m0 = 0; m0 < m_dim; m0 += kMC) {
-        const int mc = min(kMC, m_dim - m0);
-        __syncthreads();  // the previous chunk's readers are done
-        load_cols(rs, rb, rows, m_dim, m0, mc);
-        __syncthreads();
-        float part_ds[4][4] = {};
-        for (int row = 0; row < rows; ++row) {
-          float d4[4];
-          unpack(*reinterpret_cast<const float4*>(dls + row * kLd + ty * 4),
-                 d4);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float x = rs[min(tx + 16 * j, mc - 1) * kLd + row];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              part_ds[i][j] = fmaf(d4[i], x, part_ds[i][j]);
-          }
-        }
-        // this thread's own elements of the block's own keys: no race
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int key = ty * 4 + i;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int m = tx + 16 * j;
-            if (key < keys && m < mc)
-              dsb[(size_t)(m0 + m) * nk + k0 + key] += part_ds[i][j];
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = ty * 4 + i;
-    if (key >= keys) continue;
-    const size_t o = (part * nk + k0 + key) * d;
-#pragma unroll
-    for (int j = 0; j < kMaxCols; ++j) {
-      const int c = tx + 16 * j;
-      if (j < cols && c < d) {
-        dk[o + c] = dk_acc[i][j] * scale;
-        dv[o + c] = dv_acc[i][j];
-      }
-    }
-    if (m_dim && s_resident) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int m = tx + 16 * j;
-        if (m < m_dim) dsb[(size_t)m * nk + k0 + key] = ds_acc[i][j];
-      }
-    }
-  }
-}
-
 template <typename Kernel>
 int allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return (int)cudaSuccess;
@@ -534,19 +346,21 @@ bool sizes_ok(int bh, int nq, int nk, int d, int m, const void* r,
   return m == 0 || (r != nullptr && s != nullptr);
 }
 
-// the f32 tensor-core launchers' parameters: the inputs, one head a group
-// and a row of D ((BH, N, D))
-tc::BwdParams f32_params(const void* q, const void* k, const void* v,
-                         const float* r, const float* s, const void* dout,
-                         const float* lse, const float* delta, int bh, int nq,
-                         int nk, int d, int m) {
-  tc::BwdParams p = {};
-  p.q = static_cast<const float*>(q);
-  p.k = static_cast<const float*>(k);
-  p.v = static_cast<const float*>(v);
+// the tensor-core launchers' parameters (T: float or bf16): the inputs,
+// one head a group and a row of D ((BH, N, D))
+template <typename T>
+tc::BwdParamsOf<T> bwd_params(const void* q, const void* k, const void* v,
+                              const float* r, const float* s,
+                              const void* dout, const float* lse,
+                              const float* delta, int bh, int nq, int nk,
+                              int d, int m) {
+  tc::BwdParamsOf<T> p = {};
+  p.q = static_cast<const T*>(q);
+  p.k = static_cast<const T*>(k);
+  p.v = static_cast<const T*>(v);
   p.r = r;
   p.s = s;
-  p.dout = static_cast<const float*>(dout);
+  p.dout = static_cast<const T*>(dout);
   p.lse = const_cast<float*>(lse);  // read only by K4's kernels
   p.delta = const_cast<float*>(delta);
   p.bh = bh;
@@ -563,8 +377,8 @@ int launch_dq_f32(const void* q, const void* k, const void* v, const float* r,
                   const float* s, const void* dout, const float* lse,
                   const float* delta, void* dq, float* dr, int bh, int nq,
                   int nk, int d, int m, cudaStream_t stream) {
-  tc::BwdParams p = f32_params(q, k, v, r, s, dout, lse, delta, bh, nq, nk,
-                               d, m);
+  tc::BwdParams p = bwd_params<float>(q, k, v, r, s, dout, lse, delta, bh,
+                                      nq, nk, d, m);
   p.dq = static_cast<float*>(dq);
   p.dr = dr;
   return tc::launch_bwd_dq_lowrank_f32(p, stream);
@@ -575,7 +389,7 @@ int launch_dq(const void* q, const void* k, const void* v, const float* r,
               const float* s, const void* dout, const float* lse,
               const float* delta, void* dq, float* dr, int bh, int nq, int nk,
               int d, int m, cudaStream_t stream) {
-  const size_t smem = smem_bytes(d, 3);
+  const size_t smem = smem_bytes(d);
   const int err = allow_smem(dq_kernel<T>, smem);
   if (err != 0) return err;
   const int tiles = (nq + kTQ - 1) / kTQ;
@@ -585,24 +399,6 @@ int launch_dq(const void* q, const void* k, const void* v, const float* r,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), r, s, static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), dr, nq, nk, d, m, tiles, head_scale(d));
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_dkv(const void* q, const void* k, const void* v, const float* r,
-               const float* s, const void* dout, const float* lse,
-               const float* delta, float* dk, float* dv, float* ds, int bh,
-               int nq, int nk, int d, int m, int splits, cudaStream_t stream) {
-  const size_t smem = smem_bytes(d, 4);
-  const int err = allow_smem(dkv_kernel<T>, smem);
-  if (err != 0) return err;
-  const int key_tiles = (nk + kTK - 1) / kTK;
-  const long long blocks = (long long)bh * key_tiles * splits;
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  dkv_kernel<T><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), r, s, static_cast<const T*>(dout), lse, delta,
-      dk, dv, ds, bh, nq, nk, d, m, key_tiles, splits, head_scale(d));
   return (int)cudaGetLastError();
 }
 
@@ -642,49 +438,51 @@ int mmcsi_flash_attention_lowrank_bwd_dq(
 
 // As above, with the f32 partials dk, dv (splits, bh, nk, d) and ds
 // (splits, bh, m, nk; may be null when m = 0); 1 <= splits <= ceil(nq / 32)
-// in float32 (whose tensor-core body also refuses m > 128) and
-// ceil(nq / 64) in bfloat16.
+// (the tensor-core bodies' query tile); both dtypes also refuse m > 128.
 int mmcsi_flash_attention_lowrank_bwd_dkv(
     const void* q, const void* k, const void* v, const void* r,
     const void* s, const void* dout, const void* lse, const void* delta,
     void* dk, void* dv, void* ds, int bh, int nq, int nk, int d, int m,
     int splits, int dtype, void* stream) {
-  const int q_tile = dtype == 0 ? tc::kBwdRows : kTQ;
   if (!sizes_ok(bh, nq, nk, d, m, r, s) || (m > 0 && ds == nullptr) ||
-      splits < 1 || splits > (nq + q_tile - 1) / q_tile)
+      splits < 1 || splits > (nq + tc::kBwdRows - 1) / tc::kBwdRows)
     return (int)cudaErrorInvalidValue;
   const float* rf = static_cast<const float*>(r);
   const float* sf = static_cast<const float*>(s);
   const float* lf = static_cast<const float*>(lse);
   const float* df = static_cast<const float*>(delta);
-  float* dkf = static_cast<float*>(dk);
-  float* dvf = static_cast<float*>(dv);
-  float* dsf = static_cast<float*>(ds);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto partials = [&](auto p) {
+    p.dk = static_cast<float*>(dk);
+    p.dv = static_cast<float*>(dv);
+    p.ds = static_cast<float*>(ds);
+    p.part = (long long)bh * nk * d;
+    p.splits = splits;
+    return p;
+  };
   switch (dtype) {
     case 0: {
-      tc::BwdParams p = f32_params(q, k, v, rf, sf, dout, lf, df, bh, nq, nk,
-                                   d, m);
-      p.dk = dkf;
-      p.dv = dvf;
-      p.ds = dsf;
-      p.part = (long long)bh * nk * d;
-      p.splits = splits;
+      const tc::BwdParams p = partials(
+          bwd_params<float>(q, k, v, rf, sf, dout, lf, df, bh, nq, nk, d, m));
       return tc::launch_bwd_dkv_f32(p, st);
     }
-    case 1:
-      return launch_dkv<__nv_bfloat16>(q, k, v, rf, sf, dout, lf, df, dkf,
-                                       dvf, dsf, bh, nq, nk, d, m, splits, st);
+    case 1: {
+      const tc::BwdParamsOf<__nv_bfloat16> p =
+          partials(bwd_params<__nv_bfloat16>(q, k, v, rf, sf, dout, lf, df,
+                                             bh, nq, nk, d, m));
+      return tc::launch_bwd_dkv_bf16(p, st);
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// Keys per block of the float32 dK/dV/dS kernel at head dim d and m bias
-// factor columns (128, or 64 where two warps share a key strip), 0 for
-// sizes it refuses: the wrapper's grid of splits is sized by it.
-int mmcsi_flash_attention_lowrank_bwd_dkv_keys(int d, int m) {
-  return tc::bwd_dkv_f32_keys(d, m);
+// Keys per block of the dK/dV/dS kernel of `dtype` (0 float32, 1
+// bfloat16) at head dim d and m bias factor columns (128, or 64 where two
+// warps share a key strip), 0 for sizes or a dtype it refuses: the
+// wrapper's grid of splits is sized by it.
+int mmcsi_flash_attention_lowrank_bwd_dkv_keys(int d, int m, int dtype) {
+  return dtype == 0 || dtype == 1 ? tc::bwd_dkv_keys(d, m) : 0;
 }
 
 }  // extern "C"

@@ -9,7 +9,8 @@
 //   - attention_f32_kernel, float32 at f32 precision: the f32
 //     instantiations of K1 (THAT training's forward) and K3 (MViT
 //     training's forward), QK^T and P.V as 3xTF32.
-// tc_attention_bwd.cuh builds K4's f32 dK/dV/dS body on the same pieces.
+// tc_attention_bwd.cuh builds the backward bodies (K4's and K2's f32
+// kernels, K4's bf16 dK/dV/dS) on the same pieces.
 //
 // Arithmetic of the bf16 body (the order
 // tests/test_torch_port_tc_attention_order.py holds against the TPU kernels
@@ -315,23 +316,27 @@ __device__ __forceinline__ void copy_chunks(T* dst, const T* src0,
   }
 }
 
-template <int LD>
+// bf16 rows: 8-, 4- or 2-element copies by cp.async (16, 8 or 4 bytes)
+template <int LD, int ROWS = kKeys, int THREADS = kThreads>
 __device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src0,
                                           long long row, int valid,
                                           int chunks, int cshift, int vec,
                                           int d, const bf16* any) {
   switch (vec) {
     case 8:
-      copy_chunks<bf16, LD, 8>(dst, src0, row, valid, chunks, cshift, any);
+      copy_chunks<bf16, LD, 8, ROWS, THREADS>(dst, src0, row, valid, chunks,
+                                              cshift, any);
       break;
     case 4:
-      copy_chunks<bf16, LD, 4>(dst, src0, row, valid, chunks, cshift, any);
+      copy_chunks<bf16, LD, 4, ROWS, THREADS>(dst, src0, row, valid, chunks,
+                                              cshift, any);
       break;
     case 2:
-      copy_chunks<bf16, LD, 2>(dst, src0, row, valid, chunks, cshift, any);
+      copy_chunks<bf16, LD, 2, ROWS, THREADS>(dst, src0, row, valid, chunks,
+                                              cshift, any);
       break;
     default:  // odd strides: synchronous, element by element
-      for (int i = threadIdx.x; i < kKeys * d; i += kThreads) {
+      for (int i = threadIdx.x; i < ROWS * d; i += THREADS) {
         const int r = i / d, c = i - r * d;
         dst[r * LD + c] = r < valid ? src0[r * row + c] : __float2bfloat16(0.f);
       }

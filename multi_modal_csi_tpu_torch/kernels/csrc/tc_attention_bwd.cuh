@@ -1,5 +1,5 @@
-// The tensor-core backward bodies of the attention at f32 precision, for
-// Hopper (sm_90a), every product as 3xTF32 on mma.sync m16n8k8:
+// The tensor-core backward bodies of the attention, for Hopper (sm_90a):
+// at f32 precision, every product as 3xTF32 on mma.sync m16n8k8,
 //   - tc::attention_bwd_dkv_f32_kernel, the keys as the rows: K4's dK/dV/dS
 //     kernel in float32 (MViT training's backward; it replaces
 //     multi_modal_csi_tpu/kernels/flash_attention.py::_tiled_bwd_dkv_kernel,
@@ -14,7 +14,12 @@
 //   - tc::attention_bwd_dq_lowrank_f32_kernel, the same query pass with
 //     the bias, the forward's statistics and dR: K4's dQ/dR kernel in
 //     float32, launched by flash_attention_lowrank_bwd.cu's dtype 0. See
-//     "The query pass with the bias" below.
+//     "The query pass with the bias" below;
+// and in bfloat16
+//   - tc::attention_bwd_dkv_bf16_kernel, the same key-major decomposition
+//     with bf16 K, V, Q and dO: K4's dK/dV/dS kernel in bfloat16 (MViT's
+//     bf16 training, the same TPU kernel), launched by
+//     flash_attention_lowrank_bwd.cu's dtype 1. See "The bf16 body" below.
 //
 // What the dK/dV kernel computes, per (b h) and key: logits = (q.k) scale
 // [+ r.s]; w = exp(logits - lse), in f32 and never rounded; dw = dO.v;
@@ -152,6 +157,47 @@
 //     small sums and dP 48, dl's split fragments 32.
 //   - Grid: B H ceil(Nq / 128) blocks (1128 at MViT-v2's block 0, 564 at
 //     blocks 1 and 2, over 132 SMs).
+//
+// The bf16 body (K4's dK/dV/dS in bfloat16): what the f32 body computes,
+// with q, k, v and dO in bf16, r and s in f32, the same blocks (8 warps of
+// 16 keys, BwdShape's SPLIT), 32-row query tiles and f32 partials per
+// split, no atomics.
+//   - K and V (bf16 rows of 16 KS + 8: an odd multiple of 16 bytes, so
+//     ldmatrix reads no bank twice) and S^T (f32) stay in shared memory for
+//     the block; each query tile's Q and dO (bf16), R rows, LSE and delta
+//     stream through a ring of kBwdBf16Stages stages, copied by 16-byte
+//     cp.async where D, the row stride and the bases allow (a row of D = 96
+//     is 192 bytes); the bf16 tiles take half the f32 body's bytes, which
+//     buys the deeper ring (the depth timed by probes/k4_bf16_dkv_stages.py).
+//   - S^T = K Q^T and dP^T = V dO^T are bf16 mma.sync m16n8k16 with f32
+//     accumulators, one pass each (a bf16 product is exact in f32): K or V
+//     the A operand (ldmatrix of the strip's rows), the tile's Q or dO rows
+//     the B operand (ldmatrix, as the forward reads K).
+//   - The bias S^T R^T and dS^T += dl^T R stay 3xTF32 on m16n8k8, as in the
+//     f32 body (r and s are f32; K3's bf16 forward forms its bias as 3xTF32
+//     too, so the LSE and these logits come from the same form): the C
+//     fragment of m16n8k16 has m16n8k8's layout, so dl's accumulators feed
+//     the tf32 A fragment as they lie. Each tile's R rows (B operands of
+//     both, read by all 8 warps) are split into tf32 hi (in place) and lo
+//     (beside the ring) once, by the block; S^T (A operand) is split at
+//     each load, as its lo copy would leave no room at D <= 64 with
+//     M > 120.
+//   - dV += w^T dO and dK += dl^T Q: n-tiles 2 kk and 2 kk + 1 of the
+//     accumulators (16 query rows) are one k16 A fragment with the keys as
+//     rows, as the forward's weights feed P.V; each f32 value of w and dl
+//     is split into bf16 hi = bf16(x) and lo = bf16(x - hi), and lo.B then
+//     hi.B are accumulated against the exact bf16 dO or Q (ldmatrix .trans:
+//     the query rows are the k dimension). Each product keeps 16 significant
+//     bits of w and dl (a relative error of at most 2^-17 a term; the
+//     outputs are rounded to bf16, 2^-9). Each tile's product is formed in
+//     a fresh accumulator and added to the running sums in f32; dK takes
+//     its scale once a split.
+//   - Registers at D = 96, M <= 56: dK and dV 48 floats a thread each, dS^T
+//     28; S^T, dP^T and the bias 16 each; the split fragments 16 (w, dl)
+//     and 32 (dl as tf32): up to 255 a thread, one block an SM.
+//   - The launcher (launch_bwd_dkv_bf16, BwdParamsOf<bf16>) takes the same
+//     25 shapes through with_bwd_shape and refuses D > 128 or M > 128;
+//     without the bias, <KS, 0> reads any layout bwd_base describes.
 
 #pragma once
 
@@ -176,16 +222,36 @@ __device__ __forceinline__ void load_b(const float* p, const float* plo,
   }
 }
 
-struct BwdParams {
-  const float* q;      // Nq rows a group (see Layout)
-  const float* k;      // Nk rows a group
-  const float* v;      // Nk rows a group
+// A fragment pairs of rows g8 and g8 + 8 (offsets o and o + 8 ld of p) at
+// columns t4 and t4 + 4: taken split (hi at p, lo at plo) or split here
+template <bool PRE>
+__device__ __forceinline__ void load_a(const float* p, const float* plo,
+                                       int o, int ld, uint32_t (&ahi)[4],
+                                       uint32_t (&alo)[4]) {
+  const int off[4] = {o, o + 8 * ld, o + 4, o + 8 * ld + 4};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (PRE) {
+      ahi[i] = __float_as_uint(p[off[i]]);
+      alo[i] = __float_as_uint(plo[off[i]]);
+    } else {
+      split_tf32(p[off[i]], ahi[i], alo[i]);
+    }
+  }
+}
+
+// T: the element of q, k, v and dO (float, or bf16 in the bf16 body)
+template <typename T>
+struct BwdParamsOf {
+  const T* q;          // Nq rows a group (see Layout)
+  const T* k;          // Nk rows a group
+  const T* v;          // Nk rows a group
   const float* r;      // (BH, Nq, M)
   const float* s;      // (M, Nk)
-  const float* dout;   // q's layout
+  const T* dout;       // q's layout
   float* lse;          // (BH, Nq): the query pass writes it, dK/dV reads
   float* delta;        // (BH, Nq)
-  float* dq;           // q's layout (the query passes)
+  float* dq;           // q's layout (the f32 query passes)
   float* dr;           // (BH, Nq, M): the query pass with the bias
   float* dk;           // k's layout, `part` elements a split
   float* dv;
@@ -196,37 +262,50 @@ struct BwdParams {
   int splits;          // blocks sharing one key block's query tiles
   int key_blocks;
   int q_tiles;
-  int vec;             // f32 elements per copy of a row: 4, 2 or 1
+  int vec;             // elements per copy of a row: f32 4, 2 or 1; bf16
+                       // 8, 4, 2 or 1
   int vec_s;           // f32 elements per copy of s: 4 or 1
   float scale;
 };
+typedef BwdParamsOf<float> BwdParams;
 
 // the element offset of group grp's first row of n (b n row + h D)
-__device__ __forceinline__ long long bwd_base(const BwdParams& p, int grp,
-                                              int n) {
+template <typename T>
+__device__ __forceinline__ long long bwd_base(const BwdParamsOf<T>& p,
+                                              int grp, int n) {
   return (long long)(grp / p.heads) * n * p.row +
          (long long)(grp % p.heads) * p.d;
+}
+
+// the 4 floats at offset o (16-byte aligned) split into tf32 hi, in place,
+// and lo, at the same offset of `lo`
+__device__ __forceinline__ void split4(float* hi, float* lo, int o) {
+  float4* hp = reinterpret_cast<float4*>(hi + o);
+  const float4 x = *hp;
+  uint32_t h[4], l[4];
+  split_tf32(x.x, h[0], l[0]);
+  split_tf32(x.y, h[1], l[1]);
+  split_tf32(x.z, h[2], l[2]);
+  split_tf32(x.w, h[3], l[3]);
+  *hp = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                    __uint_as_float(h[2]), __uint_as_float(h[3]));
+  *reinterpret_cast<float4*>(lo + o) =
+      make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                  __uint_as_float(l[2]), __uint_as_float(l[3]));
 }
 
 // rows of 16 KS floats (row stride LD) split into tf32 hi, in place, and
 // lo, at the same offsets of `lo`, by the whole block
 template <int KS, int LD, int THREADS>
 __device__ __forceinline__ void split_rows(float* hi, float* lo, int rows) {
-  for (int i = threadIdx.x; i < rows * 4 * KS; i += THREADS) {
-    const int o = (i / (4 * KS)) * LD + (i % (4 * KS)) * 4;
-    float4* hp = reinterpret_cast<float4*>(hi + o);
-    const float4 x = *hp;
-    uint32_t h[4], l[4];
-    split_tf32(x.x, h[0], l[0]);
-    split_tf32(x.y, h[1], l[1]);
-    split_tf32(x.z, h[2], l[2]);
-    split_tf32(x.w, h[3], l[3]);
-    *hp = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
-                      __uint_as_float(h[2]), __uint_as_float(h[3]));
-    *reinterpret_cast<float4*>(lo + o) =
-        make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
-                    __uint_as_float(l[2]), __uint_as_float(l[3]));
-  }
+  for (int i = threadIdx.x; i < rows * 4 * KS; i += THREADS)
+    split4(hi, lo, (i / (4 * KS)) * LD + (i % (4 * KS)) * 4);
+}
+
+// n floats (a multiple of 4, from a 16-byte boundary) split likewise
+template <int THREADS>
+__device__ __forceinline__ void split_flat(float* hi, float* lo, int n) {
+  for (int i = 4 * threadIdx.x; i < n; i += 4 * THREADS) split4(hi, lo, i);
 }
 
 constexpr int kBwdWarps = 8;
@@ -606,6 +685,387 @@ __global__ void __launch_bounds__(32 * kBwdWarps, MT == 0 && KS <= 2 ? 2 : 1)
 }
 
 // ----------------------------------------------------------------------
+// The bf16 dK/dV/dS body
+// ----------------------------------------------------------------------
+
+// query tiles in the bf16 body's cp.async ring (PERF.md: 2, 3 and 4 timed
+// at MViT's training blocks)
+constexpr int kBwdBf16Stages = 2;
+
+// dynamic shared memory of one bf16 block: K and V (bf16 rows of 16 ks + 8),
+// S^T, the tf32 lo parts of a tile's R, and `stages` ring stages of Q and
+// dO (bf16), R, the LSE and delta
+inline size_t smem_bytes_bwd_bf16(int ks, int m, int keys, int stages) {
+  const size_t ld = 16 * ks + 8, rs = m ? r_stride(m) : 0;
+  return sizeof(bf16) * 2 * keys * ld +
+         sizeof(float) * (keys + kBwdRows) * rs +
+         stages * (sizeof(bf16) * 2 * kBwdRows * ld +
+                   sizeof(float) * (kBwdRows * rs + 2 * kBwdRows));
+}
+
+// x0 and x1 as bf16 pairs hi + lo: hi rounded to nearest, lo the rounded
+// remainder (16 significant bits of each value; x0 in the low halves)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - f.x, x1 - f.y);
+}
+
+// The A fragments (k-steps of 16 query rows) of x^T, x the accumulators of
+// NQ n-tiles of 8 query rows with the strip's keys as rows: a k-step's
+// n-tiles 2 kk and 2 kk + 1 are its columns 0-7 and 8-15, as the forward's
+// weights feed P.V; each value split into bf16 hi + lo
+template <int NQ>
+__device__ __forceinline__ void a_split_bf16(const float (&x)[NQ][4],
+                                             uint32_t (&hi)[NQ / 2][4],
+                                             uint32_t (&lo)[NQ / 2][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NQ / 2; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // key g8 (i even) or g8 + 8, n-tile
+      const float* c = x[2 * kk + i / 2];  // 2 kk + i / 2
+      split_bf16(c[2 * (i % 2)], c[2 * (i % 2) + 1], hi[kk][i], lo[kk][i]);
+    }
+}
+
+// acc[i] += (hi + lo) B over one tile's query rows for this warp's n-tiles
+// n0 + i of 8 columns: lo B, then hi B, into a fresh accumulator, then
+// added in f32. B is the tile's bf16 rows of dO or Q (row stride LD), the
+// query rows the k dimension, so ldmatrix reads it transposed.
+template <int ND, int KQ, int LD>
+__device__ __forceinline__ void add_tile_product(float (&acc)[ND][4],
+                                                 const uint32_t (&hi)[KQ][4],
+                                                 const uint32_t (&lo)[KQ][4],
+                                                 const bf16* b, int n0,
+                                                 int lane) {
+#pragma unroll
+  for (int i = 0; i < ND; i += 2) {
+    float t[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) {
+      uint32_t f[4];  // n-tile n0 + i (f[0], f[1]) and the next (f[2], f[3])
+      ldmatrix_x4_trans(f, b + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8)
+                                   * LD + 8 * (n0 + i) + (lane >> 4) * 8);
+      mma(t[0], lo[kk], f[0], f[1]);
+      mma(t[0], hi[kk], f[0], f[1]);
+      mma(t[1], lo[kk], f[2], f[3]);
+      mma(t[1], hi[kk], f[2], f[3]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[i][e] += t[0][e];
+      acc[i + 1][e] += t[1][e];
+    }
+  }
+}
+
+// The f32 body's decomposition (BwdShape: 8 warps of 16 keys, SPLIT) with
+// bf16 K, V, Q and dO and STAGES query tiles in the ring; 2 blocks an SM
+// without the bias at spans up to 32, else 1
+template <int KS, int MT, int STAGES>
+__global__ void __launch_bounds__(32 * kBwdWarps, MT == 0 && KS <= 2 ? 2 : 1)
+    attention_bwd_dkv_bf16_kernel(BwdParamsOf<bf16> p) {
+  constexpr bool BIAS = MT > 0;
+  constexpr int SPLIT = BwdShape<KS, MT>::SPLIT;
+  constexpr int KEYS = BwdShape<KS, MT>::KEYS;
+  constexpr int THREADS = 32 * kBwdWarps, QT = kBwdRows;
+  constexpr int LD = 16 * KS + 8;   // bf16: an odd multiple of 16 bytes
+  constexpr int NQ = QT / 8;        // n-tiles of 8 query rows
+  constexpr int KQ = QT / 16;       // k-steps of 16 query rows
+  constexpr int ND = 2 * KS / SPLIT;  // this warp's dK, dV n-tiles (even)
+  constexpr int NM = BIAS ? (MT + SPLIT - 1) / SPLIT : 1;  // its dS^T ones
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int m8 = BIAS ? round8(p.m) : 0;
+  const int rs = BIAS ? r_stride(p.m) : 0;
+  bf16* sk = reinterpret_cast<bf16*>(smem_raw);               // [KEYS][LD]
+  bf16* sv = sk + KEYS * LD;                                  // [KEYS][LD]
+  float* sst = reinterpret_cast<float*>(sv + KEYS * LD);      // [KEYS][rs]
+  float* sr_lo = sst + KEYS * rs;        // [QT][rs]: the tile's R's tf32
+                                         // lo parts
+  unsigned char* ring = reinterpret_cast<unsigned char*>(sr_lo + QT * rs);
+  // a stage: Q [QT][LD] and dO [QT][LD] bf16, then R [QT][rs], the LSE
+  // and delta [QT] f32
+  const int stage =
+      (int)(sizeof(bf16) * 2 * QT * LD + sizeof(float) * (QT * rs + 2 * QT));
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int strip = warp / SPLIT, half = warp % SPLIT;
+  int bid = blockIdx.x;
+  const int kblock = bid % p.key_blocks;
+  bid /= p.key_blocks;
+  const int split = bid % p.splits;
+  const int grp = bid / p.splits;
+  const int k0 = kblock * KEYS;
+  const int keys = min(KEYS, p.nk - k0);
+  const int t_begin = (int)((long long)split * p.q_tiles / p.splits);
+  const int t_end = (int)((long long)(split + 1) * p.q_tiles / p.splits);
+  const int d = p.d;  // a multiple of the copy width
+  const int chunks = d / p.vec;
+  int cshift = 0;
+  while ((1 << cshift) < chunks) ++cshift;
+  const long long qoff = bwd_base(p, grp, p.nq);
+  const bf16* qb = p.q + qoff;
+  const bf16* dob = p.dout + qoff;
+
+  // the copies fill columns [0, D) of each row; the span's columns past D
+  // are zeroed once (K and V, and every stage's Q and dO), so the padded
+  // products add nothing
+  if (d < 16 * KS) {
+    const int pad = 16 * KS - d;
+    const bf16 zero = __float2bfloat16(0.f);
+    for (int i = threadIdx.x; i < 2 * KEYS * pad; i += THREADS)
+      sk[(i / pad) * LD + d + i % pad] = zero;  // sk and sv are adjacent
+    for (int i = threadIdx.x; i < STAGES * 2 * QT * pad; i += THREADS) {
+      const int row = i / pad;  // stage row / (2 QT), Q and dO adjacent
+      reinterpret_cast<bf16*>(ring + (row / (2 * QT)) * stage)
+          [(row % (2 * QT)) * LD + d + i % pad] = zero;
+    }
+  }
+
+  // query tile t into ring stage `slot`
+  auto fetch = [&](int t, int slot) {
+    bf16* st = reinterpret_cast<bf16*>(ring + slot * stage);
+    const int row0 = t * QT, rows = min(QT, p.nq - row0);
+    copy_rows<LD, QT, THREADS>(st, qb + (long long)row0 * p.row, p.row, rows,
+                               chunks, cshift, p.vec, d, p.q);
+    copy_rows<LD, QT, THREADS>(st + QT * LD, dob + (long long)row0 * p.row,
+                               p.row, rows, chunks, cshift, p.vec, d,
+                               p.dout);
+    float* sr = reinterpret_cast<float*>(st + 2 * QT * LD);
+    if constexpr (BIAS) {
+      copy_r<QT, THREADS>(sr, p.r, grp, p.nq, row0, rows, p.m, rs);
+    }
+    if (threadIdx.x < 2 * QT) {  // the LSE, then delta
+      const int i = threadIdx.x % QT;
+      const float* src = threadIdx.x < QT ? p.lse : p.delta;
+      const bool ok = i < rows;
+      cp_async<4>(sr + QT * rs + threadIdx.x,
+                  ok ? src + (long long)grp * p.nq + row0 + i : src, ok);
+    }
+  };
+
+  // prologue: the block's K, V and S^T rows with tile 0, then the next
+  // STAGES - 1 tiles, a group each
+  const long long kvoff = bwd_base(p, grp, p.nk) + (long long)k0 * p.row;
+  copy_rows<LD, KEYS, THREADS>(sk, p.k + kvoff, p.row, keys, chunks, cshift,
+                               p.vec, d, p.k);
+  copy_rows<LD, KEYS, THREADS>(sv, p.v + kvoff, p.row, keys, chunks, cshift,
+                               p.vec, d, p.v);
+  if constexpr (BIAS) {
+    for (int i = threadIdx.x; i < rs * KEYS; i += THREADS) {
+      const int c = i / KEYS, key = i - c * KEYS;  // keys fastest: coalesced
+      const bool ok = c < p.m && key < keys;
+      cp_async<4>(sst + key * rs + c,
+                  ok ? p.s + (long long)c * p.nk + k0 + key : p.s, ok);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < STAGES; ++i) {
+    if (t_begin + i < t_end) fetch(t_begin + i, i);
+    cp_commit();
+  }
+
+  float dk[ND][4], dv[ND][4], dst[NM][4];
+#pragma unroll
+  for (int i = 0; i < ND; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NM; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dst[i][e] = 0.f;
+
+  // this lane's keys: strip rows g8 and g8 + 8 (the accumulators' rows);
+  // its ldmatrix row of the strip's K and V A fragments
+  const int key_row = strip * 16 + g8;
+  const bool idle = strip * 16 >= keys;  // a ragged last key block
+  const bool key_ok0 = key_row < keys, key_ok1 = key_row + 8 < keys;
+  const int ao = (strip * 16 + lane % 16) * LD + (lane / 16) * 8;
+  const int sa = key_row * rs + t4;  // S^T's A fragments
+
+  int slot = 0;
+  for (int t = t_begin; t < t_end; ++t) {
+    cp_wait<STAGES - 1>();  // tile t has landed (later ones may be in flight)
+    __syncthreads();
+    bf16* sq = reinterpret_cast<bf16*>(ring + slot * stage);
+    const bf16* sdo = sq + QT * LD;
+    float* sr = reinterpret_cast<float*>(sq + 2 * QT * LD);
+    const float* sl = sr + QT * rs;  // the LSE; delta at sl + QT
+    const int rows = min(QT, p.nq - t * QT);
+    if constexpr (BIAS) {  // R into tf32 hi (in place) and lo, once for
+                           // every warp
+      split_flat<THREADS>(sr, sr_lo, QT * rs);
+      __syncthreads();
+    }
+
+    if (!idle) {
+      // S^T = K Q^T and dP^T = V dO^T: bf16 mma.sync m16n8k16, K or V the
+      // A operand; the B fragments of n-tiles 2 np and 2 np + 1 are query
+      // rows 16 np + 0-15 at columns 16 kk + 0-15 (ldmatrix, as the
+      // forward reads K)
+      float w[NQ][4], dl[NQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[j][e] = dl[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ka[4], va[4];
+        ldmatrix_x4(ka, sk + ao + 16 * kk);
+        ldmatrix_x4(va, sv + ao + 16 * kk);
+#pragma unroll
+        for (int np = 0; np < NQ / 2; ++np) {
+          const int bo = (16 * np + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                         16 * kk + ((lane >> 3) & 1) * 8;
+          uint32_t b[4];
+          ldmatrix_x4(b, sq + bo);
+          mma(w[2 * np], ka, b[0], b[1]);
+          mma(w[2 * np + 1], ka, b[2], b[3]);
+          ldmatrix_x4(b, sdo + bo);
+          mma(dl[2 * np], va, b[0], b[1]);
+          mma(dl[2 * np + 1], va, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[j][e] *= p.scale;
+
+      if constexpr (BIAS) {  // + r s: S^T R^T as 3xTF32 in one sum, as the
+                             // f32 body forms it
+        float b[NQ][4];
+#pragma unroll
+        for (int j = 0; j < NQ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) b[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < MT; ++kk) {
+          if (8 * kk >= m8) break;
+          uint32_t ahi[4], alo[4];
+          load_a<false>(sst, nullptr, sa + 8 * kk, rs, ahi, alo);
+          const int bo = g8 * rs + 8 * kk + t4;
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) {
+            uint32_t bhi[2], blo[2];
+            load_b<true>(sr, sr_lo, bo + 8 * j * rs, bo + 8 * j * rs + 4, bhi,
+                         blo);
+            mma3(b[j], ahi, alo, bhi, blo);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NQ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) w[j][e] += b[j][e];
+      }
+
+      // w = exp(logits - lse), 0 for rows past Nq and keys past Nk;
+      // dl = w (dP - delta)
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(sl + 8 * j + 2 * t4);
+        w[j][0] = expf(w[j][0] - l.x);
+        w[j][1] = expf(w[j][1] - l.y);
+        w[j][2] = expf(w[j][2] - l.x);
+        w[j][3] = expf(w[j][3] - l.y);
+      }
+      if (rows < QT || !key_ok1) {
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          const int row = 8 * j + 2 * t4;
+          if (row >= rows || !key_ok0) w[j][0] = 0.f;
+          if (row + 1 >= rows || !key_ok0) w[j][1] = 0.f;
+          if (row >= rows || !key_ok1) w[j][2] = 0.f;
+          if (row + 1 >= rows || !key_ok1) w[j][3] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        const float2 dt =
+            *reinterpret_cast<const float2*>(sl + QT + 8 * j + 2 * t4);
+        dl[j][0] = w[j][0] * (dl[j][0] - dt.x);
+        dl[j][1] = w[j][1] * (dl[j][1] - dt.y);
+        dl[j][2] = w[j][2] * (dl[j][2] - dt.x);
+        dl[j][3] = w[j][3] * (dl[j][3] - dt.y);
+      }
+
+      // dV += w^T dO and dK += dl^T Q (the scale at the end), w and dl
+      // split into bf16 hi + lo
+      uint32_t hi[KQ][4], lo[KQ][4];
+      a_split_bf16<NQ>(w, hi, lo);
+      add_tile_product<ND, KQ, LD>(dv, hi, lo, sdo, half * ND, lane);
+      a_split_bf16<NQ>(dl, hi, lo);
+      add_tile_product<ND, KQ, LD>(dk, hi, lo, sq, half * ND, lane);
+
+      if constexpr (BIAS) {  // dS^T += dl^T R, 3xTF32 as in the f32 body
+        uint32_t ahi[NQ][4], alo[NQ][4];
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          split_tf32(dl[j][0], ahi[j][0], alo[j][0]);  // key g8, row 2 t4
+          split_tf32(dl[j][2], ahi[j][1], alo[j][1]);  // key g8 + 8
+          split_tf32(dl[j][1], ahi[j][2], alo[j][2]);  // row 2 t4 + 1
+          split_tf32(dl[j][3], ahi[j][3], alo[j][3]);
+        }
+        const int ro = 2 * t4 * rs + g8;
+#pragma unroll
+        for (int i = 0; i < NM; ++i) {
+          const int mt = half * NM + i;
+          if (8 * mt >= m8) continue;
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) {
+            const int o = ro + 8 * j * rs + 8 * mt;
+            uint32_t bhi[2], blo[2];
+            load_b<true>(sr, sr_lo, o, o + rs, bhi, blo);
+            mma3(acc, ahi[j], alo[j], bhi, blo);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dst[i][e] += acc[e];
+        }
+      }
+    }
+
+    __syncthreads();  // every warp is done with this stage
+    if (t + STAGES < t_end) fetch(t + STAGES, slot);
+    cp_commit();  // an empty group keeps the wait count uniform
+    slot = slot + 1 == STAGES ? 0 : slot + 1;
+  }
+
+  // the partials of this lane's keys: dK scaled once, here
+  const long long part = (long long)split * p.bh + grp;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key_row + 8 * h;
+    if (key >= keys) continue;
+    const long long o = split * p.part + kvoff + (long long)key * p.row;
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * (half * ND + i) + 2 * t4 + e;
+        if (c < d) {
+          p.dk[o + c] = dk[i][2 * h + e] * p.scale;
+          p.dv[o + c] = dv[i][2 * h + e];
+        }
+      }
+    }
+    if constexpr (BIAS) {
+#pragma unroll
+      for (int i = 0; i < NM; ++i) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * (half * NM + i) + 2 * t4 + e;
+          if (c < p.m)
+            p.ds[(part * p.m + c) * p.nk + k0 + key] = dst[i][2 * h + e];
+        }
+      }
+    }
+  }
+}
+
+// ----------------------------------------------------------------------
 // The query pass
 // ----------------------------------------------------------------------
 
@@ -624,24 +1084,6 @@ struct DqShape {
 inline size_t smem_bytes_dq(int ks, bool pre) {
   return sizeof(float) * (16 * ks + 4) *
          ((pre ? 4 : 2) * kDqRows + 6 * kDqKeys);
-}
-
-// A fragment pairs of rows g8 and g8 + 8 (offsets o and o + 8 ld of p) at
-// columns t4 and t4 + 4: taken split (hi at p, lo at plo) or split here
-template <bool PRE>
-__device__ __forceinline__ void load_a(const float* p, const float* plo,
-                                       int o, int ld, uint32_t (&ahi)[4],
-                                       uint32_t (&alo)[4]) {
-  const int off[4] = {o, o + 8 * ld, o + 4, o + 8 * ld + 4};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if constexpr (PRE) {
-      ahi[i] = __float_as_uint(p[off[i]]);
-      alo[i] = __float_as_uint(plo[off[i]]);
-    } else {
-      split_tf32(p[off[i]], ahi[i], alo[i]);
-    }
-  }
 }
 
 // mma3 and mma3_apart with A's and B's roles swapped: each mma adds the
@@ -1199,6 +1641,26 @@ int launch_bwd_dkv_f32_steps(BwdParams p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <int KS, int MT, int STAGES>
+int launch_bwd_dkv_bf16_steps(BwdParamsOf<bf16> p, cudaStream_t stream) {
+  constexpr int KEYS = BwdShape<KS, MT>::KEYS;
+  const size_t smem = smem_bytes_bwd_bf16(KS, MT ? p.m : 0, KEYS, STAGES);
+  if (smem > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attention_bwd_dkv_bf16_kernel<KS, MT, STAGES>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  p.key_blocks = (p.nk + KEYS - 1) / KEYS;
+  p.q_tiles = (p.nq + kBwdRows - 1) / kBwdRows;
+  const long long blocks = (long long)p.bh * p.key_blocks * p.splits;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  attention_bwd_dkv_bf16_kernel<KS, MT, STAGES>
+      <<<(unsigned)blocks, 32 * kBwdWarps, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <int KS>
 int launch_bwd_dq_f32_steps(BwdParams p, cudaStream_t stream) {
   const size_t smem = smem_bytes_dq(KS, DqShape<KS>::PRE);
@@ -1265,15 +1727,15 @@ inline bool bwd_sizes_ok(int d, int m) {
   return d > 0 && d <= 16 * kMaxSteps && m >= 0 && m <= kMaxRank;
 }
 
-// Keys per block of the f32 dK/dV/dS kernel at head dim d and m factor
-// columns (BwdShape's KEYS: 128, or 64 where two warps share a strip), 0
-// for sizes the launcher refuses.
+// Keys per block of the dK/dV/dS kernels (f32 and bf16) at head dim d and
+// m factor columns (BwdShape's KEYS: 128, or 64 where two warps share a
+// strip), 0 for sizes the launchers refuse.
 struct BwdKeys {
   template <int KS, int MT>
   int run() const { return BwdShape<KS, MT>::KEYS; }
 };
 
-inline int bwd_dkv_f32_keys(int d, int m) {
+inline int bwd_dkv_keys(int d, int m) {
   return bwd_sizes_ok(d, m) ? with_bwd_shape(d, m, BwdKeys{}) : 0;
 }
 
@@ -1285,15 +1747,19 @@ struct BwdLaunch {
 };
 
 // The sizes (D <= 128, M <= kMaxRank, else cudaErrorInvalidValue), the
-// copy width (the widest of 4, 2 or 1 floats that divides D, the row
-// stride and the base addresses) and the scale of both launchers
-inline int bwd_prepare(BwdParams& p) {
+// copy width (the widest of 16, 8 or 4 bytes, or one element, that divides
+// D, the row stride and the base addresses: f32 4, 2 or 1 elements, bf16
+// 8, 4, 2 or 1) and the scale of every launcher
+template <typename T>
+inline int bwd_prepare(BwdParamsOf<T>& p) {
   if (!bwd_sizes_ok(p.d, p.m)) return (int)cudaErrorInvalidValue;
   p.vec = 1;
-  for (int vec = 4; vec > 1; vec /= 2)
-    if (p.d % vec == 0 && p.row % vec == 0 && aligned(p.q, 4 * vec) &&
-        aligned(p.k, 4 * vec) && aligned(p.v, 4 * vec) &&
-        aligned(p.dout, 4 * vec)) {
+  for (int vec = 16 / (int)sizeof(T); vec > 1; vec /= 2)
+    if (p.d % vec == 0 && p.row % vec == 0 &&
+        aligned(p.q, (int)sizeof(T) * vec) &&
+        aligned(p.k, (int)sizeof(T) * vec) &&
+        aligned(p.v, (int)sizeof(T) * vec) &&
+        aligned(p.dout, (int)sizeof(T) * vec)) {
       p.vec = vec;
       break;
     }
@@ -1301,8 +1767,9 @@ inline int bwd_prepare(BwdParams& p) {
   return 0;
 }
 
-// The two launchers below are templates (Params is BwdParams), so that a
-// source builds the kernels of the launcher it calls and no others.
+// The launchers below are templates (Params is BwdParams but where said),
+// so that a source builds the kernels of the launcher it calls and no
+// others.
 
 // The f32 dK/dV/dS launcher (K4: 25 kernels); 1 <= splits <= ceil(Nq /
 // 32) (the caller's check). Returns a cudaError_t.
@@ -1311,6 +1778,25 @@ int launch_bwd_dkv_f32(Params p, cudaStream_t stream) {
   const int err = bwd_prepare(p);
   if (err != 0) return err;
   return with_bwd_shape(p.d, p.m, BwdLaunch{p, stream});
+}
+
+struct BwdBf16Launch {
+  const BwdParamsOf<bf16>& p;
+  cudaStream_t stream;
+  template <int KS, int MT>
+  int run() const {
+    return launch_bwd_dkv_bf16_steps<KS, MT, kBwdBf16Stages>(p, stream);
+  }
+};
+
+// The bf16 dK/dV/dS launcher (K4: 25 kernels; Params is
+// BwdParamsOf<bf16>); 1 <= splits <= ceil(Nq / 32) (the caller's check).
+// Returns a cudaError_t.
+template <typename Params>
+int launch_bwd_dkv_bf16(Params p, cudaStream_t stream) {
+  const int err = bwd_prepare(p);
+  if (err != 0) return err;
+  return with_bwd_shape(p.d, p.m, BwdBf16Launch{p, stream});
 }
 
 struct DqrLaunch {

@@ -16,8 +16,11 @@ D <= 128 and M <= 128: dQ/dR on the query pass with the bias of
 ``csrc/tc_attention_bwd.cuh`` (queries as the rows; the forward's LSE and
 delta read once a row; dQ and dR written once, in place), dK/dV/dS on its
 key-major body (f32 partials per split of the query range). In bfloat16
-both kernels run on the CUDA cores. A CUDA call that its instantiation
-refuses raises; it never runs the other one.
+dK/dV/dS runs on that header's bf16 key-major body (bf16 products for
+S^T, dP^T, dV and dK, w and dl split into bf16 hi + lo; the bias and dS
+as 3xTF32; D <= 128 and M <= 128) and dQ/dR on the CUDA cores (D <= 128).
+A CUDA call that its instantiation refuses raises; it never runs another
+kernel.
 ``flash_attention_lowrank_bias_trainable`` is the differentiable
 attention of MViT's training: K3 forward, K4 backward. Each
 source's header says what bounds its kernels on an H100 and what their
@@ -51,12 +54,8 @@ DKV_NAME = "flash_attention_lowrank_bias_backward_dkv"
 BWD_SOURCE = "flash_attention_lowrank_bwd"  # its csrc/ .cu
 MAX_HEAD_DIM = 128
 MAX_BIAS_RANK = 128       # factor columns of both kernels (kMaxRank)
-TILE = 64                 # query rows and keys per tile of the CUDA-core
-                          # K4 kernels
-BLOCKS_PER_SM = 2         # the bf16 dK/dV/dS grid aims at this many blocks
-                          # an SM
-F32_QUERY_TILE = 32       # query rows per tile of the f32 dK/dV/dS body
-WAVE_SHARE = 0.9          # the f32 dK/dV/dS grid's least share of busy SMs
+QUERY_TILE = 32           # query rows per tile of the dK/dV/dS bodies
+WAVE_SHARE = 0.9          # the dK/dV/dS grid's least share of busy SMs
                           # over its waves
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CUDA_ERROR_INVALID_VALUE = 1     # cudaErrorInvalidValue
@@ -259,7 +258,7 @@ def _bwd_library() -> ctypes.CDLL:
     its two launchers' C signatures set: q, k, v, r, s, dO, lse, delta and
     the output pointers (dQ, dR; or the dK, dV, dS partials), then B*H, Nq,
     Nk, D, M (and the splits) and the dtype code as c_int, then the
-    stream; and the f32 dK/dV/dS kernel's keys per block (D, M)."""
+    stream; and the dK/dV/dS kernel's keys per block (D, M, dtype code)."""
     lib = build.load(BWD_SOURCE)
     dq = getattr(lib, f"mmcsi_{BWD_SOURCE}_dq")
     dq.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
@@ -268,7 +267,7 @@ def _bwd_library() -> ctypes.CDLL:
     dkv.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     keys = getattr(lib, f"mmcsi_{BWD_SOURCE}_dkv_keys")
-    keys.argtypes = [ctypes.c_int] * 2
+    keys.argtypes = [ctypes.c_int] * 3
     dq.restype = dkv.restype = keys.restype = ctypes.c_int
     return lib
 
@@ -287,7 +286,7 @@ def _bwd_launch(kernel: str, name: str, tensors, ints, q) -> None:
     if err == _CUDA_ERROR_INVALID_VALUE:
         raise ValueError(f"{name}: the kernel refused the sizes (B*H, Nq, "
                          f"Nk, D, M...) {ints}; it takes D <= {MAX_HEAD_DIM}"
-                         f" (float32 also M <= {MAX_BIAS_RANK})")
+                         f" and M <= {MAX_BIAS_RANK} (but bfloat16 dQ/dR)")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error "
                            f"{err}")
@@ -295,35 +294,29 @@ def _bwd_launch(kernel: str, name: str, tensors, ints, q) -> None:
 
 
 def dkv_keys(d: int, m: int, dtype: torch.dtype) -> int:
-    """Keys per block of the dK/dV/dS kernel at head dim ``d`` and ``m``
-    bias factor columns. float32: as the tensor-core body's C entry
-    reports it (128, or 64 where two warps share a key strip; 0 for sizes
-    it refuses). bfloat16: TILE."""
-    if dtype != torch.float32:
-        return TILE
-    return _bwd_library().mmcsi_flash_attention_lowrank_bwd_dkv_keys(d, m)
+    """Keys per block of the dK/dV/dS kernel of ``dtype`` at head dim
+    ``d`` and ``m`` bias factor columns, as the C entry reports it (128,
+    or 64 where two warps share a key strip; 0 for sizes it refuses)."""
+    return _bwd_library().mmcsi_flash_attention_lowrank_bwd_dkv_keys(
+        d, m, _DTYPE_CODES[dtype])
 
 
-def dkv_splits(key_blocks: int, nq: int, dtype: torch.dtype,
-               sms: int) -> int:
+def dkv_splits(key_blocks: int, nq: int, sms: int) -> int:
     """How many blocks share the query tiles of one (b h, key block) in
-    the dK/dV/dS kernel, given ``key_blocks`` blocks over B*H and the
-    keys, at most one a query tile. float32 (one block of the tensor-core
-    body an SM): the fewest whose blocks keep at least WAVE_SHARE of the
-    ``sms`` SMs busy over their waves, else the best share. bfloat16:
-    enough for BLOCKS_PER_SM blocks on each SM."""
-    if dtype == torch.float32:
-        best, best_share = 1, 0.0
-        for splits in range(1, -(-nq // F32_QUERY_TILE) + 1):
-            blocks = key_blocks * splits
-            share = blocks / (-(-blocks // sms) * sms)
-            if share >= WAVE_SHARE:
-                return splits
-            if share > best_share:
-                best, best_share = splits, share
-        return best
-    return max(1, min(-(-nq // TILE),
-                      -(-BLOCKS_PER_SM * sms // key_blocks)))
+    the dK/dV/dS kernel (either dtype: one block of the tensor-core body
+    an SM at MViT's widths), given ``key_blocks`` blocks over B*H and the
+    keys, at most one a query tile of QUERY_TILE rows: the fewest whose
+    blocks keep at least WAVE_SHARE of the ``sms`` SMs busy over their
+    waves, else the best share."""
+    best, best_share = 1, 0.0
+    for splits in range(1, -(-nq // QUERY_TILE) + 1):
+        blocks = key_blocks * splits
+        share = blocks / (-(-blocks // sms) * sms)
+        if share >= WAVE_SHARE:
+            return splits
+        if share > best_share:
+            best, best_share = splits, share
+    return best
 
 
 def lowrank_backward_dq(q, k, v, r, s, do, lse, delta):
@@ -347,14 +340,15 @@ def lowrank_backward_dkv(q, k, v, r, s, do, lse, delta):
     dtypes, dS (M, Nk) f32 summed over (B, H) (None without a bias). The
     kernel writes f32 partials per split of the query range, summed here
     over the splits and (B, H) in a fixed order. CPU tensors take the
-    plain version; the float32 kernel refuses M > 128 (ValueError)."""
+    plain version; the kernel of either dtype refuses M > 128
+    (ValueError)."""
     if q.device.type == "cpu":
         return lowrank_backward_dkv_reference(q, k, v, r, s, do, lse, delta)
     b, h, nq, d = q.shape
     nk, m = k.shape[2], 0 if r is None else r.shape[3]
     keys = dkv_keys(d, m, q.dtype)
     # no keys: sizes the kernel refuses, which its launch reports
-    splits = dkv_splits(b * h * -(-nk // keys), nq, q.dtype,
+    splits = dkv_splits(b * h * -(-nk // keys), nq,
                         torch.cuda.get_device_properties(
                             q.device).multi_processor_count) if keys else 1
     f32 = dict(dtype=torch.float32, device=q.device)
@@ -397,7 +391,7 @@ def flash_attention_lowrank_bias_backward(
     and dV come back in the inputs' dtypes, dR (B, H, Nq, M) and dS
     (M, Nk) in f32, or None without a bias. CPU tensors take the plain
     version; CUDA tensors launch the two kernels or raise (D <= 128, and
-    in float32 M <= 128)."""
+    M <= 128 but in bfloat16's dQ/dR)."""
     _check_backward(q, k, v, r, s, out, lse, do)
     if q.device.type == "cpu":
         return flash_attention_lowrank_bias_backward_reference(

@@ -92,8 +92,9 @@ def test_kernel_sources_and_build_flags(tmp_path, monkeypatch):
     tensor-core bodies of K1's and K3's kernels in both dtypes (mma.sync
     fed by ldmatrix, cp.async copies), and tc_attention_bwd.cuh, which
     includes it: K4's
-    f32 dK/dV/dS body and query pass with the bias (dQ/dR), and K2's f32
-    query pass and dK/dV pass (tf32 mma.sync); the library name changes
+    f32 dK/dV/dS body and query pass with the bias (dQ/dR), K4's bf16
+    dK/dV/dS body, and K2's f32 query pass and dK/dV pass (tf32 mma.sync);
+    the library name changes
     with the source, with a header it includes, or with the flags."""
     launchers = {
         "flash_attention": ["flash_attention"],
@@ -141,6 +142,14 @@ def test_kernel_sources_and_build_flags(tmp_path, monkeypatch):
             assert "launch_dq_f32(" in dq_f32
             assert "tc::launch_bwd_dq_lowrank_f32(p, stream)" in bwd
             assert "dq_kernel<float>" not in bwd
+            # the dK/dV/dS entry's bfloat16 case: the bf16 body; the
+            # CUDA-core dK/dV/dS kernel is gone
+            dkv_entry = bwd[bwd.index("int mmcsi_flash_attention_lowrank_bwd"
+                                      "_dkv("):]
+            dkv_bf16 = dkv_entry[dkv_entry.index("case 1: {"):
+                                 dkv_entry.index("default:")]
+            assert "tc::launch_bwd_dkv_bf16(" in dkv_bf16
+            assert "dkv_kernel<" not in bwd
         assert build._sources(stem) == [
             build.CSRC / f"{stem}.cu", build.CSRC / "tc_attention_bwd.cuh",
             build.CSRC / "tc_attention.cuh"]

@@ -64,6 +64,21 @@ queries as the rows of the products:
 - per tile, dQ = dl K and dR = dl S^T as 3xTF32, each added to the row's
   sums in f32; dQ times 1/sqrt(D) at the end.
 Held against the same ``jax.vjp`` within the same 1e-4.
+
+K4's bf16 dK/dV/dS body (the same header, ``bf16_bwd_dkv_order``) takes
+the f32 body's query tiles and splits with bf16 q, k, v and dO:
+- S^T = K Q^T and dP^T = V dO^T as f32 sums of exact bf16 products over
+  k-steps of 16; the bias S^T R^T and dS as 3xTF32, as the f32 body;
+- w and dl in f32; dV = w^T dO and dK = dl^T Q per tile from w and dl
+  split into bf16 hi + lo (lo.B + hi.B), each tile added in f32;
+- the wrapper's sum of the splits' partials, then dK and dV rounded to
+  bf16.
+Held against ``jax.vjp`` of JAX's K4 in interpret mode in bf16 within
+2^-7 of each gradient's largest magnitude (chip_smoke.py's bf16 bound),
+and its f32 sums before the rounding against the plain version's within
+1e-4 (16 bits of w and dl, where bf16 alone keeps 8). The grid test holds
+every bf16 instantiation's shared memory (``bf16_dkv_smem``) and MViT's
+splits.
 """
 
 import functools
@@ -81,7 +96,7 @@ from multi_modal_csi_tpu.kernels.flash_attention import (
     flash_attention_lowrank_bias as jax_lowrank,
     flash_attention_lowrank_bias_trainable as jax_trainable)
 from multi_modal_csi_tpu_torch.kernels.flash_attention_lowrank import (
-    F32_QUERY_TILE, WAVE_SHARE, dkv_splits)
+    QUERY_TILE, WAVE_SHARE, dkv_splits, lowrank_backward_dkv_reference)
 
 torch.set_num_threads(1)
 
@@ -415,7 +430,7 @@ def f32_bwd_dkv_order(q, k, v, r, s, do, lse, delta, splits):
     g, nq, span = q.shape
     k_hi, k_lo = split_tf32(k)
     bias = None if r is None else _tf32_product("km", "gqm->gkq", s.T, r)
-    tiles = -(-nq // F32_QUERY_TILE)
+    tiles = -(-nq // QUERY_TILE)
     parts = []
     for split in range(splits):
         dk = torch.zeros_like(k)
@@ -423,7 +438,7 @@ def f32_bwd_dkv_order(q, k, v, r, s, do, lse, delta, splits):
         ds = None if r is None else torch.zeros((g, s.shape[1], r.shape[-1]))
         for t in range(split * tiles // splits,
                        (split + 1) * tiles // splits):
-            rows = slice(t * F32_QUERY_TILE, (t + 1) * F32_QUERY_TILE)
+            rows = slice(t * QUERY_TILE, (t + 1) * QUERY_TILE)
             qt, dot = q[:, rows], do[:, rows]
             q_hi, q_lo = split_tf32(qt)
             big = torch.zeros((g, k.shape[1], qt.shape[1]))
@@ -441,6 +456,68 @@ def f32_bwd_dkv_order(q, k, v, r, s, do, lse, delta, splits):
             dl = w * (dp - delta[:, None, rows])
             dv = dv + _tf32_product("gkq", "gqd->gkd", w, dot)
             dk = dk + _tf32_product("gkq", "gqd->gkd", dl, qt)
+            if ds is not None:
+                ds = ds + _tf32_product("gkq", "gqm->gkm", dl, r[:, rows])
+        parts.append((dk * scale, dv, ds))
+    dk = torch.stack([p[0] for p in parts]).sum(dim=0)[..., :d]
+    dv = torch.stack([p[1] for p in parts]).sum(dim=0)[..., :d]
+    ds = None if r is None else torch.stack(
+        [p[2] for p in parts]).sum(dim=(0, 1)).T
+    return dk, dv, ds
+
+
+def _bf16_split(x):
+    """f32 x as bf16 hi (x rounded to nearest) and lo (the remainder
+    rounded), both as f32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _k16_sum(eq, a, b):
+    """einsum ``eq`` over the last dimension of a and b (bf16 values, the
+    span a multiple of 16) as the tensor cores take it: each k-step's 16
+    exact products summed in f32, the k-steps added in order."""
+    acc = None
+    for c in range(0, a.shape[-1], 16):
+        part = torch.einsum(eq, a[..., c:c + 16], b[..., c:c + 16])
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def bf16_bwd_dkv_order(q, k, v, r, s, do, lse, delta, splits):
+    """K4's bf16 dK/dV/dS kernel on (G, Nq, D) q, do and (G, Nk, D) k, v
+    holding bf16 values, optional f32 r (G, Nq, M) and s (M, Nk), the
+    forward's LSE and delta (G, Nq), the query tiles split ``splits`` ways.
+    Returns the f32 dK, dV (G, Nk, D) before their bf16 rounding and dS
+    (M, Nk) or None."""
+    d = q.shape[-1]
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    pad = -d % 16
+    q, k, v, do = (torch.nn.functional.pad(t.float(), (0, pad))
+                   for t in (q, k, v, do))
+    g, nq, _ = q.shape
+    bias = None if r is None else _tf32_product("km", "gqm->gkq", s.T, r)
+    tiles = -(-nq // QUERY_TILE)
+    parts = []
+    for split in range(splits):
+        dk = torch.zeros_like(k)
+        dv = torch.zeros_like(k)
+        ds = None if r is None else torch.zeros((g, s.shape[1], r.shape[-1]))
+        for t in range(split * tiles // splits,
+                       (split + 1) * tiles // splits):
+            rows = slice(t * QUERY_TILE, (t + 1) * QUERY_TILE)
+            qt, dot = q[:, rows], do[:, rows]
+            logits = _k16_sum("gkd,gqd->gkq", k, qt) * scale
+            if bias is not None:
+                logits = logits + bias[:, :, rows]
+            w = torch.exp(logits - lse[:, None, rows])
+            dp = _k16_sum("gkd,gqd->gkq", v, dot)
+            dl = w * (dp - delta[:, None, rows])
+            (w_hi, w_lo), (dl_hi, dl_lo) = _bf16_split(w), _bf16_split(dl)
+            dv = dv + (torch.einsum("gkq,gqd->gkd", w_lo, dot)
+                       + torch.einsum("gkq,gqd->gkd", w_hi, dot))
+            dk = dk + (torch.einsum("gkq,gqd->gkd", dl_lo, qt)
+                       + torch.einsum("gkq,gqd->gkd", dl_hi, qt))
             if ds is not None:
                 ds = ds + _tf32_product("gkq", "gqm->gkm", dl, r[:, rows])
         parts.append((dk * scale, dv, ds))
@@ -503,8 +580,8 @@ def test_k4_f32_bwd_dkv_order_matches_jax_kernel(name):
     want = [want[1], want[2]] + ([want[4]] if m else [])
     # 128 keys a block at these widths, as the launcher's keys entry
     # reports them (chip_smoke.py prints it at every f32 shape)
-    splits = dkv_splits(b * h * -(-nk // 128), nq, torch.float32, H100_SMS)
-    assert 1 < splits <= -(-nq // F32_QUERY_TILE)
+    splits = dkv_splits(b * h * -(-nk // 128), nq, H100_SMS)
+    assert 1 < splits <= -(-nq // QUERY_TILE)
     dk, dv, ds = f32_bwd_dkv_order(*args, splits)
     got = [dk.reshape(b, h, nk, d), dv.reshape(b, h, nk, d)]
     got += [ds] if m else []
@@ -533,6 +610,80 @@ def test_k4_f32_bwd_dq_order_matches_jax_kernel(name):
         assert err <= BWD_TOL * np.abs(w).max(), (name_, err)
 
 
+@functools.lru_cache(maxsize=None)
+def _k4_bf16_case(name):
+    """BWD_SHAPES[name]'s seeded inputs in bf16 (the factors f32) as
+    (B H, N, .) torch groups, the bf16 forward order's LSE and delta (from
+    its output rounded to bf16, as the port takes it), and the gradients
+    of jax.vjp of JAX's trainable K3/K4 in interpret mode in bf16 (dK, dV
+    and, with a bias, dS), as f32 numpy."""
+    b, h, nq, nk, d, m = BWD_SHAPES[name]
+    rng = np.random.default_rng(500 + d + m)
+    q, do = (_normal(rng, (b, h, nq, d)) for _ in range(2))
+    k, v = (_normal(rng, (b, h, nk, d)) for _ in range(2))
+    r = s = None
+    if m:
+        r, s = 0.1 * _normal(rng, (b, h, nq, m)), 0.1 * _normal(rng, (m, nk))
+        if name == "class-token":
+            r[:, :, 0] = 0.0
+            s[:, 0] = 0.0
+    (tq, jq), (tk, jk), (tv, jv), (tdo, jdo) = (_bf16(t) for t in (q, k, v,
+                                                                   do))
+    args = [jq, jk, jv] + ([jnp.asarray(r), jnp.asarray(s)] if m else [])
+    _, vjp = jax.vjp(lambda *a: jax_trainable(*a, interpret=True), *args)
+    want = [np.asarray(x.astype(jnp.float32)) for x in vjp(jdo)]
+    want = [want[1], want[2]] + ([want[4]] if m else [])
+
+    def groups(t, n):
+        return t.reshape(b * h, n, -1)
+
+    tq, tk, tv, tdo = (groups(t, n) for t, n in
+                       ((tq, nq), (tk, nk), (tv, nk), (tdo, nq)))
+    tr = None if r is None else groups(torch.from_numpy(r), nq)
+    ts = None if s is None else torch.from_numpy(s)
+    out, lse = tc_order(tq, tk, tv, tr, ts)
+    out = out.to(torch.bfloat16).float()
+    delta = (tdo.float() * out).sum(dim=-1)
+    return (tq, tk, tv, tr, ts, tdo, lse, delta), want
+
+
+@pytest.mark.parametrize("name", sorted(BWD_SHAPES))
+def test_k4_bf16_bwd_dkv_order_matches_jax_kernel(name):
+    """K4's bf16 dK/dV/dS order (bf16 products for S^T and dP^T, the bias
+    and dS as 3xTF32, dV and dK from w and dl split into bf16 hi + lo), fed
+    the bf16 forward order's LSE, against jax.vjp of JAX's trainable K3/K4
+    in interpret mode in bf16: dK and dV rounded to bf16, and dS, within
+    2^-7 of each gradient's largest magnitude (chip_smoke.py's
+    LOWRANK_BWD_TOL in bf16). Its f32 sums before the rounding against
+    the plain version's f32 sums on the same inputs within 1e-4 of each
+    maximum: the split keeps 16 bits of w and dl, not 8."""
+    b, h, nq, nk, d, m = BWD_SHAPES[name]
+    args, want = _k4_bf16_case(name)
+    # 128 keys a block at these widths, as the launcher's keys entry
+    # reports them (chip_smoke.py prints it at every shape)
+    splits = dkv_splits(b * h * -(-nk // 128), nq, H100_SMS)
+    assert 1 < splits <= -(-nq // QUERY_TILE)
+    dk, dv, ds = bf16_bwd_dkv_order(*args, splits)
+    got = [dk.to(torch.bfloat16).float(), dv.to(torch.bfloat16).float()]
+    got += [ds] if m else []
+    for name_, g, w in zip(("dk", "dv", "ds"), got, want):
+        g = g.reshape(w.shape).numpy()
+        err = np.abs(g - w).max()
+        assert err <= K3_SHARE * np.abs(w).max(), (name_, err)
+    q, k, v, r, s, do, lse, delta = args
+    plain = lowrank_backward_dkv_reference(
+        q.float()[None], k.float()[None], v.float()[None],
+        None if r is None else r[None], s, do.float()[None], lse[None],
+        delta[None])
+    for name_, g, p in zip(("dk", "dv", "ds"), (dk, dv, ds), plain):
+        if p is None:
+            assert g is None
+            continue
+        p = p.reshape(g.shape)
+        err = (g - p).abs().max().item()
+        assert err <= BWD_TOL * p.abs().max().item(), (name_, err)
+
+
 # MViT's training blocks 0-2 at batch 2 (chip_smoke.py's
 # LOWRANK_BWD_SHAPES) and the JAX test's shapes, as (B*H, Nq, Nk); each
 # with both key blocks the f32 body takes (the launcher reports which)
@@ -547,10 +698,10 @@ def test_k4_f32_dkv_grid(bh, nq, nk):
     split a query tile of 32 rows; the fewest splits whose blocks keep
     WAVE_SHARE of an H100's SMs busy over their waves (one block an SM),
     which MViT's blocks reach, or where none does, the best share."""
-    tiles = -(-nq // F32_QUERY_TILE)
+    tiles = -(-nq // QUERY_TILE)
     for keys in (128, 64):
         key_blocks = bh * -(-nk // keys)
-        splits = dkv_splits(key_blocks, nq, torch.float32, H100_SMS)
+        splits = dkv_splits(key_blocks, nq, H100_SMS)
         assert 1 <= splits <= tiles
 
         def share(n):
@@ -564,3 +715,53 @@ def test_k4_f32_dkv_grid(bh, nq, nk):
             assert all(x < WAVE_SHARE for x in shares[:splits - 1])
         else:
             assert share(splits) == max(shares)
+
+
+# MViT's training blocks 0-2 at batch 2 as (B*H, Nq, Nk, D, M of v2's
+# bias): chip_smoke.py's LOWRANK_BWD_SHAPES
+MVIT_BWD_SHAPES = [(2, 72129, 1128, 96, 37), (4, 18033, 4509, 96, 51),
+                   (4, 18033, 1128, 96, 37)]
+BWD_BF16_STAGES = 2     # tc::kBwdBf16Stages: query tiles in the ring
+
+
+def _dkv_keys(ks, m):
+    """BwdShape's keys a block: 64 where dK, dV (16 ks) and dS^T (4 m-tiles
+    of the bucket ``bwd_m_tiles`` puts m in) take more than 128 registers
+    a thread, else 128."""
+    mt = 0 if m == 0 else 2 if m <= 16 else 5 if m <= 40 else 7 if m <= 56 \
+        else 16
+    return 64 if 16 * ks + 4 * mt > 128 else 128
+
+
+def bf16_dkv_smem(ks, m, keys, stages=BWD_BF16_STAGES):
+    """Shared memory of one bf16 dK/dV/dS block (``csrc/
+    tc_attention_bwd.cuh``, ``smem_bytes_bwd_bf16``): K and V as bf16 rows
+    of 16 ks + 8, S^T and a tile's R tf32 lo parts as f32 rows of
+    round8(M) + 4, and per ring stage Q and dO (bf16), R, the LSE and delta
+    of 32 query rows."""
+    ld, rs = 16 * ks + 8, (-(-m // 8) * 8 + 4 if m else 0)
+    return (2 * 2 * keys * ld + 4 * (keys + QUERY_TILE) * rs
+            + stages * (2 * 2 * QUERY_TILE * ld
+                        + 4 * (QUERY_TILE * rs + 2 * QUERY_TILE)))
+
+
+@pytest.mark.parametrize("bh,nq,nk,d,m", MVIT_BWD_SHAPES)
+def test_k4_bf16_dkv_grid(bh, nq, nk, d, m):
+    """The bf16 dK/dV/dS body at MViT's training shapes: every
+    instantiation (spans of 1, 2, 4, 6 or 8 k-steps of 16, each bucket's
+    widest bias: 0, 16, 40, 56 or 128 factor columns, keys a block as
+    ``BwdShape`` gives them: 64 where dK, dV and dS^T would take more than
+    128 registers a thread) fits in a block's shared memory; the splits of
+    MViT's grid lie in 1..ceil(Nq / 32) and keep WAVE_SHARE of an H100's
+    SMs busy."""
+    for ks in (1, 2, 4, 6, 8):
+        for widest in (0, 16, 40, 56, 128):
+            keys = _dkv_keys(ks, widest)
+            assert bf16_dkv_smem(ks, widest, keys) <= MAX_SHARED_BYTES, (
+                ks, widest)
+    keys = _dkv_keys(-(-d // 16), m)
+    assert keys == 128
+    splits = dkv_splits(bh * -(-nk // keys), nq, H100_SMS)
+    assert 1 <= splits <= -(-nq // QUERY_TILE)
+    blocks = bh * -(-nk // keys) * splits
+    assert blocks / (-(-blocks // H100_SMS) * H100_SMS) >= WAVE_SHARE
