@@ -328,9 +328,9 @@ LOWRANK_BWD_ODD = {"odd-300": (2, 2, 300, 130, 32, 11),
 # rounding step of the largest value (dQ, dK and dV are stored in bf16 by
 # both)
 LOWRANK_BWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 2.0 ** -7}
-# the bf16 dK/dV/dS kernel's distance from float64 at MViT's training
-# blocks, at most this many times its plain version's (both round dK and
-# dV to bf16; the kernel keeps 16 bits of w and dl in its products)
+# each bf16 kernel's distance from float64 at MViT's training blocks, at
+# most this many times its plain version's (both round dQ, dK and dV to
+# bf16; the kernels keep 16 bits of w and dl in their products)
 BF16_F64_RATIO = 2.0
 K4_PER_STEP = 3            # MViT blocks at the training gate
 VIDEO_TRAIN_BATCH = 2      # the JAX bench's (tools/bench_video_training.py)
@@ -601,8 +601,8 @@ def phase_backward(backward, backward_reference):
     and THAT_ENCODER training step in each dtype; in f32 each
     pass's device time from the profiler, and at that-encoder-right-16 the
     distance of the kernel and of its plain version from float64
-    (``backward_f64``). Beyond shared memory (Nk = 4096) and, in f32, past
-    the tensor-core spans (D = 129), K2 must refuse."""
+    (``backward_f64``). K2 must refuse in bf16 beyond shared memory
+    (Nk = 4096) and in f32 past the tensor-core spans (D = 129)."""
     import torch.nn.functional as F
     set_tf32(False)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -708,18 +708,19 @@ def phase_backward(backward, backward_reference):
               f"{max(total('bytes_ms'), total('ops_ms')):.4f} ms at the "
               f"bf16 peak")
 
-    # Q, dO, K and V of one (b, h) beyond the block's shared memory; f32
-    # past the tensor-core body's spans
-    for nk, d in ((4096, 27), (64, 129)):
-        q = torch.zeros((1, 64, 1, d), device="cuda")
-        kv = torch.zeros((1, nk, 1, d), device="cuda")
+    # bf16: Q, dO, K and V of one (b, h) beyond the block's shared memory;
+    # f32 (whose kernels stream their tiles) past the tensor-core spans
+    for dtype, nk, d in ((torch.bfloat16, 4096, 27),
+                         (torch.float32, 64, 129)):
+        q = torch.zeros((1, 64, 1, d), device="cuda", dtype=dtype)
+        kv = torch.zeros((1, nk, 1, d), device="cuda", dtype=dtype)
         try:
             backward(q, kv, kv, q)
             refused = False
         except ValueError as e:
-            print(f"K2 f32 Nk={nk} D={d}: refused ({e})")
+            print(f"K2 {DTYPE_NAMES[dtype]} Nk={nk} D={d}: refused ({e})")
             refused = True
-        check(refused, f"K2 f32 launched at Nk={nk}, D={d}")
+        check(refused, f"K2 {dtype} launched at Nk={nk}, D={d}")
     return results
 
 
@@ -732,16 +733,24 @@ def ulps(got, want):
 
 def device_ms(fn, reps: int = 20) -> float:
     """Device milliseconds per call of ``fn``: the CUDA kernels' own time
-    from torch.profiler over ``reps`` calls, after one untimed call."""
+    from torch.profiler over ``reps`` calls, after one untimed call. A
+    window that holds no device time at all (the profiler has been seen
+    to drop a short window's CUDA events on an H100) is profiled once
+    more, and that one must hold device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            break
+        print("device_ms: the profile held no device time; profiling the "
+              "window again")
     check(us > 0, "the profile holds no device time")
     return us / 1e3 / reps
 
@@ -1639,15 +1648,14 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
     with r @ s as a mask of the dtype that takes a gradient (the mask made
     outside the timed call), and the bounds (f32: at the f32 peak and as
     3xTF32), summed per MViT-v1 and v2 training step; results keyed by
-    (label, dtype). Both f32 kernels and the bf16 dK/dV/dS kernel must
-    give the same bits twice at block 1 with the bias (fixed-order
-    partials, rows written once, no atomics); at the training shapes the
-    distance of each gradient of both kernels and of their plain versions
-    from float64 (``lowrank_bwd_f64``) is printed in both dtypes, and the
-    bf16 dK/dV/dS kernel's must be at most BF16_F64_RATIO times its plain
-    version's; a head dim of 160 in both dtypes, and a launch of the f32
-    kernels or of the bf16 dK/dV/dS kernel at M = 130, must be
-    refused."""
+    (label, dtype). Both kernels of both dtypes must give the same bits
+    twice at block 1 with the bias (fixed-order partials, rows written
+    once, no atomics); at the training shapes the distance of each
+    gradient of both kernels and of their plain versions from float64
+    (``lowrank_bwd_f64``) is printed in both dtypes, and each bf16
+    kernel's must be at most BF16_F64_RATIO times its plain version's; a
+    head dim of 160 and a launch of either kernel at M = 130 must be
+    refused in both dtypes."""
     import torch.nn.functional as F
     from multi_modal_csi_tpu_torch.kernels import flash_attention_lowrank
     from multi_modal_csi_tpu_torch.kernels.flash_attention_lowrank import \
@@ -1727,11 +1735,11 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
                               f"{shares[n][1]:.3e}" for n in grads
                               if n in shares))
                 if dtype == torch.bfloat16:
-                    for n in ("dk", "dv", "ds"):
+                    for n in names:
                         if n in shares:
                             check(shares[n][0]
                                   <= BF16_F64_RATIO * shares[n][1],
-                                  f"K4 dkv {label} bf16 {n}: "
+                                  f"K4 {label} bf16 {n}: "
                                   f"{shares[n][0]} from float64, over "
                                   f"{BF16_F64_RATIO} x the plain version's "
                                   f"{shares[n][1]}")
@@ -1768,10 +1776,8 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
                           + f" {1e3 * tf32_ms:.1f} us)")
                 if bias and name == "block1":
                     # the same bits twice: fixed-order partials (dK/dV/dS)
-                    # and rows written once (dQ/dR), no atomics; bf16's
-                    # dQ/dR is the CUDA-core kernel
-                    for part in (("dkv", "dq") if dtype == torch.float32
-                                 else ("dkv",)):
+                    # and rows written once (dQ/dR), no atomics
+                    for part in ("dkv", "dq"):
                         kernel = getattr(flash_attention_lowrank,
                                          f"lowrank_backward_{part}")
                         first, again = kernel(*args), kernel(*args)
@@ -1851,14 +1857,14 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
             print(f"K4 dkv {DTYPE_NAMES[dtype]} M={m}: refused ({e})")
             refused = True
         check(refused, f"K4's {dtype} dK/dV/dS launched at M={m}")
-    z = torch.zeros((1, 1, 8, 8), device="cuda")
-    try:
-        flash_attention_lowrank.lowrank_backward_dq(z, z, z, r, s, z, w, w)
-        refused = False
-    except ValueError as e:
-        print(f"K4 dq f32 M={m}: refused ({e})")
-        refused = True
-    check(refused, f"K4's f32 dQ/dR launched at M={m}")
+        try:
+            flash_attention_lowrank.lowrank_backward_dq(z, z, z, r, s, z, w,
+                                                        w)
+            refused = False
+        except ValueError as e:
+            print(f"K4 dq {DTYPE_NAMES[dtype]} M={m}: refused ({e})")
+            refused = True
+        check(refused, f"K4's {dtype} dQ/dR launched at M={m}")
     return results
 
 
@@ -2041,17 +2047,22 @@ def video_evaluate_phase(work, key):
     return launches
 
 
-def video_train_phase(key):
-    """One MViT training step at full width on the card, f32 (the default
-    train_dtype; PyTorch's default TF32 settings), batch 2, seeded
+def video_train_phase(key, dtype=torch.float32):
+    """One MViT training step at full width on the card, in ``dtype``: f32
+    (the default train_dtype; PyTorch's default TF32 settings) or bf16 (as
+    fit_video trains with train_dtype="bfloat16": the parameters and
+    Adam's moments in bf16, each batch cast), batch 2, seeded
     (45, 224, 224, 3) clips on the card: exactly 3 K3 and 3 of each K4
     kernel; the peak memory of a step; clips trained per second; 5 steps
-    under torch.profiler; then whether one step at the JAX CLI's batch 8
-    fits in the card's memory. Returns the counted step's launches."""
+    under torch.profiler, with K3's and K4's shares of the device time;
+    then whether one step at the JAX CLI's batch 8 fits in the card's
+    memory. Returns the counted step's launches."""
     from multi_modal_csi_tpu_torch import kernels
     from multi_modal_csi_tpu_torch.losses.basic import bce_with_logits
     from multi_modal_csi_tpu_torch.runners.video import build_video_model
-    from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch,
+    from multi_modal_csi_tpu_torch.train.loop import (TRAIN_DTYPES,
+                                                      adam_like_torch,
+                                                      cast_parameters,
                                                       make_train_step)
     set_tf32(False)
     torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
@@ -2062,9 +2073,13 @@ def video_train_phase(key):
         y = (rng.random((n, VIDEO_OUT)) < 0.5).astype(np.float32)
         return torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
 
+    name = DTYPE_NAMES[dtype]
+    batch_dtype = TRAIN_DTYPES[dtype]
     model = build_video_model(key, VIDEO_OUT, VIDEO_CLIP, seed=SEED).cuda()
+    cast_parameters(model, batch_dtype)
     step = make_train_step(model, adam_like_torch(model.parameters(), 1e-4),
-                           bce_with_logits, augment=False)
+                           bce_with_logits, augment=False,
+                           batch_dtype=batch_dtype)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     bx, by = batch(VIDEO_TRAIN_BATCH)
     step(bx, by, gen)                                         # warm-up
@@ -2075,26 +2090,35 @@ def video_train_phase(key):
     torch.cuda.synchronize()
     one = dict(kernels.LAUNCH_COUNTS)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"{key} f32 training step at batch {VIDEO_TRAIN_BATCH}: launches "
-          f"{one}; peak memory {peak:.2f} GiB of "
+    print(f"{key} {name} training step at batch {VIDEO_TRAIN_BATCH}: "
+          f"launches {one}; peak memory {peak:.2f} GiB of "
           f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f}")
     check(one == {K3: K4_PER_STEP, DQ: K4_PER_STEP, DKV: K4_PER_STEP},
-          f"{key} training step launched {one}")
-    train_rate(f"{key} f32 training", step, bx, by, gen, unit="clips")
-    profile_device(f"{key} f32 training", lambda: step(bx, by, gen),
-                   PROFILED_STEPS, "step")
+          f"{key} {name} training step launched {one}")
+    train_rate(f"{key} {name} training", step, bx, by, gen, unit="clips")
+    profile = profile_device(f"{key} {name} training",
+                             lambda: step(bx, by, gen), PROFILED_STEPS,
+                             "step")
+    for what, marks in (("K3", ("tc::attention_kernel",
+                                "tc::attention_f32_kernel")),
+                        ("K4 dQ/dR", ("tc::attention_bwd_dq_lowrank",)),
+                        ("K4 dK/dV/dS", ("tc::attention_bwd_dkv",))):
+        ms = sum(t for kernel, t in profile["kernels"].items()
+                 if any(mark in kernel for mark in marks))
+        print(f"{key} {name} training: {what} {ms:.3f} ms per step, "
+              f"{100 * ms / profile['device_ms']:.1f}% of the device time")
     del bx, by
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     try:
         step(*batch(VIDEO_CLI_BATCH), gen)
         torch.cuda.synchronize()
-        print(f"{key} f32 training step at batch {VIDEO_CLI_BATCH}: fits, "
-              f"peak memory "
+        print(f"{key} {name} training step at batch {VIDEO_CLI_BATCH}: fits,"
+              f" peak memory "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     except torch.cuda.OutOfMemoryError:
-        print(f"{key} f32 training step at batch {VIDEO_CLI_BATCH}: does not "
-              f"fit in the card's memory")
+        print(f"{key} {name} training step at batch {VIDEO_CLI_BATCH}: does "
+              f"not fit in the card's memory")
     del model, step
     torch.cuda.empty_cache()
     return one
@@ -2480,24 +2504,30 @@ def phase_p1():
 
 def phase_fits():
     """Each instantiation at the largest shape that its fit predicate
-    admits: launched; one step beyond: refused with ValueError. K2 (f32)
-    at one head of D = 27, THAT's, one token more; K1 in both dtypes,
-    whose tensor-core bodies stream the keys, at 4096 keys of a head of
-    128, and a head of 129; K3 in both dtypes at the largest bias rank M
-    and head dim D that ``lowrank_fits`` admits, and one more of each. The
+    admits: launched; one step beyond: refused with ValueError. K2 in bf16
+    (the CUDA-core kernel, one (b, h) in shared memory) at one head of
+    D = 27, THAT's, one token more; K2 in f32, whose tensor-core kernels
+    stream their tiles, at 64 tokens of a head of 128, and a head of 129,
+    and at 640 tokens of D = 27 (the JAX gate's, past bf16's 457) held
+    against its plain version within BWD_TOL; K1 in both dtypes, whose
+    tensor-core bodies stream the keys, at 4096 keys of a head of 128,
+    and a head of 129; K3 in both dtypes at the largest bias rank M and
+    head dim D that ``lowrank_fits`` admits, and one more of each. The
     predicates and the C launchers agree."""
     from multi_modal_csi_tpu_torch.kernels.flash_attention import (
         backward_fits, flash_attention, flash_attention_backward,
-        forward_fits)
+        flash_attention_backward_reference, forward_fits)
     from multi_modal_csi_tpu_torch.kernels.flash_attention_lowrank import (
         flash_attention_lowrank_bias, lowrank_fits)
     f32, bf16 = torch.float32, torch.bfloat16
     d = 27
-    nt = max(n for n in range(1, 4096) if backward_fits(n, n, d))
+    nt = max(n for n in range(1, 4096) if backward_fits(n, n, d, bf16))
+    d2 = max(n for n in range(1, 512) if backward_fits(64, 64, n, f32))
     dk = {dtype: max(n for n in range(1, 512) if forward_fits(4096, n, dtype))
           for dtype in (f32, bf16)}
-    print(f"fit predicates: K2 up to Nq=Nk={nt} at D={d}, K1 up to D="
-          f"{dk[f32]} (f32) and {dk[bf16]} (bf16) at any Nk")
+    print(f"fit predicates: K2 bf16 up to Nq=Nk={nt} at D={d}, K2 f32 up to "
+          f"D={d2} at any Nq and Nk, K1 up to D={dk[f32]} (f32) and "
+          f"{dk[bf16]} (bf16) at any Nk")
 
     def k1(size, dim, dtype):
         t = torch.randn((1, size, 1, dim), device="cuda").to(dtype)
@@ -2507,7 +2537,8 @@ def phase_fits():
         t = torch.randn((1, size, 1, dim), device="cuda").to(dtype)
         flash_attention_backward(t, t, t, t)
 
-    cases = [("K2", k2, f32, n, d, n == nt) for n in (nt, nt + 1)]
+    cases = [("K2 bf16", k2, bf16, n, d, n == nt) for n in (nt, nt + 1)]
+    cases += [("K2 f32", k2, f32, 64, n, n == d2) for n in (d2, d2 + 1)]
     cases += [(f"K1 {DTYPE_NAMES[dtype]}", k1, dtype, 4096, n, n == dk[dtype])
               for dtype in (f32, bf16) for n in (dk[dtype], dk[dtype] + 1)]
     for what, call, dtype, size, dim, fits in cases:
@@ -2521,6 +2552,21 @@ def phase_fits():
             launched = False
         check(launched == fits, f"{what} at {size} tokens, D={dim}: "
                                 f"launched {launched}, predicate {fits}")
+
+    # K2 f32 past bf16's limit: 640 tokens of THAT's head dim
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v, do = (torch.randn((1, 640, 1, d), generator=gen, device="cuda")
+                   for _ in range(4))
+    got = flash_attention_backward(q, k, v, do)
+    want = flash_attention_backward_reference(q, k, v, do)
+    torch.cuda.synchronize()
+    errs = [((g - w).abs().max() / w.abs().max()).item()
+            for g, w in zip(got, want)]
+    print(f"K2 f32 at 640 tokens, D={d}: launched; dq, dk, dv within "
+          + ", ".join(f"{e:.3e}" for e in errs) + " of each max (tolerance "
+          f"{BWD_TOL[f32]:.0e})")
+    check(all(e <= BWD_TOL[f32] for e in errs),
+          f"K2 f32 at 640 tokens: {errs}")
 
     mk = max(n for n in range(512) if lowrank_fits(96, n))
     dl = max(n for n in range(1, 512) if lowrank_fits(n, mk))
@@ -3363,10 +3409,12 @@ def main() -> int:
         video += [video_evaluate_phase(work, key) for key in
                   ("MViT-v1", "MViT-v2")]
         # the training paths, each of which launches K3 and K4 (in bf16
-        # the serving phases' training steps and the bf16 run_video run)
+        # the serving phases' training steps, MViT-v2's bf16 step and the
+        # bf16 run_video run)
         steps_f32 = [video_train_phase(key) for key in
                      ("MViT-v1", "MViT-v2")]
         steps_f32.append(video_train_card_vs_cpu())
+        step_bf16 = video_train_phase("MViT-v2", torch.bfloat16)
         clip_dir, annotation = write_video_run(work)
         experiments = [
             run_video_phase(clip_dir, annotation, work, "MViT-v1"),
@@ -3374,7 +3422,8 @@ def main() -> int:
             run_video_phase(clip_dir, annotation, work, "MViT-v2",
                             "bfloat16")]
         trained_f32 = steps_f32 + [runs for runs, _ in experiments[:2]]
-        trained_bf16 = [step for _, step in served] + [experiments[2][0]]
+        trained_bf16 = ([step for _, step in served] + [step_bf16]
+                        + [experiments[2][0]])
         video += trained_bf16 + trained_f32
         # K3's launches in f32: the f32 card-vs-CPU forwards, the f32
         # training steps and the f32 part of the run_video runs
@@ -3394,11 +3443,11 @@ def main() -> int:
     # K4's two kernels in each dtype: per MViT-v2 training step of the
     # dtype (batch 2), 3 each; launches summed over the dtype's training
     # runs (f32: fit_video, the card-vs-CPU step and two run_video runs;
-    # bf16: the serving phases' steps and one run_video run). P1's two
-    # instantiations: per
-    # DETR w8a8 forward (bf16 serving, batch 256), 22 s8 and 54 bf16
-    # products, as bare products (as the TPU kernels compute them; the
-    # main path runs them fused); launches summed over the int8 serving
+    # bf16: the serving phases' steps, the profiled bf16 step and one
+    # run_video run). P1's two instantiations: per DETR w8a8 forward (bf16
+    # serving, batch 256), 22 s8 and 54 bf16 products, as bare products
+    # (as the TPU kernels compute them; the main path runs them fused);
+    # launches summed over the int8 serving
     # runs (DETR and THAT_ENCODER w8a8, the serve_csi CLI, MViT-v2 w8). The
     # prologue: per DETR w8a8 forward, its 52 calls; launches likewise.
     trace = k5_times["trace"]
@@ -3450,9 +3499,8 @@ def main() -> int:
                      k3_f32, k3_times,
                      {f"{name}+bias": 1 for name in LOWRANK_BWD_SHAPES},
                      torch.float32, as_3xtf32=True),
-        # the f32 kernels' bodies (the query pass with the bias, and
-        # dK/dV/dS) and the bf16 dK/dV/dS body are tc_attention_bwd.cuh's;
-        # bf16 dQ/dR is the CUDA-core kernel; every C entry is in
+        # every body of both dtypes (the query pass with the bias, and
+        # dK/dV/dS) is tc_attention_bwd.cuh's; every C entry is in
         # flash_attention_lowrank_bwd.cu
         k4_entry(DQ, "tc_attention_bwd.cuh",
                  "multi_modal_csi_tpu/kernels/flash_attention.py:480",
@@ -3462,7 +3510,7 @@ def main() -> int:
                  "multi_modal_csi_tpu/kernels/flash_attention.py:492",
                  sum(runs[DKV] for runs in trained_f32), k4_times, "dkv",
                  torch.float32),
-        k4_entry(f"{DQ}_bf16", "flash_attention_lowrank_bwd.cu",
+        k4_entry(f"{DQ}_bf16", "tc_attention_bwd.cuh",
                  "multi_modal_csi_tpu/kernels/flash_attention.py:480",
                  sum(runs[DQ] for runs in trained_bf16), k4_times, "dq",
                  torch.bfloat16),

@@ -58,11 +58,14 @@
 // so it is limited by shared-memory and FMA issue, and one block per (b,
 // h) gives only B*H blocks (160 at batch 16 on 132 SMs).
 //
-// Limits: both dtypes take the shapes whose Q, dO, K and V of one (b, h)
-// and the bf16 kernel's per-warp rows fit in shared memory (232,448 bytes
-// a block; smem_bytes below, the wrapper's backward_fits); float32 also
-// D <= 128. The launcher refuses other shapes instead of running anything
-// else, and returns cudaGetLastError() so a refused launch is seen.
+// Limits: float32 takes D <= 128 at any Nq and Nk (its kernels stream
+// their tiles: the query pass's shared memory depends on the span alone,
+// the dK/dV pass's on the span); bfloat16 the shapes whose Q, dO, K and V
+// of one (b, h) and the kernel's per-warp rows fit in shared memory
+// (232,448 bytes a block; smem_bytes below). The wrapper's backward_fits
+// says the same. The launcher refuses other shapes instead of running
+// anything else, and returns cudaGetLastError() so a refused launch is
+// seen.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -280,15 +283,13 @@ extern "C" {
 // gradients alike; float32 also takes `work`, f32 (2, batch x heads, nq),
 // for the rows' LSE and then delta (bfloat16 does not read it). Returns a
 // cudaError_t (0 = launched); cudaErrorInvalidValue for a non-positive
-// size, a (b, h) that does not fit in shared memory, or float32 at
-// d > 128.
+// size, float32 at d > 128, or in bfloat16 a (b, h) that does not fit in
+// shared memory.
 int mmcsi_flash_attention_bwd(const void* q, const void* k, const void* v,
                               const void* dout, void* dq, void* dk, void* dv,
                               void* work, int batch, int nq, int nk,
                               int heads, int d, int dtype, void* stream) {
   if (batch <= 0 || nq <= 0 || nk <= 0 || heads <= 0 || d <= 0)
-    return (int)cudaErrorInvalidValue;
-  if (smem_bytes(nq, nk, d) > kMaxSharedBytes)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
@@ -313,6 +314,8 @@ int mmcsi_flash_attention_bwd(const void* q, const void* k, const void* v,
       return tc::launch_bwd_f32(p, s);
     }
     case 1:
+      if (smem_bytes(nq, nk, d) > kMaxSharedBytes)
+        return (int)cudaErrorInvalidValue;
       return launch_bf16(q, k, v, dout, dq, dk, dv, batch, nq, nk, heads, d,
                          s);
     default:

@@ -19,7 +19,11 @@
 //   - tc::attention_bwd_dkv_bf16_kernel, the same key-major decomposition
 //     with bf16 K, V, Q and dO: K4's dK/dV/dS kernel in bfloat16 (MViT's
 //     bf16 training, the same TPU kernel), launched by
-//     flash_attention_lowrank_bwd.cu's dtype 1. See "The bf16 body" below.
+//     flash_attention_lowrank_bwd.cu's dtype 1. See "The bf16 body" below;
+//   - tc::attention_bwd_dq_lowrank_bf16_kernel, the query pass with the
+//     bias with bf16 Q, dO, K and V: K4's dQ/dR kernel in bfloat16,
+//     launched by flash_attention_lowrank_bwd.cu's dtype 1. See "The bf16
+//     query pass with the bias" below.
 //
 // What the dK/dV kernel computes, per (b h) and key: logits = (q.k) scale
 // [+ r.s]; w = exp(logits - lse), in f32 and never rounded; dw = dO.v;
@@ -198,6 +202,41 @@
 //   - The launcher (launch_bwd_dkv_bf16, BwdParamsOf<bf16>) takes the same
 //     25 shapes through with_bwd_shape and refuses D > 128 or M > 128;
 //     without the bias, <KS, 0> reads any layout bwd_base describes.
+//
+// The bf16 query pass with the bias (K4's dQ/dR in bfloat16, the same TPU
+// kernel as the f32 pass): what the f32 pass computes, with q, k, v and dO
+// in bf16 and r, s, the LSE and delta in f32; dQ stored as bf16, dR as
+// f32; the same grid (8 warps of 16 query rows, one sweep over key tiles
+// of 32 through a two-stage cp.async ring), rows written once, no atomics.
+//   - Q and dO (resident) and each tile's K and V are bf16 rows of
+//     16 KS + 8 in shared memory, copied by 16-byte cp.async where D, the
+//     row stride and the bases allow; the R rows (resident) and the s tile
+//     stay f32, as in the f32 pass. A block takes 128,512 bytes at MViT's
+//     D = 96, M <= 56, and 212,992 at D = 128, M = 128: 8 warps at every
+//     bucket (kDqrBf16Warps).
+//   - S = Q K^T and dP = dO V^T are bf16 mma.sync m16n8k16 with f32
+//     accumulators, one pass each (a bf16 product is exact in f32): Q or
+//     dO the A operand (ldmatrix of the warp's rows), the tile's K or V
+//     rows the B operand (ldmatrix, as the forward reads K).
+//   - The bias r.s is 3xTF32 on m16n8k8 in one sum, formed as the f32
+//     pass forms it (mma3_t over R's rows and the s tile's columns), so
+//     both K4 bf16 kernels build the same logits (K3's bf16 forward forms
+//     its bias as 3xTF32 too); the m16n8k16 C fragment has m16n8k8's
+//     layout, so the sum adds into S as it lies.
+//   - dQ += dl K: n-tiles 2 kk and 2 kk + 1 of dl (queries as rows) are
+//     one k16 A fragment, as the forward's weights feed P.V; each value is
+//     split into bf16 hi + lo (a_split_bf16) and lo.K then hi.K are
+//     accumulated against the exact bf16 K (ldmatrix .trans: the keys are
+//     the k dimension), the tile's product in a fresh accumulator added to
+//     dQ in f32 (add_tile_product); dQ is scaled once and rounded to bf16
+//     at the end.
+//   - dR += dl s^T stays 3xTF32 as in the f32 pass (dl split into tf32 hi
+//     + lo, the s tile read across its rows): dR is an f32 output.
+//   - Registers at D = 96, M <= 56: dQ 48 floats a thread, dR 28, S and
+//     dP 32, the bias 16, dl's split fragments 16 (bf16) and 32 (tf32).
+//   - The launcher (launch_bwd_dq_lowrank_bf16, BwdParamsOf<bf16>) takes
+//     the same 25 shapes through with_bwd_shape and refuses D > 128 or
+//     M > 128.
 
 #pragma once
 
@@ -251,7 +290,7 @@ struct BwdParamsOf {
   const T* dout;       // q's layout
   float* lse;          // (BH, Nq): the query pass writes it, dK/dV reads
   float* delta;        // (BH, Nq)
-  float* dq;           // q's layout (the f32 query passes)
+  T* dq;               // q's layout and dtype (the query passes)
   float* dr;           // (BH, Nq, M): the query pass with the bias
   float* dk;           // k's layout, `part` elements a split
   float* dv;
@@ -1617,6 +1656,279 @@ __global__ void __launch_bounds__(32 * DqrShape<KS, MT>::WARPS, 1)
 }
 
 // ----------------------------------------------------------------------
+// The bf16 query pass with the bias
+// ----------------------------------------------------------------------
+
+// Warps a block (16 query rows each): 8 at every bucket, whose widest
+// bias fits (212,992 bytes at D = 128, M = 128; the launcher asserts it)
+constexpr int kDqrBf16Warps = 8;
+
+// dynamic shared memory of one bf16 query-pass block: Q and dO (bf16 rows
+// of 16 ks + 8), the R rows, and two ring stages of K and V (bf16) and
+// the s tile
+constexpr size_t smem_bytes_dqr_bf16(int ks, int m) {
+  return sizeof(bf16) * 2 * (16 * kDqrBf16Warps) * (16 * ks + 8) +
+         sizeof(float) * (16 * kDqrBf16Warps) * (m ? r_stride(m) : 0) +
+         2 * (sizeof(bf16) * 2 * kDqrKeys * (16 * ks + 8) +
+              sizeof(float) * round8(m) * kDqrSld);
+}
+
+template <int KS, int MT>
+__global__ void __launch_bounds__(32 * kDqrBf16Warps, 1)
+    attention_bwd_dq_lowrank_bf16_kernel(BwdParamsOf<bf16> p) {
+  constexpr bool BIAS = MT > 0;
+  constexpr int WARPS = kDqrBf16Warps;
+  constexpr int THREADS = 32 * WARPS, ROWS = 16 * WARPS, KEYS = kDqrKeys;
+  constexpr int LD = 16 * KS + 8;   // bf16: an odd multiple of 16 bytes
+  constexpr int SLD = kDqrSld;
+  constexpr int ND = 2 * KS;        // dQ's n-tiles of 8 columns
+  constexpr int NT = KEYS / 8;      // n-tiles of 8 keys
+  constexpr int KQ = KEYS / 16;     // k-steps of 16 keys (dQ's product)
+  constexpr int NM = BIAS ? MT : 1;  // dR's n-tiles of 8 factor columns
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int m8 = BIAS ? round8(p.m) : 0;
+  const int rs = BIAS ? r_stride(p.m) : 0;
+  bf16* sq = reinterpret_cast<bf16*>(smem_raw);           // [ROWS][LD]
+  bf16* sdo = sq + ROWS * LD;                             // [ROWS][LD]
+  float* sr = reinterpret_cast<float*>(sdo + ROWS * LD);  // [ROWS][rs]
+  unsigned char* ring = reinterpret_cast<unsigned char*>(sr + ROWS * rs);
+  // a stage: K [KEYS][LD] and V [KEYS][LD] bf16, then the s tile
+  // [m8][SLD] f32
+  const int stage =
+      (int)(sizeof(bf16) * 2 * KEYS * LD + sizeof(float) * m8 * SLD);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int tile = blockIdx.x % p.q_tiles;
+  const int grp = blockIdx.x / p.q_tiles;
+  const int row0 = tile * ROWS;
+  const int rows = min(ROWS, p.nq - row0);
+  const int d = p.d;  // a multiple of the copy width
+  const int chunks = d / p.vec;
+  int cshift = 0;
+  while ((1 << cshift) < chunks) ++cshift;
+  const long long qoff = bwd_base(p, grp, p.nq) + (long long)row0 * p.row;
+  const long long kvoff = bwd_base(p, grp, p.nk);
+  const int tiles_k = (p.nk + KEYS - 1) / KEYS;
+
+  // the copies fill columns [0, D) of each row; the span's columns past D
+  // are zeroed once (Q and dO, adjacent, and both stages' K and V), so the
+  // padded products add nothing
+  if (d < 16 * KS) {
+    const int pad = 16 * KS - d;
+    const bf16 zero = __float2bfloat16(0.f);
+    for (int i = threadIdx.x; i < 2 * ROWS * pad; i += THREADS)
+      sq[(i / pad) * LD + d + i % pad] = zero;
+    for (int i = threadIdx.x; i < 4 * KEYS * pad; i += THREADS) {
+      const int row = i / pad;  // stage row / (2 KEYS), K and V adjacent
+      reinterpret_cast<bf16*>(ring + (row / (2 * KEYS)) * stage)
+          [(row % (2 * KEYS)) * LD + d + i % pad] = zero;
+    }
+  }
+
+  // key tile t into ring stage t & 1: its K and V rows and s columns
+  // (keys past Nk and factor rows past M zero-filled)
+  auto fetch = [&](int t) {
+    bf16* st = reinterpret_cast<bf16*>(ring + (t & 1) * stage);
+    const int k0 = t * KEYS;
+    const int valid = min(KEYS, p.nk - k0);
+    const long long o = kvoff + (long long)k0 * p.row;
+    copy_rows<LD, KEYS, THREADS>(st, p.k + o, p.row, valid, chunks, cshift,
+                                 p.vec, d, p.k);
+    copy_rows<LD, KEYS, THREADS>(st + KEYS * LD, p.v + o, p.row, valid,
+                                 chunks, cshift, p.vec, d, p.v);
+    if constexpr (BIAS) {
+      copy_s<KEYS, SLD, THREADS>(reinterpret_cast<float*>(st + 2 * KEYS * LD),
+                                 p.s, p.m, m8, p.nk, k0, p.vec_s);
+    }
+  };
+
+  // prologue: Q, dO and the R rows with tile 0, then tile 1
+  copy_rows<LD, ROWS, THREADS>(sq, p.q + qoff, p.row, rows, chunks, cshift,
+                               p.vec, d, p.q);
+  copy_rows<LD, ROWS, THREADS>(sdo, p.dout + qoff, p.row, rows, chunks,
+                               cshift, p.vec, d, p.dout);
+  if constexpr (BIAS) {
+    copy_r<ROWS, THREADS>(sr, p.r, grp, p.nq, row0, rows, p.m, rs);
+  }
+  fetch(0);
+  cp_commit();
+  if (tiles_k > 1) fetch(1);
+  cp_commit();
+
+  const bool idle = warp * 16 >= rows;  // a ragged last query tile
+  // this lane's ldmatrix row of the warp's Q and dO A fragments, and R's
+  // tf32 A fragments
+  const int qa = (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
+  const int ro = (warp * 16 + g8) * rs + t4;
+  // rows g8 and g8 + 8: the forward's LSE and delta
+  float lse[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = warp * 16 + g8 + 8 * i;
+    const long long o = (long long)grp * p.nq + row0 + row;
+    lse[i] = row < rows ? p.lse[o] : 0.f;
+    delta[i] = row < rows ? p.delta[o] : 0.f;
+  }
+  float dq[ND][4], dr[NM][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NM; ++i) dr[i][0] = dr[i][1] = dr[i][2] = dr[i][3] = 0.f;
+
+  for (int t = 0; t < tiles_k; ++t) {
+    cp_wait<1>();  // tile t has landed (t + 1 may be in flight)
+    __syncthreads();
+    const bf16* kt = reinterpret_cast<const bf16*>(ring + (t & 1) * stage);
+    const bf16* vt = kt + KEYS * LD;
+    const float* st = reinterpret_cast<const float*>(vt + KEYS * LD);
+
+    if (!idle) {
+      // S = Q K^T and dP = dO V^T: bf16 mma.sync m16n8k16, Q or dO the A
+      // operand; the B fragments of n-tiles 2 np and 2 np + 1 are keys
+      // 16 np + 0-15 at columns 16 kk + 0-15 (ldmatrix, as the forward
+      // reads K)
+      float sc[NT][4], dp[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t qf[4], of[4];
+        ldmatrix_x4(qf, sq + qa + 16 * kk);
+        ldmatrix_x4(of, sdo + qa + 16 * kk);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          const int bo = (16 * np + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                         16 * kk + ((lane >> 3) & 1) * 8;
+          uint32_t b[4];
+          ldmatrix_x4(b, kt + bo);
+          mma(sc[2 * np], qf, b[0], b[1]);
+          mma(sc[2 * np + 1], qf, b[2], b[3]);
+          ldmatrix_x4(b, vt + bo);
+          mma(dp[2 * np], of, b[0], b[1]);
+          mma(dp[2 * np + 1], of, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] *= p.scale;
+
+      if constexpr (BIAS) {  // + r s: R S as 3xTF32 in one sum, as the f32
+                             // pass forms it
+        float b[NT][4];
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) b[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < MT; ++kk) {
+          if (8 * kk >= m8) break;
+          uint32_t ahi[4], alo[4];
+          load_a<false>(sr, nullptr, ro + 8 * kk, rs, ahi, alo);
+          // the B fragment of n-tile j: factor rows 8 kk + t4 and + 4 of
+          // the s tile at key 8 j + g8
+          const int so = (8 * kk + t4) * SLD + g8;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            uint32_t bhi[2], blo[2];
+            load_b<false>(st, nullptr, so + 8 * j, so + 8 * j + 4 * SLD, bhi,
+                          blo);
+            mma3_t(b[j], ahi, alo, bhi, blo);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] += b[j][e];
+      }
+      mask_keys(sc, t * KEYS, p.nk, t4);
+
+      // dl = w (dP - delta), w = exp(S - lse), in place of dP
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[j][e] = expf(sc[j][e] - lse[e / 2]) * (dp[j][e] - delta[e / 2]);
+      const float (&dl)[NT][4] = dp;
+
+      // dQ += dl K: n-tiles 2 kk and 2 kk + 1 of dl are the k16 A fragment
+      // of keys 16 kk + 0-15, split into bf16 hi + lo; K the B operand
+      // (ldmatrix .trans: the keys are the k dimension), the tile's product
+      // formed alone and added in f32
+      {
+        uint32_t hi[KQ][4], lo[KQ][4];
+        a_split_bf16<NT>(dl, hi, lo);
+        add_tile_product<ND, KQ, LD>(dq, hi, lo, kt, 0, lane);
+      }
+
+      // dR += dl s^T, 3xTF32 as in the f32 pass: A columns t4 and t4 + 4
+      // of k-step j are keys 8 j + 2 t4 and + 1; the B fragment of n-tile
+      // i is factor row 8 i + g8 of the s tile at those keys, adjacent
+      if constexpr (BIAS) {
+        uint32_t ahi[NT][4], alo[NT][4];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          split_tf32(dl[j][0], ahi[j][0], alo[j][0]);  // row g8, key 2 t4
+          split_tf32(dl[j][2], ahi[j][1], alo[j][1]);  // row g8 + 8
+          split_tf32(dl[j][1], ahi[j][2], alo[j][2]);  // key 2 t4 + 1
+          split_tf32(dl[j][3], ahi[j][3], alo[j][3]);
+        }
+        const int so = g8 * SLD + 2 * t4;
+#pragma unroll
+        for (int i = 0; i < NM; ++i) {
+          if (8 * i >= m8) break;
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const float2 x =
+                *reinterpret_cast<const float2*>(st + so + 8 * i * SLD + 8 * j);
+            uint32_t bhi[2], blo[2];
+            split_tf32(x.x, bhi[0], blo[0]);
+            split_tf32(x.y, bhi[1], blo[1]);
+            mma3(acc, ahi[j], alo[j], bhi, blo);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dr[i][e] += acc[e];
+        }
+      }
+    }
+
+    __syncthreads();  // every warp is done with this stage
+    if (t + 2 < tiles_k) fetch(t + 2);
+    cp_commit();  // an empty group keeps the wait count uniform
+  }
+
+  // dQ scaled once and rounded to bf16, in q's layout; dR as summed,
+  // (BH, Nq, M)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = warp * 16 + g8 + 8 * i;
+    if (row >= rows) continue;
+    const long long o = qoff + (long long)row * p.row;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * n + 2 * t4 + e;
+        if (c < d) store(p.dq + o + c, dq[n][2 * i + e] * p.scale);
+      }
+    if constexpr (BIAS) {
+      const long long dro = ((long long)grp * p.nq + row0 + row) * p.m;
+#pragma unroll
+      for (int n = 0; n < NM; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * n + 2 * t4 + e;
+          if (c < p.m) p.dr[dro + c] = dr[n][2 * i + e];
+        }
+    }
+  }
+}
+
+// ----------------------------------------------------------------------
 // Launchers
 // ----------------------------------------------------------------------
 
@@ -1816,6 +2128,47 @@ int launch_bwd_dq_lowrank_f32(Params p, cudaStream_t stream) {
   const int err = bwd_prepare(p);
   if (err != 0) return err;
   return with_bwd_shape(p.d, p.m, DqrLaunch{p, stream});
+}
+
+template <int KS, int MT>
+int launch_bwd_dq_lowrank_bf16_steps(BwdParamsOf<bf16> p,
+                                     cudaStream_t stream) {
+  constexpr int WARPS = kDqrBf16Warps;
+  static_assert(smem_bytes_dqr_bf16(KS, 8 * MT) <= kMaxSharedBytes,
+                "the m-tile bucket's widest bias does not fit");
+  const size_t smem = smem_bytes_dqr_bf16(KS, MT ? p.m : 0);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attention_bwd_dq_lowrank_bf16_kernel<KS, MT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  p.vec_s = MT && p.nk % 4 == 0 && aligned(p.s, 16) ? 4 : 1;
+  p.q_tiles = (p.nq + 16 * WARPS - 1) / (16 * WARPS);
+  const long long blocks = (long long)p.bh * p.q_tiles;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  attention_bwd_dq_lowrank_bf16_kernel<KS, MT>
+      <<<(unsigned)blocks, 32 * WARPS, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+struct DqrBf16Launch {
+  const BwdParamsOf<bf16>& p;
+  cudaStream_t stream;
+  template <int KS, int MT>
+  int run() const {
+    return launch_bwd_dq_lowrank_bf16_steps<KS, MT>(p, stream);
+  }
+};
+
+// The bf16 dQ/dR launcher (K4: 25 kernels; Params is BwdParamsOf<bf16>),
+// the bf16 query pass with the bias: dQ (bf16) into p.dq, dR into p.dr,
+// from the LSE and delta at p.lse and p.delta. Returns a cudaError_t.
+template <typename Params>
+int launch_bwd_dq_lowrank_bf16(Params p, cudaStream_t stream) {
+  const int err = bwd_prepare(p);
+  if (err != 0) return err;
+  return with_bwd_shape(p.d, p.m, DqrBf16Launch{p, stream});
 }
 
 template <int KS>

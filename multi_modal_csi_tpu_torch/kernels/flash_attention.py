@@ -59,13 +59,15 @@ def forward_fits(nk: int, d: int, dtype: torch.dtype) -> bool:
 def backward_fits(nq: int, nk: int, d: int,
                   dtype: torch.dtype = torch.float32) -> bool:
     """Whether K2's launcher takes Nq queries and Nk keys of head dim D in
-    ``dtype``: its entry check ``smem_bytes(nq, nk, d)``
-    (``csrc/flash_attention_bwd.cu``), term for term, f32 Q and dO, K and
-    V at the odd row stride D | 1, three per-query rows and two rows of
-    max(Nq, Nk) per warp, within the block's shared memory; float32 also
-    D <= 128 (the tensor-core body's spans)."""
-    if dtype == torch.float32 and d > TC_MAX_HEAD_DIM:
-        return False
+    ``dtype``. float32: D <= 128 at any Nq and Nk, as its tensor-core
+    kernels stream their tiles (the query pass's shared memory depends on
+    the span alone, the dK/dV pass's on the span). bfloat16: its entry
+    check ``smem_bytes(nq, nk, d)`` (``csrc/flash_attention_bwd.cu``), term
+    for term, f32 Q and dO, K and V at the odd row stride D | 1, three
+    per-query rows and two rows of max(Nq, Nk) per warp, within the block's
+    shared memory (the CUDA-core kernel keeps one (b, h) there)."""
+    if dtype == torch.float32:
+        return d <= TC_MAX_HEAD_DIM
     stride = d | 1
     need = 4 * (2 * nq * stride + 2 * nk * stride + 3 * nq
                 + 2 * _WARPS * max(nq, nk))
@@ -222,9 +224,9 @@ def flash_attention_backward(
                        dtype=torch.float32, device=q.device)
     if dq.numel():
         _launch(BWD_SOURCE, BWD_NAME, (q, k, v, do, dq, dk, dv, work), q,
-                k.shape[1], "Q, dO, K and V of one (batch, head) do not fit "
-                "in a block's shared memory (227 KB), or float32 at D > "
-                f"{TC_MAX_HEAD_DIM}")
+                k.shape[1], "bfloat16: Q, dO, K and V of one (batch, head) "
+                "do not fit in a block's shared memory (227 KB); float32: D "
+                f"> {TC_MAX_HEAD_DIM}")
     return dq, dk, dv
 
 

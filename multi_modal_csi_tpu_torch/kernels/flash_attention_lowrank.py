@@ -10,17 +10,17 @@ version (``flash_attention_lowrank_bias_reference``) only for CPU tensors.
 ``csrc/flash_attention_lowrank_bwd.cu`` (dQ/dR, then dK/dV/dS; each
 wrapper, ``lowrank_backward_dq`` and ``lowrank_backward_dkv``, counts its
 own launches) and takes ``flash_attention_lowrank_bias_backward_reference``
-only for CPU tensors. In float32 (MViT training's default) both run on
-the tensor cores, every product, the bias included, as 3xTF32, and take
-D <= 128 and M <= 128: dQ/dR on the query pass with the bias of
-``csrc/tc_attention_bwd.cuh`` (queries as the rows; the forward's LSE and
-delta read once a row; dQ and dR written once, in place), dK/dV/dS on its
-key-major body (f32 partials per split of the query range). In bfloat16
-dK/dV/dS runs on that header's bf16 key-major body (bf16 products for
-S^T, dP^T, dV and dK, w and dl split into bf16 hi + lo; the bias and dS
-as 3xTF32; D <= 128 and M <= 128) and dQ/dR on the CUDA cores (D <= 128).
-A CUDA call that its instantiation refuses raises; it never runs another
-kernel.
+only for CPU tensors. Both kernels of both dtypes run on the tensor cores
+and take D <= 128 and M <= 128. In float32 (MViT training's default)
+every product, the bias included, is 3xTF32: dQ/dR on the query pass with
+the bias of ``csrc/tc_attention_bwd.cuh`` (queries as the rows; the
+forward's LSE and delta read once a row; dQ and dR written once, in
+place), dK/dV/dS on its key-major body (f32 partials per split of the
+query range). In bfloat16 both run on that header's bf16 bodies, the same
+decompositions with bf16 products for the head dim (dQ/dR: S, dP and dQ,
+dl split into bf16 hi + lo; dK/dV/dS: S^T, dP^T, dV and dK, w and dl
+split likewise) and the bias, dR and dS as 3xTF32. A CUDA call that its
+instantiation refuses raises; it never runs another kernel.
 ``flash_attention_lowrank_bias_trainable`` is the differentiable
 attention of MViT's training: K3 forward, K4 backward. Each
 source's header says what bounds its kernels on an H100 and what their
@@ -286,7 +286,7 @@ def _bwd_launch(kernel: str, name: str, tensors, ints, q) -> None:
     if err == _CUDA_ERROR_INVALID_VALUE:
         raise ValueError(f"{name}: the kernel refused the sizes (B*H, Nq, "
                          f"Nk, D, M...) {ints}; it takes D <= {MAX_HEAD_DIM}"
-                         f" and M <= {MAX_BIAS_RANK} (but bfloat16 dQ/dR)")
+                         f" and M <= {MAX_BIAS_RANK}")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error "
                            f"{err}")
@@ -322,8 +322,9 @@ def dkv_splits(key_blocks: int, nq: int, sms: int) -> int:
 def lowrank_backward_dq(q, k, v, r, s, do, lse, delta):
     """(dQ, dR) of K4's first kernel: dQ in q's dtype, dR f32 (None
     without a bias). ``do`` contiguous in q's dtype; lse and delta
-    (B, H, Nq) f32. CPU tensors take the plain version; the float32
-    kernel (the tensor-core query pass) refuses M > 128 (ValueError)."""
+    (B, H, Nq) f32. CPU tensors take the plain version; the kernel of
+    either dtype (the tensor-core query pass with the bias) refuses
+    M > 128 (ValueError)."""
     if q.device.type == "cpu":
         return lowrank_backward_dq_reference(q, k, v, r, s, do, lse, delta)
     b, h, nq, d = q.shape
@@ -390,8 +391,8 @@ def flash_attention_lowrank_bias_backward(
     (any layout and float dtype) is made contiguous in q's dtype. dQ, dK
     and dV come back in the inputs' dtypes, dR (B, H, Nq, M) and dS
     (M, Nk) in f32, or None without a bias. CPU tensors take the plain
-    version; CUDA tensors launch the two kernels or raise (D <= 128, and
-    M <= 128 but in bfloat16's dQ/dR)."""
+    version; CUDA tensors launch the two kernels or raise (D <= 128 and
+    M <= 128)."""
     _check_backward(q, k, v, r, s, out, lse, do)
     if q.device.type == "cpu":
         return flash_attention_lowrank_bias_backward_reference(

@@ -11,6 +11,8 @@ on the other side of a rounding step. The largest bf16 error measured on
 these inputs was 2**-10.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -141,7 +143,14 @@ def test_kernel_sources_and_build_flags(tmp_path, monkeypatch):
                               dq_entry.index("case 1:")]
             assert "launch_dq_f32(" in dq_f32
             assert "tc::launch_bwd_dq_lowrank_f32(p, stream)" in bwd
-            assert "dq_kernel<float>" not in bwd
+            # its bfloat16 case: the bf16 query pass with the bias; the
+            # CUDA-core dQ/dR kernel is gone
+            dq_bf16 = dq_entry[dq_entry.index("case 1:"):
+                               dq_entry.index("default:")]
+            assert "launch_dq_bf16(" in dq_bf16
+            assert "tc::launch_bwd_dq_lowrank_bf16(p, stream)" in bwd
+            assert not re.search(r"\bdq_kernel\b", bwd)
+            assert "__global__" not in bwd
             # the dK/dV/dS entry's bfloat16 case: the bf16 body; the
             # CUDA-core dK/dV/dS kernel is gone
             dkv_entry = bwd[bwd.index("int mmcsi_flash_attention_lowrank_bwd"

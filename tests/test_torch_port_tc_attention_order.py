@@ -96,7 +96,8 @@ from multi_modal_csi_tpu.kernels.flash_attention import (
     flash_attention_lowrank_bias as jax_lowrank,
     flash_attention_lowrank_bias_trainable as jax_trainable)
 from multi_modal_csi_tpu_torch.kernels.flash_attention_lowrank import (
-    QUERY_TILE, WAVE_SHARE, dkv_splits, lowrank_backward_dkv_reference)
+    QUERY_TILE, WAVE_SHARE, dkv_splits, lowrank_backward_dkv_reference,
+    lowrank_backward_dq_reference)
 
 torch.set_num_threads(1)
 
@@ -528,6 +529,36 @@ def bf16_bwd_dkv_order(q, k, v, r, s, do, lse, delta, splits):
     return dk, dv, ds
 
 
+def bf16_bwd_dq_order(q, k, v, r, s, do, lse, delta):
+    """K4's bf16 dQ/dR kernel, the bf16 query pass with the bias, on
+    (G, Nq, D) q, do and (G, Nk, D) k, v holding bf16 values, optional f32
+    r (G, Nq, M) and s (M, Nk), the forward's LSE and delta (G, Nq), over
+    key tiles of 32. Returns the f32 dQ (G, Nq, D) before its bf16
+    rounding and dR (G, Nq, M) or None."""
+    d = q.shape[-1]
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    pad = -d % 16
+    q, k, v, do = (torch.nn.functional.pad(t.float(), (0, pad))
+                   for t in (q, k, v, do))
+    dq = torch.zeros_like(q)
+    dr = None if r is None else torch.zeros_like(r)
+    for k0 in range(0, k.shape[1], DQ_KEY_TILE):
+        keys = slice(k0, k0 + DQ_KEY_TILE)
+        kt = k[:, keys]
+        logits = _k16_sum("gqd,gkd->gqk", q, kt) * scale
+        if r is not None:
+            logits = logits + _tf32_product("gqm", "mk->gqk", r, s[:, keys])
+        w = torch.exp(logits - lse[..., None])
+        dp = _k16_sum("gqd,gkd->gqk", do, v[:, keys])
+        dl = w * (dp - delta[..., None])
+        dl_hi, dl_lo = _bf16_split(dl)
+        dq = dq + (torch.einsum("gqk,gkd->gqd", dl_lo, kt)
+                   + torch.einsum("gqk,gkd->gqd", dl_hi, kt))
+        if dr is not None:
+            dr = dr + _tf32_product("gqk", "mk->gqm", dl, s[:, keys])
+    return (dq * scale)[..., :d], dr
+
+
 # (B, H, Nq, Nk, D, M): the JAX K4 test's shapes (tests/test_kernels.py,
 # bias factors scaled by 0.1 there and here) and one with MViT's zero
 # class-token row in r and column in s
@@ -615,8 +646,8 @@ def _k4_bf16_case(name):
     """BWD_SHAPES[name]'s seeded inputs in bf16 (the factors f32) as
     (B H, N, .) torch groups, the bf16 forward order's LSE and delta (from
     its output rounded to bf16, as the port takes it), and the gradients
-    of jax.vjp of JAX's trainable K3/K4 in interpret mode in bf16 (dK, dV
-    and, with a bias, dS), as f32 numpy."""
+    of jax.vjp of JAX's trainable K3/K4 in interpret mode in bf16 (dQ, dK,
+    dV and, with a bias, dR and dS), as f32 numpy."""
     b, h, nq, nk, d, m = BWD_SHAPES[name]
     rng = np.random.default_rng(500 + d + m)
     q, do = (_normal(rng, (b, h, nq, d)) for _ in range(2))
@@ -632,7 +663,6 @@ def _k4_bf16_case(name):
     args = [jq, jk, jv] + ([jnp.asarray(r), jnp.asarray(s)] if m else [])
     _, vjp = jax.vjp(lambda *a: jax_trainable(*a, interpret=True), *args)
     want = [np.asarray(x.astype(jnp.float32)) for x in vjp(jdo)]
-    want = [want[1], want[2]] + ([want[4]] if m else [])
 
     def groups(t, n):
         return t.reshape(b * h, n, -1)
@@ -659,6 +689,7 @@ def test_k4_bf16_bwd_dkv_order_matches_jax_kernel(name):
     maximum: the split keeps 16 bits of w and dl, not 8."""
     b, h, nq, nk, d, m = BWD_SHAPES[name]
     args, want = _k4_bf16_case(name)
+    want = [want[1], want[2]] + ([want[4]] if m else [])
     # 128 keys a block at these widths, as the launcher's keys entry
     # reports them (chip_smoke.py prints it at every shape)
     splits = dkv_splits(b * h * -(-nk // 128), nq, H100_SMS)
@@ -676,6 +707,40 @@ def test_k4_bf16_bwd_dkv_order_matches_jax_kernel(name):
         None if r is None else r[None], s, do.float()[None], lse[None],
         delta[None])
     for name_, g, p in zip(("dk", "dv", "ds"), (dk, dv, ds), plain):
+        if p is None:
+            assert g is None
+            continue
+        p = p.reshape(g.shape)
+        err = (g - p).abs().max().item()
+        assert err <= BWD_TOL * p.abs().max().item(), (name_, err)
+
+
+@pytest.mark.parametrize("name", sorted(BWD_SHAPES))
+def test_k4_bf16_bwd_dq_order_matches_jax_kernel(name):
+    """K4's bf16 dQ/dR order (bf16 products for S and dP, the bias and dR
+    as 3xTF32, dQ from dl split into bf16 hi + lo), fed the bf16 forward
+    order's LSE, against jax.vjp of JAX's trainable K3/K4 in interpret
+    mode in bf16: dQ rounded to bf16, and dR, within 2^-7 of each
+    gradient's largest magnitude (chip_smoke.py's LOWRANK_BWD_TOL in
+    bf16). Its f32 sums before the rounding against the plain version's
+    f32 sums on the same inputs within 1e-4 of each maximum: the split
+    keeps 16 bits of dl, not 8."""
+    b, h, nq, nk, d, m = BWD_SHAPES[name]
+    args, want = _k4_bf16_case(name)
+    want = [want[0]] + ([want[3]] if m else [])
+    dq, dr = bf16_bwd_dq_order(*args)
+    assert (dr is None) == (m == 0)
+    got = [dq.to(torch.bfloat16).float()] + ([dr] if m else [])
+    for name_, g, w in zip(("dq", "dr"), got, want):
+        g = g.reshape(w.shape).numpy()
+        err = np.abs(g - w).max()
+        assert err <= K3_SHARE * np.abs(w).max(), (name_, err)
+    q, k, v, r, s, do, lse, delta = args
+    plain = lowrank_backward_dq_reference(
+        q.float()[None], k.float()[None], v.float()[None],
+        None if r is None else r[None], s, do.float()[None], lse[None],
+        delta[None])
+    for name_, g, p in zip(("dq", "dr"), (dq, dr), plain):
         if p is None:
             assert g is None
             continue
@@ -765,3 +830,34 @@ def test_k4_bf16_dkv_grid(bh, nq, nk, d, m):
     assert 1 <= splits <= -(-nq // QUERY_TILE)
     blocks = bh * -(-nk // keys) * splits
     assert blocks / (-(-blocks // H100_SMS) * H100_SMS) >= WAVE_SHARE
+
+
+def bf16_dq_smem(ks, m):
+    """Shared memory of one bf16 dQ/dR block (``csrc/tc_attention_bwd.cuh``,
+    ``smem_bytes_dqr_bf16``, 8 warps of 16 query rows): Q and dO as bf16
+    rows of 16 ks + 8, their R rows as f32 rows of round8(M) + 4, and two
+    ring stages of K and V (bf16, 32 keys) and the s tile (f32, round8(M)
+    rows of 40)."""
+    ld, rows, m8 = 16 * ks + 8, 128, -(-m // 8) * 8
+    rs = m8 + 4 if m else 0
+    return (2 * 2 * rows * ld + 4 * rows * rs
+            + 2 * (2 * 2 * DQ_KEY_TILE * ld + 4 * m8 * (DQ_KEY_TILE + 8)))
+
+
+@pytest.mark.parametrize("ks", [1, 2, 4, 6, 8])
+def test_k4_bf16_dq_grid(ks):
+    """The bf16 dQ/dR pass at a span of ``ks`` k-steps of 16 takes 8 warps
+    of 16 query rows at every bucket (``kDqrBf16Warps``): each
+    instantiation, at the bucket's widest bias (0, 16, 40, 56 or 128
+    factor columns), fits in a block's shared memory, 212,992 bytes at the
+    widest (D = 128, M = 128). MViT's D = 96 with M <= 56 takes 128,512
+    bytes, and its blocks 0-2 have B H ceil(Nq / 128) blocks, at least
+    four for each of the H100's SMs."""
+    for widest in (0, 16, 40, 56, 128):
+        assert bf16_dq_smem(ks, widest) <= MAX_SHARED_BYTES, (ks, widest)
+    assert bf16_dq_smem(8, 128) == 212992
+    if ks == 6:
+        for bh, nq, nk, d, m in MVIT_BWD_SHAPES:
+            assert -(-d // 16) == ks and m <= 56
+            assert bh * -(-nq // 128) >= 4 * H100_SMS
+        assert bf16_dq_smem(ks, 56) == 128512
