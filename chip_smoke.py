@@ -31,15 +31,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. K2 against its plain version, f32 and bf16, at THAT's and
    THAT_ENCODER's training shapes at batch 16 (and THAT's at 256), a
    ragged (3, 70, 10, 15) case with 97 keys and a cross case
-   (4, 128, 6, 45) with 300 keys; f32 (the query pass and the dK/dV pass
-   of csrc/tc_attention_bwd.cuh) the same bits twice, and at
+   (4, 128, 6, 45) with 300 keys; in both dtypes (the query pass and the
+   dK/dV pass of csrc/tc_attention_bwd.cuh) the same bits twice, and at
    THAT_ENCODER's right shape each gradient's distance from float64 for
-   the kernel and the plain version; per-launch times as for K1 (f32:
-   each pass's device time from torch.profiler), per THAT and
-   THAT_ENCODER training step in each dtype, beside the backward of
-   scaled_dot_product_attention on the same inputs and the bounds (f32:
-   at the f32 peak and as 3xTF32); a Q, dO, K and V too large for shared
-   memory, and an f32 head dim of 129, must raise;
+   the kernel and the plain version (bf16: the kernel's at most 2x the
+   plain version's); per-launch times as for K1 with each pass's device
+   time from torch.profiler, per THAT and THAT_ENCODER training step in
+   each dtype, beside the backward of scaled_dot_product_attention on the
+   same inputs and the bounds (f32: at the f32 peak and as 3xTF32); four
+   shapes where K2 bf16 copies rows in other widths (8- and 16-byte
+   pieces shifted, a span of 128, an odd row stride) within tolerance and
+   the same bits twice; a head dim of 129 must raise in both dtypes;
 4. K5 against its plain version at one WiMANS trace (3000, 270), a ragged
    (2999, 270) one, a batch of 8 traces and a buffer not 16-byte aligned:
    the amplitude bit for bit, the phase within 4 ulp; the device time
@@ -94,10 +96,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    matmul plus the eager epilogue) and the bound; a bf16 operand whose
    rows no 4-byte copy divides must be refused, raising;
 4e. K1 and K2 at the largest shapes their fit predicates admit, each
-   instantiation: K2 at one head of 27 (one token more: refused with
-   ValueError), K1 in both dtypes at 4096 keys of a head of 128 (a head
-   of 129: refused), K3 in both dtypes at a bias of 128 factor columns
-   and a head of 128 (129 of either: refused);
+   instantiation: K2 in both dtypes at 64 tokens of a head of 128 (a head
+   of 129: refused with ValueError) and at 640 tokens of D = 27 against
+   its plain version, K1 in both dtypes at 4096 keys of a head of 128 (a
+   head of 129: refused), K3 in both dtypes at a bias of 128 factor
+   columns and a head of 128 (129 of either: refused);
 5. preprocessing on the card (cli/preprocess_csi.py, the default device):
    4 synthetic WiMANS .mat traces of 3000 packets to amplitude and phase
    files, exactly 4 K5 launches, seconds per trace by stage (.mat parse,
@@ -129,10 +132,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    --quant auto --calib F.npy once;
 7. THAT training at full width through ``fit``: seeded (80, 3000, 270)
    training and (32, 3000, 270) validation windows, activity labels,
-   batch 16, 2 epochs, augmentation on, f32; exactly 5 K1 (f32) and 5
-   K2 launches in one training step; windows trained per second after a
-   warm-up step; 5 steps under torch.profiler (K1's and K2's two passes'
-   device ms per step and share); then one bf16 epoch;
+   batch 16, 2 epochs, augmentation on, f32; in f32 and in bf16 (as fit
+   trains with train_dtype="bfloat16") exactly 5 K1 and 5 K2 launches of
+   the dtype in one training step, windows trained per second after a
+   warm-up step and 5 steps under torch.profiler (K1's and K2's two
+   passes' device ms per step and share); then one bf16 epoch (5 bf16 K2
+   launches a step);
 8. one f32 THAT training step on the card against the CPU (TF32 off,
    batch 2, augmentation and dropout off, the CPU taking the card's side
    at every leaky-ReLU kink): loss and gradients;
@@ -183,7 +188,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    1, one epoch at batch 2, the final test pass in bf16; the result JSON
    read back with the JAX runner's keys; exact K3 and K4 launch counts;
 17. one JSON line describing each kernel (every TPU kernel of the repo
-   is ported, and P1's prologue; K1 and K3 with one entry per dtype),
+   is ported, and P1's prologue; K1, K2 and K3 with one entry per
+   dtype),
    then the card's name and power limit, then the result line.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -585,24 +591,36 @@ def kernel_ms(fn, reps=20):
             and e.self_device_time_total > 0}
 
 
-K2_PASSES = {"query": "attention_bwd_dq_f32_kernel",
-             "dkv": "attention_bwd_dkv_f32_kernel"}
+# (B, N, H, D) at Nq = Nk where K2 bf16's copies (tc_attention_bwd.cuh's
+# bwd_pick_copy) take other widths than THAT's 4-byte pieces: 8-byte
+# pieces shifted by 1-3 positions, 8-byte pieces filling a span of 128,
+# 16-byte pieces shifted by 4, and an odd row stride (element by element)
+K2_COPY_SHAPES = {"8-byte": (2, 100, 4, 27), "span-128": (2, 64, 4, 126),
+                  "16-byte": (2, 50, 8, 100), "odd-row": (3, 33, 5, 13)}
+# K2's two kernels in each dtype, by the names the profiler lists
+K2_PASSES = {torch.float32: {"query": "attention_bwd_dq_f32_kernel",
+                             "dkv": "attention_bwd_dkv_f32_kernel"},
+             torch.bfloat16: {"query": "attention_bwd_dq_bf16_kernel",
+                              "dkv": "attention_bwd_dkv_bf16_kernel"}}
 # the right stream's BWD_SHAPES entry of each model's training step
 K2_STEPS = {"THAT": "that-right-16", "THAT_ENCODER": "that-encoder-right-16"}
 
 
 def phase_backward(backward, backward_reference):
     """K2 against its plain version at every shape and dtype, each
-    gradient within BWD_TOL of its largest magnitude; f32 (the query pass
-    and the dK/dV pass of the tensor-core backward body) the same bits
-    twice. Times at the training shapes (plain, kernel, kernel, plain,
-    with CUDA events), beside the backward of scaled_dot_product_attention
-    and the bounds (f32: at the f32 peak and as 3xTF32), summed per THAT
-    and THAT_ENCODER training step in each dtype; in f32 each
-    pass's device time from the profiler, and at that-encoder-right-16 the
-    distance of the kernel and of its plain version from float64
-    (``backward_f64``). K2 must refuse in bf16 beyond shared memory
-    (Nk = 4096) and in f32 past the tensor-core spans (D = 129)."""
+    gradient within BWD_TOL of its largest magnitude, and the same bits
+    twice (the query pass and the dK/dV pass of the tensor-core backward
+    body in both dtypes: no atomics). Times at the training shapes (plain,
+    kernel, kernel, plain, with CUDA events), beside the backward of
+    scaled_dot_product_attention and the bounds (f32: at the f32 peak and
+    as 3xTF32), summed per THAT and THAT_ENCODER training step in each
+    dtype; each pass's device time from the profiler; at
+    that-encoder-right-16 the distance of the kernel and of its plain
+    version from float64 (``backward_f64``), in bf16 the kernel's at most
+    BF16_F64_RATIO times the plain version's; at K2_COPY_SHAPES, where
+    bf16 copies rows in other widths, within BWD_TOL and the same bits
+    twice. K2 must refuse past the tensor-core spans (D = 129) in both
+    dtypes."""
     import torch.nn.functional as F
     set_tf32(False)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -630,24 +648,28 @@ def phase_backward(backward, backward_reference):
                       f"{tuple(g.shape)}")
                 check(err <= tol * top, f"K2 {name} {dtype} err {err} > "
                                         f"{tol} x {top}")
-            if dtype == torch.float32:
-                # the same bits twice: no atomics, every sum in one order
-                again = backward(q, k, v, do)
-                same = all(torch.equal(a, c) for a, c in zip(got, again))
-                check(same, f"K2 {name} f32 differs run to run")
-                del again
-            if dtype == torch.float32 and name == "that-encoder-right-16":
+            # the same bits twice: no atomics, every sum in one order
+            again = backward(q, k, v, do)
+            same = all(torch.equal(a, c) for a, c in zip(got, again))
+            check(same, f"K2 {name} {dtype} differs run to run")
+            del again
+            if name == "that-encoder-right-16":
                 exact = backward_f64(q, k, v, do)
 
                 def share(g, x):
                     return ((g.double() - x).abs().max()
                             / x.abs().max()).item()
 
-                print(f"K2 {name} f32 against the same function in f64, of "
-                      f"each gradient's max: " + ", ".join(
-                          f"{n} kernel {share(g, x):.3e} plain "
-                          f"{share(w, x):.3e}" for n, g, w, x in zip(
-                              ("dq", "dk", "dv"), got, want, exact)))
+                shares = [(share(g, x), share(w, x))
+                          for g, w, x in zip(got, want, exact)]
+                print(f"K2 {name} {DTYPE_NAMES[dtype]} against the same "
+                      f"function in f64, of each gradient's max: " + ", ".join(
+                          f"{n} kernel {a:.3e} plain {c:.3e}" for n, (a, c)
+                          in zip(("dq", "dk", "dv"), shares)))
+                if dtype == torch.bfloat16:
+                    check(all(a <= BF16_F64_RATIO * c for a, c in shares),
+                          f"K2 {name} bf16 farther from f64 than "
+                          f"{BF16_F64_RATIO} x the plain version: {shares}")
                 del exact
             del got, want
             if not name.startswith("that"):
@@ -666,61 +688,74 @@ def phase_backward(backward, backward_reference):
             row = dict(err=max(errs), ms=sum(kern) / 2,
                        plain_ms=sum(plain) / 2, library_ms=lib,
                        bytes_ms=bytes_ms, ops_ms=ops_ms, tf32_ms=tf32_ms)
-            passes = ""
-            if dtype == torch.float32:
-                by_kernel = kernel_ms(lambda: backward(q, k, v, do))
-                for part, kernel in K2_PASSES.items():
-                    row[f"{part}_ms"] = sum(t for key, t in by_kernel.items()
-                                            if kernel in key)
-                passes = (f" (profiler: query pass {row['query_ms']:.4f} ms,"
-                          f" dK/dV pass {row['dkv_ms']:.4f} ms)")
+            by_kernel = kernel_ms(lambda: backward(q, k, v, do))
+            for part, kernel in K2_PASSES[dtype].items():
+                row[f"{part}_ms"] = sum(t for key, t in by_kernel.items()
+                                        if kernel in key)
+            check(row["query_ms"] > 0 and row["dkv_ms"] > 0,
+                  f"K2 {name} {dtype}: the profile lists no pass of "
+                  f"{K2_PASSES[dtype]}")
             results[(name, dtype)] = row
             print(f"K2 {name} {dtype} per launch: kernel {kern[0]:.4f}/"
-                  f"{kern[1]:.4f} ms{passes}, plain {plain[0]:.4f}/"
-                  f"{plain[1]:.4f} ms, sdpa backward {lib:.4f} ms; bound: "
-                  f"bytes {1e3 * bytes_ms:.1f} us, operations "
-                  f"{1e3 * ops_ms:.1f} us"
+                  f"{kern[1]:.4f} ms (profiler: query pass "
+                  f"{row['query_ms']:.4f} ms, dK/dV pass {row['dkv_ms']:.4f}"
+                  f" ms), plain {plain[0]:.4f}/{plain[1]:.4f} ms, sdpa "
+                  f"backward {lib:.4f} ms; bound: bytes {1e3 * bytes_ms:.1f}"
+                  f" us, operations {1e3 * ops_ms:.1f} us"
                   + (f" (3xTF32 {1e3 * tf32_ms:.1f} us)"
                      if dtype == torch.float32 else ""))
 
+    for dtype, tol in BWD_TOL.items():
+        for name, shape in K2_COPY_SHAPES.items():
+            q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                           .to(dtype) for _ in range(4))
+            got = backward(q, k, v, do)
+            want = backward_reference(q, k, v, do)
+            again = backward(q, k, v, do)
+            errs = [(g.float() - w.float()).abs().max().item() for g, w in
+                    zip(got, want)]
+            tops = [w.float().abs().max().item() for w in want]
+            print(f"K2 {name} {shape} {dtype}: max abs err " + ", ".join(
+                f"{n} {e:.3e} of {t:.3f}" for n, e, t in
+                zip(("dq", "dk", "dv"), errs, tops)))
+            check(all(e <= tol * t for e, t in zip(errs, tops)),
+                  f"K2 {name} {dtype} errs {errs} > {tol} x {tops}")
+            check(all(torch.equal(a, c) for a, c in zip(got, again)),
+                  f"K2 {name} {dtype} differs run to run")
+
     for model, right in K2_STEPS.items():
-        rows = [results[(shape, torch.float32)] for shape in
-                ("that-left-16",) * 4 + (right,)]
+        for dtype in BWD_TOL:
+            rows = [results[(shape, dtype)] for shape in
+                    ("that-left-16",) * 4 + (right,)]
 
-        def total(field):
-            return sum(r[field] for r in rows)
+            def total(field):
+                return sum(r[field] for r in rows)
 
-        bytes_ms = total("bytes_ms")
-        print(f"K2 per {model} f32 training step at batch 16 (4 left + 1 "
-              f"right): kernel {total('ms'):.4f} ms (query pass "
-              f"{total('query_ms'):.4f}, dK/dV pass {total('dkv_ms'):.4f}),"
-              f" plain {total('plain_ms'):.4f} ms, sdpa backward "
-              f"{total('library_ms'):.4f} ms; bound "
-              f"{max(bytes_ms, total('ops_ms')):.4f} ms at the f32 peak, "
-              f"{max(bytes_ms, total('tf32_ms')):.4f} ms as 3xTF32")
-        # bf16 training (train_dtype="bfloat16"): K2's CUDA-core kernel
-        rows = [results[(shape, torch.bfloat16)] for shape in
-                ("that-left-16",) * 4 + (right,)]
-        print(f"K2 per {model} bf16 training step at batch 16 (4 left + 1 "
-              f"right): kernel {total('ms'):.4f} ms, plain "
-              f"{total('plain_ms'):.4f} ms, sdpa backward "
-              f"{total('library_ms'):.4f} ms; bound "
-              f"{max(total('bytes_ms'), total('ops_ms')):.4f} ms at the "
-              f"bf16 peak")
+            bytes_ms = total("bytes_ms")
+            passes = K2_PASSES[dtype]
+            bound = (f"{max(bytes_ms, total('ops_ms')):.4f} ms at the "
+                     f"{DTYPE_NAMES[dtype]} peak")
+            if dtype == torch.float32:
+                bound += (f", {max(bytes_ms, total('tf32_ms')):.4f} ms as "
+                          f"3xTF32")
+            print(f"K2 per {model} {DTYPE_NAMES[dtype]} training step at "
+                  f"batch 16 (4 left + 1 right): kernel {total('ms'):.4f} ms"
+                  f" (profiler: {passes['query']} {total('query_ms'):.4f}, "
+                  f"{passes['dkv']} {total('dkv_ms'):.4f}), plain "
+                  f"{total('plain_ms'):.4f} ms, sdpa backward "
+                  f"{total('library_ms'):.4f} ms; bound {bound}")
 
-    # bf16: Q, dO, K and V of one (b, h) beyond the block's shared memory;
-    # f32 (whose kernels stream their tiles) past the tensor-core spans
-    for dtype, nk, d in ((torch.bfloat16, 4096, 27),
-                         (torch.float32, 64, 129)):
-        q = torch.zeros((1, 64, 1, d), device="cuda", dtype=dtype)
-        kv = torch.zeros((1, nk, 1, d), device="cuda", dtype=dtype)
+    # both dtypes' tensor-core kernels stream their tiles: refused only
+    # past their spans
+    for dtype in BWD_TOL:
+        q = torch.zeros((1, 64, 1, 129), device="cuda", dtype=dtype)
         try:
-            backward(q, kv, kv, q)
+            backward(q, q, q, q)
             refused = False
         except ValueError as e:
-            print(f"K2 {DTYPE_NAMES[dtype]} Nk={nk} D={d}: refused ({e})")
+            print(f"K2 {DTYPE_NAMES[dtype]} Nk=64 D=129: refused ({e})")
             refused = True
-        check(refused, f"K2 {dtype} launched at Nk={nk}, D={d}")
+        check(refused, f"K2 {dtype} launched at Nk=64, D=129")
     return results
 
 
@@ -1072,14 +1107,26 @@ def train_rate(label, step, bx, by, gen, unit="windows"):
     return rate
 
 
+# K1's and K2's launch counts and K1's kernel name in the profile, by
+# dtype
+K1_COUNT = {torch.float32: "flash_attention_f32",
+            torch.bfloat16: "flash_attention"}
+K2_COUNT = {torch.float32: "flash_attention_backward",
+            torch.bfloat16: "flash_attention_backward_bf16"}
+K1_KERNEL = {torch.float32: K1_F32, torch.bfloat16: "tc::attention_kernel"}
+
+
 def train_phase_that(data):
-    """THAT training: one counted step, its rate and profile, then the main
-    path (fit, 2 f32 epochs) and one bf16 epoch. Returns the main path's
-    launch counts."""
+    """THAT training: one counted step in each dtype (f32, and bf16 as fit
+    trains with train_dtype="bfloat16": the parameters and Adam's moments
+    in bf16, each batch cast), its rate and profile with K1's and K2's
+    shares, then the main path (fit, 2 f32 epochs) and one bf16 epoch.
+    Returns the main path's launch counts and the bf16 epoch's."""
     from multi_modal_csi_tpu_torch import kernels
     from multi_modal_csi_tpu_torch.core.config import Config
     from multi_modal_csi_tpu_torch.runners.csi import CSI_MODELS, build_model
-    from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch, fit,
+    from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch,
+                                                      cast_parameters, fit,
                                                       make_train_step)
     set_tf32(False)
     torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
@@ -1092,37 +1139,45 @@ def train_phase_that(data):
                     threshold=cfg.nn.threshold, patience=cfg.nn.patience,
                     batch_axis=spec.batch_axis, augment=True)
 
-    model = build_model("THAT", seed=SEED).cuda()
-    step = make_train_step(model, adam_like_torch(
-        model.parameters(), cfg.nn.lr, spec.weight_decay), loss_fn)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
     bx = torch.from_numpy(x_tr[:TRAIN_BATCH]).cuda()
     by = torch.from_numpy(y_tr[:TRAIN_BATCH]).cuda()
-    step(bx, by, gen)                                         # warm-up
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    step(bx, by, gen)
-    torch.cuda.synchronize()
-    one = dict(kernels.LAUNCH_COUNTS)
-    print(f"THAT training: launches in one step: {one}")
-    check(one == {"flash_attention_f32": 5, "flash_attention_backward": 5},
-          f"THAT training step launched {one}, expected 5 K1 and 5 K2")
-    train_rate("THAT f32 training", step, bx, by, gen)
-    prof = profile_device("THAT f32 training", lambda: step(bx, by, gen),
-                          PROFILED_STEPS, "step")
-    k2 = {part: sum(t for name, t in prof["kernels"].items() if kernel in name)
-          for part, kernel in K2_PASSES.items()}
-    print(f"THAT f32 training: K2 {sum(k2.values()):.3f} ms per step (query "
-          f"pass {k2['query']:.3f}, dK/dV pass {k2['dkv']:.3f}), "
-          f"{100 * sum(k2.values()) / prof['device_ms']:.1f}% of the device "
-          f"time")
-    check(all(k2.values()), "THAT f32 training step ran no K2 pass")
-    k1 = sum(t for name, t in prof["kernels"].items() if K1_F32 in name)
-    print(f"THAT f32 training: K1 {k1:.3f} ms per step "
-          f"({K1_F32}), {100 * k1 / prof['device_ms']:.1f}% of the device "
-          f"time")
-    check(k1 > 0, "THAT f32 training step ran no K1 f32 kernel")
-    del model, step
+    for dtype in (torch.float32, torch.bfloat16):
+        name = DTYPE_NAMES[dtype]
+        model = build_model("THAT", seed=SEED).cuda()
+        cast_parameters(model, dtype)
+        step = make_train_step(model, adam_like_torch(
+            model.parameters(), cfg.nn.lr, spec.weight_decay), loss_fn,
+            batch_dtype=dtype)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        step(bx, by, gen)                                     # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        step(bx, by, gen)
+        torch.cuda.synchronize()
+        one = dict(kernels.LAUNCH_COUNTS)
+        print(f"THAT {name} training: launches in one step: {one}")
+        check(one == {K1_COUNT[dtype]: 5, K2_COUNT[dtype]: 5},
+              f"THAT {name} training step launched {one}, expected 5 K1 "
+              f"and 5 K2")
+        train_rate(f"THAT {name} training", step, bx, by, gen)
+        prof = profile_device(f"THAT {name} training",
+                              lambda: step(bx, by, gen), PROFILED_STEPS,
+                              "step")
+        k2 = {part: sum(t for key, t in prof["kernels"].items()
+                        if kernel in key)
+              for part, kernel in K2_PASSES[dtype].items()}
+        print(f"THAT {name} training: K2 {sum(k2.values()):.3f} ms per step"
+              f" (query pass {k2['query']:.3f}, dK/dV pass {k2['dkv']:.3f}),"
+              f" {100 * sum(k2.values()) / prof['device_ms']:.1f}% of the "
+              f"device time")
+        check(all(k2.values()), f"THAT {name} training step ran no K2 pass")
+        k1 = sum(t for key, t in prof["kernels"].items()
+                 if K1_KERNEL[dtype] in key)
+        print(f"THAT {name} training: K1 {k1:.3f} ms per step "
+              f"({K1_KERNEL[dtype]}), {100 * k1 / prof['device_ms']:.1f}% of"
+              f" the device time")
+        check(k1 > 0, f"THAT {name} training step ran no K1 kernel")
+        del model, step
 
     # the main path: fit, 2 epochs, f32
     model = build_model("THAT", seed=SEED)
@@ -1166,10 +1221,11 @@ def train_phase_that(data):
           "THAT bf16 fit left parameters outside bf16")
     check(math.isfinite(h["train_loss"]) and math.isfinite(h["test_loss"]),
           "THAT bf16 fit losses not finite")
-    check(bf16.get("flash_attention_backward") == 5 * steps // 2
-          and "flash_attention_f32" not in bf16,
+    check(bf16.get(K2_COUNT[torch.bfloat16]) == 5 * steps // 2
+          and K2_COUNT[torch.float32] not in bf16
+          and K1_COUNT[torch.float32] not in bf16,
           f"THAT bf16 fit launched {bf16}")
-    return launches
+    return launches, bf16
 
 
 def train_step_card_vs_cpu(data):
@@ -2504,11 +2560,10 @@ def phase_p1():
 
 def phase_fits():
     """Each instantiation at the largest shape that its fit predicate
-    admits: launched; one step beyond: refused with ValueError. K2 in bf16
-    (the CUDA-core kernel, one (b, h) in shared memory) at one head of
-    D = 27, THAT's, one token more; K2 in f32, whose tensor-core kernels
-    stream their tiles, at 64 tokens of a head of 128, and a head of 129,
-    and at 640 tokens of D = 27 (the JAX gate's, past bf16's 457) held
+    admits: launched; one step beyond: refused with ValueError. K2 in both
+    dtypes, whose tensor-core kernels stream their tiles, at 64 tokens of
+    a head of 128, and a head of 129, and at 640 tokens of D = 27 (the
+    JAX gate's, past the 457 of bf16's CUDA-core kernel before them) held
     against its plain version within BWD_TOL; K1 in both dtypes, whose
     tensor-core bodies stream the keys, at 4096 keys of a head of 128,
     and a head of 129; K3 in both dtypes at the largest bias rank M and
@@ -2521,12 +2576,13 @@ def phase_fits():
         flash_attention_lowrank_bias, lowrank_fits)
     f32, bf16 = torch.float32, torch.bfloat16
     d = 27
-    nt = max(n for n in range(1, 4096) if backward_fits(n, n, d, bf16))
-    d2 = max(n for n in range(1, 512) if backward_fits(64, 64, n, f32))
+    d2 = {dtype: max(n for n in range(1, 512) if backward_fits(64, 64, n,
+                                                               dtype))
+          for dtype in (f32, bf16)}
     dk = {dtype: max(n for n in range(1, 512) if forward_fits(4096, n, dtype))
           for dtype in (f32, bf16)}
-    print(f"fit predicates: K2 bf16 up to Nq=Nk={nt} at D={d}, K2 f32 up to "
-          f"D={d2} at any Nq and Nk, K1 up to D={dk[f32]} (f32) and "
+    print(f"fit predicates: K2 up to D={d2[f32]} (f32) and {d2[bf16]} "
+          f"(bf16) at any Nq and Nk, K1 up to D={dk[f32]} (f32) and "
           f"{dk[bf16]} (bf16) at any Nk")
 
     def k1(size, dim, dtype):
@@ -2537,8 +2593,8 @@ def phase_fits():
         t = torch.randn((1, size, 1, dim), device="cuda").to(dtype)
         flash_attention_backward(t, t, t, t)
 
-    cases = [("K2 bf16", k2, bf16, n, d, n == nt) for n in (nt, nt + 1)]
-    cases += [("K2 f32", k2, f32, 64, n, n == d2) for n in (d2, d2 + 1)]
+    cases = [(f"K2 {DTYPE_NAMES[dtype]}", k2, dtype, 64, n, n == d2[dtype])
+             for dtype in (f32, bf16) for n in (d2[dtype], d2[dtype] + 1)]
     cases += [(f"K1 {DTYPE_NAMES[dtype]}", k1, dtype, 4096, n, n == dk[dtype])
               for dtype in (f32, bf16) for n in (dk[dtype], dk[dtype] + 1)]
     for what, call, dtype, size, dim, fits in cases:
@@ -2553,20 +2609,22 @@ def phase_fits():
         check(launched == fits, f"{what} at {size} tokens, D={dim}: "
                                 f"launched {launched}, predicate {fits}")
 
-    # K2 f32 past bf16's limit: 640 tokens of THAT's head dim
+    # K2 past the old bf16 kernel's limit: 640 tokens of THAT's head dim
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    q, k, v, do = (torch.randn((1, 640, 1, d), generator=gen, device="cuda")
-                   for _ in range(4))
-    got = flash_attention_backward(q, k, v, do)
-    want = flash_attention_backward_reference(q, k, v, do)
-    torch.cuda.synchronize()
-    errs = [((g - w).abs().max() / w.abs().max()).item()
-            for g, w in zip(got, want)]
-    print(f"K2 f32 at 640 tokens, D={d}: launched; dq, dk, dv within "
-          + ", ".join(f"{e:.3e}" for e in errs) + " of each max (tolerance "
-          f"{BWD_TOL[f32]:.0e})")
-    check(all(e <= BWD_TOL[f32] for e in errs),
-          f"K2 f32 at 640 tokens: {errs}")
+    for dtype in (f32, bf16):
+        q, k, v, do = (torch.randn((1, 640, 1, d), generator=gen,
+                                   device="cuda").to(dtype)
+                       for _ in range(4))
+        got = flash_attention_backward(q, k, v, do)
+        want = flash_attention_backward_reference(q, k, v, do)
+        torch.cuda.synchronize()
+        errs = [((g.float() - w.float()).abs().max()
+                 / w.float().abs().max()).item() for g, w in zip(got, want)]
+        print(f"K2 {DTYPE_NAMES[dtype]} at 640 tokens, D={d}: launched; dq, "
+              f"dk, dv within " + ", ".join(f"{e:.3e}" for e in errs)
+              + f" of each max (tolerance {BWD_TOL[dtype]:.0e})")
+        check(all(e <= BWD_TOL[dtype] for e in errs),
+              f"K2 {dtype} at 640 tokens: {errs}")
 
     mk = max(n for n in range(512) if lowrank_fits(96, n))
     dl = max(n for n in range(1, 512) if lowrank_fits(n, mk))
@@ -3389,7 +3447,7 @@ def main() -> int:
         del requests
 
         data = training_data()
-        trained = train_phase_that(data)
+        trained, trained_bf16_that = train_phase_that(data)
         train_step_card_vs_cpu(data)
         train_phase_detr(data)
         del data
@@ -3431,9 +3489,10 @@ def main() -> int:
                   + sum(n for _, n in experiments))
 
     # K1 bf16: per THAT forward (serving, batch 256); K1 f32 and K2: per
-    # THAT training step (f32, batch 16); 4 left-stream and 1 right-stream
-    # launches each; launches summed over every main path that ran them
-    # (K1's two dtypes are counted apart). K5:
+    # THAT training step of the dtype (batch 16); 4 left-stream and 1
+    # right-stream launches each; launches summed over every main path
+    # that ran them (each kernel's two dtypes are counted apart; K2 bf16's
+    # main path is the bf16 fit epoch). K5:
     # per WiMANS trace (3000, 270). K3 in bf16: per MViT-v2 forward
     # (batch 2, the bias on), its 16 launches; launches summed over the
     # video serving, evaluate and bf16 training runs of both variants and
@@ -3456,8 +3515,8 @@ def main() -> int:
         kernel_entry("flash_attention", "flash_attention.cu",
                      "multi_modal_csi_tpu/kernels/flash_attention.py:108",
                      sum(runs.get("flash_attention", 0) for runs in
-                         (that, trained, encoder, experiment,
-                          encoder_int8)), fwd_times,
+                         (that, trained, trained_bf16_that, encoder,
+                          experiment, encoder_int8)), fwd_times,
                      {"that-left": 4, "that-right": 1}, torch.bfloat16),
         # the f32 instantiation, the f32 body of tc_attention.cuh; its C
         # entry is in flash_attention.cu; times are device times
@@ -3467,8 +3526,8 @@ def main() -> int:
                          (trained, experiment)), fwd_times,
                      {"that-left-16": 4, "that-right-16": 1},
                      torch.float32, as_3xtf32=True),
-        # the f32 instantiation's two kernels (the query pass and dK/dV),
-        # both of tc_attention_bwd.cuh; its C entry is in
+        # each instantiation's two kernels (the query pass and dK/dV),
+        # all of tc_attention_bwd.cuh; the C entry is in
         # flash_attention_bwd.cu
         kernel_entry("flash_attention_backward", "tc_attention_bwd.cuh",
                      "multi_modal_csi_tpu/kernels/flash_attention.py:271",
@@ -3476,6 +3535,11 @@ def main() -> int:
                      + experiment["flash_attention_backward"], bwd_times,
                      {"that-left-16": 4, "that-right-16": 1},
                      torch.float32, as_3xtf32=True),
+        kernel_entry("flash_attention_backward_bf16", "tc_attention_bwd.cuh",
+                     "multi_modal_csi_tpu/kernels/flash_attention.py:271",
+                     trained_bf16_that["flash_attention_backward_bf16"],
+                     bwd_times, {"that-left-16": 4, "that-right-16": 1},
+                     torch.bfloat16),
         {"name": "csi_amplitude_phase", "route": "cuda",
          "source": "multi_modal_csi_tpu_torch/kernels/csrc/"
                    "csi_preprocess.cu",

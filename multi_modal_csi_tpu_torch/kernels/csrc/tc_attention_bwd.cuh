@@ -19,11 +19,17 @@
 //   - tc::attention_bwd_dkv_bf16_kernel, the same key-major decomposition
 //     with bf16 K, V, Q and dO: K4's dK/dV/dS kernel in bfloat16 (MViT's
 //     bf16 training, the same TPU kernel), launched by
-//     flash_attention_lowrank_bwd.cu's dtype 1. See "The bf16 body" below;
+//     flash_attention_lowrank_bwd.cu's dtype 1, and, without the bias and
+//     in K2's form (its last template argument), K2's bf16 dK/dV pass. See
+//     "The bf16 body" below;
 //   - tc::attention_bwd_dq_lowrank_bf16_kernel, the query pass with the
 //     bias with bf16 Q, dO, K and V: K4's dQ/dR kernel in bfloat16,
 //     launched by flash_attention_lowrank_bwd.cu's dtype 1. See "The bf16
-//     query pass with the bias" below.
+//     query pass with the bias" below;
+//   - tc::attention_bwd_dq_bf16_kernel, K2's query pass with bf16 Q, dO,
+//     K and V: with the bf16 dK/dV pass, K2 in bfloat16 (THAT's bf16
+//     training), launched by flash_attention_bwd.cu's dtype 1. See "The
+//     bf16 query pass" below.
 //
 // What the dK/dV kernel computes, per (b h) and key: logits = (q.k) scale
 // [+ r.s]; w = exp(logits - lse), in f32 and never rounded; dw = dO.v;
@@ -202,6 +208,15 @@
 //   - The launcher (launch_bwd_dkv_bf16, BwdParamsOf<bf16>) takes the same
 //     25 shapes through with_bwd_shape and refuses D > 128 or M > 128;
 //     without the bias, <KS, 0> reads any layout bwd_base describes.
+//   - K2's form (<KS, 0, kBwdBf16Stages, true>, K2 in bfloat16), two
+//     changes at compile time, K4's instantiations unchanged: dV takes w's
+//     bf16 hi alone, w rounded once to nearest even as the TPU kernel's
+//     w.astype(bf16) (flash_attention.py:191), while dK keeps dl's hi +
+//     lo; and at one split dK (scaled once) and dV are rounded to bf16 and
+//     stored straight into K2's (B, Nk, H, D) gradients (p.dk_out,
+//     p.dv_out), with no f32 partials. Its rows come by K2's shifted
+//     copies (see The bf16 copies of K2, at bwd_pick_copy), so the stray
+//     positions are masked in the S^T and dP^T fragments.
 //
 // The bf16 query pass with the bias (K4's dQ/dR in bfloat16, the same TPU
 // kernel as the f32 pass): what the f32 pass computes, with q, k, v and dO
@@ -237,6 +252,31 @@
 //   - The launcher (launch_bwd_dq_lowrank_bf16, BwdParamsOf<bf16>) takes
 //     the same 25 shapes through with_bwd_shape and refuses D > 128 or
 //     M > 128.
+//
+// The bf16 query pass (K2 in bfloat16; with the bf16 dK/dV body in K2's
+// form it replaces flash_attention.py::flash_attention_trainable in bf16):
+// what the f32 query pass computes, in its grid (4 warps of 16 query
+// rows, 64 a block; key tiles of 32 through a two-stage cp.async ring,
+// streamed twice; 3 blocks an SM at spans up to 32), with q, k, v and dO
+// in bf16 and dQ stored as bf16.
+//   - Sweep 1 keeps the online row max m, l = sum exp(S - m) and
+//     c = sum exp(S - m) dP, rescaled when m moves, and writes
+//     LSE = m + log l and delta = c / l (f32, (BH, Nq)); sweep 2 forms S
+//     and dP again, w = exp(S - lse), dl = w (dP - delta), dQ += dl K.
+//   - S = Q K^T and dP = dO V^T are bf16 mma.sync m16n8k16 with f32
+//     accumulators (Q or dO the A operand by ldmatrix, the tile's K or V
+//     the B operand), as the bf16 query pass with the bias forms them; dQ
+//     += dl K from dl split into bf16 hi + lo (a_split_bf16, lo.K then
+//     hi.K against K by ldmatrix .trans, the tile's product in a fresh
+//     accumulator added in f32: add_tile_product); dQ is scaled once.
+//   - Q, dO (resident) and each tile's K and V are bf16 rows of 16 KS + 8:
+//     20,480 bytes a block at THAT's span of 32 (smem_bytes_dq_bf16).
+//   - Rows come by K2's shifted copies (The bf16 copies of K2, at
+//     bwd_pick_copy): the stray positions are masked in the S and dP
+//     fragments, and position sh + c is stored as dQ's column c.
+//   - Rows past Nq and keys past Nk are zero-filled and their weights set
+//     to 0, as in the f32 pass. launch_bwd_bf16 runs it and then the bf16
+//     dK/dV body in K2's form, at the span that holds the shifted heads.
 
 #pragma once
 
@@ -294,6 +334,8 @@ struct BwdParamsOf {
   float* dr;           // (BH, Nq, M): the query pass with the bias
   float* dk;           // k's layout, `part` elements a split
   float* dv;
+  T* dk_out;           // K2's bf16 dK/dV pass: k's layout and dtype, in
+  T* dv_out;           // place (one split)
   float* ds;           // (splits, BH, M, Nk)
   long long part;      // elements between two splits' dK (dV) partials
   int bh, heads, nq, nk, d, m;
@@ -314,6 +356,25 @@ __device__ __forceinline__ long long bwd_base(const BwdParamsOf<T>& p,
                                               int grp, int n) {
   return (long long)(grp / p.heads) * n * p.row +
          (long long)(grp % p.heads) * p.d;
+}
+
+// the position of element 0 of group grp's rows in a tile (sh): its head's
+// offset h D modulo the copy width. K2's bf16 launcher may pick a width
+// that does not divide D and copies from h D - sh on (see The bf16 copies
+// of K2); every other launcher picks one that divides D, so sh = 0.
+template <typename T>
+__device__ __forceinline__ int shift_of(const BwdParamsOf<T>& p, int grp) {
+  return (int)((long long)(grp % p.heads) * p.d % p.vec);
+}
+
+// a k16 A fragment's pairs at columns 2 t4 (a[0], a[1]) and 8 + 2 t4
+// (a[2], a[3]) masked by lo and hi (pair_mask)
+__device__ __forceinline__ void mask_a(uint32_t (&a)[4], uint32_t lo,
+                                       uint32_t hi) {
+  a[0] &= lo;
+  a[1] &= lo;
+  a[2] &= hi;
+  a[3] &= hi;
 }
 
 // the 4 floats at offset o (16-byte aligned) split into tf32 hi, in place,
@@ -771,9 +832,10 @@ __device__ __forceinline__ void a_split_bf16(const float (&x)[NQ][4],
 
 // acc[i] += (hi + lo) B over one tile's query rows for this warp's n-tiles
 // n0 + i of 8 columns: lo B, then hi B, into a fresh accumulator, then
-// added in f32. B is the tile's bf16 rows of dO or Q (row stride LD), the
-// query rows the k dimension, so ldmatrix reads it transposed.
-template <int ND, int KQ, int LD>
+// added in f32 (!LO: hi B alone). B is the tile's bf16 rows of dO or Q
+// (row stride LD), the query rows the k dimension, so ldmatrix reads it
+// transposed.
+template <int ND, int KQ, int LD, bool LO = true>
 __device__ __forceinline__ void add_tile_product(float (&acc)[ND][4],
                                                  const uint32_t (&hi)[KQ][4],
                                                  const uint32_t (&lo)[KQ][4],
@@ -787,9 +849,11 @@ __device__ __forceinline__ void add_tile_product(float (&acc)[ND][4],
       uint32_t f[4];  // n-tile n0 + i (f[0], f[1]) and the next (f[2], f[3])
       ldmatrix_x4_trans(f, b + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8)
                                    * LD + 8 * (n0 + i) + (lane >> 4) * 8);
-      mma(t[0], lo[kk], f[0], f[1]);
+      if constexpr (LO) {
+        mma(t[0], lo[kk], f[0], f[1]);
+        mma(t[1], lo[kk], f[2], f[3]);
+      }
       mma(t[0], hi[kk], f[0], f[1]);
-      mma(t[1], lo[kk], f[2], f[3]);
       mma(t[1], hi[kk], f[2], f[3]);
     }
 #pragma unroll
@@ -802,10 +866,13 @@ __device__ __forceinline__ void add_tile_product(float (&acc)[ND][4],
 
 // The f32 body's decomposition (BwdShape: 8 warps of 16 keys, SPLIT) with
 // bf16 K, V, Q and dO and STAGES query tiles in the ring; 2 blocks an SM
-// without the bias at spans up to 32, else 1
-template <int KS, int MT, int STAGES>
+// without the bias at spans up to 32, else 1. K2: K2's form (see The bf16
+// query pass), without the bias and at one split: dV from w's bf16 hi
+// alone, dK and dV rounded to bf16 into p.dk_out and p.dv_out.
+template <int KS, int MT, int STAGES, bool K2 = false>
 __global__ void __launch_bounds__(32 * kBwdWarps, MT == 0 && KS <= 2 ? 2 : 1)
     attention_bwd_dkv_bf16_kernel(BwdParamsOf<bf16> p) {
+  static_assert(!K2 || MT == 0, "K2's form has no bias");
   constexpr bool BIAS = MT > 0;
   constexpr int SPLIT = BwdShape<KS, MT>::SPLIT;
   constexpr int KEYS = BwdShape<KS, MT>::KEYS;
@@ -841,18 +908,24 @@ __global__ void __launch_bounds__(32 * kBwdWarps, MT == 0 && KS <= 2 ? 2 : 1)
   const int keys = min(KEYS, p.nk - k0);
   const int t_begin = (int)((long long)split * p.q_tiles / p.splits);
   const int t_end = (int)((long long)(split + 1) * p.q_tiles / p.splits);
-  const int d = p.d;  // a multiple of the copy width
-  const int chunks = d / p.vec;
+  const int d = p.d;  // K4: a multiple of the copy width
+  // K2: the head's element c at position sh + c (see The bf16 copies of
+  // K2), positions outside [sh, sh + D) zeroed in the S^T and dP^T
+  // fragments
+  const int sh = K2 ? shift_of(p, grp) : 0;
+  const int chunks = K2 ? (sh + d + p.vec - 1) / p.vec : d / p.vec;
   int cshift = 0;
   while ((1 << cshift) < chunks) ++cshift;
-  const long long qoff = bwd_base(p, grp, p.nq);
+  const bool ragged = K2 && (sh != 0 || sh + d != 16 * KS);
+  const long long qoff = bwd_base(p, grp, p.nq) - sh;
   const bf16* qb = p.q + qoff;
   const bf16* dob = p.dout + qoff;
 
   // the copies fill columns [0, D) of each row; the span's columns past D
   // are zeroed once (K and V, and every stage's Q and dO), so the padded
-  // products add nothing
-  if (d < 16 * KS) {
+  // products add nothing (K2 masks its fragments instead: its copies may
+  // write past position D)
+  if (!K2 && d < 16 * KS) {
     const int pad = 16 * KS - d;
     const bf16 zero = __float2bfloat16(0.f);
     for (int i = threadIdx.x; i < 2 * KEYS * pad; i += THREADS)
@@ -889,10 +962,10 @@ __global__ void __launch_bounds__(32 * kBwdWarps, MT == 0 && KS <= 2 ? 2 : 1)
   // prologue: the block's K, V and S^T rows with tile 0, then the next
   // STAGES - 1 tiles, a group each
   const long long kvoff = bwd_base(p, grp, p.nk) + (long long)k0 * p.row;
-  copy_rows<LD, KEYS, THREADS>(sk, p.k + kvoff, p.row, keys, chunks, cshift,
-                               p.vec, d, p.k);
-  copy_rows<LD, KEYS, THREADS>(sv, p.v + kvoff, p.row, keys, chunks, cshift,
-                               p.vec, d, p.v);
+  copy_rows<LD, KEYS, THREADS>(sk, p.k + kvoff - sh, p.row, keys, chunks,
+                               cshift, p.vec, d, p.k);
+  copy_rows<LD, KEYS, THREADS>(sv, p.v + kvoff - sh, p.row, keys, chunks,
+                               cshift, p.vec, d, p.v);
   if constexpr (BIAS) {
     for (int i = threadIdx.x; i < rs * KEYS; i += THREADS) {
       const int c = i / KEYS, key = i - c * KEYS;  // keys fastest: coalesced
@@ -955,17 +1028,24 @@ __global__ void __launch_bounds__(32 * kBwdWarps, MT == 0 && KS <= 2 ? 2 : 1)
         uint32_t ka[4], va[4];
         ldmatrix_x4(ka, sk + ao + 16 * kk);
         ldmatrix_x4(va, sv + ao + 16 * kk);
+        uint32_t lo = 0xffffffffu, hi = 0xffffffffu;
+        if (ragged) {
+          lo = pair_mask(16 * kk + 2 * t4, sh, d);
+          hi = pair_mask(16 * kk + 8 + 2 * t4, sh, d);
+          mask_a(ka, lo, hi);
+          mask_a(va, lo, hi);
+        }
 #pragma unroll
         for (int np = 0; np < NQ / 2; ++np) {
           const int bo = (16 * np + (lane & 7) + ((lane >> 4) << 3)) * LD +
                          16 * kk + ((lane >> 3) & 1) * 8;
           uint32_t b[4];
           ldmatrix_x4(b, sq + bo);
-          mma(w[2 * np], ka, b[0], b[1]);
-          mma(w[2 * np + 1], ka, b[2], b[3]);
+          mma(w[2 * np], ka, b[0] & lo, b[1] & hi);
+          mma(w[2 * np + 1], ka, b[2] & lo, b[3] & hi);
           ldmatrix_x4(b, sdo + bo);
-          mma(dl[2 * np], va, b[0], b[1]);
-          mma(dl[2 * np + 1], va, b[2], b[3]);
+          mma(dl[2 * np], va, b[0] & lo, b[1] & hi);
+          mma(dl[2 * np + 1], va, b[2] & lo, b[3] & hi);
         }
       }
 #pragma unroll
@@ -1031,10 +1111,10 @@ __global__ void __launch_bounds__(32 * kBwdWarps, MT == 0 && KS <= 2 ? 2 : 1)
       }
 
       // dV += w^T dO and dK += dl^T Q (the scale at the end), w and dl
-      // split into bf16 hi + lo
+      // split into bf16 hi + lo (K2: dV from hi alone, w rounded once)
       uint32_t hi[KQ][4], lo[KQ][4];
       a_split_bf16<NQ>(w, hi, lo);
-      add_tile_product<ND, KQ, LD>(dv, hi, lo, sdo, half * ND, lane);
+      add_tile_product<ND, KQ, LD, !K2>(dv, hi, lo, sdo, half * ND, lane);
       a_split_bf16<NQ>(dl, hi, lo);
       add_tile_product<ND, KQ, LD>(dk, hi, lo, sq, half * ND, lane);
 
@@ -1072,7 +1152,8 @@ __global__ void __launch_bounds__(32 * kBwdWarps, MT == 0 && KS <= 2 ? 2 : 1)
     slot = slot + 1 == STAGES ? 0 : slot + 1;
   }
 
-  // the partials of this lane's keys: dK scaled once, here
+  // the partials of this lane's keys (K2: the gradients, in bf16): dK
+  // scaled once, here
   const long long part = (long long)split * p.bh + grp;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -1083,8 +1164,12 @@ __global__ void __launch_bounds__(32 * kBwdWarps, MT == 0 && KS <= 2 ? 2 : 1)
     for (int i = 0; i < ND; ++i) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int c = 8 * (half * ND + i) + 2 * t4 + e;
-        if (c < d) {
+        const int c = 8 * (half * ND + i) + 2 * t4 + e - sh;
+        if (c < 0 || c >= d) continue;
+        if constexpr (K2) {
+          store(p.dk_out + o + c, dk[i][2 * h + e] * p.scale);
+          store(p.dv_out + o + c, dv[i][2 * h + e]);
+        } else {
           p.dk[o + c] = dk[i][2 * h + e] * p.scale;
           p.dv[o + c] = dv[i][2 * h + e];
         }
@@ -1368,6 +1453,215 @@ __global__ void __launch_bounds__(32 * kDqWarps, KS <= 2 ? 3 : 1)
       for (int e = 0; e < 2; ++e) {
         const int c = 8 * n + 2 * t4 + e;
         if (c < d) p.dq[o + c] = dq[n][2 * i + e] * p.scale;
+      }
+  }
+}
+
+// ----------------------------------------------------------------------
+// The bf16 query pass
+// ----------------------------------------------------------------------
+
+// dynamic shared memory of one bf16 query-pass block: Q and dO, and two
+// ring stages of K and V, all bf16 rows of 16 ks + 8
+constexpr size_t smem_bytes_dq_bf16(int ks) {
+  return sizeof(bf16) * (16 * ks + 8) * (2 * kDqRows + 4 * kDqKeys);
+}
+
+// The f32 pass's grid and sweeps with bf16 Q, dO, K and V; 3 blocks an SM
+// at spans up to 32, as the f32 pass
+template <int KS>
+__global__ void __launch_bounds__(32 * kDqWarps, KS <= 2 ? 3 : 1)
+    attention_bwd_dq_bf16_kernel(BwdParamsOf<bf16> p) {
+  constexpr int THREADS = 32 * kDqWarps, ROWS = kDqRows, KEYS = kDqKeys;
+  constexpr int LD = 16 * KS + 8;   // bf16: an odd multiple of 16 bytes
+  constexpr int ND = 2 * KS;        // dQ's n-tiles of 8 columns
+  constexpr int NT = KEYS / 8;      // n-tiles of 8 keys
+  constexpr int KQ = KEYS / 16;     // k-steps of 16 keys (dQ's product)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sq = reinterpret_cast<bf16*>(smem_raw);  // [ROWS][LD]
+  bf16* sdo = sq + ROWS * LD;                    // [ROWS][LD]
+  bf16* ring = sdo + ROWS * LD;  // [2][2 KEYS][LD]: K, then V
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int tile = blockIdx.x % p.q_tiles;
+  const int grp = blockIdx.x / p.q_tiles;
+  const int row0 = tile * ROWS;
+  const int rows = min(ROWS, p.nq - row0);
+  const int d = p.d;
+  // the head's element c at position sh + c (see The bf16 copies)
+  const int sh = shift_of(p, grp);
+  const int chunks = (sh + d + p.vec - 1) / p.vec;
+  int cshift = 0;
+  while ((1 << cshift) < chunks) ++cshift;
+  const bool ragged = sh != 0 || sh + d != 16 * KS;
+  const long long qoff = bwd_base(p, grp, p.nq) + (long long)row0 * p.row;
+  const long long kvoff = bwd_base(p, grp, p.nk) - sh;
+  const int tiles_k = (p.nk + KEYS - 1) / KEYS;
+
+  // tiles u of the two sweeps: key tile u mod tiles_k, ring stage u & 1
+  auto fetch = [&](int u) {
+    bf16* st = ring + (u & 1) * 2 * KEYS * LD;
+    const int k0 = (u < tiles_k ? u : u - tiles_k) * KEYS;
+    const int valid = min(KEYS, p.nk - k0);
+    const long long o = kvoff + (long long)k0 * p.row;
+    copy_rows<LD, KEYS, THREADS>(st, p.k + o, p.row, valid, chunks, cshift,
+                                 p.vec, d, p.k);
+    copy_rows<LD, KEYS, THREADS>(st + KEYS * LD, p.v + o, p.row, valid,
+                                 chunks, cshift, p.vec, d, p.v);
+  };
+
+  // prologue: Q and dO with tile 0, then tile 1
+  copy_rows<LD, ROWS, THREADS>(sq, p.q + qoff - sh, p.row, rows, chunks,
+                               cshift, p.vec, d, p.q);
+  copy_rows<LD, ROWS, THREADS>(sdo, p.dout + qoff - sh, p.row, rows, chunks,
+                               cshift, p.vec, d, p.dout);
+  fetch(0);
+  cp_commit();
+  fetch(1);  // two sweeps: at least two tiles
+  cp_commit();
+
+  const bool idle = warp * 16 >= rows;  // a ragged last query tile
+  // this lane's ldmatrix row of the warp's Q and dO A fragments
+  const int qa = (warp * 16 + lane % 16) * LD + (lane / 16) * 8;
+  float dq[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  // rows g8 and g8 + 8: the running max, this lane's shares of l and c;
+  // after sweep 1 the LSE and delta
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f}, c_run[2] = {0.f, 0.f};
+  float lse[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+
+  for (int u = 0; u < 2 * tiles_k; ++u) {
+    cp_wait<1>();  // tile u has landed (u + 1 may be in flight)
+    __syncthreads();
+    const bf16* kt = ring + (u & 1) * 2 * KEYS * LD;
+    const bf16* vt = kt + KEYS * LD;
+    const bool second = u >= tiles_k;
+    const int k0 = (second ? u - tiles_k : u) * KEYS;
+
+    if (!idle) {
+      // S = Q K^T and dP = dO V^T: bf16 mma.sync m16n8k16, Q or dO the A
+      // operand; the B fragments of n-tiles 2 np and 2 np + 1 are keys
+      // 16 np + 0-15 at columns 16 kk + 0-15 (ldmatrix, as the forward
+      // reads K); positions outside [sh, sh + D) zeroed in every fragment
+      float sc[NT][4], dp[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t qf[4], of[4];
+        ldmatrix_x4(qf, sq + qa + 16 * kk);
+        ldmatrix_x4(of, sdo + qa + 16 * kk);
+        uint32_t lo = 0xffffffffu, hi = 0xffffffffu;
+        if (ragged) {
+          lo = pair_mask(16 * kk + 2 * t4, sh, d);
+          hi = pair_mask(16 * kk + 8 + 2 * t4, sh, d);
+          mask_a(qf, lo, hi);
+          mask_a(of, lo, hi);
+        }
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          const int bo = (16 * np + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                         16 * kk + ((lane >> 3) & 1) * 8;
+          uint32_t b[4];
+          ldmatrix_x4(b, kt + bo);
+          mma(sc[2 * np], qf, b[0] & lo, b[1] & hi);
+          mma(sc[2 * np + 1], qf, b[2] & lo, b[3] & hi);
+          ldmatrix_x4(b, vt + bo);
+          mma(dp[2 * np], of, b[0] & lo, b[1] & hi);
+          mma(dp[2 * np + 1], of, b[2] & lo, b[3] & hi);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] *= p.scale;
+      mask_keys(sc, k0, p.nk, t4);
+
+      if (!second) {
+        // the online max, l and c of this lane's rows
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          mx[0] = fmaxf(mx[0], fmaxf(sc[j][0], sc[j][1]));
+          mx[1] = fmaxf(mx[1], fmaxf(sc[j][2], sc[j][3]));
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+          const float m_new = fmaxf(m_run[i], mx[i]);  // finite: k0 < Nk
+          const float alpha = expf(m_run[i] - m_new);
+          m_run[i] = m_new;
+          l_run[i] *= alpha;
+          c_run[i] *= alpha;
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = expf(sc[j][e] - m_run[e / 2]);
+            l_run[e / 2] += x;
+            c_run[e / 2] = fmaf(x, dp[j][e], c_run[e / 2]);
+          }
+      } else {
+        // dl = w (dP - delta), w = exp(S - lse), in place of dP; then
+        // dQ += dl K: n-tiles 2 kk and 2 kk + 1 of dl are the k16 A
+        // fragment of keys 16 kk + 0-15, split into bf16 hi + lo; K the B
+        // operand (ldmatrix .trans: the keys are the k dimension), the
+        // tile's product formed alone and added in f32
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[j][e] = expf(sc[j][e] - lse[e / 2]) * (dp[j][e] - delta[e / 2]);
+        uint32_t hi[KQ][4], lo[KQ][4];
+        a_split_bf16<NT>(dp, hi, lo);
+        add_tile_product<ND, KQ, LD>(dq, hi, lo, kt, 0, lane);
+      }
+    }
+
+    if (u == tiles_k - 1 && !idle) {
+      // the end of sweep 1: the rows' LSE and delta, kept and written
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 1);
+        l_run[i] += __shfl_xor_sync(0xffffffffu, l_run[i], 2);
+        c_run[i] += __shfl_xor_sync(0xffffffffu, c_run[i], 1);
+        c_run[i] += __shfl_xor_sync(0xffffffffu, c_run[i], 2);
+        lse[i] = m_run[i] + logf(l_run[i]);
+        delta[i] = c_run[i] / l_run[i];
+        const int row = warp * 16 + g8 + 8 * i;
+        if (t4 == 0 && row < rows) {
+          const long long o = (long long)grp * p.nq + row0 + row;
+          p.lse[o] = lse[i];
+          p.delta[o] = delta[i];
+        }
+      }
+    }
+
+    __syncthreads();  // every warp is done with this stage
+    if (u + 2 < 2 * tiles_k) fetch(u + 2);
+    cp_commit();  // an empty group keeps the wait count uniform
+  }
+
+  // dQ scaled once and rounded to bf16, in q's layout (position sh + c
+  // is column c)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = warp * 16 + g8 + 8 * i;
+    if (row >= rows) continue;
+    const long long o = qoff + (long long)row * p.row;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * n + 2 * t4 + e - sh;
+        if (c >= 0 && c < d) store(p.dq + o + c, dq[n][2 * i + e] * p.scale);
       }
   }
 }
@@ -1953,14 +2247,14 @@ int launch_bwd_dkv_f32_steps(BwdParams p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int KS, int MT, int STAGES>
+template <int KS, int MT, int STAGES, bool K2 = false>
 int launch_bwd_dkv_bf16_steps(BwdParamsOf<bf16> p, cudaStream_t stream) {
   constexpr int KEYS = BwdShape<KS, MT>::KEYS;
   const size_t smem = smem_bytes_bwd_bf16(KS, MT ? p.m : 0, KEYS, STAGES);
   if (smem > kMaxSharedBytes) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        attention_bwd_dkv_bf16_kernel<KS, MT, STAGES>,
+        attention_bwd_dkv_bf16_kernel<KS, MT, STAGES, K2>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
@@ -1968,7 +2262,7 @@ int launch_bwd_dkv_bf16_steps(BwdParamsOf<bf16> p, cudaStream_t stream) {
   p.q_tiles = (p.nq + kBwdRows - 1) / kBwdRows;
   const long long blocks = (long long)p.bh * p.key_blocks * p.splits;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  attention_bwd_dkv_bf16_kernel<KS, MT, STAGES>
+  attention_bwd_dkv_bf16_kernel<KS, MT, STAGES, K2>
       <<<(unsigned)blocks, 32 * kBwdWarps, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -1986,6 +2280,23 @@ int launch_bwd_dq_f32_steps(BwdParams p, cudaStream_t stream) {
   const long long blocks = (long long)p.bh * p.q_tiles;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
   attention_bwd_dq_f32_kernel<KS>
+      <<<(unsigned)blocks, 32 * kDqWarps, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int KS>
+int launch_bwd_dq_bf16_steps(BwdParamsOf<bf16> p, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes_dq_bf16(KS);
+  if constexpr (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attention_bwd_dq_bf16_kernel<KS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  p.q_tiles = (p.nq + kDqRows - 1) / kDqRows;
+  const long long blocks = (long long)p.bh * p.q_tiles;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  attention_bwd_dq_bf16_kernel<KS>
       <<<(unsigned)blocks, 32 * kDqWarps, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -2061,7 +2372,8 @@ struct BwdLaunch {
 // The sizes (D <= 128, M <= kMaxRank, else cudaErrorInvalidValue), the
 // copy width (the widest of 16, 8 or 4 bytes, or one element, that divides
 // D, the row stride and the base addresses: f32 4, 2 or 1 elements, bf16
-// 8, 4, 2 or 1) and the scale of every launcher
+// 8, 4, 2 or 1) and the scale of every launcher but K2's bf16 one
+// (bwd_pick_copy)
 template <typename T>
 inline int bwd_prepare(BwdParamsOf<T>& p) {
   if (!bwd_sizes_ok(p.d, p.m)) return (int)cudaErrorInvalidValue;
@@ -2171,28 +2483,89 @@ int launch_bwd_dq_lowrank_bf16(Params p, cudaStream_t stream) {
   return with_bwd_shape(p.d, p.m, DqrBf16Launch{p, stream});
 }
 
+// K2's two passes at a span of KS k-steps of 16, without the bias: the
+// query pass (dQ, and the LSE and delta into p.lse and p.delta), then the
+// dK/dV pass at one split, the gradients in place
 template <int KS>
-int launch_bwd_f32_span(BwdParams p, cudaStream_t stream) {
+int launch_bwd_span(BwdParams p, cudaStream_t stream) {
   const int err = launch_bwd_dq_f32_steps<KS>(p, stream);
   if (err != 0) return err;
   return launch_bwd_dkv_f32_steps<KS, 0>(p, stream);
 }
 
-// K2's f32 launcher (10 kernels), without the bias: the query pass (dQ,
-// and the LSE and delta into p.lse and p.delta), then the dK/dV pass;
-// D <= 128, else cudaErrorInvalidValue. Returns a cudaError_t.
+template <int KS>
+int launch_bwd_span(BwdParamsOf<bf16> p, cudaStream_t stream) {
+  const int err = launch_bwd_dq_bf16_steps<KS>(p, stream);
+  if (err != 0) return err;
+  return launch_bwd_dkv_bf16_steps<KS, 0, kBwdBf16Stages, true>(p, stream);
+}
+
+// K2's kernels at the span that holds `positions` (1, 2, 4, 6 or 8
+// k-steps of 16; Params is BwdParams or BwdParamsOf<bf16>, prepared).
+// Returns a cudaError_t.
+template <typename Params>
+int launch_bwd_k2(Params p, int positions, cudaStream_t stream) {
+  if (positions <= 16) return launch_bwd_span<1>(p, stream);
+  switch ((positions + 31) / 32) {
+    case 1: return launch_bwd_span<2>(p, stream);
+    case 2: return launch_bwd_span<4>(p, stream);
+    case 3: return launch_bwd_span<6>(p, stream);
+    default: return launch_bwd_span<8>(p, stream);
+  }
+}
+
+// K2's f32 launcher (10 kernels): the f32 query pass, then the f32 dK/dV
+// body without the bias; D <= 128, else cudaErrorInvalidValue. Returns a
+// cudaError_t.
 template <typename Params>
 int launch_bwd_f32(Params p, cudaStream_t stream) {
   p.m = 0;
   const int err = bwd_prepare(p);
   if (err != 0) return err;
-  if (p.d <= 16) return launch_bwd_f32_span<1>(p, stream);
-  switch ((p.d + 31) / 32) {
-    case 1: return launch_bwd_f32_span<2>(p, stream);
-    case 2: return launch_bwd_f32_span<4>(p, stream);
-    case 3: return launch_bwd_f32_span<6>(p, stream);
-    default: return launch_bwd_f32_span<8>(p, stream);
+  return launch_bwd_k2(p, p.d, stream);
+}
+
+// The bf16 copies of K2. K2's (B, N, H, D) rows hold every head of a token
+// side by side, and THAT's heads (D = 27, 15) are odd: no copy wider than
+// one bf16 divides D, and cp.async cannot move one. So K2's bf16 launcher
+// picks copies as K1's bf16 body does (pick_copy): the widest of 8, 4, 2
+// or 1 bf16 (16, 8, 4 or 2 bytes) that divides the row stride and the
+// base addresses and keeps every head's shifted span, sh + D with
+// sh = h D mod the width, within 128 positions. Each row is then copied
+// from h D - sh on, in aligned pieces, and the head's element c lands at
+// position sh + c; the other positions hold a neighbouring head's elements
+// or nothing, and both kernels zero them in every fragment of a product
+// over the head dim (pair_mask) and store position sh + c as column c. A
+// width of 1 (an odd row stride) copies element by element. Sets p.vec
+// and p.scale and returns the widest span, or 0 where D > 128.
+inline int bwd_pick_copy(BwdParamsOf<bf16>& p) {
+  if (!bwd_sizes_ok(p.d, 0)) return 0;
+  p.scale = (float)(1.0 / std::sqrt((double)p.d));  // 1.0 / math.sqrt(d)
+  for (int vec = 8; vec >= 1; vec /= 2) {
+    const int bytes = (int)sizeof(bf16) * vec;
+    if (p.row % vec || !aligned(p.q, bytes) || !aligned(p.k, bytes) ||
+        !aligned(p.v, bytes) || !aligned(p.dout, bytes))
+      continue;
+    int span = p.d;
+    for (int h = 0; h < p.heads && h < vec; ++h)
+      span = span > h * p.d % vec + p.d ? span : h * p.d % vec + p.d;
+    if (span <= 16 * kMaxSteps) {
+      p.vec = vec;
+      return span;
+    }
   }
+  return 0;
+}
+
+// K2's bf16 launcher (10 kernels; Params is BwdParamsOf<bf16>): the bf16
+// query pass, then the bf16 dK/dV body in K2's form, both with the copies
+// above; D <= 128, else cudaErrorInvalidValue. Returns a cudaError_t.
+template <typename Params>
+int launch_bwd_bf16(Params p, cudaStream_t stream) {
+  p.m = 0;
+  const int span = bwd_pick_copy(p);
+  if (span == 0) return (int)cudaErrorInvalidValue;
+  return launch_bwd_k2(p, span, stream);
 }
 
 }  // namespace tc

@@ -16,12 +16,15 @@ chosen by q's dtype: bfloat16 (serving) the bf16 tensor-core kernel,
 float32 (training) the f32 body, its products as 3xTF32 on the tensor
 cores; both stream the keys in tiles, so any Nk, and take D <= 128. Their
 launches count apart, ``flash_attention`` (bf16) and
-``flash_attention_f32``. K2's float32
-instantiation (training) is two kernels of the tensor-core backward body
-``csrc/tc_attention_bwd.cuh`` (a query pass, then dK/dV; D <= 128), its
-bfloat16 one the CUDA-core kernel of ``csrc/flash_attention_bwd.cu``. A
-CUDA call that its instantiation refuses raises; it never runs the other
-one.
+``flash_attention_f32``. K2 in either dtype is two kernels of the
+tensor-core backward body ``csrc/tc_attention_bwd.cuh``: a query pass
+(dQ, and each row's LSE and delta into an f32 work buffer), then the
+dK/dV pass, which reads them; float32 forms every product as 3xTF32,
+bfloat16 on bf16 ``mma.sync``. Both stream their tiles, so any Nq and Nk,
+and take D <= 128. Their launches count apart too,
+``flash_attention_backward`` (f32) and ``flash_attention_backward_bf16``.
+A CUDA call that the launcher refuses raises; nothing else runs in its
+place.
 """
 
 from __future__ import annotations
@@ -38,14 +41,12 @@ from . import build, count_launch
 NAME = "flash_attention"
 F32_NAME = "flash_attention_f32"    # K1's f32 launches, counted apart
 BWD_NAME = "flash_attention_backward"
+BWD_BF16_NAME = "flash_attention_backward_bf16"  # K2's bf16 launches
 BWD_SOURCE = "flash_attention_bwd"    # csrc/flash_attention_bwd.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CUDA_ERROR_INVALID_VALUE = 1     # cudaErrorInvalidValue
-# a block's shared memory on an H100, the launchers' limit (kMaxSharedBytes)
-MAX_SHARED_BYTES = 232448
-_WARPS = 8                        # kWarps of K2's bf16 CUDA-core kernel
 # the tensor-core kernels' head-dim limit (csrc/tc_attention.cuh:
-# 16 * kMaxSteps): K1 in both dtypes, K2 in f32
+# 16 * kMaxSteps): K1 and K2 in both dtypes
 TC_MAX_HEAD_DIM = 128
 
 
@@ -59,19 +60,10 @@ def forward_fits(nk: int, d: int, dtype: torch.dtype) -> bool:
 def backward_fits(nq: int, nk: int, d: int,
                   dtype: torch.dtype = torch.float32) -> bool:
     """Whether K2's launcher takes Nq queries and Nk keys of head dim D in
-    ``dtype``. float32: D <= 128 at any Nq and Nk, as its tensor-core
-    kernels stream their tiles (the query pass's shared memory depends on
-    the span alone, the dK/dV pass's on the span). bfloat16: its entry
-    check ``smem_bytes(nq, nk, d)`` (``csrc/flash_attention_bwd.cu``), term
-    for term, f32 Q and dO, K and V at the odd row stride D | 1, three
-    per-query rows and two rows of max(Nq, Nk) per warp, within the block's
-    shared memory (the CUDA-core kernel keeps one (b, h) there)."""
-    if dtype == torch.float32:
-        return d <= TC_MAX_HEAD_DIM
-    stride = d | 1
-    need = 4 * (2 * nq * stride + 2 * nk * stride + 3 * nq
-                + 2 * _WARPS * max(nq, nk))
-    return need <= MAX_SHARED_BYTES
+    ``dtype`` (``csrc/flash_attention_bwd.cu``): D <= 128 at any Nq and Nk
+    in both dtypes, as its tensor-core kernels stream their tiles (each
+    pass's shared memory depends on the span alone)."""
+    return d <= TC_MAX_HEAD_DIM
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -91,21 +83,13 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype)
 
 
-def flash_attention_backward_reference(
+def flash_attention_backward_sums(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the backward, step for step the TPU
-    kernel's arithmetic (``_bwd_kernel_plain``): the weights recomputed from
-    f32 logits times 1/sqrt(D) and kept in f32; dw = dO V^T and
-    dl = w (dw - rowsum(dw w)) in f32; dQ = dl K scale and
-    dK = dl^T Q scale from the f32 dl; dV = bf(w)^T dO with the weights
-    rounded to dO's dtype; all three returned in the inputs' dtypes.
-
-    q, do: (B, Nq, H, D); k, v: (B, Nk, H, D). ``do`` is first cast to q's
-    dtype, as the TPU kernel casts it.
-    """
+    """The plain version's f32 dQ, dK and dV before their cast to the
+    inputs' dtypes (``flash_attention_backward_reference`` says how they
+    are formed); ``do`` is in q's dtype."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    do = do.to(q.dtype)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     unnorm = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
@@ -115,6 +99,23 @@ def flash_attention_backward_reference(
     dq = torch.einsum("bhqk,bkhd->bqhd", dl, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", dl, qf) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", w.to(do.dtype).float(), dof)
+    return dq, dk, dv
+
+
+def flash_attention_backward_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward, step for step the TPU kernel's
+    arithmetic (``_bwd_kernel_plain``): the weights recomputed from f32
+    logits times 1/sqrt(D) and kept in f32; dw = dO V^T and
+    dl = w (dw - rowsum(dw w)) in f32; dQ = dl K scale and
+    dK = dl^T Q scale from the f32 dl; dV = bf(w)^T dO with the weights
+    rounded to dO's dtype; all three returned in the inputs' dtypes.
+
+    q, do: (B, Nq, H, D); k, v: (B, Nk, H, D). ``do`` is first cast to q's
+    dtype, as the TPU kernel casts it.
+    """
+    dq, dk, dv = flash_attention_backward_sums(q, k, v, do.to(q.dtype))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -207,9 +208,10 @@ def flash_attention_backward(
     q, do: (B, Nq, H, D); k, v: (B, Nk, H, D), float32 or bfloat16. ``do``
     may have any layout and float dtype: it is made contiguous in q's
     dtype. Gradients come back in the inputs' dtype. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise (float32: the
-    query pass, then the dK/dV pass, into an f32 work buffer of the rows'
-    LSE and delta).
+    plain version; CUDA tensors launch the kernels of their dtype (the
+    query pass, then the dK/dV pass, with an f32 work buffer of the rows'
+    LSE and delta between them; ``backward_fits`` says which shapes they
+    take) or raise.
     """
     _check(q, k, v, BWD_NAME)
     if do.shape != q.shape or do.device != q.device:
@@ -220,13 +222,12 @@ def flash_attention_backward(
         return flash_attention_backward_reference(q, k, v, do)
     b, nq, h, _ = q.shape
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    work = torch.empty((2, b * h, nq) if q.dtype == torch.float32 else (0,),
-                       dtype=torch.float32, device=q.device)
+    work = torch.empty((2, b * h, nq), dtype=torch.float32, device=q.device)
     if dq.numel():
-        _launch(BWD_SOURCE, BWD_NAME, (q, k, v, do, dq, dk, dv, work), q,
-                k.shape[1], "bfloat16: Q, dO, K and V of one (batch, head) "
-                "do not fit in a block's shared memory (227 KB); float32: D "
-                f"> {TC_MAX_HEAD_DIM}")
+        _launch(BWD_SOURCE,
+                BWD_NAME if q.dtype == torch.float32 else BWD_BF16_NAME,
+                (q, k, v, do, dq, dk, dv, work), q, k.shape[1],
+                f"the tensor-core kernels take D <= {TC_MAX_HEAD_DIM}")
     return dq, dk, dv
 
 

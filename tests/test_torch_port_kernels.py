@@ -95,8 +95,9 @@ def test_kernel_sources_and_build_flags(tmp_path, monkeypatch):
     fed by ldmatrix, cp.async copies), and tc_attention_bwd.cuh, which
     includes it: K4's
     f32 dK/dV/dS body and query pass with the bias (dQ/dR), K4's bf16
-    dK/dV/dS body, and K2's f32 query pass and dK/dV pass (tf32 mma.sync);
-    the library name changes
+    dK/dV/dS body, K2's f32 query pass and dK/dV pass (tf32 mma.sync), and
+    K2's bf16 query pass with the bf16 dK/dV body (no kernel of K2's own
+    source); the library name changes
     with the source, with a header it includes, or with the flags."""
     launchers = {
         "flash_attention": ["flash_attention"],
@@ -159,6 +160,12 @@ def test_kernel_sources_and_build_flags(tmp_path, monkeypatch):
                                  dkv_entry.index("default:")]
             assert "tc::launch_bwd_dkv_bf16(" in dkv_bf16
             assert "dkv_kernel<" not in bwd
+        else:
+            # bfloat16: the bf16 query pass and dK/dV body of
+            # tc_attention_bwd.cuh; the CUDA-core kernel is gone
+            bf16_case = bwd[bwd.index("case 1: {"):bwd.index("default:")]
+            assert "tc::launch_bwd_bf16(" in bf16_case
+            assert "__global__" not in bwd
         assert build._sources(stem) == [
             build.CSRC / f"{stem}.cu", build.CSRC / "tc_attention_bwd.cuh",
             build.CSRC / "tc_attention.cuh"]

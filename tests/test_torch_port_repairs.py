@@ -5,8 +5,8 @@
   launchers' limits and hold at their boundary; past it the attention
   takes its eager branch (the JAX package's K2 takes XLA's backward
   there), so no shape that JAX runs is refused on the card. K1 takes any
-  Nk in both dtypes, as JAX's eval gate does, and K2 in f32 any token
-  count, so f32 training fuses wherever JAX's does.
+  Nk in both dtypes, as JAX's eval gate does, and K2 any token count in
+  both dtypes, so training fuses wherever JAX's does.
 - K3's limits: ``lowrank_fits`` (kernels/flash_attention_lowrank.py, D
   and the bias's factor columns M up to 128 in both dtypes) holds at its
   boundary, and MViT's attention takes its eager branch past it.
@@ -21,7 +21,7 @@ import torch
 
 from multi_modal_csi_tpu_torch.core.weights import resize_mvit_tables
 from multi_modal_csi_tpu_torch.kernels.flash_attention import (
-    MAX_SHARED_BYTES, TC_MAX_HEAD_DIM, backward_fits, forward_fits)
+    TC_MAX_HEAD_DIM, backward_fits, forward_fits)
 from multi_modal_csi_tpu_torch.kernels.flash_attention_lowrank import (
     MAX_BIAS_RANK, MAX_HEAD_DIM, lowrank_fits)
 from multi_modal_csi_tpu_torch.models.video import mvit
@@ -39,27 +39,16 @@ torch.set_num_threads(1)
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("d", [15, 27, 45])
 def test_fit_predicates_at_their_boundary(d, dtype):
-    """K2 in bf16 (the CUDA-core kernel): the largest Nq = Nk that fits,
-    and one more, against its launcher's formula (Q, dO, K and V at the
-    odd row stride D | 1, three per-query rows and two rows of max(Nq, Nk)
-    per warp of 8) and the 232,448-byte limit: 457 tokens at THAT's
-    D = 27. K2 in f32 streams its tiles through the tensor-core kernels,
-    so any Nq = Nk fits (past that 457 and JAX's 640 at D = 27) and the
-    step is the head dim (128 to 129). K1 in either dtype streams the
-    keys through a tensor-core body (any Nk, past the 933 keys at D = 27
-    of the f32 kernel before it) and takes D <= 128."""
-    assert MAX_SHARED_BYTES == 232448
-    if dtype == torch.bfloat16:
-        n = max(n for n in range(1, 20000) if backward_fits(n, n, d, dtype))
-        assert not backward_fits(n + 1, n + 1, d, dtype)
-        assert 4 * (4 * n * (d | 1) + 3 * n + 16 * n) <= MAX_SHARED_BYTES
-        if d == 27:             # THAT's heads: 457 tokens in bf16 training
-            assert n == 457
-    else:
-        assert all(backward_fits(n, n, d, dtype)
-                   for n in (1, 457, 458, 640, 10**6))
-        assert backward_fits(10**6, 10**6, TC_MAX_HEAD_DIM, dtype)
-        assert not backward_fits(1, 1, TC_MAX_HEAD_DIM + 1, dtype)
+    """K2 in either dtype streams its tiles through the tensor-core
+    kernels, so any Nq = Nk fits (past the 457 that bounded bf16's
+    CUDA-core kernel at THAT's D = 27, and JAX's 640) and the step is the
+    head dim (128 to 129). K1 in either dtype streams the keys through a
+    tensor-core body (any Nk, past the 933 keys at D = 27 of the f32
+    kernel before it) and takes D <= 128."""
+    assert all(backward_fits(n, n, d, dtype)
+               for n in (1, 457, 458, 640, 10**6))
+    assert backward_fits(10**6, 10**6, TC_MAX_HEAD_DIM, dtype)
+    assert not backward_fits(1, 1, TC_MAX_HEAD_DIM + 1, dtype)
     assert all(forward_fits(nk, d, dtype) for nk in (1, 933, 934, 10**6))
     assert forward_fits(1, TC_MAX_HEAD_DIM, dtype)
     assert not forward_fits(1, TC_MAX_HEAD_DIM + 1, dtype)
@@ -68,18 +57,13 @@ def test_fit_predicates_at_their_boundary(d, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_backward_fits_head_dim(dtype):
-    """K2's f32 instantiation (the tensor-core backward body) takes spans
-    up to D = 128 at any token count; its bf16 one, on the CUDA cores, any
-    D whose operands fit. 64 tokens of D = 129 fit in shared memory, so
-    only the span refuses them in f32 (the training gate then takes the
-    eager branch); a million tokens of D = 128 fit only in f32."""
+    """K2's tensor-core kernels in either dtype take spans up to D = 128
+    at any token count: 64 tokens of D = 129 are refused by the span
+    alone (the training gate then takes the eager branch), and a million
+    tokens of D = 128 fit."""
     assert backward_fits(64, 64, TC_MAX_HEAD_DIM, dtype)
-    assert backward_fits(64, 64, TC_MAX_HEAD_DIM + 1,
-                         dtype) == (dtype == torch.bfloat16)
-    assert backward_fits(10**6, 10**6, TC_MAX_HEAD_DIM,
-                         dtype) == (dtype == torch.float32)
-    assert 4 * (4 * 64 * (TC_MAX_HEAD_DIM + 1 | 1) + 3 * 64
-                + 16 * 64) <= MAX_SHARED_BYTES
+    assert not backward_fits(64, 64, TC_MAX_HEAD_DIM + 1, dtype)
+    assert backward_fits(10**6, 10**6, TC_MAX_HEAD_DIM, dtype)
 
 
 def _record(monkeypatch, name):
@@ -98,12 +82,10 @@ def test_attention_takes_eager_branch_past_the_boundary(training, dtype,
     branch one step beyond; both agree (f32 within 2e-5; bf16, where the
     eager branch rounds the logits to bf16, within BF16_TOL 2^-6 of
     chip_smoke.py). In eval K1 streams the keys in either dtype, so 934
-    keys of D = 27 fuse, and in f32 training K2 streams its tiles, so 458
-    tokens of D = 27 fuse: there the step is the head dim (128 to 129), as
-    JAX's gate; bf16 training keeps K2's 457 tokens at D = 27."""
-    f32_steps = not training or dtype == torch.float32
-    d, last = (TC_MAX_HEAD_DIM, 934 if not training else 458) if f32_steps \
-        else (27, 457)
+    keys of D = 27 fuse, and in training K2 streams its tiles in either
+    dtype, so 458 tokens of D = 27 fuse: the step is the head dim (128 to
+    129), as JAX's gate."""
+    d, last = TC_MAX_HEAD_DIM, 934 if not training else 458
     name = "flash_attention_trainable" if training else "flash_attention"
     calls = _record(monkeypatch, name)
 
@@ -113,17 +95,12 @@ def test_attention_takes_eager_branch_past_the_boundary(training, dtype,
             (1, n, d), dtype=np.float32))
         return run(mha.to(dtype), *(x.to(dtype),) * 3)
 
-    if f32_steps:
-        attend(27, last)
-        assert len(calls) == 1         # past the old kernels' 933 and 457
-        calls.clear()
-        attend(d, 64)
-        attend(d + 1, 64)
-        d, n_out = d + 1, 64
-    else:
-        attend(d, last)
-        attend(d, last + 1)
-        n_out = last + 1
+    attend(27, last)
+    assert len(calls) == 1             # past the old kernels' 933 and 457
+    calls.clear()
+    attend(d, 64)
+    attend(d + 1, 64)
+    d, n_out = d + 1, 64
     assert len(calls) == 1             # only the fitting one was fused
     eager = attend(d, n_out)
     calls.clear()
@@ -137,21 +114,26 @@ def test_attention_takes_eager_branch_past_the_boundary(training, dtype,
                                rtol=tol)
 
 
-def test_f32_training_step_fuses_past_the_old_gate(monkeypatch):
-    """A one-head f32 training step at 600 tokens of D = 27 (THAT's heads,
-    past the 457 that bounded K2 f32 before its tiles were streamed, and
-    within JAX's 640) takes the fused branch, K1 forward and K2 backward,
-    and agrees with the eager branch within 2e-5: the output, the input's
-    gradient and the projections' weight gradients."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_f32_training_step_fuses_past_the_old_gate(dtype, monkeypatch):
+    """A one-head training step at 600 tokens of D = 27 (THAT's heads, past
+    the 457 that bounded K2 before its tiles were streamed, and within
+    JAX's 640) takes the fused branch, K1 forward and K2 backward, in
+    either dtype, and agrees with the eager branch: the output, the
+    input's gradient and the projections' weight gradients, within 2e-5
+    in f32 and 2^-6 (chip_smoke.py's BF16_TOL) in bf16, where the eager
+    branch rounds the logits and weights to bf16."""
     calls = _record(monkeypatch, "flash_attention_trainable")
     x_np = np.random.default_rng(6).standard_normal((1, 600, 27),
                                                     dtype=np.float32)
 
     def step():
         mha = P.MultiheadAttention(27, 1, generator=gen()).train(True)
-        x = torch.from_numpy(x_np).requires_grad_()
+        mha.to(dtype)
+        x = torch.from_numpy(x_np).to(dtype).requires_grad_()
         out = mha(x, x, x)
-        out.square().sum().backward()
+        out.float().square().sum().backward()
         return [out.detach(), x.grad, mha.in_proj_weight.grad,
                 mha.out_proj.weight.grad]
 
@@ -160,8 +142,11 @@ def test_f32_training_step_fuses_past_the_old_gate(monkeypatch):
     monkeypatch.setattr(P, "backward_fits", lambda nq, nk, d, dtype: False)
     eager = step()
     assert len(calls) == 1
+    tol = 2e-5 if dtype == torch.float32 else 2.0 ** -6
     for got, want in zip(fused, eager):
-        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
 
 
 @pytest.mark.parametrize("d", [8, 96, MAX_HEAD_DIM])

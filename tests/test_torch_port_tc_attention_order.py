@@ -485,17 +485,36 @@ def _k16_sum(eq, a, b):
     return acc
 
 
-def bf16_bwd_dkv_order(q, k, v, r, s, do, lse, delta, splits):
+def place(t, shifts=None):
+    """(G, N, D) t in shared memory's positions: group g's element c at
+    position shifts[g] + c (all 0 if None), zeros elsewhere, over a span of
+    whole k-steps of 16."""
+    g, n, d = t.shape
+    shifts = [0] * g if shifts is None else shifts
+    out = t.new_zeros((g, n, -(-(max(shifts) + d) // 16) * 16))
+    for i, sh in enumerate(shifts):
+        out[i, :, sh:sh + d] = t[i]
+    return out
+
+
+def take(t, d, shifts=None):
+    """The columns ``place`` put each group's D elements in."""
+    shifts = [0] * t.shape[0] if shifts is None else shifts
+    return torch.stack([t[i, :, sh:sh + d] for i, sh in enumerate(shifts)])
+
+
+def bf16_bwd_dkv_order(q, k, v, r, s, do, lse, delta, splits,
+                       round_w=False, shifts=None):
     """K4's bf16 dK/dV/dS kernel on (G, Nq, D) q, do and (G, Nk, D) k, v
     holding bf16 values, optional f32 r (G, Nq, M) and s (M, Nk), the
     forward's LSE and delta (G, Nq), the query tiles split ``splits`` ways.
-    Returns the f32 dK, dV (G, Nk, D) before their bf16 rounding and dS
-    (M, Nk) or None."""
+    K2's form: ``round_w``, dV from w's bf16 hi alone (w rounded once), and
+    ``shifts``, each group's position of element 0 (``place``). Returns
+    the f32 dK, dV (G, Nk, D) before their bf16 rounding and dS (M, Nk)
+    or None."""
     d = q.shape[-1]
     scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
-    pad = -d % 16
-    q, k, v, do = (torch.nn.functional.pad(t.float(), (0, pad))
-                   for t in (q, k, v, do))
+    q, k, v, do = (place(t.float(), shifts) for t in (q, k, v, do))
     g, nq, _ = q.shape
     bias = None if r is None else _tf32_product("km", "gqm->gkq", s.T, r)
     tiles = -(-nq // QUERY_TILE)
@@ -515,15 +534,16 @@ def bf16_bwd_dkv_order(q, k, v, r, s, do, lse, delta, splits):
             dp = _k16_sum("gkd,gqd->gkq", v, dot)
             dl = w * (dp - delta[:, None, rows])
             (w_hi, w_lo), (dl_hi, dl_lo) = _bf16_split(w), _bf16_split(dl)
-            dv = dv + (torch.einsum("gkq,gqd->gkd", w_lo, dot)
+            dv = dv + (torch.einsum("gkq,gqd->gkd", w_hi, dot) if round_w
+                       else torch.einsum("gkq,gqd->gkd", w_lo, dot)
                        + torch.einsum("gkq,gqd->gkd", w_hi, dot))
             dk = dk + (torch.einsum("gkq,gqd->gkd", dl_lo, qt)
                        + torch.einsum("gkq,gqd->gkd", dl_hi, qt))
             if ds is not None:
                 ds = ds + _tf32_product("gkq", "gqm->gkm", dl, r[:, rows])
         parts.append((dk * scale, dv, ds))
-    dk = torch.stack([p[0] for p in parts]).sum(dim=0)[..., :d]
-    dv = torch.stack([p[1] for p in parts]).sum(dim=0)[..., :d]
+    dk = take(torch.stack([p[0] for p in parts]).sum(dim=0), d, shifts)
+    dv = take(torch.stack([p[1] for p in parts]).sum(dim=0), d, shifts)
     ds = None if r is None else torch.stack(
         [p[2] for p in parts]).sum(dim=(0, 1)).T
     return dk, dv, ds
