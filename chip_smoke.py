@@ -91,10 +91,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    through core/quantize.py) at the odd shapes as Linears or grouped
    convs, w8a8 and w8, with a bias: the prologue torch.equal to its plain
    version on the card, the s8 output torch.equal to the eager chain, the
-   bf16 output within P1_BF16_BOUND's accumulation bound plus the
+   bf16 output within accumulation_bound's bound plus the
    epilogue's roundings, with times beside the yardstick (_int_mm or
    matmul plus the eager epilogue) and the bound; a bf16 operand whose
-   rows no 4-byte copy divides must be refused, raising;
+   rows no 4-byte copy divides must be refused, raising; also every
+   product of CNN-1D's w8a8 and MLP's w8 forwards, and MLP's layer_0 as
+   it runs, bf16 (256, 810000) x int8 (256, 810000) through
+   quantized_product, within the long-K accumulation bound (LONG_K_LAMBDA
+   2^-24 sqrt(K) sum |a b|) of the exact product, which must refuse an
+   all-zero output and the output without one split of K or one stage,
+   beside bf16_matmul_f32_reference with its times, bf16 torch.matmul's,
+   the bound and the splits of K that split_count picks for its 6 output
+   tiles;
 4e. K1 and K2 at the largest shapes their fit predicates admit, each
    instantiation: K2 in both dtypes at 64 tokens of a head of 128 (a head
    of 129: refused with ValueError) and at 640 tokens of D = 27 against
@@ -116,7 +124,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    against the CPU, where the plain versions run; the same for DETR at
    the flagship configuration, with no kernel launch, and for
    THAT_ENCODER, with 5 K1 launches per forward;
-6b. int8 serving of DETR and THAT_ENCODER in w8a8 (their QUANT_DEFAULTS),
+6a. the six WiMANS baselines (MLP, CNN-1D, CNN-2D, LSTM, CLSTM, ABLSTM)
+   served the same way at full width, bf16, batch 256 (LSTM and ABLSTM,
+   whose bf16 step loops make 4,800 and 12,000 launch calls a forward,
+   the first request only): no kernel launch, the rates, the profile
+   (device ms per forward, busy share, launch calls per forward), and f32
+   card vs CPU within SERVE_F32_TOL as THAT's, the CPU taking the card's
+   side at every leaky-ReLU kink; each phase's wall time;
+6b. int8 serving of MLP in w8 (--quant auto: 2 bf16 P1 launches a
+   forward, no prologue, logits within 0.25 of the bf16 logits' spread)
+   and CNN-1D in w8a8 (4 prologue and 4 s8 launches, card vs CPU as
+   below; the JAX package has no accuracy bound for it, so its distance
+   from bf16 serving is printed), then of DETR and THAT_ENCODER in w8a8
+   (their QUANT_DEFAULTS),
    bf16, batch 256, calibrated through CSIServer(calib=...) on a seeded
    .npy of 64 windows: exact s8 and bf16 P1 launches by product shape and
    prologue launches in one batch forward (22 + 54 and 52 for DETR; 27 +
@@ -144,13 +164,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
 9. DETR's training step at the flagship configuration, batch 16, with the
    Hungarian matching loss and augmentation: finite loss, no kernel
    launch, windows/s;
+9b. each WiMANS baseline trained in f32 at batch 16 (no kernel launch, a
+   warm-up step, windows trained/s, 5 steps under torch.profiler, then
+   fit for one epoch), and one f32 step of LSTM and of CNN-2D on the card
+   against the CPU as in 8, with the BatchNorm running statistics too;
 10. the experiment path (runners/csi.py::run_experiment) for THAT_ENCODER
    and DETR at full width: a synthetic annotation.csv of 48 windows in one
    environment, an amplitude cache of the 4 traces of phase 5 and 44
    windows of 2500 to 3000 steps, 2 epochs at batch 16, the final test
    pass in bf16; the result JSON read back with the JAX runner's keys;
    THAT_ENCODER's exact K1 (f32 and bf16) and K2 launch counts, none for
-   DETR;
+   DETR; then MLP (flat windows) and CNN-1D (count_round) for one epoch
+   each, with no kernel launch;
 11. MViT-v1 and MViT-v2 serving at full width (runners/video.py,
    core/serving.py::VideoServer), bf16, batch 2: seeded weights, ragged
    requests of 2, 1 and 3 seeded (45, 224, 224, 3) clips, exactly 16 K3
@@ -260,6 +285,9 @@ TRAIN_RATE_STEPS = 10      # timed training steps after a warm-up step
 PROFILED_STEPS = 5
 STEP_F32_TOL = 1e-5        # card vs CPU training-step loss, relative
 GRAD_F32_TOL = 1e-4        # card vs CPU gradients, of each tensor's scale
+STATS_F32_TOL = 1e-4       # card vs CPU BatchNorm statistics after a step,
+                           # of each buffer's largest magnitude: f32 means
+                           # over up to 1.6M elements summed in another order
 K5_SHAPES = {"trace": (3000, 270), "ragged": (2999, 270),
              "batch": (8, 3000, 270)}
 # K5's phase against torch.atan2 and against numpy's angle, in ulp of the
@@ -981,13 +1009,22 @@ def attention_share(key, what, profile):
           f"{100 * ms / profile['device_ms']:.1f}% of the device time")
 
 
-def serve_phase(key, requests, expect_out, launches_per_forward):
-    """Serve ``requests`` (host arrays) with ``key`` in bf16 at batch 256;
-    then hold the same weights at f32 on the card against the CPU."""
+def serve_phase(key, requests, expect_out, launches_per_forward,
+                served=None):
+    """Serve ``requests`` (host arrays; only the first ``served`` of them
+    if given) with ``key`` in bf16 at batch 256, launching K1
+    ``launches_per_forward`` times a forward and no other kernel; then
+    hold the same weights at f32 on the card against the CPU, on 4
+    windows of the second request, within SERVE_F32_TOL (absolute and
+    relative); for the WiMANS baselines the CPU takes the card's side at
+    every leaky-ReLU kink."""
     from multi_modal_csi_tpu_torch import kernels
     from multi_modal_csi_tpu_torch.core.serving import CSIServer
     from multi_modal_csi_tpu_torch.runners.csi import build_model
 
+    phase_start = time.perf_counter()
+    cpu_windows = requests[1][:4]
+    requests = requests[:served]
     set_tf32(False)
     torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
     server = CSIServer(key, build_model(key, seed=SEED), dtype="bfloat16",
@@ -1000,9 +1037,10 @@ def serve_phase(key, requests, expect_out, launches_per_forward):
     torch.cuda.synchronize()
     one = kernels.LAUNCH_COUNTS.get("flash_attention", 0)
     print(f"{key}: K1 launches in one batch forward: {one}")
-    check(one == launches_per_forward,
-          f"{key} launched K1 {one} times in one forward, "
-          f"expected {launches_per_forward}")
+    check(one == launches_per_forward
+          and set(kernels.LAUNCH_COUNTS) <= {"flash_attention"},
+          f"{key} launched {dict(kernels.LAUNCH_COUNTS)} in one forward, "
+          f"expected {launches_per_forward} K1 and nothing else")
 
     # the main path: ragged requests from host memory to logits on the host
     kernels.reset_launch_counts()
@@ -1048,17 +1086,80 @@ def serve_phase(key, requests, expect_out, launches_per_forward):
     # f32 on the card (TF32 off) against the CPU, where the plain
     # versions run, on the same seeded weights and 4 windows
     set_tf32(False)
-    x = requests[1][:4]
-    card = CSIServer(key, build_model(key, seed=SEED), dtype="float32",
-                     device="cuda", batch=4)(x).cpu().numpy()
-    cpu = CSIServer(key, build_model(key, seed=SEED), dtype="float32",
-                    device="cpu", batch=4)(x).numpy()
+    x = cpu_windows
+    kinks = KinkReplay(key if key in BASELINES else None)
+    with kinks.on("cuda"):
+        card = CSIServer(key, build_model(key, seed=SEED), dtype="float32",
+                         device="cuda", batch=4)(x).cpu().numpy()
+    with kinks.on("cpu"):
+        cpu = CSIServer(key, build_model(key, seed=SEED), dtype="float32",
+                        device="cpu", batch=4)(x).numpy()
     err = float(np.abs(card - cpu).max())
-    print(f"{key} f32 card vs CPU: max abs err {err:.3e} "
-          f"(tolerance {SERVE_F32_TOL} abs + rel)")
+    top = float(np.abs(cpu).max())
+    print(f"{key} f32 card vs CPU: max abs err {err:.3e} = {err / top:.2e} "
+          f"of the largest logit (tolerance {SERVE_F32_TOL} abs + rel)"
+          + (f"; {kinks.report()}" if kinks.modules else ""))
     check(np.allclose(card, cpu, atol=SERVE_F32_TOL, rtol=SERVE_F32_TOL),
           f"{key} f32 card vs CPU err {err}")
+    kinks.done(key)
+    print(f"{key} serving phase: {time.perf_counter() - phase_start:.1f} s")
     return launches
+
+
+# the port's model modules whose leaky ReLUs a card-vs-CPU comparison
+# replays, by model key
+KINK_MODULES = {"THAT": ("that",), "CNN-2D": ("cnn_2d",),
+                "CLSTM": ("clstm",), "ABLSTM": ("ablstm",)}
+
+
+class KinkReplay:
+    """The devices round differently, so a pre-activation within rounding
+    of zero can land on the other side of a leaky ReLU's kink, where the
+    slope is 0.01 instead of 1; through a BatchNorm after it, one such
+    element moves whole gradient tensors by percents. Under ``on("cuda")``
+    the model modules of ``key`` record the side of every leaky-ReLU
+    input; under ``on("cpu")`` they take the recorded sides in order and
+    count where the CPU's own differ, so that a comparison measures
+    rounding alone."""
+
+    def __init__(self, key):
+        import importlib
+        self.modules = [importlib.import_module(
+            f"multi_modal_csi_tpu_torch.models.csi.{name}")
+            for name in KINK_MODULES.get(key, ())]
+        self.sides, self.flips, self.total = [], 0, 0
+
+    def record(self, v):
+        import torch.nn.functional as F
+        self.sides.append(v > 0)
+        return F.leaky_relu(v, 0.01)
+
+    def replay(self, v):
+        side = self.sides.pop(0).to(v.device)
+        self.flips += int(((v > 0) != side).sum())
+        self.total += v.numel()
+        return torch.where(side, v, 0.01 * v)
+
+    @contextlib.contextmanager
+    def on(self, device):
+        fn = self.record if device == "cuda" else self.replay
+        real = [m.leaky_relu for m in self.modules]
+        for m in self.modules:
+            m.leaky_relu = fn
+        try:
+            yield
+        finally:
+            for m, f in zip(self.modules, real):
+                m.leaky_relu = f
+
+    def report(self):
+        return (f"{self.flips} of {self.total} leaky-ReLU inputs fell on "
+                f"the other side of the kink on the CPU (it took the "
+                f"card's)")
+
+    def done(self, label):
+        check(not self.sides, f"{label}: the CPU replayed fewer leaky ReLUs "
+                              f"than the card")
 
 
 def without_dropout(model):
@@ -1228,75 +1329,113 @@ def train_phase_that(data):
     return launches, bf16
 
 
-def train_step_card_vs_cpu(data):
-    """One f32 THAT step at batch 2 on the card (TF32 off) and on the CPU,
-    from the same seeded weights and batch, augmentation and dropout off:
-    the loss within STEP_F32_TOL relative, each gradient within
-    GRAD_F32_TOL of its tensor's scale.
+def train_step_card_vs_cpu(key, x, y):
+    """One f32 training step of ``key`` on windows ``x`` and labels ``y``
+    on the card (TF32 off) and on the CPU, from the same seeded weights,
+    augmentation and dropout off: the loss within STEP_F32_TOL relative,
+    each gradient within GRAD_F32_TOL of its tensor's scale, each
+    BatchNorm running statistic within STATS_F32_TOL of its buffer's
+    largest magnitude.
 
     The scale is the tensor's largest CPU gradient, floored at 1e-2 of the
     model's largest: a conv bias feeding a training BatchNorm, or a
     LayerNorm bias feeding only such convs, has a zero gradient in exact
-    arithmetic and float noise on both devices.
-
-    The devices round differently, so a pre-activation within rounding of
-    zero can land on the other side of a leaky ReLU's kink, where the
-    slope is 0.01 instead of 1; through the BatchNorm before it, one such
-    element moves whole gradient tensors by percents. So the card's step
-    records the side of every leaky-ReLU input, the CPU step takes the
-    card's side at each (and counts where its own differs), and the
-    comparison measures rounding alone."""
-    import torch.nn.functional as F
+    arithmetic and float noise on both devices. The CPU takes the card's
+    side at every leaky-ReLU kink (``KinkReplay``)."""
     from multi_modal_csi_tpu_torch.core.config import Config
-    from multi_modal_csi_tpu_torch.models.csi import that as that_module
     from multi_modal_csi_tpu_torch.runners.csi import CSI_MODELS, build_model
     from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch,
                                                       make_train_step)
     set_tf32(False)
-    cfg, spec = Config(), CSI_MODELS["THAT"]
-    x, y = data[0][:2], data[1][:2]
-    sides, flips = [], [0, 0]
-
-    def recording(v):
-        sides.append(v > 0)
-        return F.leaky_relu(v, 0.01)
-
-    def replaying(v):
-        side = sides.pop(0).to(v.device)
-        flips[0] += int(((v > 0) != side).sum())
-        flips[1] += v.numel()
-        return torch.where(side, v, 0.01 * v)
-
+    cfg, spec = Config(), CSI_MODELS[key]
+    kinks = KinkReplay(key)
     got = {}
-    real = that_module.leaky_relu
-    try:
-        for device, leaky_relu in (("cuda", recording), ("cpu", replaying)):
-            that_module.leaky_relu = leaky_relu
-            model = without_dropout(build_model("THAT", seed=SEED)).to(device)
+    for device in ("cuda", "cpu"):
+        with kinks.on(device):
+            model = without_dropout(build_model(key, seed=SEED)).to(device)
             step = make_train_step(model, adam_like_torch(
                 model.parameters(), cfg.nn.lr, spec.weight_decay),
-                spec.make_loss(cfg, 54), augment=False)
+                spec.make_loss(cfg, y.shape[-1]), augment=False)
             loss, _ = step(torch.from_numpy(x).to(device),
                            torch.from_numpy(y).to(device),
                            torch.Generator(device=device).manual_seed(SEED))
-            got[device] = (float(loss), {n: p.grad.detach().cpu() for n, p
-                                         in model.named_parameters()})
-    finally:
-        that_module.leaky_relu = real
-    check(not sides, "the CPU step replayed fewer leaky ReLUs than the card")
-    (card_loss, card), (cpu_loss, cpu) = got["cuda"], got["cpu"]
+        got[device] = (float(loss),
+                       {n: p.grad.detach().cpu() for n, p
+                        in model.named_parameters()},
+                       {n: b.detach().cpu() for n, b in model.named_buffers()
+                        if n.endswith(("running_mean", "running_var"))})
+        del model, step
+    kinks.done(f"{key} training step")
+    (card_loss, card, card_stats), (cpu_loss, cpu, cpu_stats) = (
+        got["cuda"], got["cpu"])
     floor = 1e-2 * max(g.abs().max().item() for g in cpu.values())
     worst = max((((card[n] - cpu[n]).abs().max().item()
                   / max(cpu[n].abs().max().item(), floor)), n) for n in cpu)
+    stats = max((((card_stats[n] - cpu_stats[n]).abs().max().item()
+                  / cpu_stats[n].abs().max().item()), n) for n in cpu_stats)
     rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
-    print(f"THAT f32 training step, card vs CPU: {flips[0]} of {flips[1]} "
-          f"leaky-ReLU inputs fell on the other side of the kink on the "
-          f"CPU (it took the card's); loss {card_loss:.6f} vs "
-          f"{cpu_loss:.6f} (relative {rel:.2e}, tolerance {STEP_F32_TOL}); "
-          f"worst gradient {worst[0]:.2e} of its scale in {worst[1]} "
-          f"(tolerance {GRAD_F32_TOL})")
-    check(rel <= STEP_F32_TOL, f"card vs CPU step loss relative {rel}")
-    check(worst[0] <= GRAD_F32_TOL, f"card vs CPU gradient {worst}")
+    print(f"{key} f32 training step, card vs CPU: {kinks.report()}; loss "
+          f"{card_loss:.6f} vs {cpu_loss:.6f} (relative {rel:.2e}, "
+          f"tolerance {STEP_F32_TOL}); worst gradient {worst[0]:.2e} of its "
+          f"scale in {worst[1]} (tolerance {GRAD_F32_TOL}); worst BatchNorm "
+          f"statistic {stats[0]:.2e} of its largest in {stats[1]} "
+          f"(tolerance {STATS_F32_TOL})")
+    check(rel <= STEP_F32_TOL, f"{key} card vs CPU step loss relative {rel}")
+    check(worst[0] <= GRAD_F32_TOL, f"{key} card vs CPU gradient {worst}")
+    check(stats[0] <= STATS_F32_TOL, f"{key} card vs CPU statistic {stats}")
+
+
+def train_phase_baseline(key, data):
+    """One WiMANS baseline trained in f32 at batch 16 at full width: no
+    kernel launch in a step (none of the six attends, and training runs
+    no int8), windows trained per second, 5 steps under torch.profiler,
+    then ``fit`` for one epoch (augmentation on) over the seeded windows."""
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.core.config import Config
+    from multi_modal_csi_tpu_torch.runners.csi import CSI_MODELS, build_model
+    from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch, fit,
+                                                      make_train_step)
+    start = time.perf_counter()
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    cfg, spec = Config(), CSI_MODELS[key]
+    loss_fn = spec.make_loss(cfg, 54)
+    x_tr, y_tr, x_va, y_va = data
+    model = build_model(key, seed=SEED).cuda()
+    step = make_train_step(model, adam_like_torch(
+        model.parameters(), cfg.nn.lr, spec.weight_decay), loss_fn)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bx = torch.from_numpy(x_tr[:TRAIN_BATCH]).cuda()
+    by = torch.from_numpy(y_tr[:TRAIN_BATCH]).cuda()
+    step(bx, by, gen)                                         # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    step(bx, by, gen)
+    torch.cuda.synchronize()
+    check(kernels.LAUNCH_COUNTS == {}, f"{key} training step launched "
+                                       f"{dict(kernels.LAUNCH_COUNTS)}")
+    train_rate(f"{key} f32 training", step, bx, by, gen)
+    profile_device(f"{key} f32 training", lambda: step(bx, by, gen),
+                   PROFILED_STEPS, "step")
+    del model, step, bx, by
+
+    model = build_model(key, seed=SEED)
+    kernels.reset_launch_counts()
+    res = fit(model, x_tr, y_tr, x_va, y_va, loss_fn=loss_fn,
+              mode=spec.mode, lr=cfg.nn.lr, epochs=1,
+              batch_size=TRAIN_BATCH, seed=SEED,
+              weight_decay=spec.weight_decay, threshold=cfg.nn.threshold)
+    h = res.history[0]
+    print(f"{key} fit epoch: train loss {h['train_loss']:.4f}, validation "
+          f"loss {h['test_loss']:.4f}, F1 {h['f1_score']:.4f}, "
+          f"{h['epoch_time']:.2f} s; launches {dict(kernels.LAUNCH_COUNTS)}")
+    check(res.epochs_ran == 1 and math.isfinite(h["train_loss"])
+          and math.isfinite(h["test_loss"]), f"{key} fit losses not finite")
+    check(kernels.LAUNCH_COUNTS == {}, f"{key} fit launched "
+                                       f"{dict(kernels.LAUNCH_COUNTS)}")
+    del model
+    torch.cuda.empty_cache()
+    print(f"{key} training phase: {time.perf_counter() - start:.1f} s")
 
 
 def train_phase_detr(data):
@@ -1364,37 +1503,48 @@ def write_run_dataset(root, converted_amp):
 
 
 def run_csi_phase(work, converted_amp):
-    """run_experiment for THAT_ENCODER and DETR at full width on the card:
-    the result JSON, its keys, and THAT_ENCODER's exact launch counts.
-    Returns THAT_ENCODER's launch counts."""
+    """run_experiment at full width on the card for THAT_ENCODER and DETR
+    (RUN_EPOCHS epochs) and the WiMANS baselines MLP (the flat layout, the
+    classification report) and CNN-1D (count_round; one epoch each): the
+    result JSON, its keys, and the exact launch counts (none but
+    THAT_ENCODER's K1 and K2). Returns THAT_ENCODER's launch counts."""
     from multi_modal_csi_tpu_torch import kernels
     from multi_modal_csi_tpu_torch.core.config import Config
     from multi_modal_csi_tpu_torch.data.splits import (env_split,
                                                        valid_test_split)
-    from multi_modal_csi_tpu_torch.runners.csi import run_experiment
+    from multi_modal_csi_tpu_torch.runners.csi import (CSI_MODELS,
+                                                       run_experiment)
     set_tf32(False)
     torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
     amp_dir = write_run_dataset(work, converted_amp)
     idx = np.arange(RUN_WINDOWS)
-    n_train, rest = len(env_split(idx, idx)[0]), env_split(idx, idx)[1]
-    n_valid, n_test = (len(a) for a in valid_test_split(rest, rest)[:2])
-    steps = RUN_EPOCHS * (math.ceil(n_train / TRAIN_BATCH) - 1)
-    # f32: the training steps and the validation chunks; bf16: the final
-    # test pass in the serving dtype
-    chunks = RUN_EPOCHS * math.ceil(n_valid / 512)
     out = {}
-    for key, want in (("THAT_ENCODER",
-                       {"flash_attention_f32": 5 * steps + 5 * chunks,
-                        "flash_attention": 5 * math.ceil(n_test / 512),
-                        "flash_attention_backward": 5 * steps}),
-                      ("DETR", {})):
+    for key, epochs in (("THAT_ENCODER", RUN_EPOCHS), ("DETR", RUN_EPOCHS),
+                        ("MLP", 1), ("CNN-1D", 1)):
+        spec = CSI_MODELS[key]
+        n_train, rest = len(env_split(idx, idx)[0]), env_split(idx, idx)[1]
+        if spec.valid_split:
+            n_valid, n_test = (len(a) for a in
+                               valid_test_split(rest, rest)[:2])
+        else:                      # validation and test: the same 20%
+            n_valid = n_test = len(rest)
+        steps = epochs * (math.ceil(n_train / TRAIN_BATCH) - 1)
+        # f32: the training steps and the validation chunks; bf16: the
+        # final test pass in the serving dtype
+        chunks = epochs * math.ceil(n_valid / 512)
+        want = ({"flash_attention_f32": 5 * steps + 5 * chunks,
+                 "flash_attention": 5 * math.ceil(n_test / 512),
+                 "flash_attention_backward": 5 * steps}
+                if key == "THAT_ENCODER" else {})
+        keys = RESULT_KEYS - ({"final_metrics"}
+                              if spec.final_eval == "report" else set())
         save = os.path.join(work, "results", f"{key}.json")
         cfg = Config().override({
             "model": key, "task": "activity", "repeat": 1,
             "path.data_x": amp_dir,
             "path.data_y": os.path.join(work, "annotation.csv"),
             "path.save": save, "data.environment": ["classroom"],
-            "nn.epoch": RUN_EPOCHS, "nn.batch_size": TRAIN_BATCH,
+            "nn.epoch": epochs, "nn.batch_size": TRAIN_BATCH,
             "compute_dtype": "auto"})
         kernels.reset_launch_counts()
         start = time.perf_counter()
@@ -1407,17 +1557,17 @@ def run_csi_phase(work, converted_amp):
         fit_s = result["time_train"]["avg"]
         print(f"{key} run_experiment: {n_train} training, {n_valid} "
               f"validation, {n_test} test windows; {wall:.2f} s wall, fit "
-              f"{fit_s:.2f} s ({steps} steps and {RUN_EPOCHS} validation "
+              f"{fit_s:.2f} s ({steps} steps and {epochs} validation "
               f"passes: {steps * TRAIN_BATCH / fit_s:.1f} windows trained/s"
               f" over fit's wall time), final bf16 test pass "
-              f"{result['time_test']['avg']:.3f} s; PPP "
+              f"{result['time_test']['avg']:.3f} s; accuracy "
               f"{result['accuracy']['avg']:.1f}, parameters "
               f"{result['complexity']['parameter']}, forward FLOPs "
               f"{result['complexity']['flops']:.4g}; launches {launches}")
-        check(set(written) == RESULT_KEYS,
+        check(set(written) == keys,
               f"{key} result JSON keys {sorted(written)}")
         check(written["model"] == key and written["nn"]["epoch"]
-              == RUN_EPOCHS and written["data"]["length"] == LENGTH,
+              == epochs and written["data"]["length"] == LENGTH,
               f"{key} result JSON config sections")
         check(all(math.isfinite(written[k]["avg"]) for k in
                   ("accuracy", "time_train", "time_test")),
@@ -2408,6 +2558,19 @@ MVIT_BF16_PER_FORWARD = 16 + 15 + 32 + 3 + 1
 # in any order, each rounding by at most one unit of 2^-23 relative (so
 # truncating accumulation is covered too)
 P1_BF16_BOUND = 2.0 ** -23
+# Beyond LONG_K that any-order bound is looser than the product itself (at
+# MLP w8's layer_0, K = 810,000, it is 0.1 sum |a b| an element, while the
+# elements are about 2e-3 of sum |a b|: an all-zero output would pass).
+# There an element is held to LONG_K_LAMBDA 2^-24 sqrt(K) sum |a b|, the
+# probabilistic bound of K f32 additions (Higham and Mary, 2019) with its
+# lambda set from readings (probes/p1_long_k_tolerance.py on an H100 SXM):
+# the kernel reads 1.76e-3 of 2^-24 sqrt(K) sum |a b| at layer_0, so
+# lambda = 2^-4 leaves it a margin of about 35, while the output without
+# one of its 44 splits of K, or without one 64-value stage, reads far
+# beyond the bound (p1_w8_case checks that on every run)
+LONG_K = 2 ** 16
+LONG_K_LAMBDA = 2.0 ** -4
+STAGE_VALUES = 64          # bf16 values in one 128-byte long-K stage of A
 # card vs CPU logits of the same int8 weights and scales at f32 serving,
 # of the largest logit: activations that the two devices' f32 arithmetic
 # put on either side of an int8 rounding boundary take the other value
@@ -2417,11 +2580,39 @@ P1_BF16_BOUND = 2.0 ** -23
 INT8_CPU_SHARE = 2e-2
 # w8a8 / w8 logits against bf16 serving, over the bf16 logits' spread: the
 # JAX package's own bounds against float (tests/test_quantize.py:171, :300)
-INT8_SPREAD_BOUND = {"DETR": 0.35, "THAT_ENCODER": 0.5, "MViT-v2": 0.35}
+INT8_SPREAD_BOUND = {"DETR": 0.35, "THAT_ENCODER": 0.5, "MViT-v2": 0.35,
+                     "MLP": 0.25}
+# MLP in w8 (its QUANT_DEFAULTS), bf16, batch 256: layer_0 reads the input
+# BatchNorm's bf16 output and layer_1 the ReLU's as they are (no prologue);
+# the 54-wide head (6,912 weights) stays float
+MLP_BF16 = {(256, 810000, 256): 1, (256, 256, 128): 1}
+MLP_W8_SHAPE = (256, 810000, 256)     # (M, K, N) of layer_0
+# CNN-1D in w8a8, bf16, batch 256: the three convs' columns (k29 s13 over
+# 3000 steps of 270 channels: 229 rows a window; k15 s7: 31; k3: 29) and
+# the head on the time mean, each after its prologue
+CNN1D_S8 = {(256 * 229, 29 * 270, 128): 1, (256 * 31, 15 * 128, 256): 1,
+            (256 * 29, 3 * 256, 512): 1, (256, 512, 54): 1}
+CNN1D_COLUMNS = 4
+# the six WiMANS baselines, served and trained at full width
+BASELINES = ("MLP", "CNN-1D", "CNN-2D", "LSTM", "CLSTM", "ABLSTM")
+# bf16 serving of these runs the LSTM step loop (4,800 and 12,000 launch
+# calls a forward, host-paced): served one request (one batch forward)
+# each, at full width, to keep the phase's time
+STEP_LOOPS = ("LSTM", "ABLSTM")
 CALIB_WINDOWS = 64         # seeded calibration windows, one .npy
 P1_TIMES = {}              # (dtype, (G, M, K, N)) -> error, times, bound
 FUSED_TOTALS = {}          # model -> check_fused's sums per forward
 SERVE_RATES = {}           # model -> bf16 windows (clips) / s: host, card
+
+
+def accumulation_bound(k):
+    """The factor of sum |a b| within which an element of a bf16 product
+    (f32 sums of ``k`` exact products) must lie of the exact value: the
+    any-order bound k P1_BF16_BOUND, or beyond LONG_K the probabilistic
+    LONG_K_LAMBDA 2^-24 sqrt(k)."""
+    if k <= LONG_K:
+        return k * P1_BF16_BOUND
+    return LONG_K_LAMBDA * 2.0 ** -24 * math.sqrt(k)
 
 
 def p1_bound(shape, dtype):
@@ -2475,7 +2666,7 @@ def p1_library(a, b, dtype):
 
 def p1_case(shape, dtype, gen):
     """One shape of P1 on the card, once: the kernel against its plain
-    version (s8 exactly; bf16 within the accumulation bound of the exact
+    version (s8 exactly; bf16 within ``accumulation_bound`` of the exact
     product), then plain, kernel, kernel, plain and the library call timed
     with CUDA events, and the bound. Kept in P1_TIMES."""
     from multi_modal_csi_tpu_torch.kernels import int8_matmul as K
@@ -2494,13 +2685,13 @@ def p1_case(shape, dtype, gen):
         kernel, plain = K.bf16_matmul_f32, K.bf16_matmul_f32_reference
         got, want = kernel(a, b), plain(a, b)
         ad, bd = a.double(), b.double().transpose(-1, -2)
-        bound = k * P1_BF16_BOUND * (ad.abs() @ bd.abs())
+        bound = accumulation_bound(k) * (ad.abs() @ bd.abs())
         worst = float(((got.double() - ad @ bd).abs()
                        / bound.clamp_min(1e-300)).max())
         del ad, bd, bound
         check(got.dtype == torch.float32 and worst <= 1.0,
-              f"P1 bf16 {shape}: {worst:.3g} of K 2^-23 sum|ab| from the "
-              f"exact product")
+              f"P1 bf16 {shape}: {worst:.3g} of its accumulation bound "
+              f"from the exact product")
         err = float((got - want).abs().max())
     del got, want
     reps = max(3, min(20, int(4e10 / ((g or 1) * m * k * n))))
@@ -2530,16 +2721,20 @@ def p1_case(shape, dtype, gen):
 
 def phase_p1():
     """P1's two instantiations against their plain versions on the card
-    at P1's own tile, every product of DETR's and THAT_ENCODER's bs256
-    int8 forwards, and odd shapes; a K that could overflow int32 must
+    at P1's own tile, every product of DETR's, THAT_ENCODER's, CNN-1D's
+    and MLP's bs256 int8 forwards, and odd shapes (MLP's layer_0 as
+    bf16 x int8, ``p1_w8_case``); a K that could overflow int32 must
     raise."""
     from multi_modal_csi_tpu_torch.kernels import int8_matmul as K
     set_tf32(False)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     shapes = [(None, *P1_TILE)]
-    for table in (DETR_S8, DETR_BF16, ENCODER_S8, ENCODER_BF16):
+    # MLP w8's layer_0 (K = 810,000) is p1_w8_case's: its int8 x int8
+    # product could overflow int32
+    for table in (DETR_S8, DETR_BF16, ENCODER_S8, ENCODER_BF16, CNN1D_S8,
+                  MLP_BF16):
         shapes += [(None, *mkn) for mkn in table
-                   if (None, *mkn) not in shapes]
+                   if (None, *mkn) not in shapes and mkn != MLP_W8_SHAPE]
     shapes += P1_ODD
     start = time.perf_counter()
     for shape in shapes:
@@ -2553,9 +2748,93 @@ def phase_p1():
         print(f"P1 s8 K={K.MAX_K_S8 + 1}: refused ({e})")
         refused = True
     check(refused, "P1 s8 launched with a K whose sum could overflow")
+    p1_w8_case(gen)
     phase_p1_fused(gen)
     print(f"P1 phase: {len(shapes)} shapes x 2 and the fused path at "
           f"{len(P1_ODD)} x 2 in {time.perf_counter() - start:.1f} s")
+
+
+def p1_w8_case(gen):
+    """P1's bf16 x int8 product at MLP w8's layer_0, (256, 810000) x
+    (256, 810000), through ``quantized_product`` with unit scales: within
+    ``accumulation_bound`` (the long-K one) of the exact product, beside
+    its plain version ``bf16_matmul_f32_reference`` on the weight widened
+    to bf16, whose own distance is printed. The same check must refuse an
+    all-zero output and the kernel's output without one split of K (the
+    span the launcher gives each of ``split_count``'s splits: whole
+    STAGE_VALUES stages, ceil(stages / splits) of them) or without one
+    stage. Then the kernel's, plain version's and bf16 ``torch.matmul``'s
+    times and the bound (A in bf16 and B in int8 read once, the f32 output
+    written once; 2 M N K operations at the bf16 peak). Kept in
+    P1_TIMES."""
+    from multi_modal_csi_tpu_torch.kernels import int8_matmul as K
+    m, k, n = MLP_W8_SHAPE
+    a = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    b = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    ones = torch.ones(n, device="cuda")
+
+    def kernel():
+        return K.quantized_product(a, b, ones, None, None, torch.float32,
+                                   k=k)
+
+    wide = b.to(torch.bfloat16)
+
+    def plain():
+        return K.bf16_matmul_f32_reference(a, wide)
+
+    got, want = kernel(), plain()
+    err = float((got - want).abs().max())
+    ad, bd = a.double(), b.double().t()
+    exact = ad @ bd
+    tol = accumulation_bound(k) * (ad.abs() @ bd.abs())
+    tol = tol.clamp_min(1e-300)
+
+    def worst(c):
+        return float(((c.double() - exact).abs() / tol).max())
+
+    splits = K.split_count(1, m, n, 2 * k)
+    span = STAGE_VALUES * -(-(-(-k // STAGE_VALUES)) // splits)
+    mid = splits // 2 * span
+    readings = {
+        "kernel": worst(got), "plain version": worst(want),
+        "all-zero output": worst(torch.zeros_like(got)),
+        f"kernel without split {splits // 2} (K {mid}:{mid + span})": worst(
+            got.double() - ad[:, mid:mid + span] @ bd[mid:mid + span]),
+        f"kernel without one stage (K {mid}:{mid + STAGE_VALUES})": worst(
+            got.double() - ad[:, mid:mid + STAGE_VALUES]
+            @ bd[mid:mid + STAGE_VALUES])}
+    del ad, bd, exact, tol, got, want
+    print(f"P1 bf16 x int8 M,K,N={MLP_W8_SHAPE} (MLP w8 layer_0), of the "
+          f"bound {LONG_K_LAMBDA} 2^-24 sqrt(K) sum|ab| from the exact "
+          f"product: " + "; ".join(f"{name} {r:.3g}" for name, r
+                                   in readings.items()))
+    check(readings["kernel"] <= 1.0,
+          f"P1 bf16 x int8 {MLP_W8_SHAPE}: {readings['kernel']:.3g} of its "
+          f"accumulation bound from the exact product")
+    check(all(r > 1.0 for name, r in list(readings.items())[2:]),
+          f"P1 bf16 x int8 {MLP_W8_SHAPE}: the check passed a wrong output "
+          f"{readings}")
+    times = [cuda_ms(plain, 5, 1)]
+    times += [cuda_ms(kernel, 5, 1) for _ in range(2)]
+    times.append(cuda_ms(plain, 5, 1))
+    lib_ms = cuda_ms(lambda: torch.matmul(a, wide.t()), 5, 1)
+    bytes_ms = 1e3 * (2 * m * k + n * k + 4 * m * n) / PEAK_BYTES
+    ops_ms = 1e3 * 2.0 * m * n * k / PEAK_FLOPS[torch.bfloat16]
+    row = dict(err=err, ms=(times[1] + times[2]) / 2,
+               plain_ms=(times[0] + times[3]) / 2, library_ms=lib_ms,
+               bytes_ms=bytes_ms, ops_ms=ops_ms)
+    P1_TIMES[(torch.bfloat16, (None, *MLP_W8_SHAPE))] = row
+    print(f"P1 bf16 x int8 M,K,N={MLP_W8_SHAPE} (MLP w8 layer_0): max abs "
+          f"err vs plain {err:.3e}; "
+          f"{-(-m // K.TILE_M) * -(-n // K.TILE_N)} output tiles, "
+          f"split_count {splits}; kernel {times[1]:.4f}/{times[2]:.4f} ms, "
+          f"plain {times[0]:.4f}/{times[3]:.4f} ms, library (bf16 "
+          f"torch.matmul) {lib_ms:.4f} ms; bound bytes {bytes_ms:.4f} ms, "
+          f"operations {ops_ms:.4f} ms")
+    del a, b, wide
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_fits():
@@ -2693,23 +2972,28 @@ def by_shape(shapes, dtype):
 
 
 def int8_serve_phase(key, requests, calib_path, s8_table, bf16_table,
-                     columns, expect_out, k1_per_forward):
-    """w8a8 serving (QUANT_DEFAULTS) of ``key`` in bf16 at batch 256,
-    calibrated on the .npy at ``calib_path`` through CSIServer: exact P1
-    launches by shape in one batch forward, the ragged requests from host
-    memory, rates, a profile with P1's share; the logits against bf16
-    serving; then the same int8 weights at f32 on the card against the
-    CPU, with the int8 activations that flipped."""
+                     columns, expect_out, k1_per_forward, quant="auto",
+                     mode="w8a8"):
+    """int8 serving of ``key`` (``quant``: "auto" takes QUANT_DEFAULTS;
+    it must resolve to ``mode``) in bf16 at batch 256, calibrated on the
+    .npy at ``calib_path`` through CSIServer: exact P1 launches by shape
+    in one batch forward, every prologue and fused product of it held
+    against its plain version, the ragged requests from host memory,
+    rates, a profile with P1's share; the logits against bf16 serving
+    (within INT8_SPREAD_BOUND where the JAX package has a bound); then, in
+    w8a8, the same int8 weights at f32 on the card against the CPU, with
+    the int8 activations that flipped."""
     from multi_modal_csi_tpu_torch import kernels
     from multi_modal_csi_tpu_torch.core.serving import CSIServer
     from multi_modal_csi_tpu_torch.runners.csi import build_model
 
+    phase_start = time.perf_counter()
     set_tf32(False)
     torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
     calib = np.load(calib_path)
     start = time.perf_counter()
     server = CSIServer(key, build_model(key, seed=SEED), dtype="bfloat16",
-                       device="cuda", quant="auto", calib=calib)
+                       device="cuda", quant=quant, calib=calib)
     torch.cuda.synchronize()
     scales = [b for n, b in server.model.named_buffers()
               if n.endswith("input_scale")]
@@ -2718,7 +3002,7 @@ def int8_serve_phase(key, requests, calib_path, s8_table, bf16_table,
     print(f"{key}: quant {server.quant}, {len(int8)} int8 weights, "
           f"{len(scales)} input scales, calibrated on {len(calib)} windows "
           f"in {time.perf_counter() - start:.1f} s")
-    check(server.quant == "w8a8", f"{key} resolved quant {server.quant}")
+    check(server.quant == mode, f"{key} resolved quant {server.quant}")
     server(requests[0][:server.batch])                        # warm-up
     torch.cuda.synchronize()
 
@@ -2728,20 +3012,19 @@ def int8_serve_phase(key, requests, calib_path, s8_table, bf16_table,
         server.forward(batch)
         torch.cuda.synchronize()
     one = dict(kernels.LAUNCH_COUNTS)
-    want = {S8: sum(s8_table.values()), BF16: sum(bf16_table.values()),
-            COLUMNS: columns}
-    if k1_per_forward:
-        want["flash_attention"] = k1_per_forward
-    print(f"{key} w8a8: launches in one batch forward: {one}")
-    check(one == want, f"{key} w8a8 launched {one}, expected {want}")
+    want = {name: count for name, count in (
+        (S8, sum(s8_table.values())), (BF16, sum(bf16_table.values())),
+        (COLUMNS, columns), ("flash_attention", k1_per_forward)) if count}
+    print(f"{key} {mode}: launches in one batch forward: {one}")
+    check(one == want, f"{key} {mode} launched {one}, expected {want}")
     check(by_shape(shapes, torch.int8) == s8_table
           and by_shape(shapes, torch.bfloat16) == bf16_table,
-          f"{key} w8a8 product shapes {sorted(set(shapes), key=str)}")
+          f"{key} {mode} product shapes {sorted(set(shapes), key=str)}")
     # the prologue and the fused product at every call of a forward
     with captured_calls() as calls:
         server.forward(batch)
         torch.cuda.synchronize()
-    FUSED_TOTALS[key] = check_fused(f"{key} w8a8", calls)
+    FUSED_TOTALS[key] = check_fused(f"{key} {mode}", calls)
     del calls
 
     # the main path: ragged requests from host memory to logits on the host
@@ -2756,11 +3039,11 @@ def int8_serve_phase(key, requests, calib_path, s8_table, bf16_table,
         check(tuple(out.shape) == expect_out(len(r))
               and out.dtype == torch.float32
               and bool(torch.isfinite(out).all()),
-              f"{key} w8a8 output {tuple(out.shape)} not finite f32")
-    print(f"{key} w8a8: main path ran {batches} batch forwards, launches "
+              f"{key} {mode} output {tuple(out.shape)} not finite f32")
+    print(f"{key} {mode}: main path ran {batches} batch forwards, launches "
           f"{launches}")
     check(launches == {name: count * batches for name, count in
-                       want.items()}, f"{key} w8a8 launches {launches}")
+                       want.items()}, f"{key} {mode} launches {launches}")
 
     resident = [torch.from_numpy(r).cuda() for r in requests]
     rates = []
@@ -2772,14 +3055,14 @@ def int8_serve_phase(key, requests, calib_path, s8_table, bf16_table,
         torch.cuda.synchronize()
         rates.append(n / (time.perf_counter() - start))
     bf16_host, bf16_card = SERVE_RATES[key]
-    print(f"{key} w8a8 bf16 batch {server.batch}: {n / host_s:.1f} "
+    print(f"{key} {mode} bf16 batch {server.batch}: {n / host_s:.1f} "
           f"windows/s from host memory (bf16 serving {bf16_host:.1f}); "
           f"with the requests on the card: "
           + ", ".join(f"{r:.1f}" for r in rates) + " windows/s (bf16 "
           + ", ".join(f"{r:.1f}" for r in bf16_card) + ")")
-    prof = profile_device(f"{key} w8a8", lambda: server.forward(
+    prof = profile_device(f"{key} {mode}", lambda: server.forward(
         resident[0][:server.batch]), PROFILED_FORWARDS, "forward")
-    int8_shares(f"{key} w8a8", prof)
+    int8_shares(f"{key} {mode}", prof)
     del resident
 
     # the logits against bf16 serving of the same seeded weights
@@ -2788,11 +3071,18 @@ def int8_serve_phase(key, requests, calib_path, s8_table, bf16_table,
     ref = CSIServer(key, build_model(key, seed=SEED), dtype="bfloat16",
                     device="cuda")(x).cpu().numpy()
     spread = float(np.abs(got - ref).max() / (ref.std() + 1e-9))
-    print(f"{key} w8a8 vs bf16 serving on {len(x)} windows: max abs diff "
+    bound = INT8_SPREAD_BOUND.get(key)
+    print(f"{key} {mode} vs bf16 serving on {len(x)} windows: max abs diff "
           f"{np.abs(got - ref).max():.4f} = {spread:.4f} of the bf16 "
-          f"logits' spread (bound {INT8_SPREAD_BOUND[key]})")
-    check(spread < INT8_SPREAD_BOUND[key], f"{key} w8a8 vs bf16 {spread}")
+          f"logits' spread ("
+          + (f"bound {bound})" if bound else "the JAX package has no bound "
+             "for it)"))
+    check(bound is None or spread < bound, f"{key} {mode} vs bf16 {spread}")
     del server
+    if mode != "w8a8":
+        print(f"{key} {mode} serving phase: "
+              f"{time.perf_counter() - phase_start:.1f} s")
+        return launches
 
     # the same int8 weights and scales at f32: the CPU (plain versions)
     # against the card (TF32 off), 4 windows
@@ -2829,6 +3119,8 @@ def int8_serve_phase(key, requests, calib_path, s8_table, bf16_table,
     check(steps[0] <= 1, f"{key} first int8 activations differ by "
                          f"{steps[0]}")
     check(err <= INT8_CPU_SHARE * top, f"{key} w8a8 card vs CPU {err}")
+    print(f"{key} {mode} serving phase: "
+          f"{time.perf_counter() - phase_start:.1f} s")
     return launches
 
 
@@ -3037,11 +3329,11 @@ def fused_library(a, b, ws, s, bias, out_dtype, k):
 
 def bf16_fused_worst(got, a, b, ws, bias, k):
     """The bf16 fused product's largest error against the exact value
-    (float64) of the same epilogue, over its bound: the accumulation bound
-    P1_BF16_BOUND of p1_case (K 2^-23 sum |a b|) times |scale|, plus the
-    epilogue's f32 roundings (2^-22 of |A B^T scale| + |bias|); for a bf16
-    output, plus half a bf16 step of the f32 value before the cast, at
-    most 2^-8 of it."""
+    (float64) of the same epilogue, over its bound: ``accumulation_bound``
+    (K 2^-23 sum |a b|, or the long-K bound beyond LONG_K) times |scale|,
+    plus the epilogue's f32 roundings (2^-22 of |A B^T scale| + |bias|);
+    for a bf16 output, plus half a bf16 step of the f32 value before the
+    cast, at most 2^-8 of it."""
     m, _, n = product_shape(a, b, k)
     a3 = (a if a.dim() == 3 else a[:, None])[..., :k].double().transpose(0, 1)
     b3 = (b if b.dim() == 3 else b[None])[..., :k].double()
@@ -3052,7 +3344,7 @@ def bf16_fused_worst(got, a, b, ws, bias, k):
     wsd = ws.double()
     bd = torch.zeros_like(wsd) if bias is None else bias.double()
     want = y * wsd + bd
-    tol = (k * P1_BF16_BOUND * mag * wsd.abs()
+    tol = (accumulation_bound(k) * mag * wsd.abs()
            + 2.0 ** -22 * ((y * wsd).abs() + bd.abs()))
     if got.dtype == torch.bfloat16:
         tol = tol + 2.0 ** -8 * (want.abs() + tol)
@@ -3431,10 +3723,22 @@ def main() -> int:
               "DETR launched the attention kernel")
         encoder = serve_phase("THAT_ENCODER", requests,
                               lambda n: (7, n, 5, 10), 5)
+        # the WiMANS baselines: no kernel in bf16 serving
+        start = time.perf_counter()
+        for key in BASELINES:
+            serve_phase(key, requests, lambda n: (n, 54), 0,
+                        served=1 if key in STEP_LOOPS else None)
         calib = os.path.join(work, "calib.npy")
         np.save(calib, np.random.default_rng(SEED + 3).standard_normal(
             (CALIB_WINDOWS, LENGTH, CHANNELS), dtype=np.float32))
         int8_runs = [
+            int8_serve_phase("MLP", requests, calib, {}, MLP_BF16, 0,
+                             lambda n: (n, 54), 0, mode="w8"),
+            int8_serve_phase("CNN-1D", requests, calib, CNN1D_S8, {},
+                             CNN1D_COLUMNS, lambda n: (n, 54), 0,
+                             quant="w8a8")]
+        baseline_s = time.perf_counter() - start
+        int8_runs += [
             int8_serve_phase("DETR", requests, calib, DETR_S8, DETR_BF16,
                              DETR_COLUMNS, lambda n: (6, n, 5, 10), 0),
             int8_serve_phase("THAT_ENCODER", requests, calib, ENCODER_S8,
@@ -3443,16 +3747,29 @@ def main() -> int:
             int8_cli_phase(calib)]
         p1_totals("THAT_ENCODER w8a8", ENCODER_S8, torch.int8)
         p1_totals("THAT_ENCODER w8a8", ENCODER_BF16, torch.bfloat16)
-        encoder_int8 = int8_runs[1]
+        p1_totals("MLP w8", MLP_BF16, torch.bfloat16)
+        p1_totals("CNN-1D w8a8", CNN1D_S8, torch.int8)
+        encoder_int8 = int8_runs[3]
         del requests
 
         data = training_data()
         trained, trained_bf16_that = train_phase_that(data)
-        train_step_card_vs_cpu(data)
+        train_step_card_vs_cpu("THAT", data[0][:2], data[1][:2])
         train_phase_detr(data)
+        start = time.perf_counter()
+        for key in BASELINES:
+            train_phase_baseline(key, data)
+        for key in ("LSTM", "CNN-2D"):
+            train_step_card_vs_cpu(key, data[0][:2], data[1][:2])
+        baseline_s += time.perf_counter() - start
         del data
 
+        start = time.perf_counter()
         experiment = run_csi_phase(work, converted_amp)
+        print(f"run_experiment phase (THAT_ENCODER, DETR, MLP, CNN-1D): "
+              f"{time.perf_counter() - start:.1f} s")
+        print("WiMANS baselines: serving (bf16, int8), training and the "
+              f"card-vs-CPU steps took {baseline_s:.1f} s of wall time")
 
         clips = video_requests()
         served = [video_serve_phase(key, clips) for key in
@@ -3507,7 +3824,8 @@ def main() -> int:
     # serving, batch 256), 22 s8 and 54 bf16 products, as bare products
     # (as the TPU kernels compute them; the main path runs them fused);
     # launches summed over the int8 serving
-    # runs (DETR and THAT_ENCODER w8a8, the serve_csi CLI, MViT-v2 w8). The
+    # runs (MLP w8, CNN-1D, DETR and THAT_ENCODER w8a8, the serve_csi CLI,
+    # MViT-v2 w8). The
     # prologue: per DETR w8a8 forward, its 52 calls; launches likewise.
     trace = k5_times["trace"]
     k5_bytes, k5_ops = trace["bytes_ms"], trace["ops_ms"]

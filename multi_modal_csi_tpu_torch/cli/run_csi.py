@@ -7,9 +7,12 @@ Usage:
       [--config cfg.json] [--set nn.lr=1e-4 --set data.wifi_band=5] \\
       [--device cuda|cpu]
 
-The environment overlay (LEARNING_RATE, BATCH_SIZE, ... DATA_PATH,
-ENVIRONMENTS_EXP: the reference's config_modifier.py knob set) applies
-automatically; ``--set`` takes any dotted-path override. The run reads
+``--model`` takes every ported CSI key: MLP, CNN-1D, CNN-2D, LSTM, CLSTM,
+ABLSTM, the THAT family, THAT_ENCODER and DETR (ST-RF, SSL and dual_band
+wait for ROADMAP item 9b). The environment overlay (LEARNING_RATE,
+BATCH_SIZE, ... DATA_PATH, ENVIRONMENTS_EXP: the reference's
+config_modifier.py knob set) applies automatically; ``--set`` takes any
+dotted-path override. The run reads
 ``path.data_y`` (annotation.csv) and the amplitude cache ``path.data_x``,
 trains on the card unless ``--device cpu``, and writes the result JSON to
 ``path.save``. The JAX CLI's ``--mesh`` and ``--distributed`` wait for the

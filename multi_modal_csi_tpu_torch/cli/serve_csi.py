@@ -6,11 +6,16 @@ Usage:
       [--requests 256,100,300] [--quant none] [--calib F.npy] \
       [--calib-stat amax]
 
-The weights are drawn from a seeded generator; each request is a seeded
-numpy array of (n, 3000, 270) float32 windows in host memory. ``--quant``
+``--model`` takes every ported CSI key (``runners/csi.py::CSI_MODELS``):
+the WiMANS baselines MLP, CNN-1D, CNN-2D, LSTM, CLSTM and ABLSTM, the THAT
+family, THAT_ENCODER and DETR. The weights are drawn from a seeded
+generator; each request is a seeded numpy array of (n, 3000, 270) float32
+windows in host memory (MLP's server flattens each batch). ``--quant``
 serves int8 weights (``core/quantize.py``): "auto" takes the model's
-``QUANT_DEFAULTS`` (w8a8 for DETR and THAT_ENCODER); w8a8 calibrates on
-``--calib``, a .npy of (n, 3000, 270) windows split into serving batches.
+``QUANT_DEFAULTS`` (w8a8 for DETR and THAT_ENCODER, w8 for MLP); w8a8
+calibrates on ``--calib``, a .npy of (n, 3000, 270) windows split into
+serving batches. CNN-2D's int8 serving raises NotImplementedError (ROADMAP
+item 12).
 Prints each request's output shape and the windows per second over all
 requests, timed from the host arrays to the logits back on the host. The
 first request is answered once untimed, as warm-up.

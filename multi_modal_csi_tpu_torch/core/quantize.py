@@ -30,6 +30,9 @@ and ``Conv1d`` (``nn/layers.py``) record their input's max-abs (or its
 no per-tensor activation scale applies; ``out_proj`` never records an
 input). ``Conv3d`` never announces itself, as JAX's MViT convs are raw
 ``nn.Conv``: a layer that never announced can never be turned int8.
+``Conv2d`` is hooked in JAX, but the prologue writes only 1-D columns, so
+under calibration it raises NotImplementedError (``refuse_int8``; ROADMAP
+item 12) rather than stay float.
 
 Symmetric quantization (zero-point 0) keeps conv zero-padding exact.
 
@@ -217,6 +220,15 @@ def record_input(module: nn.Module, x: torch.Tensor) -> None:
              else p999(x))
     old = rec.inputs.get(module)
     rec.inputs[module] = value if old is None else torch.maximum(old, value)
+
+
+def refuse_int8(module: nn.Module, what: str) -> None:
+    """A layer that the JAX package hooks but the port cannot yet run
+    int8: under ``recording`` it raises NotImplementedError, so that a
+    quantized server never leaves it float where JAX quantizes it."""
+    if _RECORDING is not None:
+        raise NotImplementedError(
+            f"int8 serving of {type(module).__name__}: {what}")
 
 
 def mark_weight_only(module: nn.Module, *names: str) -> None:

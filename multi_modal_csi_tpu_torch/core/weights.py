@@ -9,6 +9,11 @@ named after):
 
 - Linear ``kernel`` (in, out) -> ``weight`` (out, in);
 - Conv1d ``conv/kernel`` (k, in/groups, out) -> ``weight`` (out, in/groups, k);
+- Conv2d ``conv/kernel`` (kh, kw, in, out) -> ``weight`` (out, in, kh, kw);
+- LSTM ``w_ih_fwd``, ``w_hh_fwd`` (in, 4H) -> ``weight_ih_l0``,
+  ``weight_hh_l0`` (4H, in), ``b_ih_fwd``, ``b_hh_fwd`` -> ``bias_ih_l0``,
+  ``bias_hh_l0``, and the ``bwd`` direction with the ``l0_reverse``
+  suffix;
 - BatchNorm ``bn/scale, bias`` + stats ``bn/mean, var`` -> ``weight, bias,
   running_mean, running_var``;
 - LayerNorm ``ln/scale, bias`` -> ``weight, bias``;
@@ -82,6 +87,23 @@ def _conv1d(sd: StateDict, p, pre: str) -> None:
     _scales(sd, c, pre)
 
 
+def _conv2d(sd: StateDict, p, pre: str) -> None:
+    c = p["conv"]
+    sd[f"{pre}.weight"] = _w(np.transpose(np.asarray(c["kernel"]),
+                                          (3, 2, 0, 1)))
+    if "bias" in c:
+        sd[f"{pre}.bias"] = _t(c["bias"])
+    _scales(sd, c, pre)
+
+
+def _lstm(sd: StateDict, p, pre: str, name: str = "fwd",
+          suffix: str = "l0") -> None:
+    sd[f"{pre}.weight_ih_{suffix}"] = _t(np.asarray(p[f"w_ih_{name}"]).T)
+    sd[f"{pre}.weight_hh_{suffix}"] = _t(np.asarray(p[f"w_hh_{name}"]).T)
+    sd[f"{pre}.bias_ih_{suffix}"] = _t(p[f"b_ih_{name}"])
+    sd[f"{pre}.bias_hh_{suffix}"] = _t(p[f"b_hh_{name}"])
+
+
 def _bn(sd: StateDict, p, s, pre: str) -> None:
     sd[f"{pre}.weight"] = _t(p["bn"]["scale"])
     sd[f"{pre}.bias"] = _t(p["bn"]["bias"])
@@ -118,6 +140,50 @@ def _encoder_block(sd: StateDict, p, s, pre: str, n_convs: int) -> None:
     for i in range(n_convs):
         _conv1d(sd, p[f"cnn_{i}"], f"{pre}.layer_cnn.{i}.0")
         _bn(sd, p[f"cnn_bn_{i}"], s[f"cnn_bn_{i}"], f"{pre}.layer_cnn.{i}.1")
+
+
+def _mlp(sd: StateDict, p, s, layers: int) -> None:
+    _bn(sd, p["input_norm"], s["input_norm"], "layer_norm")
+    for i in range(3):
+        _linear(sd, p[f"layer_{i}"], f"layer_{i}")
+
+
+def _lstm_model(sd: StateDict, p, s, layers: int) -> None:
+    _bn(sd, p["input_norm"], s["input_norm"], "layer_norm")
+    _lstm(sd, p["lstm"], "layer_lstm")
+    _linear(sd, p["head"], "layer_linear")
+
+
+def _ablstm(sd: StateDict, p, s, layers: int) -> None:
+    _bn(sd, p["input_norm"], s["input_norm"], "layer_norm")
+    _lstm(sd, p["bilstm"], "layer_bilstm", "fwd", "l0")
+    _lstm(sd, p["bilstm"], "layer_bilstm", "bwd", "l0_reverse")
+    _linear(sd, p["attn"], "layer_linear")
+    _linear(sd, p["head"], "layer_output")
+
+
+def _cnn1d(sd: StateDict, p, s, layers: int) -> None:
+    _bn(sd, p["input_norm"], s["input_norm"], "layer_norm")
+    for i in range(3):
+        _conv1d(sd, p[f"conv_{i}"], f"layer_cnn_1d_{i}")
+    _linear(sd, p["head"], "layer_linear")
+
+
+def _cnn2d(sd: StateDict, p, s, layers: int) -> None:
+    for i in range(4):
+        _bn(sd, p[f"norm_{i}"], s[f"norm_{i}"], f"layer_norm_{i}")
+    for i in range(3):
+        _conv2d(sd, p[f"conv_{i}"], f"layer_cnn_2d_{i}")
+    _linear(sd, p["head"], "layer_linear")
+
+
+def _clstm(sd: StateDict, p, s, layers: int) -> None:
+    _bn(sd, p["input_norm"], s["input_norm"], "layer_norm")
+    for i in range(3):
+        _conv1d(sd, p[f"conv_{i}"], f"layer_cnn_1d_{i}")
+        _bn(sd, p[f"norm_{i}"], s[f"norm_{i}"], f"layer_norm_{i}")
+    _lstm(sd, p["lstm"], "layer_lstm")
+    _linear(sd, p["head"], "layer_linear")
 
 
 def _that_trunk(sd: StateDict, p, s) -> None:
@@ -258,6 +324,12 @@ def _mvit(sd: StateDict, p, s, layers: int) -> None:
 
 
 _EXPORTERS = {
+    "MLP": _mlp,
+    "LSTM": _lstm_model,
+    "ABLSTM": _ablstm,
+    "CNN-1D": _cnn1d,
+    "CNN-2D": _cnn2d,
+    "CLSTM": _clstm,
     "THAT": _that,
     "THAT_MULTI_HEAD": _that_multi_head,
     "THAT_COUNT": _that,

@@ -26,7 +26,16 @@ int8 serving (``core/quantize.py``): an int8 weight is the signal, as in
 JAX. ``Linear`` and ``Conv1d`` with an int8 weight run the quantized
 product (w8, or w8a8 when an ``input_scale`` buffer is present) and
 otherwise record their input under calibration; ``MultiheadAttention``'s
-packed projections are weight-only. ``Conv3d`` is not hooked.
+packed projections are weight-only. ``Conv3d`` and ``LSTM`` are not
+hooked, as in JAX. ``Conv2d`` is hooked in JAX but has no int8 path here
+yet: under calibration, or with an int8 weight, it raises
+NotImplementedError (ROADMAP item 12).
+
+``LSTM`` follows JAX's mixed precision (``nn/layers.py:538-562`` there):
+the gates in f32 whatever the operands, the cell state in f32 across
+steps, only h cast to the activation dtype. In f32 that is
+``torch.lstm``'s own function (cuDNN on the card); any other dtype runs
+the steps in ``lstm_steps``.
 """
 
 from __future__ import annotations
@@ -40,7 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.quantize import (conv_forward, dense_forward, mark_weight_only,
-                             record_input)
+                             record_input, refuse_int8)
 from ..kernels.flash_attention import (backward_fits, flash_attention,
                                        flash_attention_trainable,
                                        forward_fits)
@@ -158,6 +167,45 @@ class Conv1d(nn.Module):
                      stride=self.stride, dilation=self.dilation,
                      groups=self.groups)
         return y.transpose(1, 2)
+
+
+Pair = Tuple[int, int]
+CONV2D_INT8 = ("an int8 Conv2d needs the 2-D columns that the prologue "
+               "does not write yet (ROADMAP item 12)")
+
+
+class Conv2d(nn.Module):
+    """2-D convolution on channels-last (B, H, W, C), VALID, with torch
+    Conv2d's parameters (weight (out, in, kh, kw), bias), xavier-uniform
+    weight and torch-default bias.
+
+    Input, weight and bias are promoted to one dtype, in which the
+    convolution runs (as flax promotes); ``F.conv2d`` takes the input as
+    a channels-last view, so the module keeps (B, H, W, C) at its edges and
+    BatchNorm normalises the trailing axis. Calibration or an int8 weight
+    raises NotImplementedError (``CONV2D_INT8``).
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: Pair,
+                 *, stride: Pair = (1, 1), generator: torch.Generator):
+        super().__init__()
+        self.stride = stride
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, *kernel))
+        xavier_uniform_(self.weight, generator)
+        self.bias = nn.Parameter(torch.empty(out_channels))
+        torch_bias_(self.bias, self.weight[0].numel(), generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.weight.dtype == torch.int8:
+            raise NotImplementedError(f"int8 serving of Conv2d: "
+                                      f"{CONV2D_INT8}")
+        refuse_int8(self, CONV2D_INT8)
+        dtype = torch.promote_types(
+            torch.promote_types(x.dtype, self.weight.dtype), self.bias.dtype)
+        y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), self.weight.to(dtype),
+                     self.bias.to(dtype), stride=self.stride)
+        return y.permute(0, 2, 3, 1)
 
 
 Triple = Tuple[int, int, int]
@@ -367,6 +415,84 @@ def max_pool1d(x: torch.Tensor, kernel: int,
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     """torch's default negative slope, 0.01."""
     return F.leaky_relu(x, 0.01)
+
+
+def lstm_steps(x: torch.Tensor, w_ih: torch.Tensor, w_hh: torch.Tensor,
+               b_ih: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
+    """One LSTM direction over batch-first x (B, L, F) as the JAX
+    package's scan computes it, for any dtype: the input product of every
+    step at once and each step's hidden product in f32 (bf16 operands
+    widened, so the products are exact and the sums f32), the gates
+    (x W_ih^T + h W_hh^T) + b_ih + b_hh in f32, gate order i, f, g, o, the
+    cell state c in f32 across steps, h cast to x's dtype each step.
+    Returns (B, L, H) in x's dtype."""
+    b, length, _ = x.shape
+    hidden = w_hh.shape[1]
+    xw = dense(x, w_ih, None, torch.float32)
+    w_hh_t = w_hh.float().t()
+    b_ih, b_hh = b_ih.float(), b_hh.float()
+    h = x.new_zeros((b, hidden))
+    c = torch.zeros((b, hidden), dtype=torch.float32, device=x.device)
+    out = []
+    for t in range(length):
+        gates = xw[:, t] + h.float() @ w_hh_t + b_ih + b_hh
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = (torch.sigmoid(o) * torch.tanh(c)).to(x.dtype)
+        out.append(h)
+    return torch.stack(out, dim=1)
+
+
+class LSTM(nn.Module):
+    """torch.nn.LSTM's function and parameter names for one batch-first
+    layer, optionally bidirectional: ``weight_ih_l0`` (4H, F),
+    ``weight_hh_l0`` (4H, H), ``bias_ih_l0``, ``bias_hh_l0`` (both kept),
+    and the same with ``_reverse``; every one uniform(+-1/sqrt(H)). (B, L,
+    F) in, (B, L, H) or (B, L, 2H) out, the backward direction run on the
+    reversed sequence and its outputs reversed back, as in JAX.
+
+    Precision is JAX's: f32 input and weights take ``torch.lstm`` (cuDNN
+    on the card, PyTorch's own kernels on the CPU), which computes that
+    function in f32; any other dtype takes ``lstm_steps``, because
+    ``torch.lstm`` in bf16 keeps c in bf16 and rounds the gates, and over
+    300 steps bf16 serving would drift from JAX.
+    """
+
+    def __init__(self, in_features: int, hidden: int, *,
+                 bidirectional: bool = False, generator: torch.Generator):
+        super().__init__()
+        self.hidden, self.bidirectional = hidden, bidirectional
+        bound = 1.0 / math.sqrt(hidden)
+        for suffix in self._suffixes():
+            for name, shape in (("weight_ih", (4 * hidden, in_features)),
+                                ("weight_hh", (4 * hidden, hidden)),
+                                ("bias_ih", (4 * hidden,)),
+                                ("bias_hh", (4 * hidden,))):
+                p = nn.Parameter(torch.empty(shape))
+                with torch.no_grad():
+                    p.uniform_(-bound, bound, generator=generator)
+                self.register_parameter(f"{name}_{suffix}", p)
+
+    def _suffixes(self) -> Tuple[str, ...]:
+        return ("l0", "l0_reverse") if self.bidirectional else ("l0",)
+
+    def _params(self, suffix: str):
+        return [getattr(self, f"{name}_{suffix}") for name in
+                ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        params = [p for s in self._suffixes() for p in self._params(s)]
+        if x.dtype == torch.float32 and all(
+                p.dtype == torch.float32 for p in params):
+            zeros = x.new_zeros((len(self._suffixes()), x.shape[0],
+                                 self.hidden))
+            return torch.lstm(x, (zeros, zeros), params, True, 1, 0.0,
+                              self.training, self.bidirectional, True)[0]
+        out = lstm_steps(x, *self._params("l0"))
+        if not self.bidirectional:
+            return out
+        back = lstm_steps(x.flip(1), *self._params("l0_reverse")).flip(1)
+        return torch.cat([out, back], dim=-1)
 
 
 KV = Tuple[torch.Tensor, torch.Tensor]

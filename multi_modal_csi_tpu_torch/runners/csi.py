@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
@@ -37,7 +38,7 @@ from ..data.annotation import filter_annotation, label_list, load_annotation
 from ..data.csi_io import flatten_features, load_csi_windows
 from ..data.encoders import encode_labels, reduce_dataset
 from ..data.splits import concat_env_splits, env_split, valid_test_split
-from ..losses.basic import bce_with_logits, smooth_l1
+from ..losses.basic import bce_with_logits, mse, smooth_l1
 from ..losses.matching import (HungarianMatchingLoss, count_based_loss,
                                permutation_matching_loss)
 from ..metrics.classification import accuracy_score, classification_report
@@ -54,13 +55,15 @@ Split = Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
 @dataclasses.dataclass(frozen=True)
 class CSIModelSpec:
     key: str
-    # (input shape (length, channels), out_features, config, generator)
-    build: Callable[[Tuple[int, int], int, Config, torch.Generator],
+    # (input shape (length, channels), or (features,) in the flat layout;
+    # out_features, config, generator)
+    build: Callable[[Tuple[int, ...], int, Config, torch.Generator],
                     nn.Module]
     make_loss: Callable[[Config, int], Loss]
     mode: str                      # performance_metrics mode
     target: str = "raw"            # raw | reduce | reduce_pad | reduce_sum
-    input_layout: str = "seq"      # (B, length, channels)
+    input_layout: str = "seq"      # seq (B, length, channels) | flat
+                                   # (B, length x channels)
     valid_split: bool = False      # THAT/DETR-family 50/50 valid/test split
     weight_decay: float = 0.0
     final_eval: str = "report"     # report | metrics | count_round
@@ -82,14 +85,52 @@ def _trunk(shape):
     return {"length": shape[0], "channels": shape[1]}
 
 
+def _bce(pos_weight: float):
+    def make(cfg: Config, out: int) -> Loss:
+        return lambda o, t: bce_with_logits(o, t, pos_weight)
+    return make
+
+
 CSI_MODELS: Dict[str, CSIModelSpec] = {
+    # the WiMANS baselines; MLP's shape is (length x channels,) in the
+    # runner's flat layout and (length, channels) from build_model
+    "MLP": CSIModelSpec(
+        key="MLP",
+        build=lambda xs, out, cfg, g: csi_models.MLP(
+            out, in_features=math.prod(xs), generator=g),
+        make_loss=_bce(4.0), mode="baseline", input_layout="flat",
+        weight_decay=1e-3),
+    "LSTM": CSIModelSpec(
+        key="LSTM",
+        build=lambda xs, out, cfg, g: csi_models.LSTMModel(
+            out, channels=xs[-1], generator=g),
+        make_loss=_bce(6.0), mode="baseline"),
+    "CNN-1D": CSIModelSpec(
+        key="CNN-1D",
+        build=lambda xs, out, cfg, g: csi_models.CNN1D(
+            out, channels=xs[-1], generator=g),
+        make_loss=lambda cfg, out: mse, mode="baseline",
+        final_eval="count_round"),
+    "CNN-2D": CSIModelSpec(
+        key="CNN-2D",
+        build=lambda xs, out, cfg, g: csi_models.CNN2D(out, generator=g),
+        make_loss=_bce(6.0), mode="baseline", weight_decay=1e-4),
+    "CLSTM": CSIModelSpec(
+        key="CLSTM",
+        build=lambda xs, out, cfg, g: csi_models.CLSTM(
+            out, channels=xs[-1], generator=g),
+        make_loss=_bce(8.0), mode="baseline"),
+    "ABLSTM": CSIModelSpec(
+        key="ABLSTM",
+        build=lambda xs, out, cfg, g: csi_models.ABLSTM(
+            out, channels=xs[-1], generator=g),
+        make_loss=_bce(6.0), mode="baseline"),
     "THAT": CSIModelSpec(
         key="THAT",
         build=lambda xs, out, cfg, g: csi_models.THAT(
             out, generator=g, **_trunk(xs)),
-        make_loss=lambda cfg, out: lambda o, t: bce_with_logits(o, t, 4.0),
-        mode="baseline", valid_split=True, weight_decay=2e-4,
-        final_eval="metrics"),
+        make_loss=_bce(4.0), mode="baseline", valid_split=True,
+        weight_decay=2e-4, final_eval="metrics"),
     "THAT_MULTI_HEAD": CSIModelSpec(
         key="THAT_MULTI_HEAD",
         build=lambda xs, out, cfg, g: csi_models.THATMultiHead(
@@ -135,8 +176,7 @@ CSI_MODELS: Dict[str, CSIModelSpec] = {
 }
 
 # the JAX package's other CSI model keys, still to port (ROADMAP item 9)
-UNPORTED_MODELS = ("MLP", "LSTM", "CNN-1D", "CNN-2D", "CLSTM", "ABLSTM",
-                   "ST-RF", "SSL", "dual_band")
+UNPORTED_MODELS = ("ST-RF", "SSL", "dual_band")
 
 # task -> (per-user class count, flat out_dim, reduced out_dim)
 _TASK_DIMS = {

@@ -237,7 +237,7 @@ def test_run_cli_on_cpu_writes_json(tmp_path):
     assert written["complexity"]["flops"] > 0
 
 
-@pytest.mark.parametrize("what", ["MLP", "ST-RF", "SSL", "dual_band",
+@pytest.mark.parametrize("what", ["ST-RF", "SSL", "dual_band",
                                   "writer", "mesh", "save_model",
                                   "feature_encoder"])
 def test_what_is_not_ported_raises(what):
