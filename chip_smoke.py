@@ -176,6 +176,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    THAT_ENCODER's exact K1 (f32 and bf16) and K2 launch counts, none for
    DETR; then MLP (flat windows) and CNN-1D (count_round) for one epoch
    each, with no kernel launch;
+10b. transfer learning from the component files that 10's THAT_ENCODER
+   and DETR runs saved (save_model): each restored under feature_encoder
+   into the weights of seed 0 (feature extractor and encoder the file's
+   bit for bit, the rest the fresh weights); one THAT_ENCODER training
+   step with transfer_optimizer (exactly 5 K1 f32 and 5 K2 launches) and
+   its profile with K1's and K2's shares; run_experiment under
+   feature_encoder (THAT_ENCODER 2 epochs, exact K1 and K2 counts; DETR
+   one epoch, no launch) saving its best weights: the result JSON's keys,
+   the weights moved, and DETR's frozen feature extractor bit-equal while
+   its BatchNorm statistics moved;
+10c. run resume: THAT fit at batch 16, f32, with the cosine-warmup
+   schedule and a run checkpoint an epoch, 2 epochs; the checkpoint
+   restored into a fresh model, Adam and schedule (weights, buffers,
+   Adam's step and moments, the schedule's step and learning rate, bit for
+   bit); fit with epochs=3 on the same directory trains epoch 2 alone
+   (5 K1 f32 and 5 K2 a step);
+10d. SSL: run_ssl for one epoch at batch 16 on the seeded windows,
+   saving its weights, then cli/ssl_inference.py on the file over 10's
+   dataset; no kernel launch; the training rate and a profile of the step
+   with the random views; one f32 step with fixed views at batch 8 on the
+   card against the CPU (loss, gradients, BatchNorm statistics);
+10e. dual_band: one epoch of run_csi_model on (80, 2, 3000, 270) paired
+   windows at batch 16, no launch; the f32 forward card vs CPU within
+   SERVE_F32_TOL; profiles of the f32 forward and training step;
+10f. ST-RF: kernels/spectrogram.py::strf_features on the card against
+   the scipy features on the host at (16, 3000, 270) within STRF_REL of
+   the largest feature, both times; the ST-RF runner, whose features
+   come from strf_features on the card, where sklearn imports, else the
+   ImportError naming sklearn;
 11. MViT-v1 and MViT-v2 serving at full width (runners/video.py,
    core/serving.py::VideoServer), bf16, batch 2: seeded weights, ragged
    requests of 2, 1 and 3 seeded (45, 224, 224, 3) clips, exactly 16 K3
@@ -212,9 +241,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    cached (45, 224, 224, 3) clips with a synthetic annotation.csv, repeat
    1, one epoch at batch 2, the final test pass in bf16; the result JSON
    read back with the JAX runner's keys; exact K3 and K4 launch counts;
-17. one JSON line describing each kernel (every TPU kernel of the repo
-   is ported, and P1's prologue; K1, K2 and K3 with one entry per
-   dtype),
+   MViT-v1's run saves through path.save_model, and the file holds
+   fit_video's best weights bit for bit and loads into a fresh MViT-v1;
+17. the whole run's wall time, one JSON line describing each kernel
+   (every TPU kernel of the repo is ported, and P1's prologue; K1, K2 and
+   K3 with one entry per dtype),
    then the card's name and power limit, then the result line.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -1504,7 +1535,8 @@ def write_run_dataset(root, converted_amp):
 
 def run_csi_phase(work, converted_amp):
     """run_experiment at full width on the card for THAT_ENCODER and DETR
-    (RUN_EPOCHS epochs) and the WiMANS baselines MLP (the flat layout, the
+    (RUN_EPOCHS epochs, each saving its best weights as a component file
+    under work/saved) and the WiMANS baselines MLP (the flat layout, the
     classification report) and CNN-1D (count_round; one epoch each): the
     result JSON, its keys, and the exact launch counts (none but
     THAT_ENCODER's K1 and K2). Returns THAT_ENCODER's launch counts."""
@@ -1545,7 +1577,10 @@ def run_csi_phase(work, converted_amp):
             "path.data_y": os.path.join(work, "annotation.csv"),
             "path.save": save, "data.environment": ["classroom"],
             "nn.epoch": epochs, "nn.batch_size": TRAIN_BATCH,
-            "compute_dtype": "auto"})
+            "compute_dtype": "auto",
+            # the transfer phase starts from these two runs' best weights
+            "save_model": key in TRANSFER_KEYS,
+            "saving_path": os.path.join(work, "saved")})
         kernels.reset_launch_counts()
         start = time.perf_counter()
         result = run_experiment(cfg)
@@ -1576,6 +1611,490 @@ def run_csi_phase(work, converted_amp):
                                 f"{want}")
         out[key] = launches
     return out["THAT_ENCODER"]
+
+
+# ---------------------------------------------------------------------- #
+# checkpoints, transfer learning, resume, SSL, dual band and ST-RF
+# ---------------------------------------------------------------------- #
+
+TRANSFER_KEYS = ("THAT_ENCODER", "DETR")
+TRANSFER_PARTS = ("feature_extractor", "encoder")   # feature_encoder's
+SSL_STEP_BATCH = 8         # card vs CPU: the projector's BatchNorms
+                           # normalise by the batch's own statistics
+STRF_WINDOWS = 16
+STRF_REL = 1e-4            # card (torch.fft) vs host scipy, of the largest
+
+
+def run_counts(key, epochs, n_windows=RUN_WINDOWS):
+    """The exact launch counts of run_experiment for ``key`` over the
+    phase's dataset: K1 f32 in the training steps and validation passes,
+    K1 bf16 in the final test pass, K2 in the steps (THAT_ENCODER only).
+    Returns (training windows, steps, counts)."""
+    from multi_modal_csi_tpu_torch.data.splits import (env_split,
+                                                       valid_test_split)
+    idx = np.arange(n_windows)
+    n_train, rest = len(env_split(idx, idx)[0]), env_split(idx, idx)[1]
+    n_valid, n_test = (len(a) for a in valid_test_split(rest, rest)[:2])
+    steps = epochs * (math.ceil(n_train / TRAIN_BATCH) - 1)
+    want = ({"flash_attention_f32": 5 * steps
+             + 5 * epochs * math.ceil(n_valid / 512),
+             "flash_attention": 5 * math.ceil(n_test / 512),
+             "flash_attention_backward": 5 * steps}
+            if key == "THAT_ENCODER" else {})
+    return n_train, steps, want
+
+
+def moved(after, before, part, stats=False):
+    """Whether any of ``part``'s parameters (or, with ``stats``, its
+    BatchNorm running statistics) differ between two state dicts."""
+    names = [k for k in before if k.split(".")[0] == part
+             and ("running_" in k) == stats]
+    check(bool(names), f"no {'statistics' if stats else 'parameters'} "
+                       f"under {part}")
+    return any(not torch.equal(after[k], before[k].cpu()) for k in names)
+
+
+def transfer_phase(work):
+    """Transfer learning at full width from run_csi_phase's component
+    files (work/saved). For THAT_ENCODER and DETR: the file restored under
+    feature_encoder into the weights of seed 0 (the feature extractor and
+    encoder equal to the file's bit for bit, the rest to the fresh
+    weights); for THAT_ENCODER one counted training step with
+    transfer_optimizer (exactly 5 K1 f32 and 5 K2 launches) and its
+    profile with K1's and K2's shares; then run_experiment under
+    feature_encoder (THAT_ENCODER RUN_EPOCHS epochs, DETR one), saving its
+    best weights: the result JSON's keys, the exact launch counts, and the
+    saved weights against the restored ones (THAT_ENCODER's encoder and
+    decoder moved; DETR's frozen feature extractor bit-equal while its
+    BatchNorm statistics moved, its encoder and decoder moved). Returns
+    THAT_ENCODER's launch counts."""
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.core.checkpoint import (component_path,
+                                                           restore_scenario)
+    from multi_modal_csi_tpu_torch.core.config import Config
+    from multi_modal_csi_tpu_torch.runners.csi import (CSI_MODELS,
+                                                       run_experiment)
+    from multi_modal_csi_tpu_torch.train.loop import make_train_step
+    from multi_modal_csi_tpu_torch.train.transfer import transfer_optimizer
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    phase_start = time.perf_counter()
+    out = {}
+    for key, epochs in (("THAT_ENCODER", RUN_EPOCHS), ("DETR", 1)):
+        spec, cfg = CSI_MODELS[key], Config()
+        saved = component_path(os.path.join(work, "saved"), ["classroom"],
+                               key)
+        file_state = torch.load(saved, map_location="cpu", weights_only=True)
+        fresh = spec.build((LENGTH, CHANNELS), 10, cfg,
+                           torch.Generator().manual_seed(0)).state_dict()
+        start = restore_scenario(
+            spec.build((LENGTH, CHANNELS), 10, cfg,
+                       torch.Generator().manual_seed(0)),
+            saved, "feature_encoder", key)
+        start_state = {k: v.clone() for k, v in start.state_dict().items()}
+        for name, value in start_state.items():
+            src = (file_state if name.split(".")[0] in TRANSFER_PARTS
+                   else fresh)
+            check(torch.equal(value, src[name]),
+                  f"{key} feature_encoder restore of {name}")
+        print(f"{key} feature_encoder: {len(start_state)} entries restored "
+              f"from {os.path.basename(saved)}, "
+              f"{sum(k.split('.')[0] in TRANSFER_PARTS for k in start_state)}"
+              f" of them the file's, bit for bit")
+
+        if key == "THAT_ENCODER":
+            model = start.cuda()
+            step = make_train_step(model, transfer_optimizer(
+                model, cfg.nn.lr, "feature_encoder"),
+                spec.make_loss(cfg, 10))
+            rng = np.random.default_rng(SEED + 7)
+            bx = torch.from_numpy(rng.standard_normal(
+                (TRAIN_BATCH, LENGTH, CHANNELS), dtype=np.float32)).cuda()
+            by = torch.from_numpy(np.eye(10, dtype=np.float32)[
+                rng.integers(0, 10, (TRAIN_BATCH, 5))]).cuda()
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            step(bx, by, gen)                                 # warm-up
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            step(bx, by, gen)
+            torch.cuda.synchronize()
+            one = dict(kernels.LAUNCH_COUNTS)
+            print(f"THAT_ENCODER feature_encoder training: launches in one "
+                  f"step: {one}")
+            check(one == {"flash_attention_f32": 5,
+                          "flash_attention_backward": 5},
+                  f"THAT_ENCODER transfer step launched {one}")
+            prof = profile_device("THAT_ENCODER feature_encoder training",
+                                  lambda: step(bx, by, gen),
+                                  PROFILED_STEPS, "step")
+            k1 = sum(t for name, t in prof["kernels"].items()
+                     if K1_F32 in name)
+            k2 = sum(t for name, t in prof["kernels"].items()
+                     if any(part in name for part in
+                            K2_PASSES[torch.float32].values()))
+            print(f"THAT_ENCODER feature_encoder training: K1 {k1:.3f} ms "
+                  f"({100 * k1 / prof['device_ms']:.1f}%), K2 {k2:.3f} ms "
+                  f"({100 * k2 / prof['device_ms']:.1f}%) of "
+                  f"{prof['device_ms']:.3f} ms device time per step")
+            check(k1 > 0 and k2 > 0, "THAT_ENCODER transfer step ran no "
+                                     "K1 or K2 kernel")
+            del model, step, bx, by
+
+        n_train, steps, want = run_counts(key, epochs)
+        results = os.path.join(work, "transfer")
+        save = os.path.join(results, f"{key}.json")
+        cfg = Config().override({
+            "model": key, "task": "activity", "repeat": 1,
+            "path.data_x": os.path.join(work, "amp"),
+            "path.data_y": os.path.join(work, "annotation.csv"),
+            "path.save": save, "data.environment": ["classroom"],
+            "nn.epoch": epochs, "nn.batch_size": TRAIN_BATCH,
+            "compute_dtype": "auto", "pretrained_path": saved,
+            "transfer_scenario": "feature_encoder", "save_model": True,
+            "saving_path": results})
+        kernels.reset_launch_counts()
+        start_s = time.perf_counter()
+        result = run_experiment(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start_s
+        launches = dict(kernels.LAUNCH_COUNTS)
+        with open(save) as f:
+            written = json.load(f)
+        print(f"{key} run_experiment under feature_encoder: {n_train} "
+              f"training windows, {steps} steps; {wall:.2f} s wall, fit "
+              f"{result['time_train']['avg']:.2f} s; accuracy "
+              f"{result['accuracy']['avg']:.1f}; launches {launches}")
+        check(set(written) == RESULT_KEYS,
+              f"{key} transfer result JSON keys {sorted(written)}")
+        check(launches == want, f"{key} transfer run launched {launches}, "
+                                f"expected {want}")
+        best = torch.load(component_path(results, ["classroom"], key),
+                          map_location="cpu", weights_only=True)
+        check(set(best) == set(start_state), f"{key} saved keys")
+        if key == "DETR":
+            frozen = [k for k in start_state
+                      if k.startswith("feature_extractor.")
+                      and "running_" not in k]
+            check(all(torch.equal(best[k], start_state[k]) for k in frozen),
+                  "DETR's frozen feature extractor moved")
+            check(moved(best, start_state, "feature_extractor", stats=True),
+                  "DETR's frozen feature extractor kept its BatchNorm "
+                  "statistics")
+        for part in ("encoder", "decoder"):
+            check(moved(best, start_state, part),
+                  f"{key} transfer run left the {part} as restored")
+        out[key] = launches
+    print(f"transfer phase: {time.perf_counter() - phase_start:.1f} s")
+    return out["THAT_ENCODER"]
+
+
+def resume_phase(data, work):
+    """THAT fit at batch 16, f32, with the cosine-warmup schedule and a
+    run checkpoint each epoch: 2 epochs, then the checkpoint restored into
+    a fresh model, Adam and schedule as fit builds them (the weights and
+    BatchNorm buffers, Adam's step and moments, the schedule's step and
+    learning rate, bit for bit), then fit with epochs=3 on the same
+    directory, which trains exactly one epoch (epoch 2; 5 K1 f32 and 5 K2
+    a step). Returns both fits' launch counts, summed."""
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.core.checkpoint import RunCheckpointer
+    from multi_modal_csi_tpu_torch.core.config import Config
+    from multi_modal_csi_tpu_torch.runners.csi import CSI_MODELS, build_model
+    from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch, fit,
+                                                      resume)
+    from multi_modal_csi_tpu_torch.train.schedules import cosine_warmup
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    phase_start = time.perf_counter()
+    cfg, spec = Config(), CSI_MODELS["THAT"]
+    x_tr, y_tr, x_va, y_va = data
+    directory = os.path.join(work, "run_checkpoints")
+    steps = math.ceil(TRAIN_WINDOWS / TRAIN_BATCH) - 1
+    settings = dict(loss_fn=spec.make_loss(cfg, 54), mode=spec.mode,
+                    lr=cfg.nn.lr, batch_size=TRAIN_BATCH, seed=SEED,
+                    weight_decay=spec.weight_decay,
+                    threshold=cfg.nn.threshold, patience=cfg.nn.patience,
+                    use_cosine_schedule=True, warmup_epochs=1,
+                    min_lr_ratio=cfg.nn.scheduler.min_lr_ratio,
+                    checkpoint_dir=directory, checkpoint_every=1)
+    model = build_model("THAT", seed=SEED)
+    kernels.reset_launch_counts()
+    first = fit(model, x_tr, y_tr, x_va, y_va, epochs=2, **settings)
+    launches = dict(kernels.LAUNCH_COUNTS)
+    ckpt = RunCheckpointer(directory)
+    check(first.epochs_ran == 2 and ckpt.latest_step() == 1,
+          f"THAT fit with checkpoints ran {first.epochs_ran} epochs, "
+          f"newest checkpoint {ckpt.latest_step()}")
+    state = ckpt.restore()
+    live = model.state_dict()
+    check(all(torch.equal(live[k].cpu(), v)
+              for k, v in state["model"].items()),
+          "the run checkpoint differs from the run's last weights")
+
+    other = build_model("THAT", seed=SEED + 1).cuda()
+    opt = adam_like_torch(other.parameters(), cfg.nn.lr, spec.weight_decay)
+    schedule = cosine_warmup(steps, 3 * steps,
+                             cfg.nn.scheduler.min_lr_ratio)
+    scheduler = torch.optim.lr_scheduler.LambdaLR(opt, schedule)
+    epoch = resume(state, other, opt, scheduler)
+    restored = other.state_dict()
+    moments = opt.state_dict()["state"]
+    saved_moments = state["optimizer"]["state"]
+    check(epoch == 1 and all(torch.equal(restored[k].cpu(), v)
+                             for k, v in state["model"].items()),
+          "resume restored other weights")
+    check(set(moments) == set(saved_moments) and all(
+        torch.equal(moments[i][name].cpu(), saved_moments[i][name])
+        for i in moments for name in ("step", "exp_avg", "exp_avg_sq")),
+        "resume restored other Adam moments")
+    lr = opt.param_groups[0]["lr"]
+    check(scheduler.last_epoch == 2 * steps
+          and lr == cfg.nn.lr * schedule(2 * steps),
+          f"resume restored the schedule at step {scheduler.last_epoch}, "
+          f"lr {lr}")
+    print(f"THAT run checkpoint (epoch {epoch}): {len(restored)} weights "
+          f"and buffers, {len(moments)} Adam states (step "
+          f"{float(next(iter(moments.values()))['step']):.0f}) and the "
+          f"schedule at step {scheduler.last_epoch} (lr {lr:.3e}) restored "
+          f"bit for bit")
+    del other, opt, scheduler
+
+    kernels.reset_launch_counts()
+    again = fit(build_model("THAT", seed=SEED), x_tr, y_tr, x_va, y_va,
+                epochs=3, **settings)
+    torch.cuda.synchronize()
+    resumed = dict(kernels.LAUNCH_COUNTS)
+    h = again.history
+    print(f"THAT fit resumed to 3 epochs: trained epochs "
+          f"{[r['epoch'] for r in h]}, train loss "
+          f"{h[0]['train_loss']:.4f}, validation loss "
+          f"{h[0]['test_loss']:.4f}; launches {resumed}")
+    want = {"flash_attention_f32": 5 * steps + 5,
+            "flash_attention_backward": 5 * steps}
+    check([r["epoch"] for r in h] == [2] and math.isfinite(
+        h[0]["train_loss"]), "the resumed fit did not train epoch 2 alone")
+    check(resumed == want, f"resumed THAT fit launched {resumed}, expected "
+                           f"{want}")
+    check(ckpt.latest_step() == 2, "the resumed fit saved no checkpoint")
+    print(f"resume phase: {time.perf_counter() - phase_start:.1f} s")
+    return {k: launches.get(k, 0) + resumed.get(k, 0)
+            for k in set(launches) | set(resumed)}
+
+
+def ssl_phase(data, work):
+    """SSL at full width: run_ssl for one epoch at batch 16 (every batch,
+    the random views), saving its weights, then cli/ssl_inference.py on
+    the saved file over run_csi_phase's dataset; no kernel launch; the
+    training rate and a profile of the step; then one f32 step with fixed
+    views at batch 8 on the card against the CPU: the loss, each
+    gradient and each BatchNorm statistic."""
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.cli import ssl_inference
+    from multi_modal_csi_tpu_torch.core.config import Config
+    from multi_modal_csi_tpu_torch.models.csi.ssl import ssl_loss, two_views
+    from multi_modal_csi_tpu_torch.nn.layers import dropout_generator
+    from multi_modal_csi_tpu_torch.runners.ssl import build_ssl, run_ssl
+    from multi_modal_csi_tpu_torch.train.loop import adam_like_torch
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    phase_start = time.perf_counter()
+    x_tr, y_tr, x_va, y_va = data
+    cfg = Config().override({"repeat": 1, "nn.epoch": 1,
+                             "nn.batch_size": TRAIN_BATCH})
+    save = os.path.join(work, "ssl", "ssl.pt")
+    history = []
+    kernels.reset_launch_counts()
+    result = run_ssl(cfg, (x_tr, x_va, y_tr, y_va), save_path=save,
+                     history=history)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCH_COUNTS)
+    fit_s = result["time_train"]["avg"]
+    print(f"SSL run_ssl: {len(x_tr)} windows, one epoch at batch "
+          f"{TRAIN_BATCH} in {fit_s:.2f} s ({len(x_tr) / fit_s:.1f} windows "
+          f"trained/s over the epoch's wall time, the one-batch evaluation "
+          f"included), loss {history[0]['train_loss']:.4f}, test accuracy "
+          f"{result['accuracy']['avg']:.3f}; launches {launches}")
+    check(launches == {}, f"run_ssl launched {launches}")
+    check(set(result) == {"repeat_0", "accuracy", "time_train", "time_test"}
+          and math.isfinite(history[0]["train_loss"]),
+          f"run_ssl result {sorted(result)}")
+    with contextlib.redirect_stdout(None):     # the report's JSON
+        out = ssl_inference.main([
+            "--checkpoint", save, "--set", f"path.data_x={work}/amp",
+            "--set", f"path.data_y={work}/annotation.csv",
+            "--set", "data.environment=classroom"])
+    print(f"SSL ssl_inference on the saved file: test accuracy "
+          f"{out['accuracy']:.3f}, {len(out['report'])} report rows")
+    check(0.0 <= out["accuracy"] <= 1.0 and "micro avg" in out["report"],
+          "ssl_inference result")
+
+    model = build_ssl(54, SEED, CHANNELS).cuda()
+    opt = adam_like_torch(model.parameters(), cfg.nn.lr)
+
+    def step(bx, by, gen):
+        model.train()
+        v1, v2 = two_views(gen, bx)
+        opt.zero_grad(set_to_none=True)
+        with dropout_generator(gen):
+            loss, _ = ssl_loss(*model(v1, v2), by)
+        loss.backward()
+        opt.step()
+        return loss.detach(), None
+
+    bx = torch.from_numpy(x_tr[:TRAIN_BATCH]).cuda()
+    by = torch.from_numpy(y_tr[:TRAIN_BATCH]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    step(bx, by, gen)                                         # warm-up
+    train_rate("SSL f32 training", step, bx, by, gen)
+    profile_device("SSL f32 training", lambda: step(bx, by, gen),
+                   PROFILED_STEPS, "step")
+    del model, opt, bx, by
+
+    set_tf32(False)                            # cuDNN's convs too
+    x = x_tr[:SSL_STEP_BATCH]
+    y = y_tr[:SSL_STEP_BATCH]
+    got = {}
+    for device in ("cuda", "cpu"):
+        model = without_dropout(build_ssl(54, SEED, CHANNELS)).to(
+            device).train()
+        bx = torch.from_numpy(x).to(device)
+        loss, _ = ssl_loss(*model(bx, bx * 0.9 + 0.1),
+                           torch.from_numpy(y).to(device))
+        loss.backward()
+        got[device] = (float(loss),
+                       {n: p.grad.cpu() for n, p in model.named_parameters()},
+                       {n: b.cpu() for n, b in model.named_buffers()})
+        del model, bx
+    (card_loss, card, card_stats), (cpu_loss, cpu, cpu_stats) = (
+        got["cuda"], got["cpu"])
+    floor = 1e-2 * max(g.abs().max().item() for g in cpu.values())
+    worst = max((((card[n] - cpu[n]).abs().max().item()
+                  / max(cpu[n].abs().max().item(), floor)), n) for n in cpu)
+    stats = max((((card_stats[n] - cpu_stats[n]).abs().max().item()
+                  / cpu_stats[n].abs().max().item()), n) for n in cpu_stats)
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    print(f"SSL f32 training step at batch {SSL_STEP_BATCH}, fixed views, "
+          f"card vs CPU: loss {card_loss:.6f} vs {cpu_loss:.6f} (relative "
+          f"{rel:.2e}, tolerance {STEP_F32_TOL}); worst gradient "
+          f"{worst[0]:.2e} of its scale in {worst[1]} (tolerance "
+          f"{GRAD_F32_TOL}); worst BatchNorm statistic {stats[0]:.2e} of its"
+          f" largest in {stats[1]} (tolerance {STATS_F32_TOL})")
+    check(rel <= STEP_F32_TOL, f"SSL card vs CPU step loss relative {rel}")
+    check(worst[0] <= GRAD_F32_TOL, f"SSL card vs CPU gradient {worst}")
+    check(stats[0] <= STATS_F32_TOL, f"SSL card vs CPU statistic {stats}")
+    print(f"SSL phase: {time.perf_counter() - phase_start:.1f} s")
+
+
+def dual_band_phase(data):
+    """dual_band at full width: run_csi_model for one epoch at batch 16 on
+    (80, 2, 3000, 270) paired windows (band 2 other windows than band 1),
+    no kernel launch; the f32 forward on the card against the CPU at
+    batch 2 (TF32 off) within SERVE_F32_TOL; profiles of the f32 forward
+    and training step at batch 16."""
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.core.config import Config
+    from multi_modal_csi_tpu_torch.losses.basic import bce_with_logits
+    from multi_modal_csi_tpu_torch.runners.csi import run_csi_model
+    from multi_modal_csi_tpu_torch.runners.dual_band import build_dual_band
+    from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch,
+                                                      make_train_step)
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    phase_start = time.perf_counter()
+    x_tr, y_tr, x_va, y_va = data
+
+    def paired(x):
+        return np.stack([x, x[::-1]], axis=1)
+
+    cfg = Config().override({"model": "dual_band", "repeat": 1,
+                             "nn.epoch": 1, "nn.batch_size": TRAIN_BATCH})
+    kernels.reset_launch_counts()
+    result = run_csi_model(cfg, (paired(x_tr), paired(x_va), y_tr, y_va))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCH_COUNTS)
+    steps = math.ceil(TRAIN_WINDOWS / TRAIN_BATCH) - 1
+    print(f"dual_band run: {steps} steps of (16, 2, 3000, 270) and the "
+          f"validation pass in {result['time_train']['avg']:.2f} s, test "
+          f"accuracy {result['accuracy']['avg']:.3f}; launches {launches}")
+    check(launches == {}, f"dual_band launched {launches}")
+    check(set(result) == {"repeat_0", "accuracy", "time_train", "time_test"}
+          and math.isfinite(result["accuracy"]["avg"]),
+          f"dual_band result {sorted(result)}")
+
+    set_tf32(False)                            # cuDNN's convs too
+    x = paired(x_va[:4])[:2]
+    model = build_dual_band(54, SEED, CHANNELS).eval()
+    with torch.no_grad():
+        cpu = model(torch.from_numpy(x)).numpy()
+        model.cuda()
+        card = model(torch.from_numpy(x).cuda()).cpu().numpy()
+    err = float(np.abs(card - cpu).max())
+    print(f"dual_band f32 card vs CPU: max abs err {err:.3e} = "
+          f"{err / np.abs(cpu).max():.2e} of the largest logit (tolerance "
+          f"{SERVE_F32_TOL} abs + rel)")
+    check(np.allclose(card, cpu, atol=SERVE_F32_TOL, rtol=SERVE_F32_TOL),
+          f"dual_band f32 card vs CPU err {err}")
+
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    bx = torch.from_numpy(paired(x_tr[:TRAIN_BATCH])).cuda()
+    by = torch.from_numpy(y_tr[:TRAIN_BATCH]).cuda()
+    with torch.no_grad():
+        profile_device("dual_band f32 forward", lambda: model(bx),
+                       PROFILED_FORWARDS, "forward")
+    step = make_train_step(model, adam_like_torch(model.parameters(),
+                                                  cfg.nn.lr),
+                           lambda o, t: bce_with_logits(o, t, 6.0))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    step(bx, by, gen)                                         # warm-up
+    train_rate("dual_band f32 training", step, bx, by, gen)
+    profile_device("dual_band f32 training", lambda: step(bx, by, gen),
+                   PROFILED_STEPS, "step")
+    del model, step, bx, by
+    torch.cuda.empty_cache()
+    print(f"dual_band phase: {time.perf_counter() - phase_start:.1f} s")
+
+
+def strf_phase(data):
+    """ST-RF: kernels/spectrogram.py::strf_features on the card against
+    models/csi/strf.py's scipy features on the host at (16, 3000, 270),
+    within STRF_REL of the largest feature, with both times; then the
+    runner's ST-RF path, which computes the same features on the card:
+    where sklearn imports it runs, and where it does not run_csi_model
+    must raise the ImportError that names sklearn."""
+    import importlib.util
+    from multi_modal_csi_tpu_torch.core.config import Config
+    from multi_modal_csi_tpu_torch.kernels.spectrogram import strf_features
+    from multi_modal_csi_tpu_torch.models.csi.strf import (
+        spectrogram_features)
+    from multi_modal_csi_tpu_torch.runners.csi import run_csi_model
+    x, y = data[0][:STRF_WINDOWS], data[1][:STRF_WINDOWS]
+    start = time.perf_counter()
+    host = spectrogram_features(x)
+    host_s = time.perf_counter() - start
+    xd = torch.from_numpy(x).cuda()
+    card = strf_features(xd).cpu().numpy()
+    ms = cuda_ms(lambda: strf_features(xd), reps=10)
+    err = float(np.abs(card - host).max() / np.abs(host).max())
+    print(f"ST-RF features {tuple(host.shape)} of {x.shape}: card "
+          f"{ms:.3f} ms (torch.fft), host scipy {host_s * 1e3:.1f} ms; "
+          f"max abs difference {err:.2e} of the largest feature (tolerance "
+          f"{STRF_REL})")
+    check(card.shape == host.shape and err <= STRF_REL,
+          f"ST-RF features card vs host {err}")
+    cfg = Config().override({"model": "ST-RF", "repeat": 1})
+    split = (x[:12], x[12:], y[:12], y[12:])
+    if importlib.util.find_spec("sklearn") is None:
+        try:
+            run_csi_model(cfg, split)
+        except ImportError as e:
+            print(f"ST-RF runner without sklearn: ImportError: {e}")
+            check("sklearn" in str(e), f"ST-RF raised {e!r}")
+        else:
+            check(False, "ST-RF ran where sklearn does not import")
+    else:
+        result = run_csi_model(cfg, split)
+        print(f"ST-RF runner: accuracy {result['accuracy']['avg']:.3f}")
+        check(math.isfinite(result["accuracy"]["avg"]), "ST-RF result")
 
 
 def lowrank_bound(shape, bias, dtype):
@@ -2444,15 +2963,19 @@ def write_video_run(root):
     return clips, annotation
 
 
-def run_video_phase(clips, annotation, work, key, train_dtype="float32"):
+def run_video_phase(clips, annotation, work, key, train_dtype="float32",
+                    save_model=None):
     """The video experiment path (cli/run_video.py -> run_video_model ->
     fit_video) on the card: RUN_CLIPS cached clips, identity task, repeat
     1, one epoch at batch 2, the final test pass in the serving dtype
     (bf16); the result JSON read back with the JAX runner's keys and
     exactly 3 K3 and 3 of each K4 kernel per step and 16 K3 per
-    evaluation chunk. Returns the launch counts and how many of the K3
-    launches ran in f32 (all but the final test pass's, when training in
-    f32)."""
+    evaluation chunk. With ``save_model`` (path.save_model, absent before
+    the run, so the run starts from fresh weights) the saved file must hold
+    the best weights that fit_video returned, bit for bit, and load
+    strictly into a fresh model of ``key``. Returns the launch counts and
+    how many of the K3 launches ran in f32 (all but the final test pass's,
+    when training in f32)."""
     from multi_modal_csi_tpu_torch import kernels
     from multi_modal_csi_tpu_torch.cli import run_video
     from multi_modal_csi_tpu_torch.data.splits import train_test_split
@@ -2465,19 +2988,48 @@ def run_video_phase(clips, annotation, work, key, train_dtype="float32"):
     # per epoch the training and test sets, then the final test pass
     chunks = (-(-n_train // VIDEO_TRAIN_BATCH)
               + 2 * -(-n_test // VIDEO_TRAIN_BATCH))
+    from multi_modal_csi_tpu_torch.runners import video as video_runner
     save = os.path.join(work, "results", f"{key}-{train_dtype}.json")
-    kernels.reset_launch_counts()
-    start = time.perf_counter()
-    result = run_video.main([
+    args = [
         "--model", key, "--repeat", "1",
         "--set", f"path.video_pre_x={clips}",
         "--set", f"path.data_y={annotation}", "--set", f"path.save={save}",
         "--set", "nn.epoch=1", "--set", f"nn.batch_size={VIDEO_TRAIN_BATCH}",
         "--set", f"train_dtype={train_dtype}",
-        "--set", "compute_dtype=auto"])
+        "--set", "compute_dtype=auto"]
+    best = []
+    real_fit = video_runner.fit_video
+    if save_model:
+        check(not os.path.exists(save_model), f"{save_model} exists")
+        args += ["--set", f"path.save_model={save_model}"]
+
+        def recording(*a, **k):
+            out = real_fit(*a, **k)
+            best.append(out[0])
+            return out
+
+        video_runner.fit_video = recording
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    try:
+        result = run_video.main(args)
+    finally:
+        video_runner.fit_video = real_fit
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     launches = dict(kernels.LAUNCH_COUNTS)
+    if save_model:
+        saved = torch.load(save_model, map_location="cpu", weights_only=True)
+        check(len(best) == 1 and set(saved) == set(best[0]) and all(
+            torch.equal(saved[k], v.float()) for k, v in best[0].items()),
+            f"{key}: path.save_model does not hold the run's best weights")
+        video_runner.build_video_model(key, VIDEO_OUT).load_state_dict(
+            saved, strict=True)
+        print(f"{key} run_video saved its best weights to path.save_model: "
+              f"{len(saved)} entries, "
+              f"{os.path.getsize(save_model) / 2 ** 20:.1f} MiB, equal to "
+              f"fit_video's bit for bit, loaded strictly into a fresh "
+              f"{key}")
     with open(save) as f:
         written = json.load(f)
     fit_s = result["time_train"]["avg"]
@@ -3679,6 +4231,9 @@ def k4_entry(name, source, replaces, launches, times, part, dtype):
     }
 
 
+RUN_START = time.perf_counter()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3762,7 +4317,6 @@ def main() -> int:
         for key in ("LSTM", "CNN-2D"):
             train_step_card_vs_cpu(key, data[0][:2], data[1][:2])
         baseline_s += time.perf_counter() - start
-        del data
 
         start = time.perf_counter()
         experiment = run_csi_phase(work, converted_amp)
@@ -3770,6 +4324,16 @@ def main() -> int:
               f"{time.perf_counter() - start:.1f} s")
         print("WiMANS baselines: serving (bf16, int8), training and the "
               f"card-vs-CPU steps took {baseline_s:.1f} s of wall time")
+        # checkpoints, transfer, resume and the last three CSI keys
+        start = time.perf_counter()
+        transfer = transfer_phase(work)
+        resumed = resume_phase(data, work)
+        ssl_phase(data, work)
+        dual_band_phase(data)
+        strf_phase(data)
+        print(f"checkpoint, transfer, resume, SSL, dual band and ST-RF "
+              f"phases: {time.perf_counter() - start:.1f} s of wall time")
+        del data
 
         clips = video_requests()
         served = [video_serve_phase(key, clips) for key in
@@ -3792,7 +4356,8 @@ def main() -> int:
         step_bf16 = video_train_phase("MViT-v2", torch.bfloat16)
         clip_dir, annotation = write_video_run(work)
         experiments = [
-            run_video_phase(clip_dir, annotation, work, "MViT-v1"),
+            run_video_phase(clip_dir, annotation, work, "MViT-v1",
+                            save_model=os.path.join(work, "mvit_v1.pt")),
             run_video_phase(clip_dir, annotation, work, "MViT-v2"),
             run_video_phase(clip_dir, annotation, work, "MViT-v2",
                             "bfloat16")]
@@ -3809,7 +4374,9 @@ def main() -> int:
     # THAT training step of the dtype (batch 16); 4 left-stream and 1
     # right-stream launches each; launches summed over every main path
     # that ran them (each kernel's two dtypes are counted apart; K2 bf16's
-    # main path is the bf16 fit epoch). K5:
+    # main path is the bf16 fit epoch; K1 and K2 f32 also count the
+    # THAT_ENCODER feature_encoder run and both resume fits, K1 bf16 that
+    # run's test pass). K5:
     # per WiMANS trace (3000, 270). K3 in bf16: per MViT-v2 forward
     # (batch 2, the bias on), its 16 launches; launches summed over the
     # video serving, evaluate and bf16 training runs of both variants and
@@ -3829,19 +4396,22 @@ def main() -> int:
     # prologue: per DETR w8a8 forward, its 52 calls; launches likewise.
     trace = k5_times["trace"]
     k5_bytes, k5_ops = trace["bytes_ms"], trace["ops_ms"]
+    print(f"chip_smoke: the whole run took "
+          f"{time.perf_counter() - RUN_START:.1f} s of wall time")
     print(json.dumps({"kernels": [
         kernel_entry("flash_attention", "flash_attention.cu",
                      "multi_modal_csi_tpu/kernels/flash_attention.py:108",
                      sum(runs.get("flash_attention", 0) for runs in
                          (that, trained, trained_bf16_that, encoder,
-                          experiment, encoder_int8)), fwd_times,
+                          experiment, encoder_int8, transfer)), fwd_times,
                      {"that-left": 4, "that-right": 1}, torch.bfloat16),
         # the f32 instantiation, the f32 body of tc_attention.cuh; its C
         # entry is in flash_attention.cu; times are device times
         kernel_entry("flash_attention_f32", "tc_attention.cuh",
                      "multi_modal_csi_tpu/kernels/flash_attention.py:108",
                      sum(runs.get("flash_attention_f32", 0) for runs in
-                         (trained, experiment)), fwd_times,
+                         (trained, experiment, transfer, resumed)),
+                     fwd_times,
                      {"that-left-16": 4, "that-right-16": 1},
                      torch.float32, as_3xtf32=True),
         # each instantiation's two kernels (the query pass and dK/dV),
@@ -3849,8 +4419,9 @@ def main() -> int:
         # flash_attention_bwd.cu
         kernel_entry("flash_attention_backward", "tc_attention_bwd.cuh",
                      "multi_modal_csi_tpu/kernels/flash_attention.py:271",
-                     trained["flash_attention_backward"]
-                     + experiment["flash_attention_backward"], bwd_times,
+                     sum(runs["flash_attention_backward"] for runs in
+                         (trained, experiment, transfer, resumed)),
+                     bwd_times,
                      {"that-left-16": 4, "that-right-16": 1},
                      torch.float32, as_3xtf32=True),
         kernel_entry("flash_attention_backward_bf16", "tc_attention_bwd.cuh",

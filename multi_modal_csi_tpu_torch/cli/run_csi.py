@@ -7,9 +7,13 @@ Usage:
       [--config cfg.json] [--set nn.lr=1e-4 --set data.wifi_band=5] \\
       [--device cuda|cpu]
 
-``--model`` takes every ported CSI key: MLP, CNN-1D, CNN-2D, LSTM, CLSTM,
-ABLSTM, the THAT family, THAT_ENCODER and DETR (ST-RF, SSL and dual_band
-wait for ROADMAP item 9b). The environment overlay (LEARNING_RATE,
+``--model`` takes every CSI key of the JAX package: MLP, CNN-1D, CNN-2D,
+LSTM, CLSTM, ABLSTM, the THAT family, THAT_ENCODER, DETR, SSL, dual_band
+(band 2 selected by ``--set data_band2.wifi_band=2.4`` and the like) and
+ST-RF (where sklearn is installed). ``--set pretrained_path=F --set
+transfer_scenario=feature_encoder`` restores a component file for
+transfer learning; ``--set save_model=true`` saves each repeat's best
+weights under ``saving_path``. The environment overlay (LEARNING_RATE,
 BATCH_SIZE, ... DATA_PATH, ENVIRONMENTS_EXP: the reference's
 config_modifier.py knob set) applies automatically; ``--set`` takes any
 dotted-path override. The run reads

@@ -144,6 +144,9 @@ class Config:
     repeat: int = 8
     path: PathConfig = field(default_factory=PathConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    # the second band's selection for dual_band (reference
+    # run_dualband.py:34-129)
+    data_band2: DataConfig = field(default_factory=DataConfig)
     nn: NNConfig = field(default_factory=NNConfig)
     encoding_activity: Dict[str, List[int]] = field(
         default_factory=lambda: dict(ACTIVITY_ENCODING))
@@ -151,8 +154,8 @@ class Config:
         default_factory=lambda: dict(LOCATION_ENCODING))
     # transfer learning (reference wifi_csi/preset.py:91-95)
     pretrained_path: Optional[str] = None
-    # full | feature_extractor | feature_encoder (only full is ported)
-    transfer_scenario: str = "full"
+    transfer_scenario: str = "full"   # full | feature_extractor |
+                                      # feature_encoder
     save_model: bool = False
     saving_path: str = "results/"
     # dtype of the final test-set pass: "float32" (the reference's

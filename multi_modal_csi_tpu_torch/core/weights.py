@@ -31,6 +31,11 @@ stays int8 in the port's layout, ``kernel_scale`` becomes
 too, and ``out_proj_weight_scale`` becomes ``out_proj.weight_scale``
 (float32 each). ``core.quantize.load_quantized`` loads such a state dict.
 
+SSL and dual_band follow the JAX importer's maps (``core/torch_import.py:
+331-353`` there): each CNN-1D tower as CNN-1D, the projector's Linears
+and BatchNorms as ``projector.{0,1,3,4}``, the fusion Linears as
+``combine_linear``, ``linear{1,2,3}`` and ``final_linear``.
+
 MViT (``tools/convert_torchvision.py::convert_mvit`` inverted): Conv3d
 ``kernel`` (kt, kh, kw, in/groups, out) -> ``weight`` (out, in/groups, kt,
 kh, kw); Linear and LayerNorm as above; the backbone under ``backbone.``
@@ -163,10 +168,33 @@ def _ablstm(sd: StateDict, p, s, layers: int) -> None:
 
 
 def _cnn1d(sd: StateDict, p, s, layers: int) -> None:
-    _bn(sd, p["input_norm"], s["input_norm"], "layer_norm")
+    _cnn1d_tower(sd, p, s)
+
+
+def _cnn1d_tower(sd: StateDict, p, s, pre: str = "") -> None:
+    _bn(sd, p["input_norm"], s["input_norm"], f"{pre}layer_norm")
     for i in range(3):
-        _conv1d(sd, p[f"conv_{i}"], f"layer_cnn_1d_{i}")
-    _linear(sd, p["head"], "layer_linear")
+        _conv1d(sd, p[f"conv_{i}"], f"{pre}layer_cnn_1d_{i}")
+    _linear(sd, p["head"], f"{pre}layer_linear")
+
+
+def _ssl(sd: StateDict, p, s, layers: int) -> None:
+    _cnn1d_tower(sd, p["backbone"], s["backbone"], "backbone.")
+    _linear(sd, p["proj_1"], "projector.0")
+    _bn(sd, p["proj_bn_1"], s["proj_bn_1"], "projector.1")
+    _linear(sd, p["proj_2"], "projector.3")
+    _bn(sd, p["proj_bn_2"], s["proj_bn_2"], "projector.4")
+    _linear(sd, p["online_head"], "online_head")
+
+
+def _dual_band(sd: StateDict, p, s, layers: int) -> None:
+    for band in (1, 2):
+        _cnn1d_tower(sd, p[f"band{band}"], s[f"band{band}"],
+                     f"cnn_band{band}.")
+    _linear(sd, p["combine"], "combine_linear")
+    for i in range(3):
+        _linear(sd, p[f"res_{i}"], f"linear{i + 1}")
+    _linear(sd, p["head"], "final_linear")
 
 
 def _cnn2d(sd: StateDict, p, s, layers: int) -> None:
@@ -336,6 +364,8 @@ _EXPORTERS = {
     "THAT_COUNT_CONSTRAINED": _that,
     "THAT_ENCODER": _that_encoder,
     "DETR": _detr,
+    "SSL": _ssl,
+    "dual_band": _dual_band,
     "MViT-v1": _mvit,
     "MViT-v2": _mvit,
 }

@@ -32,6 +32,11 @@ def _indicator(y_true: np.ndarray, y_pred: np.ndarray):
     return y_true.astype(bool), y_pred.astype(bool)
 
 
+def predict_labels(logits: np.ndarray, threshold: float) -> np.ndarray:
+    """The 0/1 predictions of multilabel logits: sigmoid > threshold."""
+    return (1.0 / (1.0 + np.exp(-logits)) > threshold).astype(int)
+
+
 def accuracy_score(y_true: np.ndarray, y_pred: np.ndarray) -> float:
     """Subset accuracy: the share of rows predicted exactly."""
     y_true, y_pred = _indicator(y_true, y_pred)

@@ -16,8 +16,18 @@ repeats and results, as the reference's ``run_main.py`` runs them.
 Each model-table entry builds the model from a ``torch.Generator`` and
 records what serving and ``fit`` need: the loss, the metrics mode, the
 weight decay, the output's batch axis, the target transform and the input
-layout. The models the port has not taken over yet, and the runner's
-options that wait for other ROADMAP items, raise NotImplementedError.
+layout. ST-RF, SSL and dual_band have runners of their own
+(``_run_strf``, ``runners/ssl.py``, ``runners/dual_band.py``), which
+``run_csi_model`` dispatches to as the JAX runner does.
+
+Transfer learning: ``cfg.pretrained_path`` (a component file of either
+package, or a reference ``.pt``) is restored once into the weights of
+seed 0 in ``cfg.transfer_scenario`` (``core/checkpoint.py``), and every
+repeat starts from it and trains with ``train/transfer.py``'s optimizer.
+``cfg.save_model`` saves each repeat's best weights to
+``component_path(cfg.saving_path, cfg.data.environment, model)``. Metric
+writers and device meshes wait for ROADMAP items 15 and 14 and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,7 +43,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.checkpoint import component_path, restore_scenario, save_components
 from ..core.config import CSI_CHANNELS, Config, resolve_serving_dtype
+from ..core.device import resolve_device
 from ..data.annotation import filter_annotation, label_list, load_annotation
 from ..data.csi_io import flatten_features, load_csi_windows
 from ..data.encoders import encode_labels, reduce_dataset
@@ -41,10 +53,14 @@ from ..data.splits import concat_env_splits, env_split, valid_test_split
 from ..losses.basic import bce_with_logits, mse, smooth_l1
 from ..losses.matching import (HungarianMatchingLoss, count_based_loss,
                                permutation_matching_loss)
-from ..metrics.classification import accuracy_score, classification_report
+from ..metrics.classification import (accuracy_score, classification_report,
+                                      predict_labels)
 from ..metrics.performance import performance_metrics
 from ..models import csi as csi_models
-from ..train.loop import adam_like_torch, cast_for_serving, eval_dataset, fit
+from ..models.csi.strf import device_features, fit_predict_strf
+from ..train.loop import (cast_for_serving, eval_dataset, fit,
+                          state_snapshot)
+from ..train.transfer import transfer_optimizer
 from ..utils.complexity import complexity_report
 from ..utils.results import NumpyJSONEncoder
 
@@ -175,8 +191,8 @@ CSI_MODELS: Dict[str, CSIModelSpec] = {
         batch_axis=1),
 }
 
-# the JAX package's other CSI model keys, still to port (ROADMAP item 9)
-UNPORTED_MODELS = ("ST-RF", "SSL", "dual_band")
+# the CSI model keys with runners of their own (run_csi_model dispatches)
+OWN_RUNNERS = ("ST-RF", "SSL", "dual_band")
 
 # task -> (per-user class count, flat out_dim, reduced out_dim)
 _TASK_DIMS = {
@@ -185,31 +201,26 @@ _TASK_DIMS = {
     "location": (5, 6 * 5, None),
 }
 
-# reference parameters that THAT_ENCODER registers and never uses
-# (reference that_encoder.py:217-247; JAX core/torch_import.py:291-298)
-_DEAD_KEYS = {"THAT_ENCODER": tuple(
-    f"encoder.layer_{side}_cnn_{i}.{leaf}" for side in ("left", "right")
-    for i in (0, 1) for leaf in ("weight", "bias"))}
-
 
 def _spec(model_key: str) -> CSIModelSpec:
-    if model_key in UNPORTED_MODELS:
-        raise NotImplementedError(
-            f"{model_key} is not ported to PyTorch yet (ROADMAP item 9); "
-            f"ported: {sorted(CSI_MODELS)}")
     if model_key not in CSI_MODELS:
-        raise KeyError(f"unknown model {model_key!r}; ported: "
-                       f"{sorted(CSI_MODELS)}")
+        raise KeyError(f"unknown model {model_key!r}; the table holds "
+                       f"{sorted(CSI_MODELS)}, with runners of their own "
+                       f"{list(OWN_RUNNERS)}")
     return CSI_MODELS[model_key]
+
+
+MODEL_KEYS = tuple(CSI_MODELS) + OWN_RUNNERS
 
 
 def infer_out_dim(model_key: str, task: str) -> int:
     """The out_features the runner derives from the encoded labels: raw
     targets flatten the per-user one-hots, reduced targets use the
     10-class query rows."""
-    spec = _spec(model_key)
     _, flat, reduced = _TASK_DIMS[task]
-    if spec.target.startswith("reduce"):
+    if model_key in OWN_RUNNERS:
+        return flat
+    if _spec(model_key).target.startswith("reduce"):
         if reduced is None:
             raise ValueError(f"{model_key} supports task=activity only")
         return reduced
@@ -220,12 +231,19 @@ def build_model(model_key: str, task: str = "activity", *, seed: int = 0,
                 cfg: Optional[Config] = None) -> nn.Module:
     """Build ``model_key`` at the full width of ``cfg.data.length`` windows
     with weights drawn from a generator seeded with ``seed``, in eval mode,
-    on the CPU."""
+    on the CPU. ST-RF has no network to build."""
     cfg = cfg or Config()
-    generator = torch.Generator().manual_seed(seed)
-    model = _spec(model_key).build(
-        (cfg.data.length, CSI_CHANNELS), infer_out_dim(model_key, task),
-        cfg, generator)
+    out = infer_out_dim(model_key, task)
+    if model_key == "SSL":
+        from .ssl import build_ssl
+        return build_ssl(out, seed).eval()
+    if model_key == "dual_band":
+        from .dual_band import build_dual_band
+        return build_dual_band(out, seed).eval()
+    if model_key == "ST-RF":
+        raise ValueError("ST-RF is a random forest: it has no model to build")
+    model = _spec(model_key).build((cfg.data.length, CSI_CHANNELS), out, cfg,
+                                   torch.Generator().manual_seed(seed))
     return model.eval()
 
 
@@ -279,9 +297,8 @@ def _final_report(logits: np.ndarray, y_test: np.ndarray,
                   threshold: float) -> Tuple[float, dict]:
     """Baseline-family final evaluation: sigmoid > threshold, subset
     accuracy and the classification report (reference model/mlp.py:161-184)."""
-    pred = (1.0 / (1.0 + np.exp(-logits)) > threshold).astype(float)
     y_c = y_test.reshape(-1, y_test.shape[-1]).astype(int)
-    p_c = pred.reshape(-1, y_test.shape[-1]).astype(int)
+    p_c = predict_labels(logits, threshold).reshape(-1, y_test.shape[-1])
     return accuracy_score(y_c, p_c), classification_report(y_c, p_c)
 
 
@@ -300,16 +317,6 @@ def _count_round_metrics(logits: np.ndarray, y_test: np.ndarray) -> dict:
 # the runner
 # ---------------------------------------------------------------------- #
 
-def load_pretrained(path: str, model_key: str) -> Dict[str, torch.Tensor]:
-    """A reference-layout state dict from a ``.pt`` file, on the CPU, less
-    the parameters the reference registers for ``model_key`` and never
-    uses; every other key must match the port model (``load_state_dict``
-    with ``strict=True``)."""
-    state = torch.load(path, map_location="cpu", weights_only=True)
-    dead = _DEAD_KEYS.get(model_key, ())
-    return {k: v for k, v in state.items() if k not in dead}
-
-
 def _check_options(cfg: Config, writer_factory, use_mesh: bool) -> None:
     if writer_factory is not None:
         raise NotImplementedError("metric writers are not ported yet "
@@ -317,13 +324,6 @@ def _check_options(cfg: Config, writer_factory, use_mesh: bool) -> None:
     if use_mesh:
         raise NotImplementedError("data-parallel runs over a device mesh "
                                   "are not ported yet (ROADMAP item 14)")
-    if cfg.save_model:
-        raise NotImplementedError("save_model (component checkpoints) is "
-                                  "not ported yet (ROADMAP item 11)")
-    if cfg.pretrained_path and cfg.transfer_scenario != "full":
-        raise NotImplementedError(
-            f"transfer scenario {cfg.transfer_scenario!r} is not ported yet "
-            f"(ROADMAP item 11); 'full' is")
 
 
 def run_csi_model(cfg: Config, data: Optional[Split] = None,
@@ -335,10 +335,19 @@ def run_csi_model(cfg: Config, data: Optional[Split] = None,
     (the card unless told otherwise) and return the result dict that the
     reference's run_main.py would write. ``data`` is (x_tr, x_te, y_tr,
     y_te) as ``master_split`` returns it; by default it is read from
-    ``cfg.path``. The complexity report's forward runs on the CPU."""
+    ``cfg.path``. The complexity report's forward runs on the CPU. ST-RF,
+    SSL and dual_band go to their own runners."""
     key = cfg.model
-    spec = _spec(key)
     _check_options(cfg, writer_factory, use_mesh)
+    if key == "ST-RF":
+        return _run_strf(cfg, data, device)
+    if key == "SSL":
+        from .ssl import run_ssl
+        return run_ssl(cfg, data, device=device)
+    if key == "dual_band":
+        from .dual_band import run_dual_band
+        return run_dual_band(cfg, data, device=device)
+    spec = _spec(key)
 
     if data is None:
         x_tr, x_te, y_tr, y_te = master_split(cfg, spec.target)
@@ -370,15 +379,17 @@ def run_csi_model(cfg: Config, data: Optional[Split] = None,
     result: Dict[str, Any] = {"complexity": complexity_report(
         build(0), torch.from_numpy(np.ascontiguousarray(x_tr[:1])))}
 
-    # restored weights: loaded once, trained with plain Adam at lr (the
-    # JAX package's transfer_optimizer for the "full" scenario)
+    # restored weights: loaded once into the weights of seed 0 (the JAX
+    # runner restores into its init at PRNGKey(0)), trained with the
+    # scenario's optimizer
     pretrained = optimizer = None
     if cfg.pretrained_path:
-        pretrained = load_pretrained(cfg.pretrained_path, key)
-        lr = cfg.nn.lr
+        pretrained = state_snapshot(restore_scenario(
+            build(0), cfg.pretrained_path, cfg.transfer_scenario, key))
 
-        def optimizer(params):
-            return adam_like_torch(params, lr)
+        def optimizer(model):
+            return transfer_optimizer(model, cfg.nn.lr,
+                                      cfg.transfer_scenario)
 
     eval_dtype = (torch.bfloat16 if resolve_serving_dtype(
         cfg.compute_dtype, key) == "bfloat16" else None)
@@ -403,6 +414,10 @@ def run_csi_model(cfg: Config, data: Optional[Split] = None,
                      batch_axis=spec.batch_axis, train_dtype=cfg.train_dtype,
                      optimizer=optimizer, device=device)
         t1 = time.time()
+        if cfg.save_model:
+            save_components(component_path(cfg.saving_path,
+                                           cfg.data.environment, key),
+                            fitres.best_state)
 
         # the final test pass: the serving path, in the serving dtype
         model.load_state_dict(fitres.best_state)
@@ -433,14 +448,48 @@ def run_csi_model(cfg: Config, data: Optional[Split] = None,
         times_train.append(t1 - t0)
         times_test.append(t2 - t1)
 
+    summarize(result, accuracies, times_train, times_test)
+    if last_metrics:
+        result["final_metrics"] = {k: v for k, v in last_metrics.items()
+                                   if k != "counting_error_perPerson"}
+    return result
+
+
+def summarize(result: Dict[str, Any], accuracies: List[float],
+              times_train: List[float], times_test: List[float]) -> None:
+    """Add the avg/std over repeats of the accuracy and the train and test
+    times to ``result``, as the reference's run_main.py reports them."""
     for name, values in (("accuracy", accuracies),
                          ("time_train", times_train),
                          ("time_test", times_test)):
         result[name] = {"avg": float(np.mean(values)),
                         "std": float(np.std(values))}
-    if last_metrics:
-        result["final_metrics"] = {k: v for k, v in last_metrics.items()
-                                   if k != "counting_error_perPerson"}
+
+
+def _run_strf(cfg: Config, data: Optional[Split],
+              device: Optional[Union[str, torch.device]]) -> Dict[str, Any]:
+    """ST-RF (reference model/strf.py:17-113): the spectrogram features
+    once on ``device``, then per repeat the forest seeded r + 39 on the
+    host, its subset accuracy and the classification report."""
+    device = resolve_device(device)
+    if data is None:
+        data = master_split(cfg, "raw")
+    x_tr, x_te, y_tr, y_te = data
+    f_tr = device_features(_layout(x_tr, "seq"), device)
+    f_te = device_features(_layout(x_te, "seq"), device)
+    result: Dict[str, Any] = {}
+    accuracies, times_train, times_test = [], [], []
+    for r in range(cfg.repeat):
+        t0 = time.time()
+        pred = fit_predict_strf(f_tr, y_tr, f_te, seed=r + 39)
+        t1 = time.time()
+        y_c = y_te.reshape(-1, y_te.shape[-1])
+        p_c = pred.reshape(-1, y_te.shape[-1])
+        accuracies.append(accuracy_score(y_c, p_c))
+        result[f"repeat_{r}"] = classification_report(y_c, p_c)
+        times_train.append(t1 - t0)
+        times_test.append(time.time() - t1)
+    summarize(result, accuracies, times_train, times_test)
     return result
 
 

@@ -21,12 +21,18 @@ trains (reference ``video/run.py:37-99``, ``video/train.py:19-176``).
   ``cfg.repeat`` runs seeded r + 39, each trained by ``fit_video`` and
   scored on the test set in the serving dtype, and the result dict.
 
-Warm start and saving through ``cfg.path.save_model`` (ROADMAP item 11)
-and data-parallel runs over a mesh (item 14) raise NotImplementedError.
+``cfg.path.save_model`` is the JAX runner's warm start and save: each
+repeat starts from that component file when it exists (fresh weights when
+it does not) and saves its best weights there, so a repeat warm-starts
+from the one before. The port writes a torch state dict
+(``core/checkpoint.py``); the JAX runner's warm start reads only its own
+msgpack. Data-parallel runs over a mesh (ROADMAP item 14) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -34,6 +40,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.checkpoint import (is_torch_file, restore_scenario,
+                               save_components)
 from ..core.config import Config, resolve_serving_dtype
 from ..core.device import resolve_device
 from ..core.weights import resize_mvit_tables
@@ -164,21 +172,22 @@ def _task_head(out_features: int, in_features: int = 400
 
 def load_video_pretrained(path: str, model_key: str,
                           model: nn.Module) -> nn.Module:
-    """Load a torchvision-layout MViT checkpoint (``.pt``/``.pth``: a
-    state dict, a module's, or a dict with ``model_state_dict``) into
-    ``model``, a port MViT of ``model_key``: the tables resized to the
-    model's clip (``core.weights.resize_mvit_tables``), the backbone
-    shape-checked against the live model and loaded strictly, and a fresh
-    task head drawn as the JAX package draws it. Returns ``model``."""
+    """Load ``path`` into ``model``, a port MViT of ``model_key``, and
+    return it. A component file (the whole model, as ``path.save_model``
+    holds it: the port's ``.pt`` or the JAX package's ``.msgpack``) loads
+    as it is. A torchvision-layout checkpoint (``.pt``/``.pth``: a state
+    dict, or a dict with ``model_state_dict``) loads into the backbone: its
+    tables resized to the model's clip (``core.weights.
+    resize_mvit_tables``), shape-checked against the live model and loaded
+    strictly, with a fresh task head drawn as the JAX package draws it."""
     video_spec(model_key)          # every ported video model is an MViT
-    if not path.endswith((".pt", ".pth")):
-        raise ValueError(f"a torchvision checkpoint is a .pt or .pth file, "
-                         f"got {path!r}")
+    if not is_torch_file(path):    # a JAX component file
+        return restore_scenario(model, path, "full", model_key)
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    if hasattr(ckpt, "state_dict"):
-        ckpt = ckpt.state_dict()
     if isinstance(ckpt, dict) and "model_state_dict" in ckpt:
         ckpt = ckpt["model_state_dict"]
+    if set(ckpt) == set(model.state_dict()):
+        return restore_scenario(model, path, "full", model_key)
     backbone = model.backbone
     live = backbone.state_dict()
     if set(ckpt) == set(live):
@@ -281,17 +290,15 @@ def run_video_model(cfg: Config,
     stream from ``cfg.path.video_pre_x`` (``load_video_data``). The model
     is built for the clips' (T, H, W). Repeat ``r`` draws its weights
     from a generator seeded r + 39 (or loads ``cfg.pretrained_path``, a
-    torchvision-layout checkpoint), trains with that seed and scores the
-    test set in the serving dtype (``compute_dtype``, "auto" the model's
-    own). The complexity report's forward runs on the CPU."""
+    torchvision-layout checkpoint or a component file), trains with that
+    seed and scores the test set in the serving dtype (``compute_dtype``,
+    "auto" the model's own), and saves its best weights to ``cfg.path.save_model`` when set,
+    where the next repeat warm-starts. The complexity report's forward
+    runs on the CPU."""
     make_model = video_spec(cfg.model)
     if use_mesh:
         raise NotImplementedError("data-parallel runs over a device mesh "
                                   "are not ported yet (ROADMAP item 14)")
-    if cfg.path.save_model:
-        raise NotImplementedError("warm start and saving through "
-                                  "path.save_model (component checkpoints) "
-                                  "are not ported yet (ROADMAP item 11)")
     if data is None:
         train_ds, test_ds = load_video_data(cfg)
     else:
@@ -320,6 +327,8 @@ def run_video_model(cfg: Config,
         model = build(r + 39)
         if pretrained is not None:
             model.load_state_dict(pretrained)
+        elif cfg.path.save_model and os.path.exists(cfg.path.save_model):
+            restore_scenario(model, cfg.path.save_model, "full", cfg.model)
         t0 = time.time()
         best, _ = fit_video(model, train_ds, test_ds, lr=cfg.nn.lr,
                             epochs=cfg.nn.epoch, batch_size=cfg.nn.batch_size,
@@ -337,6 +346,8 @@ def run_video_model(cfg: Config,
         accuracies.append(acc)
         times_train.append(t1 - t0)
         times_test.append(time.time() - t1)
+        if cfg.path.save_model:
+            save_components(cfg.path.save_model, best)
 
     for name, values in (("accuracy", accuracies),
                          ("time_train", times_train),

@@ -19,6 +19,13 @@ It keeps the reference engine's observable rules (reference
 
 Dropout and augmentation draw from one ``torch.Generator`` on the model's
 device, seeded with ``seed``.
+
+Run checkpoints (``checkpoint_dir``, ``checkpoint_every``) hold what the
+JAX package's resume restores: the model's parameters and BatchNorm
+buffers, the optimizer's state and the epoch, and here also the
+schedule's state, which JAX's optimizer state carries. As in JAX, a
+resumed run draws its shuffles, augmentation and dropout afresh from
+``seed`` and keeps its best weights from the epochs it runs.
 """
 
 from __future__ import annotations
@@ -26,12 +33,13 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Callable, Dict, Iterable, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..core.checkpoint import RunCheckpointer
 from ..core.device import resolve_device
 from ..data.pipeline import chunked, epoch_batches, pad_to, prefetch_batches
 from ..metrics.performance import performance_metrics
@@ -148,6 +156,32 @@ def state_snapshot(model: nn.Module) -> StateDict:
             for k, v in model.state_dict().items()}
 
 
+def resume(state: Dict, model: nn.Module, opt: torch.optim.Optimizer,
+           scheduler: Optional[torch.optim.lr_scheduler.LambdaLR]) -> int:
+    """Load a run checkpoint into the live run and return its epoch. The
+    schedule keeps the live run's length: the step count is restored and
+    the learning rate recomputed from it, as JAX evaluates its schedule at
+    the restored count."""
+    live = model.state_dict()
+    wrong = [k for k, v in state["model"].items()
+             if v.dtype != live[k].dtype]
+    if wrong:
+        raise ValueError(f"the run checkpoint's dtypes differ from the "
+                         f"run's (e.g. {wrong[0]}): a checkpoint restores "
+                         f"only into a run of its own train_dtype")
+    model.load_state_dict(state["model"], strict=True)
+    opt.load_state_dict(state["optimizer"])
+    if (scheduler is None) != (state["scheduler"] is None):
+        raise ValueError("the run checkpoint's schedule does not match the "
+                         "run's")
+    if scheduler is not None:
+        scheduler.load_state_dict(state["scheduler"])
+        for group, base, factor in zip(opt.param_groups, scheduler.base_lrs,
+                                       scheduler.lr_lambdas):
+            group["lr"] = base * factor(scheduler.last_epoch)
+    return int(state["epoch"])
+
+
 def fit(model: nn.Module,
         x_train: np.ndarray, y_train: np.ndarray,
         x_valid: np.ndarray, y_valid: np.ndarray,
@@ -168,8 +202,10 @@ def fit(model: nn.Module,
         augment: bool = True,
         eval_chunk: int = 512,
         train_dtype: Optional[Union[str, torch.dtype]] = None,
-        optimizer: Optional[Callable[[Iterable[nn.Parameter]],
+        optimizer: Optional[Callable[[nn.Module],
                                      torch.optim.Optimizer]] = None,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 0,
         device: Optional[Union[str, torch.device]] = None) -> FitResult:
     """Train ``model`` (moved to ``device``, the card by default) and return
     the best weights by the reference's rule.
@@ -181,9 +217,15 @@ def fit(model: nn.Module,
     BatchNorm's running statistics stay f32; validation then runs in bf16
     too.
 
-    ``optimizer``, if given, builds the optimizer from the parameters in
-    place of Adam with ``weight_decay`` and the cosine schedule, and no
-    schedule is stepped: the JAX ``fit``'s ``tx`` for restored weights.
+    ``optimizer``, if given, builds the optimizer from the model in place
+    of Adam with ``weight_decay`` and the cosine schedule, and no schedule
+    is stepped: the JAX ``fit``'s ``tx`` for restored weights
+    (``train.transfer.transfer_optimizer``).
+
+    With ``checkpoint_dir`` and ``checkpoint_every`` > 0 a run checkpoint
+    is saved after every ``checkpoint_every``-th epoch, and a run that
+    finds one there resumes from the newest at the epoch after it. A
+    checkpoint restores only into a run of its own dtype.
     """
     if train_dtype not in TRAIN_DTYPES:
         raise ValueError(f"unsupported train_dtype {train_dtype!r}")
@@ -201,7 +243,7 @@ def fit(model: nn.Module,
     cast_parameters(model, batch_dtype)
     scheduler = None
     if optimizer is not None:
-        opt = optimizer(model.parameters())
+        opt = optimizer(model)
     else:
         opt = adam_like_torch(model.parameters(), lr, weight_decay)
         if use_cosine_schedule is None:
@@ -212,6 +254,11 @@ def fit(model: nn.Module,
                                    epochs * steps_per_epoch, min_lr_ratio))
     step = make_train_step(model, opt, loss_fn, scheduler=scheduler,
                            augment=augment, batch_dtype=batch_dtype)
+    ckpt, start_epoch = None, 0
+    if checkpoint_dir and checkpoint_every > 0:
+        ckpt = RunCheckpointer(checkpoint_dir)
+        if ckpt.latest_step() is not None:
+            start_epoch = resume(ckpt.restore(), model, opt, scheduler) + 1
 
     best_f1 = best_ppp = 0.0
     best_state = state_snapshot(model)
@@ -220,7 +267,7 @@ def fit(model: nn.Module,
     history: List[Dict[str, float]] = []
     y_valid_np = np.asarray(y_valid)
 
-    for epoch in range(epochs):
+    for epoch in range(start_epoch, epochs):
         t0 = time.time()
         idx = epoch_batches(n, batch_size, np_rng, skip_last=True)
         for bx, by in prefetch_batches(x_train, y_train, idx, device):
@@ -268,6 +315,13 @@ def fit(model: nn.Module,
             counter = 0
         else:
             counter += 1
+        if ckpt and (epoch + 1) % checkpoint_every == 0:
+            ckpt.save(epoch, {
+                "model": state_snapshot(model),
+                "optimizer": opt.state_dict(),
+                "scheduler": (None if scheduler is None
+                              else scheduler.state_dict()),
+                "epoch": epoch})
         if counter >= patience:
             break
 

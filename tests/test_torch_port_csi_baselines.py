@@ -36,6 +36,7 @@ import torch
 from multi_modal_csi_tpu.core.torch_import import import_state_dict
 from multi_modal_csi_tpu.models import csi as JM
 from multi_modal_csi_tpu.nn import layers as J
+from multi_modal_csi_tpu.runners import csi as jax_runner
 from multi_modal_csi_tpu.train.loop import cast_for_serving as jax_cast
 from multi_modal_csi_tpu_torch.core import weights as W
 from multi_modal_csi_tpu_torch.core.config import Config
@@ -218,9 +219,11 @@ def test_state_dict_round_trips_through_jax(key):
 
 def test_runner_table_and_build_model():
     """The six keys in the model table with JAX's losses, layouts and
-    weight decays; build_model at full width; only ST-RF, SSL and
-    dual_band still raise."""
-    assert runner.UNPORTED_MODELS == ("ST-RF", "SSL", "dual_band")
+    weight decays; build_model at full width; the runner takes all 15 of
+    JAX's CSI keys, SSL builds and ST-RF has no network to build."""
+    assert set(runner.MODEL_KEYS) == set(jax_runner.CSI_MODELS) | {
+        "ST-RF", "SSL", "dual_band"}
+    assert len(runner.MODEL_KEYS) == 15
     for key in KEYS:
         spec = runner.CSI_MODELS[key]
         assert spec.mode == "baseline" and spec.target == "raw"
@@ -241,8 +244,11 @@ def test_runner_table_and_build_model():
     assert not model.training
     assert model.layer_lstm.weight_ih_l0.shape == (2048, 270)
     assert runner.infer_out_dim("CNN-2D", "location") == 30
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        runner.build_model("SSL")
+    ssl = runner.build_model("SSL", seed=0)
+    assert not ssl.training and ssl.online_head.weight.shape == (54, 512)
+    assert ssl.backbone.layer_norm.weight.shape == (270,)
+    with pytest.raises(ValueError, match="random forest"):
+        runner.build_model("ST-RF")
 
 
 def test_mlp_server_flattens_windows():

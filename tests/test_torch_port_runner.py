@@ -18,7 +18,8 @@ the JAX package's, on the CPU.
   analysis against PyTorch's FLOP counter).
 - ``cli/run_csi.py`` end to end with ``--device cpu``, writing the JSON.
 - Restored weights train with plain Adam at lr (no weight decay, no
-  schedule), and what the port does not take over yet raises.
+  schedule), and what the port does not take over yet (metric writers,
+  device meshes) raises.
 """
 
 import csv
@@ -32,9 +33,11 @@ import torch
 from multi_modal_csi_tpu.core.config import Config as JaxConfig
 from multi_modal_csi_tpu.runners import csi as jax_runner
 from multi_modal_csi_tpu_torch.cli import run_csi
+from multi_modal_csi_tpu_torch.core import checkpoint
 from multi_modal_csi_tpu_torch.core.config import Config
 from multi_modal_csi_tpu_torch.data.encoders import reduce_dataset
 from multi_modal_csi_tpu_torch.runners import csi as runner
+from multi_modal_csi_tpu_torch.train import transfer
 from test_torch_port_data import write_annotation
 
 torch.set_num_threads(1)
@@ -143,7 +146,7 @@ def run_both_from_one_checkpoint(key, tmp_path):
         NARROW[key], 10, cfg, torch.Generator().manual_seed(5)), seed=6)
     state = dict(model.state_dict())
     if key == "THAT_ENCODER":        # the reference's unused head convs
-        for name in runner._DEAD_KEYS[key]:
+        for name in checkpoint._DEAD_KEYS[key]:
             state[name] = torch.ones(3)
     torch.save(state, tmp_path / "weights.pt")
     got = runner.run_csi_model(cfg, data, device="cpu")
@@ -175,13 +178,13 @@ def test_restored_weights_train_with_plain_adam(tmp_path, monkeypatch):
     """Scenario full: Adam at lr without weight decay, and no schedule (the
     lr is unchanged after an epoch of multi_head training)."""
     made = []
-    real = runner.adam_like_torch
+    real = transfer.adam_like_torch
 
     def recording(params, lr, weight_decay=0.0):
         made.append((real(params, lr, weight_decay), lr, weight_decay))
         return made[-1][0]
 
-    monkeypatch.setattr(runner, "adam_like_torch", recording)
+    monkeypatch.setattr(transfer, "adam_like_torch", recording)
     model = runner.CSI_MODELS["DETR"].build(
         NARROW["DETR"], 10, Config(), torch.Generator().manual_seed(7))
     torch.save(model.state_dict(), tmp_path / "weights.pt")
@@ -201,17 +204,17 @@ def test_pretrained_drops_only_the_dead_parameters(tmp_path):
     model = runner.build_model("THAT_ENCODER", cfg=Config().override(
         {"data.length": 1280}))
     state = dict(model.state_dict())
-    for name in runner._DEAD_KEYS["THAT_ENCODER"]:
+    for name in checkpoint._DEAD_KEYS["THAT_ENCODER"]:
         state[name] = torch.zeros(2)
     torch.save(state, tmp_path / "weights.pt")
-    loaded = runner.load_pretrained(str(tmp_path / "weights.pt"),
+    loaded = checkpoint.load_pretrained(str(tmp_path / "weights.pt"),
                                     "THAT_ENCODER")
     assert set(loaded) == set(model.state_dict())
     model.load_state_dict(loaded, strict=True)
     state["encoder.layer_left_cnn_2.weight"] = torch.zeros(2)
     torch.save(state, tmp_path / "weights.pt")
     with pytest.raises(RuntimeError, match="layer_left_cnn_2"):
-        model.load_state_dict(runner.load_pretrained(
+        model.load_state_dict(checkpoint.load_pretrained(
             str(tmp_path / "weights.pt"), "THAT_ENCODER"), strict=True)
 
 
@@ -237,9 +240,7 @@ def test_run_cli_on_cpu_writes_json(tmp_path):
     assert written["complexity"]["flops"] > 0
 
 
-@pytest.mark.parametrize("what", ["ST-RF", "SSL", "dual_band",
-                                  "writer", "mesh", "save_model",
-                                  "feature_encoder"])
+@pytest.mark.parametrize("what", ["writer", "mesh"])
 def test_what_is_not_ported_raises(what):
     cfg = Config().override({"model": "DETR"})
     kwargs = {}
@@ -247,13 +248,6 @@ def test_what_is_not_ported_raises(what):
         kwargs["writer_factory"] = lambda name: None
     elif what == "mesh":
         kwargs["use_mesh"] = True
-    elif what == "save_model":
-        cfg.save_model = True
-    elif what == "feature_encoder":
-        cfg = cfg.override({"pretrained_path": "w.pt",
-                            "transfer_scenario": "feature_encoder"})
-    else:
-        cfg.model = what
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         runner.run_csi_model(cfg, set_data(NARROW["DETR"]), device="cpu",
                              **kwargs)

@@ -91,16 +91,22 @@ def test_port_imports_nothing_of_jax():
     """Importing every port module and chip_smoke.py loads no jax, flax,
     optax, multi_modal_csi_tpu or tools module (the port's own package
     name starts with the JAX package's, so names are compared exactly),
-    and no pandas, sklearn or cv2, which the machine with the card does
-    not have. The video and int8 slices' modules are named, so that the
-    test fails if one of them goes missing."""
+    and no pandas, sklearn, cv2, msgpack or matplotlib, which the machine
+    with the card does not have. The video, int8, checkpoint, transfer,
+    SSL, dual-band and ST-RF modules are named, so that the test fails if
+    one of them goes missing."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "multi_modal_csi_tpu_torch").rglob("*.py"))
     for video_module in ("models.video.mvit", "kernels.flash_attention_lowrank",
                          "data.video_io", "runners.video", "cli.serve_video",
                          "cli.run_video", "core.quantize",
-                         "kernels.int8_matmul"):
+                         "kernels.int8_matmul", "core.checkpoint",
+                         "train.transfer", "models.csi.ssl",
+                         "models.csi.dual_band", "models.csi.strf",
+                         "kernels.spectrogram", "runners.ssl",
+                         "runners.dual_band", "cli.inspect_model",
+                         "cli.ssl_inference", "utils.visualize"):
         assert f"multi_modal_csi_tpu_torch.{video_module}" in mods
     code = (
         "import importlib, sys\n"
@@ -108,7 +114,8 @@ def test_port_imports_nothing_of_jax():
         "    importlib.import_module(m.removesuffix('.__init__'))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'optax', 'multi_modal_csi_tpu',\n"
-        "        'tools', 'pandas', 'sklearn', 'cv2')]\n"
+        "        'tools', 'pandas', 'sklearn', 'cv2', 'msgpack',\n"
+        "        'matplotlib')]\n"
         "print(len(bad), bad[:5])\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

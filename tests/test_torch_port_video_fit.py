@@ -173,20 +173,16 @@ def test_run_video_cli_on_cpu(tmp_path, capsys):
     assert "Epoch 0/1" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("option", ["mesh", "save_model", "backbone",
-                                    "sharding", "cli-mesh",
-                                    "cli-distributed"])
+@pytest.mark.parametrize("option", ["mesh", "backbone", "sharding",
+                                    "cli-mesh", "cli-distributed"])
 def test_unported_options_raise(option):
     cfg = Config().override({"model": "MViT-v1"})
     x = np.zeros((2, *CLIP, 3), np.float32)
     y = np.zeros((2, 6), np.float32)
     data = (x, x, y, y)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1[124]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 1[24]"):
         if option == "mesh":
             run_video_model(cfg, data, use_mesh=True, device="cpu")
-        elif option == "save_model":
-            run_video_model(cfg.override({"path.save_model": "m.msgpack"}),
-                            data, device="cpu")
         elif option == "backbone":
             run_video_model(cfg.override({"model": "Swin-T"}), data,
                             device="cpu")
