@@ -135,7 +135,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    forward, no prologue, logits within 0.25 of the bf16 logits' spread)
    and CNN-1D in w8a8 (4 prologue and 4 s8 launches, card vs CPU as
    below; the JAX package has no accuracy bound for it, so its distance
-   from bf16 serving is printed), then of DETR and THAT_ENCODER in w8a8
+   from bf16 serving is printed), CNN-2D in w8 (3 3-D prologue and 3 bf16
+   launches: stage 1's bf16 columns in 2 chunks) and w8a8 (2 and 2 s8),
+   then of DETR and THAT_ENCODER in w8a8
    (their QUANT_DEFAULTS),
    bf16, batch 256, calibrated through CSIServer(calib=...) on a seeded
    .npy of 64 windows: exact s8 and bf16 P1 launches by product shape and
@@ -243,9 +245,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    read back with the JAX runner's keys; exact K3 and K4 launch counts;
    MViT-v1's run saves through path.save_model, and the file holds
    fit_video's best weights bit for bit and loads into a fresh MViT-v1;
+16b. ResNet3D-18, S3D, Swin3D-T and Swin3D-S (models/video/{resnet3d,
+   s3d,swin3d}.py) served at their serving batch and dtype (ResNet 64
+   (45, 112, 112) clips and S3D 32 (45, 224, 224) in bf16, Swin 2 in f32):
+   ragged requests, no launch, clips/s, peak memory, a profile, the f32
+   logits at batch 1 against the CPU (Swin at (16, 224, 224)); ResNet and
+   S3D in w8a8 (--quant auto, calibrated on 8 seeded clips): the exact P1
+   s8, 3-D prologue (int8_quantize_columns3d) and prologue launches of a
+   forward, every 3-D prologue and fused product of a ResNet forward (S3D:
+   its stem temporal conv) held against its plain version bit for bit,
+   rates, a profile with the kernels' shares, the peak memory beside
+   bf16's, the logits against bf16 serving (ResNet within the JAX
+   package's 0.35 of the spread), ResNet's layer1 conv against cuDNN's
+   bf16 conv3d, and card vs CPU on the same int8 weights with the card's
+   int8 codes fed to the CPU; one f32 training step of each at batch 2
+   (no launch, peak memory, clips trained/s, a profile), and one at a
+   small clip against the CPU in f32 and float64 with the card's ReLU
+   sides and max-pool picks replayed; cli/run_video.py with its default
+   model (Swin-T) on the 10 cached clips. CNN-2D's int8 Conv2d (stages 1
+   and 2 on the 3-D prologue) is served in w8 and w8a8 with the other
+   baselines (phase 6b);
 17. the whole run's wall time, one JSON line describing each kernel
-   (every TPU kernel of the repo is ported, and P1's prologue; K1, K2 and
-   K3 with one entry per dtype),
+   (every TPU kernel of the repo is ported, and P1's prologue and its
+   3-D prologue; K1, K2 and K3 with one entry per dtype),
    then the card's name and power limit, then the result line.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -1129,68 +1151,114 @@ def serve_phase(key, requests, expect_out, launches_per_forward,
     top = float(np.abs(cpu).max())
     print(f"{key} f32 card vs CPU: max abs err {err:.3e} = {err / top:.2e} "
           f"of the largest logit (tolerance {SERVE_F32_TOL} abs + rel)"
-          + (f"; {kinks.report()}" if kinks.modules else ""))
+          + (f"; {kinks.report()}" if kinks.patches else ""))
     check(np.allclose(card, cpu, atol=SERVE_F32_TOL, rtol=SERVE_F32_TOL),
           f"{key} f32 card vs CPU err {err}")
-    kinks.done(key)
     print(f"{key} serving phase: {time.perf_counter() - phase_start:.1f} s")
     return launches
 
 
-# the port's model modules whose leaky ReLUs a card-vs-CPU comparison
-# replays, by model key
-KINK_MODULES = {"THAT": ("that",), "CNN-2D": ("cnn_2d",),
-                "CLSTM": ("clstm",), "ABLSTM": ("ablstm",)}
+# the functions whose kinks and picks a card-vs-CPU comparison replays, by
+# model key: (module, function), the function a leaky ReLU (the port's
+# ``leaky_relu``, slope 0.01), a ReLU (``F.relu``, which nn.ReLU calls) or
+# the port's channels-last ``max_pool3d(v, kernel, stride, padding)``
+PORT_MODELS = "multi_modal_csi_tpu_torch.models"
+KINKS = {"THAT": ((f"{PORT_MODELS}.csi.that", "leaky_relu"),),
+         "CNN-2D": ((f"{PORT_MODELS}.csi.cnn_2d", "leaky_relu"),),
+         "CLSTM": ((f"{PORT_MODELS}.csi.clstm", "leaky_relu"),),
+         "ABLSTM": ((f"{PORT_MODELS}.csi.ablstm", "leaky_relu"),),
+         "MViT-v2": ((f"{PORT_MODELS}.video.mvit", "max_pool3d"),),
+         "ResNet": (("torch.nn.functional", "relu"),),
+         "S3D": (("torch.nn.functional", "relu"),
+                 (f"{PORT_MODELS}.video.s3d", "max_pool3d"))}
 
 
 class KinkReplay:
-    """The devices round differently, so a pre-activation within rounding
-    of zero can land on the other side of a leaky ReLU's kink, where the
-    slope is 0.01 instead of 1; through a BatchNorm after it, one such
-    element moves whole gradient tensors by percents. Under ``on("cuda")``
-    the model modules of ``key`` record the side of every leaky-ReLU
-    input; under ``on("cpu")`` they take the recorded sides in order and
-    count where the CPU's own differ, so that a comparison measures
-    rounding alone."""
+    """The devices round differently, so a value within rounding of a kink
+    can land on its other side: a leaky ReLU's input near zero takes the
+    slope 0.01 instead of 1 (through a BatchNorm after it, one such element
+    moves whole gradient tensors by percents), a ReLU's takes 0, and of two
+    max-pool candidates within rounding of each other the other is picked
+    (the gradient routed elsewhere). Under ``on("cuda")`` the functions of
+    ``key`` in KINKS record the side of every input (the element every
+    pool window picked); under ``on`` another device they take the
+    recorded ones in order and count where that device's own differ, so
+    that a comparison measures rounding alone. Each replay must take all
+    that was recorded."""
+
+    WHAT = {"leaky_relu": "leaky-ReLU inputs", "relu": "ReLU inputs",
+            "max_pool3d": "max-pool windows"}
 
     def __init__(self, key):
         import importlib
-        self.modules = [importlib.import_module(
-            f"multi_modal_csi_tpu_torch.models.csi.{name}")
-            for name in KINK_MODULES.get(key, ())]
-        self.sides, self.flips, self.total = [], 0, 0
+        self.patches = [(importlib.import_module(m), f)
+                        for m, f in KINKS.get(key, ())]
+        self.kept, self.order, self.flips, self.total = [], 0, {}, {}
 
-    def record(self, v):
+    def taken(self, name, own):
+        """The next recorded value in place of ``own``, counting where
+        they differ."""
+        want = self.kept[self.order].to(own.device)
+        self.order += 1
+        check(want.shape == own.shape, f"replayed {name} {tuple(want.shape)} "
+                                       f"for {tuple(own.shape)}")
+        self.flips[name] = self.flips.get(name, 0) + int((want != own).sum())
+        self.total[name] = self.total.get(name, 0) + own.numel()
+        return want
+
+    def patched(self, name, real, recording):
         import torch.nn.functional as F
-        self.sides.append(v > 0)
-        return F.leaky_relu(v, 0.01)
+        if name == "max_pool3d":
+            def pool(v, kernel, stride, padding):
+                out, idx = F.max_pool3d(
+                    (v if recording else v.detach()).permute(0, 4, 1, 2, 3),
+                    kernel, stride, padding, return_indices=True)
+                if recording:
+                    self.kept.append(idx.cpu())
+                    return out.permute(0, 2, 3, 4, 1)
+                idx = self.taken(name, idx)
+                b, c = idx.shape[:2]
+                flat = v.permute(0, 4, 1, 2, 3).reshape(b, c, -1)
+                return flat.gather(2, idx.reshape(b, c, -1)).reshape(
+                    idx.shape).permute(0, 2, 3, 4, 1)
+            return pool
 
-    def replay(self, v):
-        side = self.sides.pop(0).to(v.device)
-        self.flips += int(((v > 0) != side).sum())
-        self.total += v.numel()
-        return torch.where(side, v, 0.01 * v)
+        def kink(v, *args, **kwargs):
+            if recording:
+                self.kept.append((v.detach() > 0).cpu())
+                return real(v, *args, **kwargs)
+            side = self.taken(name, v.detach() > 0)
+            return torch.where(side, v, 0.01 * v if name == "leaky_relu"
+                               else torch.zeros((), dtype=v.dtype,
+                                                device=v.device))
+        return kink
 
     @contextlib.contextmanager
     def on(self, device):
-        fn = self.record if device == "cuda" else self.replay
-        real = [m.leaky_relu for m in self.modules]
-        for m in self.modules:
-            m.leaky_relu = fn
+        recording = device == "cuda"
+        if recording:
+            self.kept = []
+        self.order, self.flips, self.total = 0, {}, {}
+        real = [getattr(m, f) for m, f in self.patches]
+        for (m, f), fn in zip(self.patches, real):
+            setattr(m, f, self.patched(f, fn, recording))
         try:
             yield
         finally:
-            for m, f in zip(self.modules, real):
-                m.leaky_relu = f
+            for (m, f), fn in zip(self.patches, real):
+                setattr(m, f, fn)
+        check(recording or self.order == len(self.kept),
+              f"the {device} run replayed {self.order} of {len(self.kept)} "
+              f"recorded kinks and picks")
 
     def report(self):
-        return (f"{self.flips} of {self.total} leaky-ReLU inputs fell on "
-                f"the other side of the kink on the CPU (it took the "
-                f"card's)")
-
-    def done(self, label):
-        check(not self.sides, f"{label}: the CPU replayed fewer leaky ReLUs "
-                              f"than the card")
+        """The last replay's differences."""
+        if not self.patches:
+            return "no kink replayed"
+        return (", ".join(f"{self.flips.get(f, 0)} of {self.total.get(f, 0)}"
+                          f" {self.WHAT[f]}" for _, f in self.patches)
+                + " fell on another side or picked another element on the "
+                  "CPU (it took the card's)")
 
 
 def without_dropout(model):
@@ -1396,7 +1464,6 @@ def train_step_card_vs_cpu(key, x, y):
                        {n: b.detach().cpu() for n, b in model.named_buffers()
                         if n.endswith(("running_mean", "running_var"))})
         del model, step
-    kinks.done(f"{key} training step")
     (card_loss, card, card_stats), (cpu_loss, cpu, cpu_stats) = (
         got["cuda"], got["cpu"])
     floor = 1e-2 * max(g.abs().max().item() for g in cpu.values())
@@ -2860,13 +2927,10 @@ def video_train_card_vs_cpu():
     The residual path's max pooling (``_pool_skip``) picks the largest of
     a window; where two candidates lie within rounding of each other the
     devices can pick different ones and route the gradient elsewhere. So
-    the card's step records the index each window picked, the CPU step
-    takes the card's (and counts where its own differs), and the
+    the CPU step takes the card's picks (``KinkReplay``), and the
     comparison measures rounding alone."""
-    import torch.nn.functional as F
     from multi_modal_csi_tpu_torch import kernels
     from multi_modal_csi_tpu_torch.losses.basic import bce_with_logits
-    from multi_modal_csi_tpu_torch.models.video import mvit as mvit_module
     from multi_modal_csi_tpu_torch.runners.video import build_video_model
     from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch,
                                                       make_train_step)
@@ -2874,32 +2938,10 @@ def video_train_card_vs_cpu():
     rng = np.random.default_rng(SEED + 5)
     x = rng.standard_normal((1, *VIDEO_STEP_CLIP, 3), dtype=np.float32)
     y = (rng.random((1, VIDEO_OUT)) < 0.5).astype(np.float32)
-    picks, flips = [], [0, 0]
-
-    def pooled(v, kernel, stride, padding):
-        return F.max_pool3d(v.permute(0, 4, 1, 2, 3), kernel, stride,
-                            padding, return_indices=True)
-
-    def recording(v, kernel, stride, padding):
-        out, idx = pooled(v, kernel, stride, padding)
-        picks.append(idx.cpu())
-        return out.permute(0, 2, 3, 4, 1)
-
-    def replaying(v, kernel, stride, padding):
-        idx = picks.pop(0)
-        own = pooled(v.detach(), kernel, stride, padding)[1]
-        flips[0] += int((own != idx).sum())
-        flips[1] += idx.numel()
-        b, c = idx.shape[:2]
-        flat = v.permute(0, 4, 1, 2, 3).reshape(b, c, -1)
-        out = flat.gather(2, idx.reshape(b, c, -1)).reshape(idx.shape)
-        return out.permute(0, 2, 3, 4, 1)
-
+    picks = KinkReplay("MViT-v2")
     got = {}
-    real = mvit_module.max_pool3d
-    try:
-        for device, pool in (("cuda", recording), ("cpu", replaying)):
-            mvit_module.max_pool3d = pool
+    for device in ("cuda", "cpu"):
+        with picks.on(device):
             model = without_dropout(build_video_model(
                 "MViT-v2", VIDEO_OUT, VIDEO_STEP_CLIP, seed=SEED)).to(device)
             step = make_train_step(model, adam_like_torch(
@@ -2909,17 +2951,14 @@ def video_train_card_vs_cpu():
             loss, _ = step(torch.from_numpy(x).to(device),
                            torch.from_numpy(y).to(device),
                            torch.Generator(device=device).manual_seed(SEED))
-            got[device] = (float(loss), {n: p.grad.detach().cpu() for n, p
-                                         in model.named_parameters()})
-            print(f"MViT-v2 f32 training step at {VIDEO_STEP_CLIP} on "
-                  f"{device}: {time.perf_counter() - start:.2f} s, launches "
-                  f"{dict(kernels.LAUNCH_COUNTS)}")
-            if device == "cuda":
-                launches = dict(kernels.LAUNCH_COUNTS)
-            del model, step
-    finally:
-        mvit_module.max_pool3d = real
-    check(not picks, "the CPU step replayed fewer max pools than the card")
+        got[device] = (float(loss), {n: p.grad.detach().cpu() for n, p
+                                     in model.named_parameters()})
+        print(f"MViT-v2 f32 training step at {VIDEO_STEP_CLIP} on "
+              f"{device}: {time.perf_counter() - start:.2f} s, launches "
+              f"{dict(kernels.LAUNCH_COUNTS)}")
+        if device == "cuda":
+            launches = dict(kernels.LAUNCH_COUNTS)
+        del model, step
     check(launches == {K3: K4_PER_STEP, DQ: K4_PER_STEP, DKV: K4_PER_STEP},
           f"card step launched {launches}")
     (card_loss, card), (cpu_loss, cpu) = got["cuda"], got["cpu"]
@@ -2927,9 +2966,8 @@ def video_train_card_vs_cpu():
     worst = max((((card[n] - cpu[n]).abs().max().item()
                   / max(cpu[n].abs().max().item(), floor)), n) for n in cpu)
     rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
-    print(f"MViT-v2 f32 training step, card vs CPU: {flips[0]} of "
-          f"{flips[1]} max-pool windows picked another element on the CPU "
-          f"(it took the card's); loss {card_loss:.6f} vs {cpu_loss:.6f} "
+    print(f"MViT-v2 f32 training step, card vs CPU: {picks.report()}; "
+          f"loss {card_loss:.6f} vs {cpu_loss:.6f} "
           f"(relative {rel:.2e}, tolerance {STEP_F32_TOL}); worst gradient "
           f"{worst[0]:.2e} of its scale in {worst[1]} (tolerance "
           f"{GRAD_F32_TOL})")
@@ -3063,6 +3101,7 @@ def run_video_phase(clips, annotation, work, key, train_dtype="float32",
 
 S8, BF16 = "int8_matmul_s8", "int8_matmul_bf16"
 COLUMNS = "int8_quantize_columns"
+COLUMNS3D = "int8_quantize_columns3d"
 P1_TILE = (256, 272, 424)            # tools/exp_pallas_int8.py:36
 # (M, K, N) of each product in one bs256 forward at full width, and its
 # launches: the w8a8 layers (int8) and the weight-only attention
@@ -3130,10 +3169,18 @@ STAGE_VALUES = 64          # bf16 values in one 128-byte long-K stage of A
 # quantized layers (the CPU tests measure 8.8e-3 between JAX and the port
 # for DETR)
 INT8_CPU_SHARE = 2e-2
+# a layer's int8 codes on the CPU fed the card's codes of every layer
+# before it: the share that may differ from the card's. Each layer's
+# input then differs between the devices by one layer's f32 rounding
+# (the epilogue's, the BatchNorm's, an f32 conv's), a few ulps, which puts
+# about 1e-5 to 1e-4 of the codes on the other side of a rounding
+# boundary; a wrong scale or rounding rule moves a share of order 0.1
+INT8_FLIP_SHARE = 1e-3
 # w8a8 / w8 logits against bf16 serving, over the bf16 logits' spread: the
-# JAX package's own bounds against float (tests/test_quantize.py:171, :300)
+# JAX package's own bounds against float (tests/test_quantize.py:171, :208,
+# :300)
 INT8_SPREAD_BOUND = {"DETR": 0.35, "THAT_ENCODER": 0.5, "MViT-v2": 0.35,
-                     "MLP": 0.25}
+                     "MLP": 0.25, "ResNet": 0.35}
 # MLP in w8 (its QUANT_DEFAULTS), bf16, batch 256: layer_0 reads the input
 # BatchNorm's bf16 output and layer_1 the ReLU's as they are (no prologue);
 # the 54-wide head (6,912 weights) stays float
@@ -3500,20 +3547,22 @@ def recorded_launches():
 @contextlib.contextmanager
 def recorded_activations():
     """Keeps a CPU copy of every int8 operand that the quantized layers'
-    prologues make inside the block."""
+    prologues (1-D and 3-D) make inside the block."""
     from multi_modal_csi_tpu_torch.core import quantize as Q
-    real, out = Q.quantize_columns, []
+    real, real3d, out = Q.quantize_columns, Q.quantize_columns3d, []
 
-    def quantize(x, scale, *args):
-        q = real(x, scale, *args)
-        if scale is not None:
-            out.append(q.cpu())
-        return q
-    Q.quantize_columns = quantize
+    def keeping(fn):
+        def quantize(x, scale, *args):
+            q = fn(x, scale, *args)
+            if scale is not None:
+                out.append(q.cpu())
+            return q
+        return quantize
+    Q.quantize_columns, Q.quantize_columns3d = keeping(real), keeping(real3d)
     try:
         yield out
     finally:
-        Q.quantize_columns = real
+        Q.quantize_columns, Q.quantize_columns3d = real, real3d
 
 
 def by_shape(shapes, dtype):
@@ -3525,7 +3574,7 @@ def by_shape(shapes, dtype):
 
 def int8_serve_phase(key, requests, calib_path, s8_table, bf16_table,
                      columns, expect_out, k1_per_forward, quant="auto",
-                     mode="w8a8"):
+                     mode="w8a8", columns3d=0):
     """int8 serving of ``key`` (``quant``: "auto" takes QUANT_DEFAULTS;
     it must resolve to ``mode``) in bf16 at batch 256, calibrated on the
     .npy at ``calib_path`` through CSIServer: exact P1 launches by shape
@@ -3566,7 +3615,8 @@ def int8_serve_phase(key, requests, calib_path, s8_table, bf16_table,
     one = dict(kernels.LAUNCH_COUNTS)
     want = {name: count for name, count in (
         (S8, sum(s8_table.values())), (BF16, sum(bf16_table.values())),
-        (COLUMNS, columns), ("flash_attention", k1_per_forward)) if count}
+        (COLUMNS, columns), (COLUMNS3D, columns3d),
+        ("flash_attention", k1_per_forward)) if count}
     print(f"{key} {mode}: launches in one batch forward: {one}")
     check(one == want, f"{key} {mode} launched {one}, expected {want}")
     check(by_shape(shapes, torch.int8) == s8_table
@@ -3580,42 +3630,23 @@ def int8_serve_phase(key, requests, calib_path, s8_table, bf16_table,
     del calls
 
     # the main path: ragged requests from host memory to logits on the host
-    kernels.reset_launch_counts()
-    start = time.perf_counter()
-    outs = [server(r).cpu() for r in requests]
-    host_s = time.perf_counter() - start
-    launches = dict(kernels.LAUNCH_COUNTS)
+    label = f"{key} {mode} bf16"
+    launches = host_and_card_rates(label, server, requests,
+                                   RESIDENT_ROUNDS, expect_out, "windows")[1]
     batches = sum(-(-len(r) // server.batch) for r in requests)
-    n = sum(len(r) for r in requests)
-    for r, out in zip(requests, outs):
-        check(tuple(out.shape) == expect_out(len(r))
-              and out.dtype == torch.float32
-              and bool(torch.isfinite(out).all()),
-              f"{key} {mode} output {tuple(out.shape)} not finite f32")
-    print(f"{key} {mode}: main path ran {batches} batch forwards, launches "
+    print(f"{label}: main path ran {batches} batch forwards, launches "
           f"{launches}")
     check(launches == {name: count * batches for name, count in
                        want.items()}, f"{key} {mode} launches {launches}")
-
-    resident = [torch.from_numpy(r).cuda() for r in requests]
-    rates = []
-    for _ in range(RESIDENT_ROUNDS):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        for r in resident:
-            server(r)
-        torch.cuda.synchronize()
-        rates.append(n / (time.perf_counter() - start))
     bf16_host, bf16_card = SERVE_RATES[key]
-    print(f"{key} {mode} bf16 batch {server.batch}: {n / host_s:.1f} "
-          f"windows/s from host memory (bf16 serving {bf16_host:.1f}); "
-          f"with the requests on the card: "
-          + ", ".join(f"{r:.1f}" for r in rates) + " windows/s (bf16 "
-          + ", ".join(f"{r:.1f}" for r in bf16_card) + ")")
-    prof = profile_device(f"{key} {mode}", lambda: server.forward(
-        resident[0][:server.batch]), PROFILED_FORWARDS, "forward")
+    print(f"{label}: bf16 serving {bf16_host:.1f} windows/s from host "
+          f"memory, " + ", ".join(f"{r:.1f}" for r in bf16_card)
+          + " windows/s with the requests on the card")
+    batch = batch.cuda()
+    prof = profile_device(f"{key} {mode}", lambda: server.forward(batch),
+                          PROFILED_FORWARDS, "forward")
     int8_shares(f"{key} {mode}", prof)
-    del resident
+    del batch
 
     # the logits against bf16 serving of the same seeded weights
     x = requests[1]
@@ -3799,12 +3830,13 @@ def video_int8_phase(requests):
 
 @contextlib.contextmanager
 def captured_calls():
-    """Keeps, for each signature of a prologue or fused-product call that
-    the quantized layers make inside the block (kind, dtypes, shapes,
-    options), the first call's arguments and how often it ran:
-    key -> [args, kwargs, count]."""
+    """Keeps, for each signature of a prologue (1-D or 3-D) or
+    fused-product call that the quantized layers make inside the block
+    (kind, dtypes, shapes, options), the first call's arguments and how
+    often it ran: key -> [args, kwargs, count]."""
     from multi_modal_csi_tpu_torch.core import quantize as Q
     real_columns, real_product = Q.quantize_columns, Q.quantized_product
+    real_columns3d = Q.quantize_columns3d
     calls = {}
 
     def keep(key, args, kwargs):
@@ -3815,16 +3847,23 @@ def captured_calls():
              (x, scale) + args, {})
         return real_columns(x, scale, *args)
 
+    def columns3d(x, scale, *args):
+        keep(("columns3d", x.dtype, tuple(x.shape), scale is None, args),
+             (x, scale) + args, {})
+        return real_columns3d(x, scale, *args)
+
     def product(a, b, ws, s, bias, out_dtype, *, k):
         keep(("product", a.dtype, tuple(a.shape), tuple(b.shape), k,
               out_dtype, bias is not None), (a, b, ws, s, bias, out_dtype),
              {"k": k})
         return real_product(a, b, ws, s, bias, out_dtype, k=k)
     Q.quantize_columns, Q.quantized_product = columns, product
+    Q.quantize_columns3d = columns3d
     try:
         yield calls
     finally:
         Q.quantize_columns, Q.quantized_product = real_columns, real_product
+        Q.quantize_columns3d = real_columns3d
 
 
 def columns_bound(x, out):
@@ -3905,31 +3944,41 @@ def bf16_fused_worst(got, a, b, ws, bias, k):
 
 
 @torch.no_grad()
-def check_fused(label, calls):
+def check_fused(label, calls, timed=lambda key: True):
     """Each captured prologue call against its plain version on the card
     (torch.equal: quantize_activation or the bf16 cast, unfold, pad), each
     captured fused product against the eager chain on the card (s8:
-    torch.equal; bf16: ``bf16_fused_worst`` within 1); then per signature,
-    with CUDA events (plain, kernel, kernel, plain), their times beside the
-    yardstick (prologue: none; product: ``fused_library``) and the bound.
-    Returns the sums per forward (weights: the calls' counts) for the
-    prologue and each product type, with the largest error (0: equal)."""
+    torch.equal; bf16: ``bf16_fused_worst`` within 1); then per signature
+    for which ``timed(key)`` holds, with CUDA events (plain, kernel,
+    kernel, plain), their times beside the yardstick (prologue: none;
+    product: ``fused_library``) and the bound. Returns the sums of the
+    timed calls per forward (weights: the calls' counts) for the prologue
+    and each product type, with the largest error of all calls (0:
+    equal)."""
     from multi_modal_csi_tpu_torch.kernels import int8_matmul as K
     fields = ("ms", "plain_ms", "bytes_ms", "ops_ms", "library_ms")
-    totals = {name: dict.fromkeys(fields, 0.0) | {"err": 0.0, "calls": 0}
-              for name in ("columns", "s8", "bf16")}
+    totals = {name: dict.fromkeys(fields, 0.0)
+              | {"err": 0.0, "calls": 0, "checked": 0}
+              for name in ("columns", "columns3d", "s8", "bf16")}
+    prologues = {"columns": (K.quantize_columns,
+                             K.quantize_columns_reference,
+                             "k,stride,dilation,pads,groups"),
+                 "columns3d": (K.quantize_columns3d,
+                               K.quantize_columns3d_reference,
+                               "kernel,stride,pads")}
     for key, (args, kwargs, count) in sorted(calls.items(), key=str):
-        if key[0] == "columns":
-            kernel, plain = K.quantize_columns, K.quantize_columns_reference
+        if key[0] in prologues:
+            kernel, plain, options = prologues[key[0]]
             got, want = kernel(*args), plain(*args)
             torch.cuda.synchronize()
             check(torch.equal(got, want),
                   f"{label}: prologue {key} differs from its plain version")
             bytes_ms, ops_ms = columns_bound(args[0], got)
-            name, err, lib, what = "columns", 0.0, None, (
-                f"prologue x {tuple(args[0].shape)} {str(args[0].dtype)[6:]}"
-                f" k,stride,dilation,pads,groups={args[2:] or (1,)} -> "
-                f"{str(got.dtype)[6:]} {tuple(got.shape)}: equal")
+            name, err, lib, what = key[0], 0.0, None, (
+                f"{'3-D ' if key[0] == 'columns3d' else ''}prologue x "
+                f"{tuple(args[0].shape)} {str(args[0].dtype)[6:]} "
+                f"{options}={args[2:] or (1,)} -> {str(got.dtype)[6:]} "
+                f"{tuple(got.shape)}: equal")
             reps = max(3, min(20, int(4e9 / got.numel())))
         else:
             kernel, plain = K.quantized_product, K.quantized_product_reference
@@ -3958,6 +4007,12 @@ def check_fused(label, calls):
                     f"{str(out_dtype)[6:]}: {result}")
             reps = max(3, min(20, int(4e10 / (m * k * n))))
         del got, want
+        total = totals[name]
+        total["err"] = max(total["err"], err)
+        total["checked"] += count
+        if not timed(key):
+            print(f"{label} {what}; {count}x a forward; not timed")
+            continue
         times = [cuda_ms(lambda: plain(*args, **kwargs), reps, 1)]
         times += [cuda_ms(lambda: kernel(*args, **kwargs), reps, 1)
                   for _ in range(2)]
@@ -3973,7 +4028,6 @@ def check_fused(label, calls):
             what += (f"; as it is ({a.stride(0) * 2}-byte rows) "
                      f"{(times[1] + times[2]) / 2:.4f} ms against staged "
                      f"{staged:.4f} ms")
-        total = totals[name]
         row = dict(ms=(times[1] + times[2]) / 2,
                    plain_ms=(times[0] + times[3]) / 2, bytes_ms=bytes_ms,
                    ops_ms=ops_ms, library_ms=lib_ms)
@@ -3981,7 +4035,6 @@ def check_fused(label, calls):
             if total[field] is not None:
                 total[field] = (None if row[field] is None
                                 else total[field] + count * row[field])
-        total["err"] = max(total["err"], err)
         total["calls"] += count
         lib_text = "none" if lib_ms is None else f"{lib_ms:.4f}"
         print(f"{label} {what}; {count}x a forward; kernel {times[1]:.4f}/"
@@ -3993,8 +4046,11 @@ def check_fused(label, calls):
         if not t["calls"]:
             continue
         lib = t["library_ms"]
-        print(f"{label} {name if name != 'columns' else 'prologue'} per "
-              f"forward ({t['calls']} calls): kernel {t['ms']:.4f} ms, plain "
+        what = {"columns": "prologue", "columns3d": "3-D prologue"}
+        calls = (f"{t['calls']} calls" if t["calls"] == t["checked"] else
+                 f"the {t['calls']} timed of its {t['checked']} calls")
+        print(f"{label} {what.get(name, name)} per "
+              f"forward ({calls}): kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, library "
               f"{'none' if lib is None else f'{lib:.4f}'} ms; bound bytes "
               f"{t['bytes_ms']:.4f} ms, operations {t['ops_ms']:.4f} ms")
@@ -4008,6 +4064,7 @@ def int8_shares(label, prof):
     groups = {"P1 (product_kernel, reduce_kernel)": ("product_kernel",
                                                       "reduce_kernel"),
               "prologue (columns_kernel)": ("columns_kernel",),
+              "3-D prologue (columns3d_kernel)": ("columns3d_kernel",),
               "elementwise and copies": ("elementwise", "Copy")}
     for what, names in groups.items():
         ms = sum(t for kname, t in prof["kernels"].items()
@@ -4231,6 +4288,575 @@ def k4_entry(name, source, replaces, launches, times, part, dtype):
     }
 
 
+# ---------------------------------------------------------------------- #
+# the other four video backbones (ResNet3D-18, S3D, Swin3D-T, Swin3D-S):
+# served at their serving batch and dtype, ResNet and S3D in w8a8 on P1
+# with the 3-D prologue, CNN-2D's int8 Conv2d, one training step each and
+# run_video of Swin-T
+# ---------------------------------------------------------------------- #
+
+BACKBONES = ("ResNet", "S3D", "Swin-T", "Swin-S")
+INT8_BACKBONES = ("ResNet", "S3D")
+# ragged requests of clips, the first a full serving batch
+BACKBONE_REQUESTS = {"ResNet": (64, 20), "S3D": (32, 10),
+                     "Swin-T": (2, 1, 3), "Swin-S": (2, 1, 3)}
+# card vs CPU at f32, batch 1: the full clip where the CPU side takes a
+# few seconds, else a shorter one (Swin's attention on the host)
+BACKBONE_CPU_CLIPS = {"ResNet": (45, 112, 112), "S3D": (45, 224, 224),
+                      "Swin-T": (16, 224, 224), "Swin-S": (16, 224, 224)}
+# card vs CPU f32 training step, batch 2: clips small enough for the CPU
+BACKBONE_STEP_CLIPS = {"ResNet": (8, 56, 56), "S3D": (8, 96, 96),
+                       "Swin-T": (8, 112, 112), "Swin-S": (8, 112, 112)}
+# w8a8 card vs CPU on the same int8 weights, batch 2: the CPU's int8
+# product is a plain int32 matmul, so short clips
+INT8_BACKBONE_CPU_CLIPS = {"ResNet": (8, 56, 56), "S3D": (8, 64, 64)}
+BACKBONE_PROFILED = 3      # forwards (steps) under the profiler
+BACKBONE_CALIB_CLIPS = 8   # seeded calibration clips (amax)
+# the gradient of a card step against float64 (the CPU's, with the card's
+# kink sides and max-pool picks): within GRAD_F32_TOL of each tensor's
+# scale, or within this many times the CPU f32 step's own distance from
+# float64 where S3D's BatchNorms over few positions leave f32 less
+GRAD_F64_RATIO = 2.0
+# CNN-2D (bf16 serving, batch 256): stages 1 and 2 int8 (stage 0 never
+# announces), each a 2-D conv on the 3-D prologue. w8a8: (256 x 137 x 7,
+# 32 x 15 x 15) int8 columns (1.77 GB, one chunk) and (256 x 131, 64 x 7 x
+# 7). w8: the bf16 columns of stage 1 are 3.5 GB, so 155 + 101 windows
+CNN2D_S8 = {(256 * 959, 7200, 64): 1, (256 * 131, 3136, 128): 1}
+CNN2D_BF16 = {(155 * 959, 7200, 64): 1, (101 * 959, 7200, 64): 1,
+              (256 * 131, 3136, 128): 1}
+# P1 and the prologue against cuDNN at ResNet's layer1 (64 clips of 45 x
+# 56 x 56 x 64, 3x3x3, 64 features)
+LAYER1_SHAPE = (64, 45, 56, 56, 64)
+
+
+def backbone_requests(key):
+    from multi_modal_csi_tpu_torch.runners.video import VIDEO_CLIPS
+    rng = np.random.default_rng(SEED + 7)
+    return [rng.standard_normal((n, *VIDEO_CLIPS[key], 3), dtype=np.float32)
+            for n in BACKBONE_REQUESTS[key]]
+
+
+def host_and_card_rates(label, server, requests, rounds,
+                        expect_out=lambda n: (n, VIDEO_OUT), unit="clips"):
+    """The ragged requests from host memory to logits on the host (each
+    output's shape ``expect_out(len(request))``, f32 and finite), then
+    ``rounds`` timings with the requests already on the card. Returns the
+    logits, the launch counts of the host run, the host rate and the card
+    rates."""
+    from multi_modal_csi_tpu_torch import kernels
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    outs = [server(r).cpu() for r in requests]
+    host_s = time.perf_counter() - start
+    launches = dict(kernels.LAUNCH_COUNTS)
+    for r, out in zip(requests, outs):
+        check(tuple(out.shape) == expect_out(len(r))
+              and out.dtype == torch.float32
+              and bool(torch.isfinite(out).all()),
+              f"{label} output {tuple(out.shape)} {out.dtype} not finite f32")
+    n = sum(len(r) for r in requests)
+    resident = [torch.from_numpy(r).cuda() for r in requests]
+    rates = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for r in resident:
+            server(r)
+        torch.cuda.synchronize()
+        rates.append(n / (time.perf_counter() - start))
+    del resident
+    batches = sum(-(-len(r) // server.batch) for r in requests)
+    print(f"{label} batch {server.batch}: {n / host_s:.2f} {unit}/s from "
+          f"host memory, {n} {unit} in {batches} batch forwards; with the "
+          f"requests on the card, {rounds} timings: "
+          + ", ".join(f"{r:.2f}" for r in rates) + f" {unit}/s")
+    return outs, launches, n / host_s, rates
+
+
+def backbone_serve_phase(key):
+    """``key`` served at its serving batch and dtype (ResNet 64 and S3D 32
+    clips in bf16, Swin 2 in f32) at full width from seeded weights: the
+    ragged requests from host memory (no hand kernel on this path: exactly
+    no launch), clips/s, the peak memory, a profile; then the f32 logits at
+    batch 1 on the card (TF32 off) against the CPU within
+    VIDEO_F32_SHARE of the largest, at BACKBONE_CPU_CLIPS. Returns the
+    peak memory in GiB."""
+    from multi_modal_csi_tpu_torch.core.config import (resolve_serving_batch,
+                                                       resolve_serving_dtype)
+    from multi_modal_csi_tpu_torch.core.serving import VideoServer
+    from multi_modal_csi_tpu_torch.runners.video import build_video_model
+    start = time.perf_counter()
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    requests = backbone_requests(key)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    server = VideoServer(key, build_video_model(key, VIDEO_OUT, seed=SEED),
+                         device="cuda")
+    want = resolve_serving_dtype("auto", key)
+    check(str(server.dtype) == f"torch.{want}"
+          and server.batch == resolve_serving_batch(key),
+          f"{key} serves at batch {server.batch} in {server.dtype}")
+    label = f"{key} {DTYPE_NAMES[server.dtype]}"
+    server(requests[0])                                       # warm-up
+    torch.cuda.synchronize()
+    outs, launches, host, rates = host_and_card_rates(label, server,
+                                                      requests,
+                                                      RESIDENT_ROUNDS)
+    check(not launches, f"{label} launched {launches}")
+    SERVE_RATES[key] = (host, rates)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{label}: peak memory {peak:.2f} GiB serving batches of "
+          f"{server.batch}")
+    batch = torch.from_numpy(requests[0][:server.batch]).cuda()
+    profile_device(label, lambda: server.forward(batch), BACKBONE_PROFILED,
+                   "forward")
+    del server, batch, outs
+    torch.cuda.empty_cache()
+
+    set_tf32(False)
+    clip = BACKBONE_CPU_CLIPS[key]
+    x = np.random.default_rng(SEED + 8).standard_normal(
+        (1, *clip, 3), dtype=np.float32)
+    got, took = {}, {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        got[device] = VideoServer(
+            key, build_video_model(key, VIDEO_OUT, clip, seed=SEED),
+            dtype="float32", device=device, batch=1)(x).cpu().numpy()
+        took[device] = time.perf_counter() - t0
+    err = float(np.abs(got["cuda"] - got["cpu"]).max())
+    top = float(np.abs(got["cpu"]).max())
+    print(f"{key} f32 card vs CPU at batch 1, clip {clip}: max abs err "
+          f"{err:.3e} (tolerance {VIDEO_F32_SHARE} x {top:.4f}); CPU "
+          f"{took['cpu']:.1f} s")
+    check(err <= VIDEO_F32_SHARE * top, f"{key} card vs CPU err {err}")
+    print(f"{key} serving phase: {time.perf_counter() - start:.1f} s")
+    return peak
+
+
+def int8_conv_launches(model, shapes):
+    """The launches that one int8 forward must make: for each int8 hooked
+    Conv3d, given its input's shape in ``shapes`` (module -> shape), one
+    3-D prologue and one s8 product a chunk of whole clips whose columns
+    fit in COLUMN_BUDGET; one prologue and one product for each int8
+    Linear."""
+    from multi_modal_csi_tpu_torch.core.quantize import COLUMN_BUDGET
+    from multi_modal_csi_tpu_torch.kernels.int8_matmul import (conv3d_output,
+                                                               padded_width)
+    from multi_modal_csi_tpu_torch.nn.layers import Conv3d, Linear
+    chunks = linears = 0
+    for module in model.modules():
+        if getattr(module, "weight", None) is None or (
+                module.weight.dtype != torch.int8):
+            continue
+        if isinstance(module, Linear):
+            linears += 1
+            continue
+        check(isinstance(module, Conv3d) and module.hooked,
+              f"int8 {type(module).__name__} is not a hooked Conv3d")
+        b, t, h, w, _ = shapes[module]
+        dims = conv3d_output((t, h, w), tuple(module.weight.shape[2:]),
+                             module.stride, module.padding)
+        sample = math.prod(dims) * padded_width(module.weight[0].numel(),
+                                                torch.int8)
+        chunks += -(-b // max(1, COLUMN_BUDGET // sample))
+    return {S8: chunks + linears, COLUMNS3D: chunks, COLUMNS: linears}
+
+
+@contextlib.contextmanager
+def input_shapes(model):
+    """module -> the shape of its input in the block's forwards."""
+    shapes = {}
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: shapes.__setitem__(mod, tuple(args[0].shape)))
+        for m in model.modules() if getattr(m, "weight", None) is not None]
+    try:
+        yield shapes
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def stem_call(key):
+    """Whether a ``captured_calls`` key is S3D's stem temporal (7, 1, 1)
+    conv (its 3-D prologue or its product, K = 64 x 7)."""
+    return ((key[0] == "columns3d" and key[4][0] == (7, 1, 1))
+            or (key[0] == "product" and key[4] == 64 * 7))
+
+
+def backbone_int8_phase(key, bf16_peak):
+    """``key`` (ResNet, S3D) served with --quant auto (w8a8) in bf16 at
+    its serving batch, calibrated (amax) on BACKBONE_CALIB_CLIPS seeded
+    clips: exact P1 s8, 3-D prologue and 1-D prologue launches in one
+    batch forward (``int8_conv_launches``), the prologue and the fused
+    products held against their plain versions at every call of a batch
+    forward (timed at every ResNet call and at S3D's stem temporal conv,
+    ``stem_call``), the ragged requests, the rates, serving's peak memory
+    (after the checks) beside bf16's, a profile with the kernels' shares,
+    the logits against bf16 serving (ResNet: the JAX package's 0.35 of
+    the spread; S3D printed); at ResNet's layer1, the int8 conv against
+    cuDNN's bf16 conv3d; then the same int8 weights at f32 on the card
+    against the CPU: the distance and the int8 codes that the devices' f32
+    noise put on the other side of a rounding boundary, per layer, printed
+    (they compound over the layers, each flip moving the next layer's
+    input by a step); then the CPU fed the card's codes at every layer, so
+    that each layer's codes see one layer's noise alone: at every layer
+    the CPU's own codes within one step of the card's and differing in at
+    most INT8_FLIP_SHARE of them, and the logits within VIDEO_F32_SHARE
+    of the largest.
+    Returns the main path's launch counts."""
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.core.serving import VideoServer
+    from multi_modal_csi_tpu_torch.runners.video import (VIDEO_CLIPS,
+                                                         build_video_model)
+    start = time.perf_counter()
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    clip = VIDEO_CLIPS[key]
+    calib = np.random.default_rng(SEED + 9).standard_normal(
+        (BACKBONE_CALIB_CLIPS, *clip, 3), dtype=np.float32)
+    requests = backbone_requests(key)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = VideoServer(key, build_video_model(key, VIDEO_OUT, seed=SEED),
+                         device="cuda", quant="auto", calib=calib)
+    torch.cuda.synchronize()
+    int8 = [n for n, p in server.model.named_parameters()
+            if p.dtype == torch.int8]
+    label = f"{key} {server.quant}"
+    print(f"{label}: {len(int8)} int8 weights, calibrated on {len(calib)} "
+          f"clips in {time.perf_counter() - t0:.1f} s")
+    check(server.quant == "w8a8" and server.dtype == torch.bfloat16,
+          f"{key} --quant auto resolved {server.quant} {server.dtype}")
+    server(requests[0][:server.batch])                        # warm-up
+    torch.cuda.synchronize()
+    batch = torch.from_numpy(requests[0][:server.batch]).cuda()
+    kernels.reset_launch_counts()
+    with input_shapes(server.model) as shapes:
+        server.forward(batch)
+        torch.cuda.synchronize()
+    one = dict(kernels.LAUNCH_COUNTS)
+    want = int8_conv_launches(server.model, shapes)
+    print(f"{label}: launches in one batch forward: {one}")
+    check(one == want, f"{label} launched {one}, expected {want}")
+    with captured_calls() as calls:
+        server.forward(batch)
+        torch.cuda.synchronize()
+    timed = (lambda k: True) if key == "ResNet" else stem_call
+    check(sum(map(timed, calls)) in (2, len(calls)),
+          f"{label}: timed {[k for k in calls if timed(k)]}")
+    FUSED_TOTALS[key] = check_fused(label, calls, timed)
+    del calls
+    # the peak of serving alone, without the calls check_fused held
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    outs, launches, host, rates = host_and_card_rates(label, server,
+                                                      requests, 1)
+    batches = sum(-(-len(r) // server.batch) for r in requests)
+    check(launches == {n: c * batches for n, c in want.items()},
+          f"{label} main path launched {launches}")
+    bf16_host, bf16_card = SERVE_RATES[key]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{label}: bf16 serving {bf16_host:.2f} clips/s from host memory, "
+          + ", ".join(f"{r:.2f}" for r in bf16_card) + " on the card; peak "
+          f"memory {peak:.2f} GiB (bf16 {bf16_peak:.2f} GiB)")
+    prof = profile_device(label, lambda: server.forward(batch), 2,
+                          "forward")
+    int8_shares(label, prof)
+
+    if key == "ResNet":
+        # the int8 conv (prologue and product over every chunk) against
+        # cuDNN's bf16 conv3d at layer1
+        import torch.nn.functional as F
+        conv = server.model.backbone.layer1[0].conv1[0]
+        x = torch.randn(LAYER1_SHAPE, device="cuda", dtype=torch.bfloat16)
+        w = torch.randn((64, 64, 3, 3, 3), device="cuda",
+                        dtype=torch.bfloat16)
+        xf = x.permute(0, 4, 1, 2, 3).contiguous()
+        cudnn = cuda_ms(lambda: F.conv3d(xf, w, padding=1), 5, 1)
+        port_bf16 = cuda_ms(lambda: F.conv3d(
+            x.permute(0, 4, 1, 2, 3).contiguous(), w, padding=1), 5, 1)
+        int8_ms = cuda_ms(lambda: conv(x), 3, 1)
+        print(f"ResNet layer1 conv at {LAYER1_SHAPE} (3x3x3 -> 64): w8a8 "
+              f"(3-D prologue and P1 s8, every chunk) {int8_ms:.3f} ms; "
+              f"cuDNN bf16 conv3d {cudnn:.3f} ms (with the port's "
+              f"channels-first copy {port_bf16:.3f} ms)")
+        del x, w, xf
+
+    got = outs[1].numpy()
+    del server, batch
+    torch.cuda.empty_cache()
+    ref = VideoServer(key, build_video_model(key, VIDEO_OUT, seed=SEED),
+                      device="cuda")(requests[1]).cpu().numpy()
+    spread = float(np.abs(got - ref).max() / (ref.std() + 1e-9))
+    bound = INT8_SPREAD_BOUND.get(key)
+    print(f"{label} vs bf16 serving on {len(requests[1])} clips: max abs "
+          f"diff {np.abs(got - ref).max():.4f} = {spread:.4f} of the bf16 "
+          f"logits' spread ("
+          + (f"bound {bound})" if bound else "the JAX package has no bound "
+             "for it)"))
+    check(bound is None or spread < bound, f"{label} vs bf16 {spread}")
+    torch.cuda.empty_cache()
+
+    # the same int8 weights and scales at f32, batch 2: the card against
+    # the CPU, and against the CPU fed the card's int8 codes
+    set_tf32(False)
+    small = INT8_BACKBONE_CPU_CLIPS[key]
+    x = np.random.default_rng(SEED + 10).standard_normal(
+        (2, *small, 3), dtype=np.float32)
+    cpu = VideoServer(key, build_video_model(key, VIDEO_OUT, small,
+                                             seed=SEED),
+                      dtype="float32", device="cpu", batch=2, quant="w8a8",
+                      calib=x)
+    with recorded_activations() as cpu_codes:
+        want_out = cpu(x).numpy()
+    card = VideoServer(key, cpu.model, dtype="float32", device="cuda",
+                       batch=2)
+    kernels.reset_launch_counts()
+    with recorded_activations() as card_codes:
+        got_out = card(x).cpu().numpy()
+    card_launches = dict(kernels.LAUNCH_COUNTS)
+    with replayed_activations(card_codes) as own:
+        replayed = VideoServer(key, card.model, dtype="float32", device="cpu",
+                               batch=2)(x).numpy()
+    check(len(card_codes) == len(cpu_codes) == len(own),
+          f"{label}: {len(card_codes)} quantized layers on the card, "
+          f"{len(cpu_codes)} and {len(own)} on the CPU")
+    flips = [int((a != b).sum()) for a, b in zip(cpu_codes, card_codes)]
+    layer_flips = [int((a != b).sum()) for a, b in zip(own, card_codes)]
+    steps = max(int((a.int() - b.int()).abs().max())
+                for a, b in zip(own, card_codes))
+    shares = [f / a.numel() for f, a in zip(layer_flips, card_codes)]
+    worst = max(range(len(shares)), key=shares.__getitem__)
+    err = float(np.abs(got_out - want_out).max())
+    err_replayed = float(np.abs(got_out - replayed).max())
+    top = float(np.abs(want_out).max())
+    print(f"{label} f32 card vs CPU at {small}, the same int8 weights: max "
+          f"abs err {err:.3e} = {err / top:.3e} of the largest logit "
+          f"{top:.4f} (printed; INT8_CPU_SHARE {INT8_CPU_SHARE} holds the "
+          f"CSI models), the int8 codes differing in {sum(flips)} of "
+          f"{sum(a.numel() for a in cpu_codes)} over {len(flips)} quantized "
+          f"layers, per layer {flips}; card launches {card_launches}")
+    print(f"{label} the CPU fed the card's codes: per layer its own codes "
+          f"differ in {layer_flips} (by at most {steps} step), the largest "
+          f"share {shares[worst]:.2e} at layer {worst} of "
+          f"{card_codes[worst].numel()} codes (bound {INT8_FLIP_SHARE}); "
+          f"logits {err_replayed:.3e} from the card's (tolerance "
+          f"{VIDEO_F32_SHARE} x {top:.4f})")
+    check(card_launches.get(COLUMNS3D, 0) > 0 and card_launches.get(S8, 0)
+          == card_launches[COLUMNS3D] + card_launches.get(COLUMNS, 0),
+          f"{label} f32 card launched {card_launches}")
+    check(steps <= 1 and shares[worst] <= INT8_FLIP_SHARE,
+          f"{label}: with the card's codes in, the CPU's codes differ by "
+          f"{steps} steps, in {shares[worst]:.2e} of them at layer {worst}")
+    check(err_replayed <= VIDEO_F32_SHARE * top,
+          f"{label} card vs CPU with the card's codes {err_replayed}")
+    print(f"{label} serving phase: {time.perf_counter() - start:.1f} s")
+    return launches
+
+
+@contextlib.contextmanager
+def replayed_activations(codes):
+    """Inside the block the quantized layers' prologues (1-D and 3-D)
+    return ``codes`` in order (``recorded_activations``' CPU copies from
+    another device's run of the same forward) in place of their own int8
+    operands, so that a comparison measures the rest of the path. Yields
+    the list of the operands that they made themselves (CPU copies)."""
+    from multi_modal_csi_tpu_torch.core import quantize as Q
+    real, real3d, own = Q.quantize_columns, Q.quantize_columns3d, []
+
+    def replaying(fn):
+        def quantize(x, scale, *args):
+            q = fn(x, scale, *args)
+            if scale is None:
+                return q
+            want = codes[len(own)].to(q.device)
+            own.append(q.cpu())
+            check(want.shape == q.shape, f"replayed codes {tuple(want.shape)} "
+                                         f"for {tuple(q.shape)}")
+            return want
+        return quantize
+    Q.quantize_columns, Q.quantize_columns3d = replaying(real), replaying(
+        real3d)
+    try:
+        yield own
+    finally:
+        Q.quantize_columns, Q.quantize_columns3d = real, real3d
+    check(len(own) == len(codes), f"replayed {len(own)} of {len(codes)} "
+                                  f"int8 operands")
+
+
+def backbone_train_phase(key):
+    """One f32 training step of ``key`` at batch 2 at full width on the
+    card (PyTorch's default TF32 settings, dropout as built): no hand
+    kernel (exactly no launch), the peak memory, clips trained per second,
+    a profile of BACKBONE_PROFILED steps; then one step at
+    BACKBONE_STEP_CLIPS with dropout and drop-path off on the card (TF32
+    off), on the CPU in f32 and in float64, the CPU taking the card's ReLU
+    sides and max-pool picks (``KinkReplay``): the loss within
+    STEP_F32_TOL relative and the BatchNorm statistics within
+    STATS_F32_TOL of the CPU's f32, each gradient within GRAD_F32_TOL of
+    its scale of the CPU's f32, or else within GRAD_F64_RATIO times the
+    CPU f32 step's own distance from float64 of the float64 step."""
+    import copy
+
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.losses.basic import bce_with_logits
+    from multi_modal_csi_tpu_torch.runners.video import (VIDEO_CLIPS,
+                                                         build_video_model)
+    from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch,
+                                                      make_train_step)
+    start = time.perf_counter()
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    rng = np.random.default_rng(SEED + 11)
+    clip = VIDEO_CLIPS[key]
+    bx = torch.from_numpy(rng.standard_normal(
+        (VIDEO_TRAIN_BATCH, *clip, 3), dtype=np.float32)).cuda()
+    by = torch.from_numpy((rng.random((VIDEO_TRAIN_BATCH, VIDEO_OUT)) < 0.5)
+                          .astype(np.float32)).cuda()
+    torch.cuda.empty_cache()
+    model = build_video_model(key, VIDEO_OUT, seed=SEED).cuda()
+    step = make_train_step(model, adam_like_torch(model.parameters(), 1e-4),
+                           bce_with_logits, augment=False)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    step(bx, by, gen)                                         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    step(bx, by, gen)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCH_COUNTS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{key} f32 training step at batch {VIDEO_TRAIN_BATCH}, clip "
+          f"{clip}: launches {launches}; peak memory {peak:.2f} GiB")
+    check(not launches, f"{key} training step launched {launches}")
+    train_rate(f"{key} f32 training", step, bx, by, gen, unit="clips")
+    profile_device(f"{key} f32 training", lambda: step(bx, by, gen),
+                   BACKBONE_PROFILED, "step")
+    del model, step, bx, by
+    torch.cuda.empty_cache()
+
+    set_tf32(False)
+    small = BACKBONE_STEP_CLIPS[key]
+    x = rng.standard_normal((VIDEO_TRAIN_BATCH, *small, 3),
+                            dtype=np.float32)
+    y = (rng.random((VIDEO_TRAIN_BATCH, VIDEO_OUT)) < 0.5).astype(
+        np.float32)
+    base = without_dropout(build_video_model(key, VIDEO_OUT, small,
+                                             seed=SEED)).train()
+    kinks, got = KinkReplay(key), {}
+    for run, device, dtype in (("card", "cuda", torch.float32),
+                               ("cpu", "cpu", torch.float32),
+                               ("f64", "cpu", torch.float64)):
+        model = copy.deepcopy(base).to(device=device, dtype=dtype)
+        with kinks.on(device):
+            loss = bce_with_logits(
+                model(torch.from_numpy(x).to(device, dtype)),
+                torch.from_numpy(y).to(device, dtype))
+            loss.backward()
+        if run == "cpu":
+            replayed = kinks.report()
+        got[run] = (float(loss), {n: p.grad.detach().cpu().double()
+                                  for n, p in model.named_parameters()},
+                    {n: b.detach().cpu().double()
+                     for n, b in model.named_buffers()
+                     if n.endswith(("running_mean", "running_var"))})
+        del model
+    (card_loss, card, card_stats), (cpu_loss, cpu, cpu_stats) = (
+        got["card"], got["cpu"])
+    exact = got["f64"][1]
+    floor = 1e-2 * max(g.abs().max().item() for g in exact.values())
+
+    def distance(a, b):
+        return max(((a[n] - b[n]).abs().max().item()
+                    / max(b[n].abs().max().item(), floor), n) for n in b)
+
+    worst = distance(card, cpu)
+    card_f64, cpu_f64 = distance(card, exact), distance(cpu, exact)
+    stats = max(((((card_stats[n] - cpu_stats[n]).abs().max().item()
+                   / cpu_stats[n].abs().max().item()), n)
+                 for n in cpu_stats), default=(0.0, "none"))
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    print(f"{key} f32 training step at {small}, card vs CPU: {replayed}; "
+          f"loss {card_loss:.6f} vs {cpu_loss:.6f} (relative {rel:.2e}, tolerance "
+          f"{STEP_F32_TOL}); worst gradient {worst[0]:.2e} of its scale in "
+          f"{worst[1]} (tolerance {GRAD_F32_TOL}); from float64 the card "
+          f"{card_f64[0]:.2e} ({card_f64[1]}), the CPU {cpu_f64[0]:.2e} "
+          f"({cpu_f64[1]}); worst BatchNorm statistic {stats[0]:.2e} of its "
+          f"largest in {stats[1]} (tolerance {STATS_F32_TOL})")
+    check(rel <= STEP_F32_TOL, f"{key} card vs CPU step loss {rel}")
+    check(worst[0] <= GRAD_F32_TOL
+          or card_f64[0] <= GRAD_F64_RATIO * cpu_f64[0],
+          f"{key} card vs CPU gradient {worst}, from float64 {card_f64} "
+          f"(the CPU's {cpu_f64})")
+    check(stats[0] <= STATS_F32_TOL, f"{key} card vs CPU statistic {stats}")
+    print(f"{key} training phase: {time.perf_counter() - start:.1f} s")
+
+
+def run_video_default_phase(clips, annotation, work):
+    """cli/run_video.py with no --model (the default, Swin-T, as the JAX
+    CLI's) on the card: RUN_CLIPS cached clips, identity task, repeat 1,
+    one epoch at batch 2, the final test pass in Swin's serving dtype
+    (f32); the result JSON read back with the JAX runner's keys; no hand
+    kernel runs (exactly no launch)."""
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.cli import run_video
+    set_tf32(False)
+    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    save = os.path.join(work, "results", "default-run_video.json")
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    result = run_video.main([
+        "--repeat", "1", "--set", f"path.video_pre_x={clips}",
+        "--set", f"path.data_y={annotation}", "--set", f"path.save={save}",
+        "--set", "nn.epoch=1", "--set", f"nn.batch_size={VIDEO_TRAIN_BATCH}",
+        "--set", "compute_dtype=auto"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = dict(kernels.LAUNCH_COUNTS)
+    with open(save) as f:
+        written = json.load(f)
+    print(f"run_video default model {written['model']}: {wall:.2f} s wall, "
+          f"fit {result['time_train']['avg']:.2f} s, final test pass "
+          f"{result['time_test']['avg']:.3f} s; accuracy "
+          f"{result['accuracy']['avg']:.3f}, parameters "
+          f"{result['complexity']['parameter']}; launches {launches}")
+    check(written["model"] == "Swin-T", f"run_video's default model is "
+                                        f"{written['model']}")
+    check(set(written) == VIDEO_RESULT_KEYS
+          and "micro avg" in written["repeat_0"]
+          and all(math.isfinite(written[k]["avg"]) for k in
+                  ("accuracy", "time_train", "time_test")),
+          f"Swin-T result JSON {sorted(written)}")
+    check(not launches, f"Swin-T run launched {launches}")
+
+
+def columns3d_entry(launches):
+    """The JSON description of the 3-D prologue: its times and bound
+    summed over one ResNet3D-18 w8a8 forward at its serving batch of 64
+    (45, 112, 112) clips, from ``check_fused``. No one PyTorch call
+    computes the quantization with the 3-D unfold (library null). It
+    replaces no TPU kernel of its own: it is the activation quantization
+    and the conv windows that XLA fuses into P1's product in the JAX
+    package's int8 conv (core/quantize.py:174)."""
+    total = FUSED_TOTALS["ResNet"]["columns3d"]
+    bytes_ms, ops_ms = total["bytes_ms"], total["ops_ms"]
+    return {
+        "name": COLUMNS3D, "route": "cuda",
+        "source": "multi_modal_csi_tpu_torch/kernels/csrc/int8_matmul.cu",
+        "replaces": "multi_modal_csi_tpu/core/quantize.py:174",
+        "launches": launches, "max_abs_err": total["err"],
+        "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }
+
+
 RUN_START = time.perf_counter()
 
 
@@ -4291,7 +4917,14 @@ def main() -> int:
                              lambda n: (n, 54), 0, mode="w8"),
             int8_serve_phase("CNN-1D", requests, calib, CNN1D_S8, {},
                              CNN1D_COLUMNS, lambda n: (n, 54), 0,
-                             quant="w8a8")]
+                             quant="w8a8"),
+            # CNN-2D's int8 Conv2d: stages 1 and 2 on the 3-D prologue
+            int8_serve_phase("CNN-2D", requests, calib, {}, CNN2D_BF16, 0,
+                             lambda n: (n, 54), 0, quant="w8", mode="w8",
+                             columns3d=sum(CNN2D_BF16.values())),
+            int8_serve_phase("CNN-2D", requests, calib, CNN2D_S8, {}, 0,
+                             lambda n: (n, 54), 0, quant="w8a8",
+                             columns3d=sum(CNN2D_S8.values()))]
         baseline_s = time.perf_counter() - start
         int8_runs += [
             int8_serve_phase("DETR", requests, calib, DETR_S8, DETR_BF16,
@@ -4341,6 +4974,15 @@ def main() -> int:
         video_int8 = video_int8_phase(clips)
         int8_runs.append(video_int8)
         del clips
+        # ResNet3D-18, S3D, Swin3D-T and Swin3D-S: served in their dtype
+        # at their batch, ResNet and S3D in w8a8, one training step each
+        start = time.perf_counter()
+        peaks = {key: backbone_serve_phase(key) for key in BACKBONES}
+        int8_runs += [backbone_int8_phase(key, peaks[key])
+                      for key in INT8_BACKBONES]
+        for key in BACKBONES:
+            backbone_train_phase(key)
+        backbones_s = time.perf_counter() - start
         video = [runs for runs, _ in served] + [video_int8]
         card_vs_cpu = [video_card_vs_cpu(key) for key in
                        ("MViT-v1", "MViT-v2")]
@@ -4361,6 +5003,12 @@ def main() -> int:
             run_video_phase(clip_dir, annotation, work, "MViT-v2"),
             run_video_phase(clip_dir, annotation, work, "MViT-v2",
                             "bfloat16")]
+        start = time.perf_counter()
+        run_video_default_phase(clip_dir, annotation, work)
+        backbones_s += time.perf_counter() - start
+        print(f"ResNet, S3D, Swin-T and Swin-S phases (serving, int8, "
+              f"training, run_video's default): {backbones_s:.1f} s of wall "
+              f"time")
         trained_f32 = steps_f32 + [runs for runs, _ in experiments[:2]]
         trained_bf16 = ([step for _, step in served] + [step_bf16]
                         + [experiments[2][0]])
@@ -4478,6 +5126,7 @@ def main() -> int:
                  sum(runs.get(BF16, 0) for runs in int8_runs), DETR_BF16,
                  torch.bfloat16),
         columns_entry(sum(runs.get(COLUMNS, 0) for runs in int8_runs)),
+        columns3d_entry(sum(runs.get(COLUMNS3D, 0) for runs in int8_runs)),
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

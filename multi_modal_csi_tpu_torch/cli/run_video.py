@@ -2,7 +2,7 @@
 port of the JAX package's ``cli/run_video.py``).
 
 Usage:
-  python -m multi_modal_csi_tpu_torch.cli.run_video --model MViT-v2 \\
+  python -m multi_modal_csi_tpu_torch.cli.run_video --model Swin-T \\
       --task identity [--repeat 10] [--config cfg.json] \\
       --set path.video_pre_x=CACHE --set path.data_y=annotation.csv \\
       [--set path.save=out.json] [--device cuda|cpu]
@@ -11,10 +11,10 @@ The JAX CLI's overrides apply (lr 1e-4, 20 epochs, batch 8, repeat 10),
 then ``--set`` takes any dotted-path override. The run reads
 ``path.data_y`` (annotation.csv) and the cached ``.npy`` clips of
 ``path.video_pre_x``, trains on the card unless ``--device cpu``, prints
-the result and writes it as JSON to ``path.save``. The default model is
-MViT-v2: the JAX CLI's default, Swin-T, is not ported yet (ROADMAP item
-12). ``--mesh`` and ``--distributed`` wait for the parallel layer
-(ROADMAP item 14).
+the result and writes it as JSON to ``path.save``. ``--model`` is any of
+the six video backbones; the default is Swin-T, as the JAX CLI's.
+``--mesh`` and ``--distributed`` wait for the parallel layer (ROADMAP item
+14).
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from ..utils.results import NumpyJSONEncoder
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--model", default="MViT-v2")
+    p.add_argument("--model", default="Swin-T")
     p.add_argument("--task", default="identity")
     p.add_argument("--repeat", default=None, type=int)
     p.add_argument("--config", default=None, help="JSON config file")

@@ -14,8 +14,7 @@ windows in host memory (MLP's server flattens each batch). ``--quant``
 serves int8 weights (``core/quantize.py``): "auto" takes the model's
 ``QUANT_DEFAULTS`` (w8a8 for DETR and THAT_ENCODER, w8 for MLP); w8a8
 calibrates on ``--calib``, a .npy of (n, 3000, 270) windows split into
-serving batches. CNN-2D's int8 serving raises NotImplementedError (ROADMAP
-item 12).
+serving batches.
 Prints each request's output shape and the windows per second over all
 requests, timed from the host arrays to the logits back on the host. The
 first request is answered once untimed, as warm-up.

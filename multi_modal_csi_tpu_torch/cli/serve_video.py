@@ -6,11 +6,14 @@ Usage:
       [--batch 0] [--dtype auto] [--device cuda] [--requests 2,1,3] \
       [--quant none] [--calib F.npy] [--calib-stat amax]
 
+``--model`` is any of the six video backbones; ``--clip`` defaults to the
+model's serving clip (ResNet (45, 112, 112), the rest (45, 224, 224)).
 The weights are drawn from a seeded generator, or loaded from a
-torchvision-layout checkpoint with ``--pretrained`` (its tables resized to
-the clip). Each request is a seeded numpy array of (n, T, H, W, 3) float32
-clips in host memory, in the JAX cache layout. ``--quant`` serves int8
-weights (``core/quantize.py``; MViT's Linears, never its Conv3d); w8a8
+torchvision-layout checkpoint with ``--pretrained`` (MViT's tables resized
+to the clip). Each request is a seeded numpy array of (n, T, H, W, 3)
+float32 clips in host memory, in the JAX cache layout. ``--quant`` serves
+int8 weights (``core/quantize.py``: ResNet's and S3D's convs and Linears,
+MViT's and Swin's Linears; "auto" is w8a8 for ResNet and S3D); w8a8
 calibrates on ``--calib``, a .npy of (n, T, H, W, 3) clips. Prints each
 request's output shape and the clips per second over all requests, timed
 from the host arrays to the logits back on the host. The first request is
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 
 from ..core.serving import VideoServer
-from ..runners.video import (TASK_OUT_FEATURES, VIDEO_CLIP, VIDEO_MODELS,
+from ..runners.video import (TASK_OUT_FEATURES, VIDEO_CLIPS, VIDEO_MODELS,
                              build_video_model, load_video_pretrained)
 from .serve_csi import add_quant_arguments, quant_arguments
 
@@ -47,10 +50,10 @@ def main(argv=None) -> None:
                    choices=sorted(TASK_OUT_FEATURES))
     p.add_argument("--pretrained", default=None,
                    help="torchvision-layout .pt/.pth checkpoint")
-    p.add_argument("--clip", default=",".join(map(str, VIDEO_CLIP)),
-                   help="T,H,W of every clip")
+    p.add_argument("--clip", default=None,
+                   help="T,H,W of every clip (default: the model's)")
     p.add_argument("--batch", type=int, default=0,
-                   help="serving batch (0 = the model's default, 2)")
+                   help="serving batch (0 = the model's default)")
     p.add_argument("--dtype", default="auto",
                    choices=["auto", "float32", "bfloat16"])
     p.add_argument("--device", default="cuda")
@@ -60,7 +63,8 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     quant, calib = quant_arguments(args)
 
-    clip = tuple(int(n) for n in args.clip.split(","))
+    clip = (VIDEO_CLIPS[args.model] if args.clip is None
+            else tuple(int(n) for n in args.clip.split(",")))
     sizes = [int(n) for n in args.requests.split(",")]
     model = build_video_model(args.model, TASK_OUT_FEATURES[args.task], clip,
                               seed=SEED)

@@ -15,24 +15,28 @@ Two modes, as there:
 There is no mode flag: an int8 weight is the signal, and an
 ``input_scale`` buffer beside it selects w8a8. A layer's product runs in
 ``kernels/int8_matmul.py`` as two launches on the card: the prologue
-(``quantize_columns``: the activation quantized, or cast to bf16, and
+(``quantize_columns`` for a Linear or a 1-D conv, ``quantize_columns3d``
+for a 2-D or 3-D conv: the activation quantized, or cast to bf16, and
 unfolded for a conv, at a padded row stride) and the product with the
 rescale, the bias and the cast in its epilogue (``quantized_product``).
-The product reads each int8 weight padded to a 16-byte row stride: a
-non-persistent ``<name>_padded`` buffer beside it, made once when the
-model is quantized or loaded, so the state dict stays as it is.
+The product reads each int8 weight as (out, in) rows, a conv's (out,
+C kt kh kw), padded to a 16-byte row stride: a non-persistent
+``<name>_padded`` buffer beside it, made once when the model is quantized
+or loaded, so the state dict stays as it is. A 2-D or 3-D conv runs over
+chunks of whole samples whose columns fit in ``COLUMN_BUDGET`` bytes
+(``conv_nd_forward``): ResNet3D's layer1 writes 244 MB of int8 columns a
+(45, 112, 112) clip.
 
-Which layers are quantized is decided by discovery, as in JAX: ``Linear``
-and ``Conv1d`` (``nn/layers.py``) record their input's max-abs (or its
-99.9th percentile) while a calibration is recording, and
+Which layers are quantized is decided by discovery, as in JAX: ``Linear``,
+``Conv1d``, ``Conv2d`` and the hooked ``Conv3d`` (``nn/layers.py``:
+ResNet3D's and S3D's, JAX's ``Conv3D`` wrapper) record their input's
+max-abs (or its 99.9th percentile) while a calibration is recording, and
 ``MultiheadAttention`` announces its packed ``in_proj_weight`` and
 ``out_proj.weight`` as weight-only (cross-attention feeds two inputs, so
 no per-tensor activation scale applies; ``out_proj`` never records an
-input). ``Conv3d`` never announces itself, as JAX's MViT convs are raw
-``nn.Conv``: a layer that never announced can never be turned int8.
-``Conv2d`` is hooked in JAX, but the prologue writes only 1-D columns, so
-under calibration it raises NotImplementedError (``refuse_int8``; ROADMAP
-item 12) rather than stay float.
+input). An unhooked ``Conv3d`` never announces itself, as JAX's MViT and
+Swin convs are raw ``nn.Conv``: a layer that never announced can never be
+turned int8.
 
 Symmetric quantization (zero-point 0) keeps conv zero-padding exact.
 
@@ -50,13 +54,16 @@ the JAX leaves mapped onto the reference layout: ``kernel`` -> ``weight``,
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 import torch
 from torch import nn
 
-from ..kernels.int8_matmul import (direct_operand, pad_columns,
-                                   quantize_columns, quantized_product)
+from ..kernels.int8_matmul import (conv3d_output, direct_operand,
+                                   pad_columns, padded_width,
+                                   quantize_columns, quantize_columns3d,
+                                   quantized_product)
 # the activation quantizer lives beside the prologue that fuses it; it is
 # part of this module's interface, as in the JAX package
 from ..kernels.int8_matmul import quantize_activation  # noqa: F401
@@ -66,6 +73,10 @@ from ..kernels.int8_matmul import quantize_activation  # noqa: F401
 DEFAULT_MIN_WEIGHT_SIZE = 16384
 MODES = ("w8", "w8a8")
 STATS = ("amax", "p999")
+# bytes of a 2-D or 3-D conv's columns written at once: whole samples a
+# chunk, so ResNet3D's serving batch of 64 (45, 112, 112) clips, 15.6 GB of
+# layer1 columns, runs in chunks of 8 clips
+COLUMN_BUDGET = 2 * 2 ** 30
 
 Stats = Dict[str, Optional[float]]
 _INV_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)
@@ -164,9 +175,47 @@ def conv_forward(x: torch.Tensor, weight: torch.Tensor,
     return y.reshape(x.shape[0], -1, n)
 
 
+def conv_nd_forward(x: torch.Tensor, weight: torch.Tensor,
+                    weight_scale: torch.Tensor,
+                    input_scale: Optional[torch.Tensor], *,
+                    stride: Tuple[int, int, int],
+                    padding: Tuple[int, int, int],
+                    bias: Optional[torch.Tensor] = None,
+                    out_dtype: torch.dtype = torch.float32,
+                    padded: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A 3-D convolution of channels-last x (B, T, H, W, C) with an int8
+    weight (N, C, kt, kh, kw), symmetric zero ``padding``, plus the bias,
+    as ``out_dtype`` (B, To, Ho, Wo, N); a 2-D conv is its kt = 1 case on
+    frames of T = 1. JAX's ``lax.conv_general_dilated`` on int8 codes (w8a8)
+    or bf16 values (w8): the input's columns (int8 for w8a8, bf16 for w8)
+    in the weight's (channel, kt, kh, kw) order, then one product. The
+    columns of ``COLUMN_BUDGET`` bytes at most are written at a time, a
+    chunk of whole samples (at least one); the chunks' products are
+    concatenated.
+    ``padded``: the weight as (N, C kt kh kw) at the product's padded
+    stride."""
+    n = weight.shape[0]
+    kernel = tuple(weight.shape[2:])
+    k = weight[0].numel()
+    dims = conv3d_output(tuple(x.shape[1:4]), kernel, stride, padding)
+    col_dtype = torch.bfloat16 if input_scale is None else torch.int8
+    sample = math.prod(dims) * padded_width(k, col_dtype) * col_dtype.itemsize
+    step = max(1, COLUMN_BUDGET // sample)
+    b = pad_columns(weight.reshape(n, k)) if padded is None else padded
+    outs = []
+    for start in range(0, x.shape[0], step):
+        a = quantize_columns3d(x[start:start + step], input_scale, kernel,
+                               stride, padding)
+        outs.append(quantized_product(a, b, weight_scale, input_scale, bias,
+                                      out_dtype, k=k))
+    y = outs[0] if len(outs) == 1 else torch.cat(outs)
+    return y.reshape(x.shape[0], *dims, n)
+
+
 def pad_weights(model: nn.Module) -> nn.Module:
     """Give every int8 weight of ``model`` its ``<name>_padded`` buffer
-    (non-persistent): the weight as (out, in) rows zero-padded to the
+    (non-persistent): the weight as (out, in) rows (a conv's (out, C k),
+    (out, C kh kw) or (out, C kt kh kw)) zero-padded to the
     product's 16-byte stride, so that no call pads it again. Returns
     ``model``."""
     for module in model.modules():
@@ -220,15 +269,6 @@ def record_input(module: nn.Module, x: torch.Tensor) -> None:
              else p999(x))
     old = rec.inputs.get(module)
     rec.inputs[module] = value if old is None else torch.maximum(old, value)
-
-
-def refuse_int8(module: nn.Module, what: str) -> None:
-    """A layer that the JAX package hooks but the port cannot yet run
-    int8: under ``recording`` it raises NotImplementedError, so that a
-    quantized server never leaves it float where JAX quantizes it."""
-    if _RECORDING is not None:
-        raise NotImplementedError(
-            f"int8 serving of {type(module).__name__}: {what}")
 
 
 def mark_weight_only(module: nn.Module, *names: str) -> None:

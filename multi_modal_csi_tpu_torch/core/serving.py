@@ -142,14 +142,18 @@ class CSIServer(_Server):
 
 class VideoServer(_Server):
     """Answers ragged requests of video clips (n, T, H, W, 3), in the JAX
-    cache layout, with one video model (MViT serves in bf16 at batch 2).
+    cache layout, with one video model, in its serving dtype and batch
+    (``core/config.py``: ResNet bf16 at 64, S3D bf16 at 32, MViT bf16 at
+    2, Swin f32 at 2).
 
     ``model`` is a port model for ``model_key`` (from
     ``runners.video.build_video_model``, or loaded with
     ``load_video_pretrained``) built for the requests' clip size.
     ``quant``, ``calib`` (clips) and ``calib_stat`` as for ``CSIServer``;
-    ``w8`` without ``calib`` discovers with one zero clip of the model's
-    clip size. Only MViT's Linears are hooked (its Conv3d are not).
+    ``--quant auto`` is w8a8 for ResNet and S3D and leaves MViT and Swin
+    unquantized. ``w8`` without ``calib`` discovers with one zero clip of
+    the model's clip size. ResNet's and S3D's convs and Linears are
+    hooked; MViT's and Swin's Linears are, their patchify convs are not.
     """
 
     sample_dims = 4

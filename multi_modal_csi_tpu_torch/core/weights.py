@@ -42,6 +42,14 @@ kh, kw); Linear and LayerNorm as above; the backbone under ``backbone.``
 with torchvision's names, the task head as ``task_head``.
 ``resize_mvit_tables`` adapts a torchvision-named MViT checkpoint to
 another clip size.
+
+ResNet3D, S3D and Swin3D (``tools/convert_torchvision.py::convert_r3d_18``,
+``convert_s3d`` and ``convert_swin3d`` inverted): the backbone under
+``backbone.`` with torchvision's names, the task head as ``task_head``.
+The convs of JAX's ``Conv3D`` wrapper (``conv/kernel``) carry their int8
+weight and scales across as Linear's do; S3D's ``classifier`` is the
+port's Linear ``classifier.1``; Swin's ``rel_pos_bias`` is
+``relative_position_bias_table``.
 """
 
 from __future__ import annotations
@@ -351,6 +359,93 @@ def _mvit(sd: StateDict, p, s, layers: int) -> None:
     _linear(sd, p["head"], "task_head")
 
 
+def _video_conv(sd: StateDict, p, pre: str) -> None:
+    """A conv of JAX's video ``Conv3D`` wrapper (``conv/kernel`` and, when
+    quantized, its scales)."""
+    c = p["conv"]
+    sd[f"{pre}.weight"] = _w(np.transpose(np.asarray(c["kernel"]),
+                                          (4, 3, 0, 1, 2)))
+    _scales(sd, c, pre)
+
+
+def _resnet3d(sd: StateDict, p, s, layers: int) -> None:
+    _video_conv(sd, p["stem"], "backbone.stem.0")
+    _bn(sd, p["stem_bn"], s["stem_bn"], "backbone.stem.1")
+    for layer in range(1, 5):
+        for block in range(2):
+            bp, bs = p[f"layer{layer}_{block}"], s[f"layer{layer}_{block}"]
+            pre = f"backbone.layer{layer}.{block}"
+            for conv in ("conv1", "conv2"):
+                _video_conv(sd, bp[conv], f"{pre}.{conv}.0")
+                _bn(sd, bp[f"bn{conv[-1]}"], bs[f"bn{conv[-1]}"],
+                    f"{pre}.{conv}.1")
+            if "downsample" in bp:
+                _video_conv(sd, bp["downsample"], f"{pre}.downsample.0")
+                _bn(sd, bp["downsample_bn"], bs["downsample_bn"],
+                    f"{pre}.downsample.1")
+    _linear(sd, p["fc"], "backbone.fc")
+    _linear(sd, p["head"], "task_head")
+
+
+def _convbn(sd: StateDict, p, s, pre: str) -> None:
+    _video_conv(sd, p["conv"], f"{pre}.0")
+    _bn(sd, p["bn"], s["bn"], f"{pre}.1")
+
+
+def _sepconv(sd: StateDict, p, s, pre: str) -> None:
+    _convbn(sd, p["spatial"], s["spatial"], f"{pre}.0")
+    _convbn(sd, p["temporal"], s["temporal"], f"{pre}.1")
+
+
+# the indices of S3D's mixed blocks in torchvision's ``features``
+S3D_MIXED_FEATURES = (5, 6, 8, 9, 10, 11, 12, 14, 15)
+
+
+def _s3d(sd: StateDict, p, s, layers: int) -> None:
+    _sepconv(sd, p["stem"], s["stem"], "backbone.features.0")
+    _convbn(sd, p["conv2"], s["conv2"], "backbone.features.2")
+    _sepconv(sd, p["conv3"], s["conv3"], "backbone.features.3")
+    for i, fi in enumerate(S3D_MIXED_FEATURES):
+        mp, ms = p[f"mixed_{i}"], s[f"mixed_{i}"]
+        pre = f"backbone.features.{fi}"
+        _convbn(sd, mp["branch1"], ms["branch1"], f"{pre}.branch0")
+        for src, dst in (("branch2", "branch1"), ("branch3", "branch2")):
+            _convbn(sd, mp[f"{src}_reduce"], ms[f"{src}_reduce"],
+                    f"{pre}.{dst}.0")
+            _sepconv(sd, mp[src], ms[src], f"{pre}.{dst}.1")
+        _convbn(sd, mp["branch4"], ms["branch4"], f"{pre}.branch3.1")
+    _linear(sd, p["classifier"], "backbone.classifier.1")
+    _linear(sd, p["head"], "task_head")
+
+
+def _swin3d(sd: StateDict, p, s, layers: int) -> None:
+    _conv3d(sd, p["patch_embed"], "backbone.patch_embed.proj")
+    _ln_flat(sd, p["patch_norm"], "backbone.patch_embed.norm")
+    stage = 0
+    while f"stage{stage}_block0" in p:
+        block = 0
+        while f"stage{stage}_block{block}" in p:
+            bp = p[f"stage{stage}_block{block}"]
+            pre = f"backbone.features.{2 * stage}.{block}"
+            _ln_flat(sd, bp["norm1"], f"{pre}.norm1")
+            _linear(sd, bp["attn"]["qkv"], f"{pre}.attn.qkv")
+            _linear(sd, bp["attn"]["proj"], f"{pre}.attn.proj")
+            sd[f"{pre}.attn.relative_position_bias_table"] = _t(
+                bp["attn"]["rel_pos_bias"])
+            _ln_flat(sd, bp["norm2"], f"{pre}.norm2")
+            _linear(sd, bp["mlp_up"], f"{pre}.mlp.0")
+            _linear(sd, bp["mlp_down"], f"{pre}.mlp.3")
+            block += 1
+        if f"merge{stage}" in p:
+            pre = f"backbone.features.{2 * stage + 1}"
+            _ln_flat(sd, p[f"merge{stage}"]["norm"], f"{pre}.norm")
+            _linear(sd, p[f"merge{stage}"]["reduction"], f"{pre}.reduction")
+        stage += 1
+    _ln_flat(sd, p["norm"], "backbone.norm")
+    _linear(sd, p["fc"], "backbone.head")
+    _linear(sd, p["head"], "task_head")
+
+
 _EXPORTERS = {
     "MLP": _mlp,
     "LSTM": _lstm_model,
@@ -368,6 +463,10 @@ _EXPORTERS = {
     "dual_band": _dual_band,
     "MViT-v1": _mvit,
     "MViT-v2": _mvit,
+    "ResNet": _resnet3d,
+    "S3D": _s3d,
+    "Swin-T": _swin3d,
+    "Swin-S": _swin3d,
 }
 
 

@@ -3,16 +3,22 @@ copy of the JAX package's ``data/video_io.py``.
 
 - ``VIDEO_TRANSFORMS``: the published torchvision Kinetics-400 transform
   of each backbone (resize, center crop, rescale, normalize);
+- ``decode_video``: an .mp4 to uint8 RGB frames (T, H, W, 3) with cv2;
 - ``apply_transform``: uint8 (T, H, W, 3) frames to the normalized float32
-  clip, with torchvision's exact uint8 tensor resize;
+  clip, with torchvision's exact uint8 tensor resize (``backend="torch"``,
+  the default) or cv2's fixed-point bilinear (``"cv2"``, within one
+  uint8 step of it);
+- ``preprocess_video_dir``: each labelled clip decoded, transformed and
+  cached as ``<label>.npy``, and the labels whose frame count is not the
+  expected 90; ``check_video_integrity``: that sweep alone;
 - ``load_clips``, ``ClipDataset`` (lazy, one ``.npy`` per clip in the
   channels-last cache layout (T, H, W, 3)), ``ArrayClips`` (in memory) and
   ``prefetch_batches``, the ordered, bounded, re-raising batch iterator
   that the video evaluation streams through.
 
-Left out until a video decoder is on the machine with the card: decoding
-(``decode_video``), ``preprocess_video_dir``, ``check_video_integrity`` and
-the cv2 resize backend.
+cv2 is imported only inside the functions that decode or resize with it,
+as the JAX package does: preprocessing is offline host work, and the
+module imports where cv2 is absent.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Iterator, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +68,23 @@ VIDEO_TRANSFORMS = {
 }
 
 
+def decode_video(path: str) -> np.ndarray:
+    """An .mp4 decoded to (T, H, W, 3) uint8 RGB frames with cv2; IOError
+    when no frame decodes."""
+    import cv2
+    cap = cv2.VideoCapture(path)
+    frames: List[np.ndarray] = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+    cap.release()
+    if not frames:
+        raise IOError(f"could not decode any frames from {path}")
+    return np.stack(frames)
+
+
 def _resize_dims(h: int, w: int, resize) -> Tuple[int, int]:
     """Target dims as torchvision's F.resize computes them: in short-side
     mode the long side is int(size * long / short), truncated."""
@@ -83,11 +106,26 @@ def _resize_torch(frames: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
         0, 2, 3, 1).numpy()
 
 
-def apply_transform(frames: np.ndarray, tf: VideoTransform) -> np.ndarray:
-    """uint8 (T, H, W, 3) -> normalized float32 (T, crop H, crop W, 3)."""
+def _resize_cv2(frames: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
+    """cv2's bilinear resize, frame by frame."""
+    import cv2
+    return np.stack([cv2.resize(f, (new_w, new_h),
+                                interpolation=cv2.INTER_LINEAR)
+                     for f in frames])
+
+
+RESIZE_BACKENDS = {"torch": _resize_torch, "cv2": _resize_cv2}
+
+
+def apply_transform(frames: np.ndarray, tf: VideoTransform,
+                    backend: Optional[str] = None) -> np.ndarray:
+    """uint8 (T, H, W, 3) -> normalized float32 (T, crop H, crop W, 3).
+    ``backend`` "torch" (the default) is torchvision's resize bit for bit
+    at the uint8 stage; "cv2" releases the GIL, so threads scale, at most
+    one uint8 step away from it."""
     _, h, w, _ = frames.shape
     new_h, new_w = _resize_dims(h, w, tf.resize)
-    resized = _resize_torch(frames, new_h, new_w)
+    resized = RESIZE_BACKENDS[backend or "torch"](frames, new_h, new_w)
     ch, cw = tf.crop
     # torchvision's center_crop rounds the offsets
     top = int(round((new_h - ch) / 2.0))
@@ -95,6 +133,52 @@ def apply_transform(frames: np.ndarray, tf: VideoTransform) -> np.ndarray:
     out = resized[:, top:top + ch, left:left + cw].astype(np.float32) / 255.0
     return ((out - np.asarray(tf.mean, np.float32))
             / np.asarray(tf.std, np.float32))
+
+
+EXPECTED_FRAMES = 90          # a WiMANS clip (reference preprocess.py:63)
+
+
+def preprocess_video_dir(video_dir: str, labels: Sequence[str], model: str,
+                         cache_dir: str,
+                         expected_frames: int = EXPECTED_FRAMES,
+                         num_threads: int = 4,
+                         backend: Optional[str] = None) -> List[str]:
+    """Decode and transform (``model``'s transform, ``backend``'s resize)
+    each ``<label>.mp4`` of ``video_dir`` into ``cache_dir/<label>.npy``
+    (float32 (T, H, W, 3)) on ``num_threads`` threads; returns the labels
+    whose frame count differs from ``expected_frames`` (the reference's
+    integrity warning), in the order their clips finished."""
+    os.makedirs(cache_dir, exist_ok=True)
+    tf = VIDEO_TRANSFORMS[model]
+    bad: List[str] = []
+
+    def work(label: str) -> None:
+        frames = decode_video(os.path.join(video_dir, f"{label}.mp4"))
+        if frames.shape[0] != expected_frames:
+            bad.append(label)
+        np.save(os.path.join(cache_dir, f"{label}.npy"),
+                apply_transform(frames, tf, backend=backend))
+
+    with ThreadPoolExecutor(max_workers=num_threads) as pool:
+        list(pool.map(work, labels))
+    return bad
+
+
+def check_video_integrity(video_dir: str, labels: Sequence[str],
+                          expected_frames: int = EXPECTED_FRAMES
+                          ) -> List[str]:
+    """The labels whose ``<label>.mp4`` does not decode or has another
+    frame count than ``expected_frames`` (the reference's
+    ``load_data_x`` sweep, ``video/load_data.py:93-117``), in order."""
+    bad = []
+    for label in labels:
+        try:
+            frames = decode_video(os.path.join(video_dir, f"{label}.mp4"))
+            if frames.shape[0] != expected_frames:
+                bad.append(label)
+        except IOError:
+            bad.append(label)
+    return bad
 
 
 def load_clips(cache_dir: str, labels: Sequence[str],

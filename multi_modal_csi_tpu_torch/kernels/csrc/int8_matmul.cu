@@ -57,6 +57,13 @@
 // and in the row pad. It quantizes each input value once, into a window in
 // shared memory from which the columns are written, and reads x through
 // its strides (a transposed view is not copied).
+// The 3-D prologue (mmcsi_int8_columns3d) does the same for a 3-D
+// convolution of a channels-last (B, T, H, W, C) activation with symmetric
+// zero padding, writing (B To Ho Wo, Kp) rows in the weight's (channel,
+// kt, kh, kw) order (a 2-D convolution is its T = 1, kt = 1 case): one
+// block takes a run of output rows along W at one (b, t_out, h_out), reads
+// the kt x kh x span_W x C window they cover once into shared memory,
+// quantized once, and writes the rows from there in 4-byte words.
 //
 // int32 overflow: |sum| <= 128^2 K fits for K <= 131,071; the launcher
 // refuses larger K in mode 0. Offsets are 64-bit. Each launcher returns
@@ -629,6 +636,158 @@ int launch_columns(const void* x, void* out, const float* scale,
   return (int)cudaGetLastError();
 }
 
+// The 3-D prologue. One block takes a run of up to tile_rows output rows
+// along Wo at one (batch item, t_out, h_out). It reads the window those
+// rows cover -- kt x kh lines of span = (rows - 1) sw + kw positions along
+// W, each of C channels, zeros in the padding -- once, quantizes (or
+// casts) each value once into shared memory, and then writes the rows
+// from there. Lanes run over a line's (position, channel) pairs flattened,
+// so a channels-last x is read at consecutive addresses whatever C is
+// (the stems' C = 3 included). The rows are written in 4-byte words of
+// 4 int8 (or 2 bf16) columns, neighbouring lanes on neighbouring words of
+// a row; each thread finds its words' window offsets once, and where a
+// row has fewer words than the block has threads the threads split the
+// rows among them.
+struct Columns3d {
+  long long sb, st, sh, sw, sc;   // x's strides in elements
+  long long tiles;                // batch x To x Ho x runs along Wo
+  int t, h, w, c;                 // x's sizes
+  int kt, kh, kw;                 // the kernel
+  int vt, vh, vw;                 // the strides
+  int pt, ph, pw;                 // the low (and high) pads
+  int to, ho, wo;                 // the output's sizes
+  int k, kp, tile_rows;           // columns, padded columns, rows a block
+};
+
+template <typename In, typename Out>
+__global__ void __launch_bounds__(256)
+    columns3d_kernel(const In* __restrict__ x, Out* __restrict__ out,
+                     const float* __restrict__ scale, const Columns3d q) {
+  extern __shared__ __align__(16) unsigned char window_bytes[];
+  Out* win = reinterpret_cast<Out*>(window_bytes);
+  constexpr int kPer = 4 / (int)sizeof(Out);     // columns in a word
+  const int words = q.kp / kPer, taps = q.kt * q.kh * q.kw;
+  const int plane = q.kh * q.kw;
+  const long long runs = (q.wo + q.tile_rows - 1) / q.tile_rows;
+  const float s = scale ? *scale : 1.0f;
+  const Out zero = column_value<Out>(0.0f, 1.0f);
+  // words a thread steps over, and the rows it takes of each
+  const int nthreads = (int)blockDim.x;
+  const bool wide = words >= nthreads;
+  const int lane = wide ? (int)threadIdx.x : (int)threadIdx.x % words;
+  const int wstep = wide ? nthreads : words;
+  const int rstep = wide ? 1 : nthreads / words;
+  // threads past the last whole group of words take no rows
+  const int r0 = wide ? 0
+                      : (int)threadIdx.x < rstep * words
+                            ? (int)threadIdx.x / words
+                            : q.tile_rows;
+  unsigned* out_words = reinterpret_cast<unsigned*>(out);
+  for (long long tile = blockIdx.x; tile < q.tiles; tile += gridDim.x) {
+    long long rest = tile;
+    const int run = (int)(rest % runs);
+    rest /= runs;
+    const int ho = (int)(rest % q.ho);
+    rest /= q.ho;
+    const int to = (int)(rest % q.to);
+    const long long bi = rest / q.to;
+    const int wo0 = run * q.tile_rows;
+    const int rows = min(q.tile_rows, q.wo - wo0);
+    const int line = ((rows - 1) * q.vw + q.kw) * q.c;   // values a line
+    const int w0 = wo0 * q.vw - q.pw;
+    const In* xb = x + bi * q.sb;
+    __syncthreads();                 // the last tile's window has been read
+    for (int i = threadIdx.x; i < q.kt * q.kh * line; i += nthreads) {
+      const int l = i / line, r = i - l * line;
+      const int dt = l / q.kh, dh = l - dt * q.kh;
+      const int wi = r / q.c, c = r - wi * q.c;
+      const int ti = to * q.vt - q.pt + dt, hi = ho * q.vh - q.ph + dh;
+      const int wx = w0 + wi;
+      float f = 0.0f;
+      if (ti >= 0 && ti < q.t && hi >= 0 && hi < q.h && wx >= 0 &&
+          wx < q.w) {
+        const In v = xb[ti * q.st + hi * q.sh + wx * q.sw + c * q.sc];
+        if constexpr (sizeof(In) == 2)
+          f = __bfloat162float(v);
+        else
+          f = v;
+      }
+      win[i] = column_value<Out>(f, s);
+    }
+    __syncthreads();
+    const long long row0 =
+        ((bi * q.to + to) * q.ho + ho) * (long long)q.wo + wo0;
+    for (int wd = lane; wd < words; wd += wstep) {
+      int off[kPer];
+#pragma unroll
+      for (int v = 0; v < kPer; ++v) {
+        const int j = wd * kPer + v;
+        if (j < q.k) {
+          const int c = j / taps, tap = j - c * taps;
+          const int dt = tap / plane, rem = tap - dt * plane;
+          const int dh = rem / q.kw, dw = rem - dh * q.kw;
+          off[v] = (dt * q.kh + dh) * line + dw * q.c + c;
+        } else {
+          off[v] = -1;
+        }
+      }
+      for (int r = r0; r < rows; r += rstep) {
+        const int shift = r * q.vw * q.c;
+        unsigned word = 0;
+#pragma unroll
+        for (int v = 0; v < kPer; ++v) {
+          const Out val = off[v] >= 0 ? win[off[v] + shift] : zero;
+          unsigned bits;
+          if constexpr (sizeof(Out) == 1)
+            bits = (unsigned)(unsigned char)val;
+          else
+            bits = (unsigned)__bfloat16_as_ushort(val);
+          word |= bits << (8 * (int)sizeof(Out) * v);
+        }
+        out_words[(row0 + r) * words + wd] = word;
+      }
+    }
+  }
+}
+
+template <typename In, typename Out>
+int launch_columns3d(const void* x, void* out, const float* scale,
+                     const long long* shape, const long long* strides,
+                     const int* kernel, const int* stride, const int* pads,
+                     const int* dims, long long kp, cudaStream_t stream) {
+  const long long c = shape[4];
+  const long long k = c * kernel[0] * kernel[1] * kernel[2];
+  auto window = [&](long long rows) {
+    return (long long)kernel[0] * kernel[1] *
+           ((rows - 1) * stride[2] + kernel[2]) * c * (long long)sizeof(Out);
+  };
+  long long rows = std::min<long long>(64, dims[2]);   // the most rows
+  while (rows > 1 && window(rows) > 48 * 1024)          // whose window
+    rows = (rows + 1) / 2;                              // fits in 48 KB
+  const long long bytes = window(rows);
+  if (bytes > 200 * 1024) return (int)cudaErrorInvalidValue;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        columns3d_kernel<In, Out>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long runs = (dims[2] + rows - 1) / rows;
+  const Columns3d q{strides[0], strides[1], strides[2], strides[3],
+                    strides[4],
+                    shape[0] * dims[0] * dims[1] * runs,
+                    (int)shape[1], (int)shape[2], (int)shape[3], (int)c,
+                    kernel[0], kernel[1], kernel[2],
+                    stride[0], stride[1], stride[2],
+                    pads[0], pads[1], pads[2],
+                    dims[0], dims[1], dims[2],
+                    (int)k, (int)kp, (int)rows};
+  const unsigned blocks = (unsigned)std::min(q.tiles, 132LL * 16);
+  columns3d_kernel<In, Out><<<blocks, 256, (size_t)bytes, stream>>>(
+      static_cast<const In*>(x), static_cast<Out*>(out), scale, q);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -715,6 +874,51 @@ int mmcsi_int8_columns(const void* x, void* out, const float* scale,
   return launch_columns<bf16, bf16>(x, out, nullptr, strides, batch, length,
                                     channels, lout, k, stride, dilation,
                                     pad_lo, groups, kp, s);
+}
+
+// The 3-D prologue: x (shape[0..4] = B, T, H, W, C) at element strides
+// strides[0..4] (non-negative), bf16 (in_dtype 1) or f32 (0); a kernel
+// (kt, kh, kw) at strides stride[0..2] with symmetric zero pads
+// pads[0..2], whose output sizes dims[0..2] the caller computed; out (B
+// To Ho Wo, kp) contiguous, int8 (out_dtype 0, quantized by *scale) or
+// bf16 (1, cast); kp a multiple of 16 bytes of the output type, at least
+// C kt kh kw, out 16-byte aligned. Returns a cudaError_t;
+// cudaErrorInvalidValue for a shape or type it does not take (a window
+// of one output row past 200 KB of shared memory among them).
+int mmcsi_int8_columns3d(const void* x, void* out, const float* scale,
+                         const long long* shape, const long long* strides,
+                         const int* kernel, const int* stride,
+                         const int* pads, const int* dims, int in_dtype,
+                         int out_dtype, long long kp, void* stream) {
+  const int per = out_dtype == 0 ? 16 : 8;
+  bool bad = in_dtype < 0 || in_dtype > 1 || out_dtype < 0 ||
+             out_dtype > 1 || (out_dtype == 0 && !scale) || kp % per ||
+             (reinterpret_cast<std::uintptr_t>(out) & 15);
+  long long taps = 1, rows = 1;
+  for (int i = 0; i < 5; ++i)
+    bad = bad || shape[i] <= 0 || shape[i] >= (1LL << 31) || strides[i] < 0;
+  for (int i = 0; i < 3; ++i) {
+    bad = bad || kernel[i] <= 0 || stride[i] <= 0 || pads[i] < 0 ||
+          dims[i] <= 0 ||
+          dims[i] != (shape[1 + i] + 2 * pads[i] - kernel[i]) / stride[i] + 1;
+    taps *= kernel[i];
+    rows *= dims[i];
+  }
+  if (bad || kp < shape[4] * taps || kp >= (1LL << 31) ||
+      shape[0] * rows >= (1LL << 40))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_dtype == 0 && out_dtype == 0)
+    return launch_columns3d<float, signed char>(
+        x, out, scale, shape, strides, kernel, stride, pads, dims, kp, s);
+  if (in_dtype == 1 && out_dtype == 0)
+    return launch_columns3d<bf16, signed char>(
+        x, out, scale, shape, strides, kernel, stride, pads, dims, kp, s);
+  if (in_dtype == 0)
+    return launch_columns3d<float, bf16>(x, out, nullptr, shape, strides,
+                                         kernel, stride, pads, dims, kp, s);
+  return launch_columns3d<bf16, bf16>(x, out, nullptr, shape, strides,
+                                      kernel, stride, pads, dims, kp, s);
 }
 
 }  // extern "C"

@@ -13,6 +13,11 @@ The fused path of a quantized layer, two launches:
   tap) order (a Linear is k = 1), quantized to int8 with the calibrated
   scale (w8a8) or cast to bf16 (w8), zeros at the padded positions and in
   the row pad up to Kp (``padded_width``: a multiple of 16 bytes);
+- ``quantize_columns3d(x, input_scale, kernel, stride, pads)``: the
+  prologue of a 3-D convolution (a 2-D one is its T = 1, kt = 1 case).
+  Channels-last x (B, T, H, W, C) to (B To Ho Wo, Kp) columns in the
+  weight's (channel, kt, kh, kw) order, quantized or cast as above, zeros
+  at the symmetric padding and in the row pad;
 - ``quantized_product(a, b, weight_scale, input_scale, bias, out_dtype,
   k)``: A (M, Ka) or (M, G, Ka), int8 or bf16, times the int8 weight B (N,
   Kb) or (G, N/G, Kb) padded once (``pad_columns``), then
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -52,6 +58,7 @@ SOURCE = "int8_matmul"                # csrc/int8_matmul.cu
 S8_NAME = "int8_matmul_s8"
 BF16_NAME = "int8_matmul_bf16"
 COLUMNS_NAME = "int8_quantize_columns"
+COLUMNS3D_NAME = "int8_quantize_columns3d"
 # |sum| <= 128^2 K must fit in int32 (int8 includes -128)
 MAX_K_S8 = (2 ** 31 - 1) // 128 ** 2
 ROW_ALIGN = 16                        # bytes: the kernel's copy width
@@ -130,6 +137,36 @@ def quantize_columns_reference(x: torch.Tensor,
     return F.pad(a, (0, padded_width(kg, xo.dtype) - kg))
 
 
+def conv3d_output(dims: Tuple[int, int, int], kernel: Tuple[int, int, int],
+                  stride: Tuple[int, int, int],
+                  pads: Tuple[int, int, int]) -> Tuple[int, int, int]:
+    """(To, Ho, Wo) of a 3-D convolution of (T, H, W) with symmetric
+    padding."""
+    return tuple((n + 2 * p - k) // s + 1
+                 for n, k, s, p in zip(dims, kernel, stride, pads))
+
+
+def quantize_columns3d_reference(x: torch.Tensor,
+                                 input_scale: Optional[torch.Tensor],
+                                 kernel: Tuple[int, int, int],
+                                 stride: Tuple[int, int, int],
+                                 pads: Tuple[int, int, int]) -> torch.Tensor:
+    """Plain version of ``quantize_columns3d``: the activation quantized
+    (``quantize_activation``) or cast to bf16, zero-padded on T, H and W
+    (``F.pad``), unfolded on the three axes in that order into (B To Ho
+    Wo, C kt kh kw) columns in the weight's (channel, kt, kh, kw) order,
+    zero-padded to ``padded_width``."""
+    xo = (x.to(torch.bfloat16) if input_scale is None
+          else quantize_activation(x, input_scale))
+    pt, ph, pw = pads
+    cols = F.pad(xo, (0, 0, pw, pw, ph, ph, pt, pt))
+    for axis, (k, s) in enumerate(zip(kernel, stride)):
+        cols = cols.unfold(1 + axis, k, s)      # (B, To, Ho, Wo, C, kt, kh, kw)
+    kk = x.shape[-1] * math.prod(kernel)
+    a = cols.reshape(-1, kk)
+    return F.pad(a, (0, padded_width(kk, xo.dtype) - kk))
+
+
 def quantized_product_reference(a: torch.Tensor, b: torch.Tensor,
                                 weight_scale: torch.Tensor,
                                 input_scale: Optional[torch.Tensor] = None,
@@ -178,6 +215,11 @@ def _library() -> ctypes.CDLL:
         + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 5
         + [ctypes.c_longlong] + [ctypes.c_void_p])
     lib.mmcsi_int8_columns.restype = ctypes.c_int
+    lib.mmcsi_int8_columns3d.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_longlong)] * 2
+        + [ctypes.POINTER(ctypes.c_int)] * 4 + [ctypes.c_int] * 2
+        + [ctypes.c_longlong] + [ctypes.c_void_p])
+    lib.mmcsi_int8_columns3d.restype = ctypes.c_int
     return lib
 
 
@@ -362,6 +404,58 @@ def quantize_columns(x: torch.Tensor, input_scale: Optional[torch.Tensor],
         raise RuntimeError(f"{COLUMNS_NAME} kernel launch failed with CUDA "
                            f"error {err} at x {tuple(x.shape)}, k={k}")
     count_launch(COLUMNS_NAME)
+    return out
+
+
+def quantize_columns3d(x: torch.Tensor, input_scale: Optional[torch.Tensor],
+                       kernel: Tuple[int, int, int],
+                       stride: Tuple[int, int, int] = (1, 1, 1),
+                       pads: Tuple[int, int, int] = (0, 0, 0)
+                       ) -> torch.Tensor:
+    """The product's A operand for a 3-D convolution of channels-last x
+    (B, T, H, W, C), f32 or bf16, at any strides: (B To Ho Wo, Kp) columns
+    of C kt kh kw values in the weight's (channel, kt, kh, kw) order, int8
+    ``clamp(round(x / input_scale), -127, 127)`` with a (0-d, f32) scale,
+    else bf16 x; zeros at the symmetric padding ``pads`` and up to Kp =
+    ``padded_width``. A 2-D convolution is the T = 1, kt = 1 case. CPU
+    tensors take the plain version; CUDA tensors launch the 3-D prologue
+    kernel or raise."""
+    if x.dim() != 5 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"quantize_columns3d takes f32 or bf16 (B, T, H, W, "
+                         f"C), got {x.dtype} {tuple(x.shape)}")
+    kernel, stride, pads = tuple(kernel), tuple(stride), tuple(pads)
+    if (len(kernel) != 3 or len(stride) != 3 or len(pads) != 3
+            or min(kernel + stride) < 1 or min(pads) < 0):
+        raise ValueError(f"quantize_columns3d: kernel={kernel}, "
+                         f"stride={stride}, pads={pads}")
+    b, c = x.shape[0], x.shape[-1]
+    dims = conv3d_output(tuple(x.shape[1:4]), kernel, stride, pads)
+    if min(dims) < 1 or b == 0 or c == 0:
+        raise ValueError(f"quantize_columns3d: no output rows for "
+                         f"{tuple(x.shape)} at kernel {kernel}")
+    tensors = (x,) if input_scale is None else (x, input_scale)
+    if _check_device(COLUMNS3D_NAME, *tensors) == "cpu":
+        return quantize_columns3d_reference(x, input_scale, kernel, stride,
+                                            pads)
+    out_dtype = torch.bfloat16 if input_scale is None else torch.int8
+    kp = padded_width(c * math.prod(kernel), out_dtype)
+    shape = (ctypes.c_longlong * 5)(*x.shape)
+    strides = (ctypes.c_longlong * 5)(*x.stride())
+    args = [(ctypes.c_int * 3)(*v) for v in (kernel, stride, pads, dims)]
+    scale = None if input_scale is None else input_scale.float().reshape(())
+    out = torch.empty((b * math.prod(dims), kp), dtype=out_dtype,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _library().mmcsi_int8_columns3d(
+            x.data_ptr(), out.data_ptr(), _ptr(scale), shape, strides, *args,
+            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            kp, stream)
+    if err != 0:
+        raise RuntimeError(f"{COLUMNS3D_NAME} kernel launch failed with CUDA "
+                           f"error {err} at x {tuple(x.shape)}, kernel "
+                           f"{kernel}, stride {stride}")
+    count_launch(COLUMNS3D_NAME)
     return out
 
 

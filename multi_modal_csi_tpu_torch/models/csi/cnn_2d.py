@@ -12,10 +12,11 @@ the trailing axis. Stage 0 is a plain Conv2d: JAX's ``_Stage0Conv``
 convolution, equal up to f32 summation order. At full width the stages
 give (3000, 270) -> (425, 35) -> (137, 7) -> (131, 1).
 
-int8 serving raises NotImplementedError: JAX quantizes stages 1 and 2
-(its stage 0's raw parameters never announce), whose 2-D columns the
-prologue does not write yet (ROADMAP item 12). The serving fold of norm_0
-into stage 0 (``fold_input_norm``) comes with the export CLI (item 13b).
+int8 serving quantizes stages 1 and 2, as JAX does (its stage 0's raw
+parameters never announce, so the port's stage 0 is an unhooked Conv2d);
+their products run over the 2-D columns of the 3-D prologue. The serving
+fold of norm_0 into stage 0 (``fold_input_norm``) comes with the export
+CLI (item 13b).
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ class CNN2D(nn.Module):
             setattr(self, f"layer_norm_{i}", BatchNorm(widths[i]))
             setattr(self, f"layer_cnn_2d_{i}",
                     Conv2d(widths[i], feat, (k, k), stride=(s, s),
-                           generator=g))
+                           hooked=i > 0, generator=g))
         self.layer_norm_3 = BatchNorm(widths[-1])
         self.dropout = Dropout(0.2)
         self.layer_linear = Linear(widths[-1], out_features, generator=g)

@@ -47,3 +47,21 @@ def torch_bias_(t: torch.Tensor, fan_in: int,
                 generator: torch.Generator) -> torch.Tensor:
     """PyTorch's Linear/Conv default bias: uniform(+-1/sqrt(fan_in))."""
     return uniform_(t, 1.0 / math.sqrt(fan_in) if fan_in else 0.0, generator)
+
+
+# flax's truncated_normal variance scaling divides the standard deviation
+# by that of a unit normal truncated to [-2, 2]
+_TRUNCATED_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def fan_out_normal_(t: torch.Tensor,
+                    generator: torch.Generator) -> torch.Tensor:
+    """flax's ``variance_scaling(2.0, "fan_out", "truncated_normal")`` (the
+    JAX package's video ``Conv3D`` init, torchvision's kaiming-normal
+    fan-out): a normal of std sqrt(2 / fan_out) / 0.8796..., truncated at
+    two of its standard deviations."""
+    _, fan_out = _fans(t)
+    std = math.sqrt(2.0 / fan_out) / _TRUNCATED_STD
+    return torch.nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
+                                       generator=generator)

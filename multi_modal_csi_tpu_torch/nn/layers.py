@@ -23,13 +23,13 @@ torch does; dropout draws its masks from the generator that
 ``dropout_generator`` installs for the step (the global one outside it).
 
 int8 serving (``core/quantize.py``): an int8 weight is the signal, as in
-JAX. ``Linear`` and ``Conv1d`` with an int8 weight run the quantized
-product (w8, or w8a8 when an ``input_scale`` buffer is present) and
-otherwise record their input under calibration; ``MultiheadAttention``'s
-packed projections are weight-only. ``Conv3d`` and ``LSTM`` are not
-hooked, as in JAX. ``Conv2d`` is hooked in JAX but has no int8 path here
-yet: under calibration, or with an int8 weight, it raises
-NotImplementedError (ROADMAP item 12).
+JAX. ``Linear``, ``Conv1d``, ``Conv2d`` and a hooked ``Conv3d``
+(``hooked=True``: ResNet3D's and S3D's convs, JAX's ``Conv3D`` wrapper)
+with an int8 weight run the quantized product (w8, or w8a8 when an
+``input_scale`` buffer is present) and otherwise record their input under
+calibration; ``MultiheadAttention``'s packed projections are weight-only.
+An unhooked ``Conv3d`` (MViT's and Swin's, raw ``nn.Conv`` in JAX) and
+``LSTM`` never announce themselves, as in JAX.
 
 ``LSTM`` follows JAX's mixed precision (``nn/layers.py:538-562`` there):
 the gates in f32 whatever the operands, the cell state in f32 across
@@ -48,8 +48,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.quantize import (conv_forward, dense_forward, mark_weight_only,
-                             record_input, refuse_int8)
+from ..core.quantize import (conv_forward, conv_nd_forward, dense_forward,
+                             mark_weight_only, record_input)
 from ..kernels.flash_attention import (backward_fits, flash_attention,
                                        flash_attention_trainable,
                                        forward_fits)
@@ -170,8 +170,6 @@ class Conv1d(nn.Module):
 
 
 Pair = Tuple[int, int]
-CONV2D_INT8 = ("an int8 Conv2d needs the 2-D columns that the prologue "
-               "does not write yet (ROADMAP item 12)")
 
 
 class Conv2d(nn.Module):
@@ -182,14 +180,20 @@ class Conv2d(nn.Module):
     Input, weight and bias are promoted to one dtype, in which the
     convolution runs (as flax promotes); ``F.conv2d`` takes the input as
     a channels-last view, so the module keeps (B, H, W, C) at its edges and
-    BatchNorm normalises the trailing axis. Calibration or an int8 weight
-    raises NotImplementedError (``CONV2D_INT8``).
+    BatchNorm normalises the trailing axis. A hooked Conv2d (the default,
+    JAX's ``Conv2d`` through ``_ConvCore``) records its input under
+    calibration, and with an int8 weight (``core/quantize.py``) the
+    convolution is the quantized product over the input's 2-D columns (a
+    3-D window of one frame), in f32, plus the bias, cast to the input's
+    dtype. ``hooked=False`` never announces (CNN-2D's stage 0, whose JAX
+    parameters are raw).
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel: Pair,
-                 *, stride: Pair = (1, 1), generator: torch.Generator):
+                 *, stride: Pair = (1, 1), hooked: bool = True,
+                 generator: torch.Generator):
         super().__init__()
-        self.stride = stride
+        self.stride, self.hooked = stride, hooked
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels, *kernel))
         xavier_uniform_(self.weight, generator)
@@ -198,9 +202,14 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.weight.dtype == torch.int8:
-            raise NotImplementedError(f"int8 serving of Conv2d: "
-                                      f"{CONV2D_INT8}")
-        refuse_int8(self, CONV2D_INT8)
+            return conv_nd_forward(
+                x[:, None], self.weight[:, :, None], self.weight_scale,
+                getattr(self, "input_scale", None),
+                stride=(1, *self.stride), padding=(0, 0, 0), bias=self.bias,
+                out_dtype=x.dtype,
+                padded=getattr(self, "weight_padded", None))[:, 0]
+        if self.hooked:
+            record_input(self, x)
         dtype = torch.promote_types(
             torch.promote_types(x.dtype, self.weight.dtype), self.bias.dtype)
         y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), self.weight.to(dtype),
@@ -222,23 +231,42 @@ class Conv3d(nn.Module):
     channels-last view instead, cuDNN runs a depthwise conv (MViT's
     pooling) as one kernel per group, many times slower on the card than
     PyTorch's own depthwise kernel, which takes the contiguous layout.
+
+    ``hooked=True`` (ResNet3D's and S3D's convs, which JAX runs through its
+    int8-hookable ``Conv3D`` wrapper) records the input under calibration,
+    and with an int8 weight (``core/quantize.py``) the convolution is the
+    quantized product over the input's 3-D columns, in f32, plus the bias,
+    cast to the input's dtype. Only ungrouped convs are hooked.
+    ``weight_init`` draws the weight (PyTorch's default unless given).
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel: Triple,
                  *, stride: Triple = (1, 1, 1), padding: Triple = (0, 0, 0),
-                 groups: int = 1, bias: bool = True,
+                 groups: int = 1, bias: bool = True, hooked: bool = False,
+                 weight_init=torch_linear_weight_,
                  generator: torch.Generator):
         super().__init__()
+        if hooked and groups != 1:
+            raise ValueError("a hooked Conv3d is ungrouped")
         self.stride, self.padding, self.groups = stride, padding, groups
+        self.hooked = hooked
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels // groups, *kernel))
-        torch_linear_weight_(self.weight, generator)
+        weight_init(self.weight, generator)
         self.bias = None
         if bias:
             self.bias = nn.Parameter(torch.empty(out_channels))
             torch_bias_(self.bias, self.weight[0].numel(), generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.hooked:
+            if self.weight.dtype == torch.int8:
+                return conv_nd_forward(
+                    x, self.weight, self.weight_scale,
+                    getattr(self, "input_scale", None), stride=self.stride,
+                    padding=self.padding, bias=self.bias, out_dtype=x.dtype,
+                    padded=getattr(self, "weight_padded", None))
+            record_input(self, x)
         dtype = torch.promote_types(x.dtype, self.weight.dtype)
         if self.bias is not None:
             dtype = torch.promote_types(dtype, self.bias.dtype)
@@ -258,6 +286,14 @@ def max_pool3d(x: torch.Tensor, kernel: Triple, stride: Triple,
                         padding).permute(0, 2, 3, 4, 1)
 
 
+def avg_pool3d(x: torch.Tensor, kernel: Triple) -> torch.Tensor:
+    """Average pooling on channels-last (B, T, H, W, C): stride 1, VALID
+    (flax's ``avg_pool`` with ``padding="VALID"``), summed in f32 (the CPU
+    has no bf16 kernel) and returned in x's dtype."""
+    y = F.avg_pool3d(x.float().permute(0, 4, 1, 2, 3), kernel, stride=1)
+    return y.permute(0, 2, 3, 4, 1).to(x.dtype)
+
+
 class GELU(nn.Module):
     """flax's ``nn.gelu``, whose default is the tanh approximation (not the
     exact erf GELU of torch's default and torchvision's MViT)."""
@@ -267,22 +303,23 @@ class GELU(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over the trailing feature axis of (B, ..., C), eps 1e-5,
-    with torch BatchNorm's parameter and buffer names.
+    """BatchNorm over the trailing feature axis of (B, ..., C), with torch
+    BatchNorm's parameter and buffer names; eps 1e-5 and momentum 0.1 (the
+    torch convention: new = (1 - m) old + m batch) unless given (S3D's:
+    flax momentum 0.999, so m = 1 - 0.999, and eps 1e-3).
 
     Eval mode normalises with the running statistics. Training mode is the
     JAX package's torch-exact core (``_TorchBNCore``): batch mean and
     E[x^2] - E[x]^2 in f32 over every axis but the last, normalisation with
-    that biased variance, and running statistics updated with momentum 0.1,
-    the variance unbiased (x n / (n - 1)). The output takes the promoted
-    dtype of input and parameters in both modes.
+    that biased variance, and running statistics updated with the
+    momentum, the variance unbiased (x n / (n - 1)). The output takes the
+    promoted dtype of input and parameters in both modes.
     """
 
-    momentum = 0.1
-
-    def __init__(self, features: int, eps: float = 1e-5):
+    def __init__(self, features: int, *, momentum: float = 0.1,
+                 eps: float = 1e-5):
         super().__init__()
-        self.eps = eps
+        self.momentum, self.eps = momentum, eps
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))

@@ -3,8 +3,10 @@ the video model table, the dataset selection, streaming evaluation,
 torchvision checkpoints, and training as the reference's video engine
 trains (reference ``video/run.py:37-99``, ``video/train.py:19-176``).
 
-- ``VIDEO_MODELS``: MViT-v1 and MViT-v2 are ported; ResNet, S3D, Swin-T
-  and Swin-S raise NotImplementedError (ROADMAP item 12);
+- ``VIDEO_MODELS``: the JAX package's six video backbones (ResNet, S3D,
+  MViT-v1, MViT-v2, Swin-T, Swin-S), and ``VIDEO_CLIPS``, the clip each
+  serves (JAX's ``cli/export_model.py`` shapes: ResNet (45, 112, 112),
+  the rest (45, 224, 224));
 - ``load_video_data``: the annotation filter (environment and
   number_of_users), the seeded 80/20 split (seed 39, reference
   ``video/run.py:56-59``) and lazy ``ClipDataset``s over the clip cache;
@@ -12,7 +14,8 @@ trains (reference ``video/run.py:37-99``, ``video/train.py:19-176``).
   through ``prefetch_batches`` in fixed chunks, the tail chunk zero-padded
   and the padding cut from the logits, the input cast to the serving dtype;
 - ``load_video_pretrained``: a torchvision-layout ``.pt``/``.pth``
-  checkpoint into a live model, its tables resized to the model's clip;
+  checkpoint into a live model (MViT's tables resized to the model's
+  clip; Swin's bias tables never are);
 - ``fit_video``: the JAX ``fit_video`` (``:126-262``): Adam, BCE with
   logits, no augmentation, ``n // batch_size`` full batches an epoch, then
   a full evaluation of the training and the test set; the best weights
@@ -67,38 +70,47 @@ VIDEO_CLIP: THW = (45, 224, 224)
 VIDEO_SPLIT_SEED = 39            # reference video/run.py:59
 
 VIDEO_MODELS: Dict[str, Builder] = {
+    "ResNet": lambda out, clip, g: video_models.ResNet3D18(
+        out, clip, generator=g),
+    "S3D": lambda out, clip, g: video_models.S3D(out, clip, generator=g),
     "MViT-v1": lambda out, clip, g: video_models.mvit_v1_b(
         out, clip, generator=g),
     "MViT-v2": lambda out, clip, g: video_models.mvit_v2_s(
         out, clip, generator=g),
+    "Swin-T": lambda out, clip, g: video_models.swin3d_t(
+        out, clip, generator=g),
+    "Swin-S": lambda out, clip, g: video_models.swin3d_s(
+        out, clip, generator=g),
 }
-# the JAX package's other video backbones, still to port (ROADMAP item 12)
-UNPORTED_VIDEO_MODELS = ("ResNet", "S3D", "Swin-T", "Swin-S")
+# the clip each model serves: 90 WiMANS frames at stride 2, at its
+# torchvision transform's crop (data/video_io.py::VIDEO_TRANSFORMS)
+VIDEO_CLIPS: Dict[str, THW] = {key: VIDEO_CLIP for key in VIDEO_MODELS}
+VIDEO_CLIPS["ResNet"] = (45, 112, 112)
 _MVIT_VARIANT = {"MViT-v1": "v1", "MViT-v2": "v2"}
+# torchvision's buffers that the port computes instead of loading
+_TORCHVISION_BUFFERS = ("num_batches_tracked", "relative_position_index")
 # flat label width per task: six users' presence bits or one-hots
 TASK_OUT_FEATURES = {"identity": 6, "activity": 6 * 9, "location": 6 * 5}
 
 
 def video_spec(model_key: str) -> Builder:
-    """The builder of a ported video model; NotImplementedError for the
-    backbones still to port, KeyError for unknown keys."""
-    if model_key in UNPORTED_VIDEO_MODELS:
-        raise NotImplementedError(
-            f"{model_key} is not ported to PyTorch yet (ROADMAP item 12); "
-            f"ported: {sorted(VIDEO_MODELS)}")
+    """The builder of a video model; KeyError for unknown keys."""
     if model_key not in VIDEO_MODELS:
-        raise KeyError(f"unknown video model {model_key!r}; ported: "
+        raise KeyError(f"unknown video model {model_key!r}; have: "
                        f"{sorted(VIDEO_MODELS)}")
     return VIDEO_MODELS[model_key]
 
 
 def build_video_model(model_key: str, out_features: int,
-                      clip: THW = VIDEO_CLIP, *, seed: int = 0) -> nn.Module:
-    """``model_key`` for clips of ``clip`` = (T, H, W) frames, with
-    weights drawn from a generator seeded with ``seed``, in eval mode, on
-    the CPU."""
+                      clip: Optional[THW] = None, *,
+                      seed: int = 0) -> nn.Module:
+    """``model_key`` for clips of ``clip`` = (T, H, W) frames (the model's
+    serving clip, ``VIDEO_CLIPS``, by default), with weights drawn from a
+    generator seeded with ``seed``, in eval mode, on the CPU."""
+    builder = video_spec(model_key)
     generator = torch.Generator().manual_seed(seed)
-    return video_spec(model_key)(out_features, tuple(clip), generator).eval()
+    clip = VIDEO_CLIPS[model_key] if clip is None else tuple(clip)
+    return builder(out_features, clip, generator).eval()
 
 
 def load_video_data(cfg: Config) -> Tuple[ClipDataset, ClipDataset]:
@@ -172,15 +184,18 @@ def _task_head(out_features: int, in_features: int = 400
 
 def load_video_pretrained(path: str, model_key: str,
                           model: nn.Module) -> nn.Module:
-    """Load ``path`` into ``model``, a port MViT of ``model_key``, and
-    return it. A component file (the whole model, as ``path.save_model``
-    holds it: the port's ``.pt`` or the JAX package's ``.msgpack``) loads
-    as it is. A torchvision-layout checkpoint (``.pt``/``.pth``: a state
-    dict, or a dict with ``model_state_dict``) loads into the backbone: its
-    tables resized to the model's clip (``core.weights.
-    resize_mvit_tables``), shape-checked against the live model and loaded
-    strictly, with a fresh task head drawn as the JAX package draws it."""
-    video_spec(model_key)          # every ported video model is an MViT
+    """Load ``path`` into ``model``, a port video model of ``model_key``,
+    and return it. A component file (the whole model, as
+    ``path.save_model`` holds it: the port's ``.pt`` or the JAX package's
+    ``.msgpack``) loads as it is. A torchvision-layout checkpoint
+    (``.pt``/``.pth``: a state dict, or a dict with ``model_state_dict``)
+    loads into the backbone: torchvision's ``num_batches_tracked`` and
+    ``relative_position_index`` buffers dropped, S3D's 1x1x1 classifier
+    conv as its Linear, MViT's tables resized to the model's clip
+    (``core.weights.resize_mvit_tables``; Swin's bias tables are never
+    resized), shape-checked against the live model and loaded strictly,
+    with a fresh task head drawn as the JAX package draws it."""
+    video_spec(model_key)
     if not is_torch_file(path):    # a JAX component file
         return restore_scenario(model, path, "full", model_key)
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
@@ -188,9 +203,14 @@ def load_video_pretrained(path: str, model_key: str,
         ckpt = ckpt["model_state_dict"]
     if set(ckpt) == set(model.state_dict()):
         return restore_scenario(model, path, "full", model_key)
+    ckpt = {k: v for k, v in ckpt.items()
+            if not k.endswith(_TORCHVISION_BUFFERS)}
     backbone = model.backbone
     live = backbone.state_dict()
-    if set(ckpt) == set(live):
+    if model_key == "S3D" and "classifier.1.weight" in ckpt:
+        w = ckpt["classifier.1.weight"]
+        ckpt["classifier.1.weight"] = w.reshape(w.shape[0], -1)
+    if model_key in _MVIT_VARIANT and set(ckpt) == set(live):
         ckpt = resize_mvit_tables(ckpt, _MVIT_VARIANT[model_key],
                                   backbone.clip)
     shapes = {k: tuple(v.shape) for k, v in ckpt.items()}

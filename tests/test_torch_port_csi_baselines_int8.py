@@ -22,7 +22,12 @@ calibration windows.
 - ``CSIServer`` with ``quant="auto"`` serves MLP in w8 from (n, T, C)
   windows, calibrating on (n, T, C) windows as well (the model flattens
   them).
-- CNN-2D's int8 serving raises NotImplementedError naming ROADMAP item 12.
+- CNN-2D in w8 and w8a8 (``test_cnn2d_int8_raises``, whose name is kept
+  though nothing raises now): stages 1 and 2 int8 in both packages (stage
+  0 never announces: JAX's raw parameters, the port's unhooked Conv2d),
+  the quantization equal, the port's logits within MODEL_TOL of JAX's
+  quantized tree's, and ``CSIServer`` serving the same logits; the 2-D
+  columns are held bit for bit in test_torch_port_int8_conv3d.py.
 """
 
 import jax
@@ -184,10 +189,26 @@ def test_mlp_auto_serves_w8_from_windows():
 
 @pytest.mark.parametrize("mode", ["w8", "w8a8"])
 def test_cnn2d_int8_raises(mode):
-    _, _, port = pair("CNN-2D")
-    x = windows("CNN-2D", n=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        Q.quantize_for_serving(port, [to_torch(x)], mode=mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        CSIServer("CNN-2D", pair("CNN-2D")[2], dtype="float32",
-                  device="cpu", quant=mode, calib=x)
+    """CNN-2D's int8 serving in ``mode`` against JAX's (see the module
+    docstring)."""
+    key = "CNN-2D"
+    jmodel, variables, port = pair(key)
+    x = windows(key, n=2)
+    qv = qz.quantize_for_serving(jmodel, variables, [x], mode=mode,
+                                 train=False)
+    Q.quantize_for_serving(port, [to_torch(x)], mode=mode)
+    sd = port.state_dict()
+    assert_same_quantization(sd, W.state_dict_from_jax(key, qv))
+    assert sorted(k for k, v in sd.items() if v.dtype == torch.int8) == [
+        "layer_cnn_2d_1.weight", "layer_cnn_2d_2.weight"]
+    assert (sorted(k for k in sd if k.endswith("input_scale"))
+            == (["layer_cnn_2d_1.input_scale", "layer_cnn_2d_2.input_scale"]
+                if mode == "w8a8" else []))
+    want = np.asarray(jax.jit(lambda v, b: jmodel.apply(
+        v, b, train=False))(qv, x))
+    got = run(port, to_torch(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=MODEL_TOL[mode] * np.abs(want).max())
+    server = CSIServer(key, pair(key)[2], dtype="float32", device="cpu",
+                       batch=2, quant=mode, calib=x)
+    np.testing.assert_allclose(server(x).numpy(), got, rtol=1e-6, atol=1e-6)

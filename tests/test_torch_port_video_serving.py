@@ -143,12 +143,37 @@ def test_load_video_pretrained_checks_shapes(tmp_path):
             path, "MViT-v2", video.build_video_model("MViT-v2", OUT, CLIP))
 
 
-@pytest.mark.parametrize("key", ["ResNet", "S3D", "Swin-T", "Swin-S"])
+# a small clip each of the four backbones runs at (S3D's pools need 8
+# frames of at least 32 x 32)
+SMALL_CLIPS = {"ResNet": (4, 32, 32), "S3D": (8, 32, 32),
+               "Swin-T": (4, 32, 32), "Swin-S": (4, 32, 32)}
+
+
+@pytest.mark.parametrize("key", ["ResNet", "S3D", "Swin-T", "Swin-S",
+                                 "unknown"])
 def test_unported_video_models_raise(key):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        video.build_video_model(key, OUT)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        VideoServer(key, torch.nn.Identity(), device="cpu")
+    """Each of ResNet, S3D, Swin-T and Swin-S builds at full width for a
+    small clip and serves a ragged request of 3 clips on the CPU at batch
+    2, as its forward on each clip alone; an unknown key raises KeyError
+    in both the builder and the server. (The name is kept from the tree
+    where the four keys raised.)"""
+    if key == "unknown":
+        with pytest.raises(KeyError, match="unknown video model"):
+            video.build_video_model(key, OUT)
+        with pytest.raises(KeyError, match="unknown video model"):
+            VideoServer(key, torch.nn.Identity(), device="cpu")
+        return
+    clip = SMALL_CLIPS[key]
+    model = video.build_video_model(key, OUT, clip, seed=3)
+    assert model.backbone.clip == clip
+    x = clips(3, clip, seed=4)
+    with torch.no_grad():
+        want = torch.cat([model(torch.from_numpy(x[i:i + 1]))
+                          for i in range(3)]).numpy()
+    server = VideoServer(key, model, dtype="float32", device="cpu", batch=2)
+    got = server(x)
+    assert got.dtype == torch.float32 and got.shape == (3, OUT)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
 
 
 def test_serving_defaults_match_jax():
