@@ -120,7 +120,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    batch forward; windows/s from host memory, and with the requests
    already on the card; 5 batch forwards under torch.profiler for the
    device time per forward, the device's busy share, the kernels with
-   the most device time and K1's share; then the same weights at f32 (TF32 off, batch 4)
+   the most device time and K1's share; then the same weights at f32
+   (PyTorch's default flags, batch 4)
    against the CPU, where the plain versions run; the same for DETR at
    the flagship configuration, with no kernel launch, and for
    THAT_ENCODER, with 5 K1 launches per forward;
@@ -160,7 +161,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    warm-up step and 5 steps under torch.profiler (K1's and K2's two
    passes' device ms per step and share); then one bf16 epoch (5 bf16 K2
    launches a step);
-8. one f32 THAT training step on the card against the CPU (TF32 off,
+8. one f32 THAT training step on the card against the CPU (default flags,
    batch 2, augmentation and dropout off, the CPU taking the card's side
    at every leaky-ReLU kink): loss and gradients;
 9. DETR's training step at the flagship configuration, batch 16, with the
@@ -221,7 +222,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    activation as it is), the forward's fused calls held as in 6b, clips/s beside bf16 serving's, a profile with the
    shares, the logits against bf16 serving, and the bare P1 held against
    its plain version at each of the forward's product shapes;
-12. each variant in f32 at (2, 16, 112, 112, 3) on the card (TF32 off,
+12. each variant in f32 at (2, 16, 112, 112, 3) on the card (default flags,
    14 K3 launches) against the CPU, where K3's plain version runs, within
    1e-4 of the largest logit;
 13. runners/video.py::evaluate for each variant over a ClipDataset of 5
@@ -234,7 +235,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the card: exactly 3 K3 and 3 of each K4 kernel a step; peak memory,
    clips trained/s, 5 steps under torch.profiler; whether a step at the
    JAX CLI's batch 8 fits in the card's memory;
-15. one f32 MViT-v2 step at (1, 32, 224, 224, 3) on the card (TF32 off,
+15. one f32 MViT-v2 step at (1, 32, 224, 224, 3) on the card (default flags,
    K3 and K4 at blocks 0-2) against the CPU (the eager path), dropout
    off, the CPU taking the card's pick at every residual max pool: loss
    and gradients;
@@ -265,6 +266,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    model (Swin-T) on the 10 cached clips. CNN-2D's int8 Conv2d (stages 1
    and 2 on the 3-D prologue) is served in w8 and w8a8 with the other
    baselines (phase 6b);
+16c. serving artifacts (core/export.py): card-only artifacts (the hand
+   kernels as mmcsi custom ops in the exported program) of THAT bf16 at
+   256 windows (K1), DETR w8a8 at 256 (P1 and the prologue), MViT-v2 bf16
+   at 2 clips (K3) and ResNet w8a8 at 8 clips (the 3-D prologue and P1),
+   each exported, saved, reloaded with serve_file and served: the same
+   launches a forward as its eager server and logits within 1e-5 of the
+   eager server's largest, with the export and load seconds, the size
+   beside the weight files it stores and the device ms a forward beside
+   the eager server's; a Swin-T f32 card-only artifact at batch 1 run with
+   cuDNN's TF32 flag at PyTorch's default against the CPU within 2e-6 of
+   the largest logit; a cuda,cpu MLP w8 artifact (the input BatchNorm
+   folded, the int8 input contract, f32 activations) on the card, its
+   mmcsi ops launching the prologue and P1 as often as the eager w8 server
+   and its logits within 1e-5 of that server's, and against the same
+   artifact on the CPU within 2e-3; before it, layer_0's 810,000-wide f32
+   row through the prologue's direct path (no shared window) bit for bit
+   against its plain version;
 17. the whole run's wall time, one JSON line describing each kernel
    (every TPU kernel of the repo is ported, and P1's prologue and its
    3-D prologue; K1, K2 and K3 with one entry per dtype),
@@ -276,6 +294,7 @@ Exits non-zero without a result when no CUDA device is available.
 from __future__ import annotations
 
 import contextlib
+import copy
 import csv
 import json
 import math
@@ -441,9 +460,14 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def set_tf32(on: bool) -> None:
-    torch.backends.cuda.matmul.allow_tf32 = on
-    torch.backends.cudnn.allow_tf32 = on
+def pytorch_defaults() -> None:
+    """PyTorch's own precision flags, as a user's process has them: f32
+    matmuls in full f32, cuDNN's TF32 on. The port pins its f32 cuDNN
+    calls (convolutions and LSTMs, and their backward in its training
+    steps) to full f32 itself (``core/device.py::cudnn_f32``), so every
+    phase checks the port as its entry points run it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -500,7 +524,7 @@ def phase_kernel(flash_attention, flash_attention_reference):
     import torch.nn.functional as F
     from multi_modal_csi_tpu_torch.kernels.flash_attention import (
         TC_MAX_HEAD_DIM)
-    set_tf32(False)
+    pytorch_defaults()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
     train = {f"{name}-{TRAIN_BATCH}": ((TRAIN_BATCH, *shape[1:]), nk)
@@ -703,7 +727,7 @@ def phase_backward(backward, backward_reference):
     twice. K2 must refuse past the tensor-core spans (D = 129) in both
     dtypes."""
     import torch.nn.functional as F
-    set_tf32(False)
+    pytorch_defaults()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
     for dtype, tol in BWD_TOL.items():
@@ -1078,8 +1102,7 @@ def serve_phase(key, requests, expect_out, launches_per_forward,
     phase_start = time.perf_counter()
     cpu_windows = requests[1][:4]
     requests = requests[:served]
-    set_tf32(False)
-    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    pytorch_defaults()
     server = CSIServer(key, build_model(key, seed=SEED), dtype="bfloat16",
                        device="cuda")
     server(requests[0][:server.batch])                        # warm-up
@@ -1136,9 +1159,9 @@ def serve_phase(key, requests, expect_out, launches_per_forward,
         key, lambda: server.forward(batch), PROFILED_FORWARDS, "forward"))
     del resident
 
-    # f32 on the card (TF32 off) against the CPU, where the plain
+    # f32 on the card (default flags) against the CPU, where the plain
     # versions run, on the same seeded weights and 4 windows
-    set_tf32(False)
+    pytorch_defaults()
     x = cpu_windows
     kinks = KinkReplay(key if key in BASELINES else None)
     with kinks.on("cuda"):
@@ -1328,8 +1351,7 @@ def train_phase_that(data):
     from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch,
                                                       cast_parameters, fit,
                                                       make_train_step)
-    set_tf32(False)
-    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    pytorch_defaults()
     cfg, spec = Config(), CSI_MODELS["THAT"]
     loss_fn = spec.make_loss(cfg, 54)
     x_tr, y_tr, x_va, y_va = data
@@ -1430,7 +1452,7 @@ def train_phase_that(data):
 
 def train_step_card_vs_cpu(key, x, y):
     """One f32 training step of ``key`` on windows ``x`` and labels ``y``
-    on the card (TF32 off) and on the CPU, from the same seeded weights,
+    on the card (default flags) and on the CPU, from the same seeded weights,
     augmentation and dropout off: the loss within STEP_F32_TOL relative,
     each gradient within GRAD_F32_TOL of its tensor's scale, each
     BatchNorm running statistic within STATS_F32_TOL of its buffer's
@@ -1445,7 +1467,7 @@ def train_step_card_vs_cpu(key, x, y):
     from multi_modal_csi_tpu_torch.runners.csi import CSI_MODELS, build_model
     from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch,
                                                       make_train_step)
-    set_tf32(False)
+    pytorch_defaults()
     cfg, spec = Config(), CSI_MODELS[key]
     kinks = KinkReplay(key)
     got = {}
@@ -1494,8 +1516,7 @@ def train_phase_baseline(key, data):
     from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch, fit,
                                                       make_train_step)
     start = time.perf_counter()
-    set_tf32(False)
-    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    pytorch_defaults()
     cfg, spec = Config(), CSI_MODELS[key]
     loss_fn = spec.make_loss(cfg, 54)
     x_tr, y_tr, x_va, y_va = data
@@ -1544,8 +1565,7 @@ def train_phase_detr(data):
     from multi_modal_csi_tpu_torch.runners.csi import CSI_MODELS, build_model
     from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch,
                                                       make_train_step)
-    set_tf32(False)
-    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    pytorch_defaults()
     cfg, spec = Config(), CSI_MODELS["DETR"]
     rng = np.random.default_rng(SEED)
     y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, (TRAIN_BATCH, 5))]
@@ -1613,8 +1633,7 @@ def run_csi_phase(work, converted_amp):
                                                        valid_test_split)
     from multi_modal_csi_tpu_torch.runners.csi import (CSI_MODELS,
                                                        run_experiment)
-    set_tf32(False)
-    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    pytorch_defaults()
     amp_dir = write_run_dataset(work, converted_amp)
     idx = np.arange(RUN_WINDOWS)
     out = {}
@@ -1743,8 +1762,7 @@ def transfer_phase(work):
                                                        run_experiment)
     from multi_modal_csi_tpu_torch.train.loop import make_train_step
     from multi_modal_csi_tpu_torch.train.transfer import transfer_optimizer
-    set_tf32(False)
-    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    pytorch_defaults()
     phase_start = time.perf_counter()
     out = {}
     for key, epochs in (("THAT_ENCODER", RUN_EPOCHS), ("DETR", 1)):
@@ -1870,8 +1888,7 @@ def resume_phase(data, work):
     from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch, fit,
                                                       resume)
     from multi_modal_csi_tpu_torch.train.schedules import cosine_warmup
-    set_tf32(False)
-    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    pytorch_defaults()
     phase_start = time.perf_counter()
     cfg, spec = Config(), CSI_MODELS["THAT"]
     x_tr, y_tr, x_va, y_va = data
@@ -1958,12 +1975,12 @@ def ssl_phase(data, work):
     from multi_modal_csi_tpu_torch import kernels
     from multi_modal_csi_tpu_torch.cli import ssl_inference
     from multi_modal_csi_tpu_torch.core.config import Config
+    from multi_modal_csi_tpu_torch.core.device import cudnn_f32
     from multi_modal_csi_tpu_torch.models.csi.ssl import ssl_loss, two_views
     from multi_modal_csi_tpu_torch.nn.layers import dropout_generator
     from multi_modal_csi_tpu_torch.runners.ssl import build_ssl, run_ssl
     from multi_modal_csi_tpu_torch.train.loop import adam_like_torch
-    set_tf32(False)
-    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    pytorch_defaults()
     phase_start = time.perf_counter()
     x_tr, y_tr, x_va, y_va = data
     cfg = Config().override({"repeat": 1, "nn.epoch": 1,
@@ -2004,7 +2021,8 @@ def ssl_phase(data, work):
         opt.zero_grad(set_to_none=True)
         with dropout_generator(gen):
             loss, _ = ssl_loss(*model(v1, v2), by)
-        loss.backward()
+        with cudnn_f32():                  # as runners/ssl.py's step
+            loss.backward()
         opt.step()
         return loss.detach(), None
 
@@ -2017,7 +2035,7 @@ def ssl_phase(data, work):
                    PROFILED_STEPS, "step")
     del model, opt, bx, by
 
-    set_tf32(False)                            # cuDNN's convs too
+    pytorch_defaults()
     x = x_tr[:SSL_STEP_BATCH]
     y = y_tr[:SSL_STEP_BATCH]
     got = {}
@@ -2027,7 +2045,8 @@ def ssl_phase(data, work):
         bx = torch.from_numpy(x).to(device)
         loss, _ = ssl_loss(*model(bx, bx * 0.9 + 0.1),
                            torch.from_numpy(y).to(device))
-        loss.backward()
+        with cudnn_f32():                  # as the port's training steps
+            loss.backward()
         got[device] = (float(loss),
                        {n: p.grad.cpu() for n, p in model.named_parameters()},
                        {n: b.cpu() for n, b in model.named_buffers()})
@@ -2056,7 +2075,7 @@ def dual_band_phase(data):
     """dual_band at full width: run_csi_model for one epoch at batch 16 on
     (80, 2, 3000, 270) paired windows (band 2 other windows than band 1),
     no kernel launch; the f32 forward on the card against the CPU at
-    batch 2 (TF32 off) within SERVE_F32_TOL; profiles of the f32 forward
+    batch 2 (default flags) within SERVE_F32_TOL; profiles of the f32 forward
     and training step at batch 16."""
     from multi_modal_csi_tpu_torch import kernels
     from multi_modal_csi_tpu_torch.core.config import Config
@@ -2065,8 +2084,7 @@ def dual_band_phase(data):
     from multi_modal_csi_tpu_torch.runners.dual_band import build_dual_band
     from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch,
                                                       make_train_step)
-    set_tf32(False)
-    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    pytorch_defaults()
     phase_start = time.perf_counter()
     x_tr, y_tr, x_va, y_va = data
 
@@ -2088,7 +2106,7 @@ def dual_band_phase(data):
           and math.isfinite(result["accuracy"]["avg"]),
           f"dual_band result {sorted(result)}")
 
-    set_tf32(False)                            # cuDNN's convs too
+    pytorch_defaults()
     x = paired(x_va[:4])[:2]
     model = build_dual_band(54, SEED, CHANNELS).eval()
     with torch.no_grad():
@@ -2102,7 +2120,6 @@ def dual_band_phase(data):
     check(np.allclose(card, cpu, atol=SERVE_F32_TOL, rtol=SERVE_F32_TOL),
           f"dual_band f32 card vs CPU err {err}")
 
-    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
     bx = torch.from_numpy(paired(x_tr[:TRAIN_BATCH])).cuda()
     by = torch.from_numpy(y_tr[:TRAIN_BATCH]).cuda()
     with torch.no_grad():
@@ -2242,7 +2259,7 @@ def phase_lowrank(lowrank, lowrank_reference):
     import torch.nn.functional as F
     from multi_modal_csi_tpu_torch.kernels.flash_attention_lowrank import \
         MAX_BIAS_RANK
-    set_tf32(False)
+    pytorch_defaults()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     shapes = {n: s for n, (s, _) in LOWRANK_SHAPES.items()}
     shapes.update(LOWRANK_ODD)
@@ -2452,7 +2469,7 @@ def phase_lowrank_backward(lowrank, backward, backward_reference):
     from multi_modal_csi_tpu_torch.kernels import flash_attention_lowrank
     from multi_modal_csi_tpu_torch.kernels.flash_attention_lowrank import \
         MAX_BIAS_RANK
-    set_tf32(False)
+    pytorch_defaults()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     shapes = dict(LOWRANK_BWD_SHAPES)
     shapes.update(LOWRANK_BWD_ODD)
@@ -2676,8 +2693,7 @@ def video_serve_phase(key, requests):
     from multi_modal_csi_tpu_torch.core.serving import VideoServer
     from multi_modal_csi_tpu_torch.runners.video import build_video_model
 
-    set_tf32(False)
-    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    pytorch_defaults()
     server = VideoServer(key, build_video_model(key, VIDEO_OUT, VIDEO_CLIP,
                                                 seed=SEED),
                          dtype="bfloat16", device="cuda")
@@ -2752,13 +2768,13 @@ def video_serve_phase(key, requests):
 
 
 def video_card_vs_cpu(key):
-    """The same seeded weights in f32 (TF32 off) at (2, 16, 112, 112, 3)
+    """The same seeded weights in f32 (default flags) at (2, 16, 112, 112, 3)
     on the card and on the CPU, where K3's plain version runs: logits
     within VIDEO_F32_SHARE of the largest."""
     from multi_modal_csi_tpu_torch import kernels
     from multi_modal_csi_tpu_torch.core.serving import VideoServer
     from multi_modal_csi_tpu_torch.runners.video import build_video_model
-    set_tf32(False)
+    pytorch_defaults()
     x = np.random.default_rng(SEED + 1).standard_normal(
         (2, *VIDEO_CPU_CLIP, 3), dtype=np.float32)
     got = {}
@@ -2795,8 +2811,7 @@ def video_evaluate_phase(work, key):
     from multi_modal_csi_tpu_torch.runners.video import (
         build_video_model, evaluate, load_video_pretrained)
     from multi_modal_csi_tpu_torch.train.loop import cast_for_serving
-    set_tf32(False)
-    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    pytorch_defaults()
     rng = np.random.default_rng(SEED + 2)
     root = os.path.join(work, "clips")
     os.makedirs(root, exist_ok=True)
@@ -2856,8 +2871,7 @@ def video_train_phase(key, dtype=torch.float32):
                                                       adam_like_torch,
                                                       cast_parameters,
                                                       make_train_step)
-    set_tf32(False)
-    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    pytorch_defaults()
     rng = np.random.default_rng(SEED + 4)
 
     def batch(n):
@@ -2918,7 +2932,7 @@ def video_train_phase(key, dtype=torch.float32):
 
 def video_train_card_vs_cpu():
     """One f32 MViT-v2 training step at (1, 32, 224, 224, 3) on the card
-    (TF32 off; K3 and K4 at blocks 0-2, 50177, 12545 and 12545 queries)
+    (default flags; K3 and K4 at blocks 0-2, 50177, 12545 and 12545 queries)
     and on the CPU (the eager attention everywhere), from the same seeded
     weights and clip, dropout and drop-path off: the loss within
     STEP_F32_TOL relative and each gradient within GRAD_F32_TOL of its
@@ -2934,7 +2948,7 @@ def video_train_card_vs_cpu():
     from multi_modal_csi_tpu_torch.runners.video import build_video_model
     from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch,
                                                       make_train_step)
-    set_tf32(False)
+    pytorch_defaults()
     rng = np.random.default_rng(SEED + 5)
     x = rng.standard_normal((1, *VIDEO_STEP_CLIP, 3), dtype=np.float32)
     y = (rng.random((1, VIDEO_OUT)) < 0.5).astype(np.float32)
@@ -3017,8 +3031,7 @@ def run_video_phase(clips, annotation, work, key, train_dtype="float32",
     from multi_modal_csi_tpu_torch import kernels
     from multi_modal_csi_tpu_torch.cli import run_video
     from multi_modal_csi_tpu_torch.data.splits import train_test_split
-    set_tf32(False)
-    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    pytorch_defaults()
     rows = np.arange(RUN_CLIPS)
     n_train, n_test = (len(a) for a in
                        train_test_split(rows, rows, 0.2, 39)[:2])
@@ -3325,7 +3338,7 @@ def phase_p1():
     bf16 x int8, ``p1_w8_case``); a K that could overflow int32 must
     raise."""
     from multi_modal_csi_tpu_torch.kernels import int8_matmul as K
-    set_tf32(False)
+    pytorch_defaults()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     shapes = [(None, *P1_TILE)]
     # MLP w8's layer_0 (K = 810,000) is p1_w8_case's: its int8 x int8
@@ -3589,8 +3602,7 @@ def int8_serve_phase(key, requests, calib_path, s8_table, bf16_table,
     from multi_modal_csi_tpu_torch.runners.csi import build_model
 
     phase_start = time.perf_counter()
-    set_tf32(False)
-    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    pytorch_defaults()
     calib = np.load(calib_path)
     start = time.perf_counter()
     server = CSIServer(key, build_model(key, seed=SEED), dtype="bfloat16",
@@ -3668,8 +3680,8 @@ def int8_serve_phase(key, requests, calib_path, s8_table, bf16_table,
         return launches
 
     # the same int8 weights and scales at f32: the CPU (plain versions)
-    # against the card (TF32 off), 4 windows
-    set_tf32(False)
+    # against the card (default flags), 4 windows
+    pytorch_defaults()
     x = requests[1][:4]
     cpu = CSIServer(key, build_model(key, seed=SEED), dtype="float32",
                     device="cpu", batch=4, quant="w8a8", calib=calib[:4])
@@ -3743,8 +3755,7 @@ def video_int8_phase(requests):
     from multi_modal_csi_tpu_torch.nn.layers import Linear
     from multi_modal_csi_tpu_torch.runners.video import build_video_model
     key = "MViT-v2"
-    set_tf32(False)
-    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    pytorch_defaults()
     server = VideoServer(key, build_video_model(key, VIDEO_OUT, VIDEO_CLIP,
                                                 seed=SEED),
                          dtype="bfloat16", device="cuda", quant="w8")
@@ -4378,7 +4389,7 @@ def backbone_serve_phase(key):
     clips in bf16, Swin 2 in f32) at full width from seeded weights: the
     ragged requests from host memory (no hand kernel on this path: exactly
     no launch), clips/s, the peak memory, a profile; then the f32 logits at
-    batch 1 on the card (TF32 off) against the CPU within
+    batch 1 on the card (default flags) against the CPU within
     VIDEO_F32_SHARE of the largest, at BACKBONE_CPU_CLIPS. Returns the
     peak memory in GiB."""
     from multi_modal_csi_tpu_torch.core.config import (resolve_serving_batch,
@@ -4386,8 +4397,7 @@ def backbone_serve_phase(key):
     from multi_modal_csi_tpu_torch.core.serving import VideoServer
     from multi_modal_csi_tpu_torch.runners.video import build_video_model
     start = time.perf_counter()
-    set_tf32(False)
-    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    pytorch_defaults()
     requests = backbone_requests(key)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4414,7 +4424,12 @@ def backbone_serve_phase(key):
     del server, batch, outs
     torch.cuda.empty_cache()
 
-    set_tf32(False)
+    # under PyTorch's default flags (cuDNN's TF32 on): the port's convs
+    # pin themselves to full f32 (ResNet's f32 forward missed this bound
+    # at 1.813e-4 when they did not)
+    pytorch_defaults()
+    check(torch.backends.cudnn.allow_tf32,
+          "the card-vs-CPU check runs under PyTorch's default flags")
     clip = BACKBONE_CPU_CLIPS[key]
     x = np.random.default_rng(SEED + 8).standard_normal(
         (1, *clip, 3), dtype=np.float32)
@@ -4427,9 +4442,10 @@ def backbone_serve_phase(key):
         took[device] = time.perf_counter() - t0
     err = float(np.abs(got["cuda"] - got["cpu"]).max())
     top = float(np.abs(got["cpu"]).max())
-    print(f"{key} f32 card vs CPU at batch 1, clip {clip}: max abs err "
-          f"{err:.3e} (tolerance {VIDEO_F32_SHARE} x {top:.4f}); CPU "
-          f"{took['cpu']:.1f} s")
+    print(f"{key} f32 card vs CPU at batch 1, clip {clip}, cuDNN's TF32 "
+          f"flag at PyTorch's default (on): max abs err {err:.3e} "
+          f"(tolerance {VIDEO_F32_SHARE} x {top:.4f} = "
+          f"{VIDEO_F32_SHARE * top:.3e}); CPU {took['cpu']:.1f} s")
     check(err <= VIDEO_F32_SHARE * top, f"{key} card vs CPU err {err}")
     print(f"{key} serving phase: {time.perf_counter() - start:.1f} s")
     return peak
@@ -4511,8 +4527,7 @@ def backbone_int8_phase(key, bf16_peak):
     from multi_modal_csi_tpu_torch.runners.video import (VIDEO_CLIPS,
                                                          build_video_model)
     start = time.perf_counter()
-    set_tf32(False)
-    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    pytorch_defaults()
     clip = VIDEO_CLIPS[key]
     calib = np.random.default_rng(SEED + 9).standard_normal(
         (BACKBONE_CALIB_CLIPS, *clip, 3), dtype=np.float32)
@@ -4603,7 +4618,7 @@ def backbone_int8_phase(key, bf16_peak):
 
     # the same int8 weights and scales at f32, batch 2: the card against
     # the CPU, and against the CPU fed the card's int8 codes
-    set_tf32(False)
+    pytorch_defaults()
     small = INT8_BACKBONE_CPU_CLIPS[key]
     x = np.random.default_rng(SEED + 10).standard_normal(
         (2, *small, 3), dtype=np.float32)
@@ -4704,14 +4719,14 @@ def backbone_train_phase(key):
     import copy
 
     from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.core.device import cudnn_f32
     from multi_modal_csi_tpu_torch.losses.basic import bce_with_logits
     from multi_modal_csi_tpu_torch.runners.video import (VIDEO_CLIPS,
                                                          build_video_model)
     from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch,
                                                       make_train_step)
     start = time.perf_counter()
-    set_tf32(False)
-    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    pytorch_defaults()
     rng = np.random.default_rng(SEED + 11)
     clip = VIDEO_CLIPS[key]
     bx = torch.from_numpy(rng.standard_normal(
@@ -4740,7 +4755,7 @@ def backbone_train_phase(key):
     del model, step, bx, by
     torch.cuda.empty_cache()
 
-    set_tf32(False)
+    pytorch_defaults()
     small = BACKBONE_STEP_CLIPS[key]
     x = rng.standard_normal((VIDEO_TRAIN_BATCH, *small, 3),
                             dtype=np.float32)
@@ -4757,7 +4772,8 @@ def backbone_train_phase(key):
             loss = bce_with_logits(
                 model(torch.from_numpy(x).to(device, dtype)),
                 torch.from_numpy(y).to(device, dtype))
-            loss.backward()
+            with cudnn_f32():              # as the port's training steps
+                loss.backward()
         if run == "cpu":
             replayed = kinks.report()
         got[run] = (float(loss), {n: p.grad.detach().cpu().double()
@@ -4805,8 +4821,7 @@ def run_video_default_phase(clips, annotation, work):
     kernel runs (exactly no launch)."""
     from multi_modal_csi_tpu_torch import kernels
     from multi_modal_csi_tpu_torch.cli import run_video
-    set_tf32(False)
-    torch.backends.cudnn.allow_tf32 = True     # PyTorch's own defaults
+    pytorch_defaults()
     save = os.path.join(work, "results", "default-run_video.json")
     kernels.reset_launch_counts()
     start = time.perf_counter()
@@ -4833,6 +4848,285 @@ def run_video_default_phase(clips, annotation, work):
                   ("accuracy", "time_train", "time_test")),
           f"Swin-T result JSON {sorted(written)}")
     check(not launches, f"Swin-T run launched {launches}")
+
+
+# the export phase: card-only artifacts (``--platforms cuda``) of four
+# serving paths, each against its eager server on the same weights and
+# inputs; then Swin-T f32 against the CPU and a ``cuda,cpu`` MLP w8, the
+# CLI's default platforms
+EXPORT_SHARE = 1e-5        # artifact vs eager server, of the largest logit
+SWIN_EXPORT_SHARE = 2e-6   # Swin-T f32 artifact vs the CPU, of the largest
+SWIN_EXPORT_CLIP = (16, 224, 224)   # batch 1, as the backbone's CPU check
+EXPORT_PROFILED = 3        # forwards timed by the profiler, each side
+EXPORT_WINDOWS = 256       # the CSI artifacts' batch (the serving batch)
+EXPORT_GRAPH_BYTES = 2 ** 25   # an artifact's bytes beside its weights
+# the MLP w8 cuda,cpu artifact, card vs CPU, of the largest logit: w8 rounds
+# layer_0's output to bf16 for layer_1, and the card's f32 sum over K =
+# 810,000 in another order flips some of those roundings (3.17e-4 with the
+# plain versions on both sides, H100 80GB HBM3 at 700 W)
+MLP_EXPORT_CPU_SHARE = 2e-3
+
+
+def mmcsi_ops(blob):
+    """The ``mmcsi`` custom ops in an artifact's graph, with counts, read
+    from the program archive's graph JSON (deserializing a program takes
+    seconds)."""
+    import io
+    import re
+    import zipfile
+    ops = {}
+    with zipfile.ZipFile(io.BytesIO(blob)) as archive:
+        graphs = [n for n in archive.namelist()
+                  if "/models/" in n and n.endswith(".json")]
+        check(bool(graphs), "the artifact's archive holds no graph")
+        for name in graphs:
+            for op in re.findall(r'"target": "torch\.ops\.mmcsi\.(\w+)\.',
+                                 archive.read(name).decode()):
+                ops[op] = ops.get(op, 0) + 1
+    return ops
+
+
+def unique_bytes(model):
+    """Bytes of a model's parameters and buffers, each storage once."""
+    storages = {}
+    for t in (*model.parameters(), *model.buffers()):
+        storage = t.untyped_storage()
+        storages[storage.data_ptr()] = storage.nbytes()
+    return sum(storages.values())
+
+
+def export_case(label, server, build, x, work, *, dtype, quant=None,
+                calib=None):
+    """A card-only artifact of ``build()`` (the server's model, on the
+    same seeded weights) exported with ``core/export.py``, saved, reloaded
+    with ``serve_file`` and run on ``x``: the same launches as one eager
+    forward of ``server``, its logits within EXPORT_SHARE of the eager
+    server's largest; export, load and device times beside the eager
+    server's. Returns the artifact forward's launches."""
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.core.export import (
+        export_serving, save_artifact, serve_file, stored_bytes)
+    xb = torch.from_numpy(x).cuda()
+    server.forward(xb)                                        # warm-up
+    kernels.reset_launch_counts()
+    want = server.forward(xb)
+    torch.cuda.synchronize()
+    eager = dict(kernels.LAUNCH_COUNTS)
+    start = time.perf_counter()
+    blob = export_serving(build().cuda(), torch.empty(x.shape),
+                          serving_dtype=dtype, quant=quant,
+                          calib_x=None if calib is None else [calib],
+                          platforms=("cuda",))
+    export_s = time.perf_counter() - start
+    path = os.path.join(work, f"{label.replace(' ', '_')}.mmcsi")
+    save_artifact(path, blob, {"model": label, "batch": len(x),
+                               "serving_dtype": dtype, "quant": quant,
+                               "platforms": ["cuda"]})
+    start = time.perf_counter()
+    fn, _ = serve_file(path)
+    load_s = time.perf_counter() - start
+    fn(xb)                                                    # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = fn(xb)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCH_COUNTS)
+    ops = mmcsi_ops(blob)
+    err = float((got - want).abs().max())
+    top = float(want.abs().max())
+    stored, held = stored_bytes(blob), unique_bytes(server.model)
+    art_ms = device_ms(lambda: fn(xb), EXPORT_PROFILED)
+    eager_ms = device_ms(lambda: server.forward(xb), EXPORT_PROFILED)
+    print(f"export {label}: {export_s:.1f} s to export, {len(blob) / 1e6:.1f}"
+          f" MB ({stored / 1e6:.1f} MB of weight files; the eager server "
+          f"holds {held / 1e6:.1f} MB), "
+          f"{load_s:.2f} s to load; graph ops {ops}; launches a forward "
+          f"{launches} (eager {eager}); logits vs eager max abs err "
+          f"{err:.3e} (tolerance {EXPORT_SHARE} x {top:.4f}); device ms a "
+          f"forward {art_ms:.3f} (eager {eager_ms:.3f})")
+    check(launches == eager and launches and ops,
+          f"{label} artifact launched {launches}, eager {eager}")
+    check(tuple(got.shape) == tuple(want.shape)
+          and got.dtype == torch.float32,
+          f"{label} artifact output {tuple(got.shape)} {got.dtype}")
+    check(err <= EXPORT_SHARE * top, f"{label} artifact vs eager {err}")
+    # each weight stored once (an int8 one as its padded copy, which the
+    # eager server holds beside it; a float program may add a few small
+    # constants its forward makes), and beyond the weights only the graph
+    check(stored < (held if quant else held + 2 ** 20),
+          f"{label}: {stored} bytes of weight files, the server {held}")
+    check(len(blob) - stored < EXPORT_GRAPH_BYTES,
+          f"{label}: {len(blob) - stored} bytes beside the weight files")
+    return launches
+
+
+def export_phase(work, calib_path):
+    """Serving artifacts (core/export.py, ROADMAP item 13b) on the card:
+    card-only artifacts of THAT bf16 at 256 windows (K1), DETR w8a8 at 256
+    (P1 and the prologue), MViT-v2 bf16 at 2 clips (K3) and ResNet w8a8 at
+    8 clips (the 3-D prologue and P1), each as ``export_case`` checks it;
+    a Swin-T f32 card-only artifact at batch 1, loaded and run with cuDNN's
+    TF32 flag at PyTorch's default (on), against the CPU's f32 forward
+    within SWIN_EXPORT_SHARE of the largest logit; a ``cuda,cpu`` MLP w8
+    artifact with the input BatchNorm folded and the int8 input contract:
+    its ``mmcsi`` ops launch the prologue and P1 on the card as often as
+    the eager w8 server of the same weights, its logits within
+    EXPORT_SHARE of that server's, and the same artifact on the CPU within
+    MLP_EXPORT_CPU_SHARE; layer_0's f32 row, too wide for the prologue's
+    shared window, held bit for bit against the plain version first.
+    Returns the launches of the artifacts' checked forwards, summed."""
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.core.export import (export_serving,
+                                                       load_serving)
+    from multi_modal_csi_tpu_torch.core.serving import CSIServer, VideoServer
+    from multi_modal_csi_tpu_torch.models.csi.mlp import MLP, fold_input_norm
+    from multi_modal_csi_tpu_torch.runners.csi import build_model
+    from multi_modal_csi_tpu_torch.runners.video import (VIDEO_CLIPS,
+                                                         build_video_model)
+    start = time.perf_counter()
+    pytorch_defaults()
+    rng = np.random.default_rng(SEED + 12)
+    windows = rng.standard_normal((EXPORT_WINDOWS, LENGTH, CHANNELS),
+                                  dtype=np.float32)
+    calib = np.load(calib_path)
+    totals = {}
+
+    def add(launches):
+        for name, n in launches.items():
+            totals[name] = totals.get(name, 0) + n
+
+    cases = [
+        ("THAT bf16", "THAT", CSIServer, windows, "bfloat16", None, None),
+        ("DETR w8a8", "DETR", CSIServer, windows, "bfloat16", "w8a8", calib),
+        ("MViT-v2 bf16", "MViT-v2", VideoServer,
+         rng.standard_normal((2, *VIDEO_CLIPS["MViT-v2"], 3),
+                             dtype=np.float32), "bfloat16", None, None)]
+    resnet_clips = rng.standard_normal(
+        (BACKBONE_CALIB_CLIPS, *VIDEO_CLIPS["ResNet"], 3), dtype=np.float32)
+    cases.append(("ResNet w8a8", "ResNet", VideoServer, resnet_clips,
+                  "bfloat16", "w8a8", resnet_clips))
+    for label, key, make, x, dtype, quant, cal in cases:
+        if make is CSIServer:
+            def build(key=key):
+                return build_model(key, seed=SEED)
+        else:
+            def build(key=key):
+                return build_video_model(key, VIDEO_OUT, seed=SEED)
+        server = make(key, build(), batch=len(x), dtype=dtype,
+                      device="cuda", quant=quant, calib=cal)
+        add(export_case(label, server, build, x, work, dtype=dtype,
+                        quant=quant, calib=cal))
+        del server
+        torch.cuda.empty_cache()
+
+    # Swin-T f32, card-only, under PyTorch's default flags (cuDNN's TF32
+    # on): the artifact's convs run in full f32 all the same
+    x = rng.standard_normal((1, *SWIN_EXPORT_CLIP, 3), dtype=np.float32)
+    model = build_video_model("Swin-T", VIDEO_OUT, SWIN_EXPORT_CLIP,
+                              seed=SEED)
+    with torch.no_grad():
+        cpu = model(torch.from_numpy(x)).numpy()
+    blob = export_serving(model.cuda(), x, platforms=("cuda",))
+    fn = load_serving(blob)
+    check(torch.backends.cudnn.allow_tf32,
+          "the Swin-T artifact runs under PyTorch's default flags")
+    card = fn(x).cpu().numpy()
+    check(torch.backends.cudnn.allow_tf32,
+          "the artifact's call restores the caller's TF32 flag")
+    err = float(np.abs(card - cpu).max())
+    top = float(np.abs(cpu).max())
+    print(f"export Swin-T f32 (card only, cuDNN's TF32 flag at PyTorch's "
+          f"default) at (1, {SWIN_EXPORT_CLIP}) vs the CPU: max abs err "
+          f"{err:.3e} = {err / top:.2e} of the largest logit (tolerance "
+          f"{SWIN_EXPORT_SHARE}); graph ops {mmcsi_ops(blob)}")
+    check(err <= SWIN_EXPORT_SHARE * top, f"Swin-T artifact vs CPU {err}")
+    del model, fn, blob
+
+    # MLP w8 for cuda and the CPU (the CLI's default platforms): the hand
+    # kernels as ops, which launch on the card and take their plain
+    # versions on the CPU; the input BatchNorm folded into layer_0, int8
+    # windows dequantized in the program
+    features = LENGTH * CHANNELS
+    model = build_model("MLP", seed=SEED)
+    folded = MLP(54, in_features=features, fold_input_norm=True,
+                 generator=torch.Generator().manual_seed(SEED))
+    folded.load_state_dict(fold_input_norm(model.state_dict()))
+    flat = calib.reshape(len(calib), features)
+    scale = max(float(np.abs(flat).max()), 1e-12) / 127.0
+    x8 = np.clip(np.round(windows.reshape(len(windows), features) / scale),
+                 -127, 127).astype(np.int8)
+    x8b = torch.from_numpy(x8).cuda()
+    # the eager w8 server of the same folded weights, fed the artifact's
+    # own dequantization of the int8 windows
+    server = CSIServer("MLP", copy.deepcopy(folded), batch=len(x8),
+                       dtype="float32", device="cuda", quant="w8",
+                       calib=flat)
+    xf = x8b.float() * torch.tensor(scale, dtype=torch.float32,
+                                    device="cuda")
+    # the f32 activation's bf16 columns for layer_0: a row of 810,000
+    # values, too wide for the prologue's shared window, so written
+    # straight from x; bit-equal to the plain version
+    from multi_modal_csi_tpu_torch.kernels.int8_matmul import (
+        quantize_columns, quantize_columns_reference)
+    rows = xf[None]
+    cols = quantize_columns(rows, None)
+    plain = quantize_columns_reference(rows, None)
+    col_err = float((cols.float() - plain.float()).abs().max())
+    col_ms = cuda_ms(lambda: quantize_columns(rows, None))
+    plain_ms = cuda_ms(lambda: quantize_columns_reference(rows, None))
+    bound = (rows.numel() * 4 + cols.numel() * 2) / PEAK_BYTES * 1e3
+    print(f"prologue, direct (no shared window), f32 {tuple(rows.shape)} to "
+          f"bf16 columns {tuple(cols.shape)}: max abs err vs plain "
+          f"{col_err:.3e}; kernel {col_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound bytes {bound:.4f} ms")
+    check(cols.shape == plain.shape and col_err == 0.0,
+          f"direct prologue vs plain {col_err}")
+    del rows, cols, plain
+    server.forward(xf)                                        # warm-up
+    kernels.reset_launch_counts()
+    want = server.forward(xf)
+    torch.cuda.synchronize()
+    eager = dict(kernels.LAUNCH_COUNTS)
+    t0 = time.perf_counter()
+    blob = export_serving(folded.eval().cuda(), x8, input_dtype="int8",
+                          input_scale=scale, quant="w8", calib_x=[flat],
+                          platforms=("cuda", "cpu"))
+    export_s = time.perf_counter() - t0
+    ops = mmcsi_ops(blob)
+    fn = load_serving(blob)
+    fn(x8b)                                                   # warm-up
+    kernels.reset_launch_counts()
+    card = fn(x8b)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCH_COUNTS)
+    card_ms = device_ms(lambda: fn(x8b), EXPORT_PROFILED)
+    eager_ms = device_ms(lambda: server.forward(xf), EXPORT_PROFILED)
+    add(launches)
+    eager_err = float((card - want).abs().max())
+    eager_top = float(want.abs().max())
+    cpu = load_serving(blob, "cpu")(x8)
+    err = float((card.cpu() - cpu).abs().max())
+    top = float(cpu.abs().max())
+    print(f"export MLP w8, folded, int8 input, cuda,cpu: {export_s:.1f} s "
+          f"to export, {len(blob) / 1e6:.1f} MB; graph ops {ops}; launches "
+          f"a forward {launches} (eager {eager}); logits vs eager max abs "
+          f"err {eager_err:.3e} (tolerance {EXPORT_SHARE} x "
+          f"{eager_top:.4f}); device ms a forward {card_ms:.3f} (eager "
+          f"{eager_ms:.3f}); card vs CPU max abs err {err:.3e} = "
+          f"{err / top:.2e} of the largest logit (tolerance "
+          f"{MLP_EXPORT_CPU_SHARE})")
+    check(ops and launches and launches == eager,
+          f"MLP cuda,cpu artifact: ops {ops}, launches {launches}, eager "
+          f"{eager}")
+    check(tuple(card.shape) == (len(windows), 54)
+          and bool(torch.isfinite(card).all()),
+          f"MLP artifact output {tuple(card.shape)}")
+    check(eager_err <= EXPORT_SHARE * eager_top,
+          f"MLP artifact vs eager {eager_err}")
+    check(err <= MLP_EXPORT_CPU_SHARE * top,
+          f"MLP artifact card vs CPU {err}")
+    print(f"export phase: {time.perf_counter() - start:.1f} s")
+    return totals
 
 
 def columns3d_entry(launches):
@@ -5009,6 +5303,10 @@ def main() -> int:
         print(f"ResNet, S3D, Swin-T and Swin-S phases (serving, int8, "
               f"training, run_video's default): {backbones_s:.1f} s of wall "
               f"time")
+        # serving artifacts: K1 (THAT), P1 and both prologues (DETR and
+        # ResNet in w8a8) and K3 (MViT-v2) inside exported programs
+        exported = export_phase(work, calib)
+        int8_runs.append(exported)
         trained_f32 = steps_f32 + [runs for runs, _ in experiments[:2]]
         trained_bf16 = ([step for _, step in served] + [step_bf16]
                         + [experiments[2][0]])
@@ -5042,6 +5340,8 @@ def main() -> int:
     # runs (MLP w8, CNN-1D, DETR and THAT_ENCODER w8a8, the serve_csi CLI,
     # MViT-v2 w8). The
     # prologue: per DETR w8a8 forward, its 52 calls; launches likewise.
+    # K1 bf16, K3 bf16, P1 and both prologues also count the checked
+    # forward of each card-only artifact of the export phase.
     trace = k5_times["trace"]
     k5_bytes, k5_ops = trace["bytes_ms"], trace["ops_ms"]
     print(f"chip_smoke: the whole run took "
@@ -5051,7 +5351,8 @@ def main() -> int:
                      "multi_modal_csi_tpu/kernels/flash_attention.py:108",
                      sum(runs.get("flash_attention", 0) for runs in
                          (that, trained, trained_bf16_that, encoder,
-                          experiment, encoder_int8, transfer)), fwd_times,
+                          experiment, encoder_int8, transfer, exported)),
+                     fwd_times,
                      {"that-left": 4, "that-right": 1}, torch.bfloat16),
         # the f32 instantiation, the f32 body of tc_attention.cuh; its C
         # entry is in flash_attention.cu; times are device times
@@ -5090,7 +5391,8 @@ def main() -> int:
         kernel_entry("flash_attention_lowrank_bias",
                      "flash_attention_lowrank.cu",
                      "multi_modal_csi_tpu/kernels/flash_attention.py:377",
-                     sum(runs[K3] for runs in video) - k3_f32, k3_times,
+                     sum(runs[K3] for runs in video) - k3_f32
+                     + exported.get(K3, 0), k3_times,
                      {f"{name}+bias": n
                       for name, (_, n) in LOWRANK_SHAPES.items()},
                      torch.bfloat16),

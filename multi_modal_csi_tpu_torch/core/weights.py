@@ -156,7 +156,8 @@ def _encoder_block(sd: StateDict, p, s, pre: str, n_convs: int) -> None:
 
 
 def _mlp(sd: StateDict, p, s, layers: int) -> None:
-    _bn(sd, p["input_norm"], s["input_norm"], "layer_norm")
+    if "input_norm" in p:              # absent once folded for serving
+        _bn(sd, p["input_norm"], s["input_norm"], "layer_norm")
     for i in range(3):
         _linear(sd, p[f"layer_{i}"], f"layer_{i}")
 
@@ -207,7 +208,8 @@ def _dual_band(sd: StateDict, p, s, layers: int) -> None:
 
 def _cnn2d(sd: StateDict, p, s, layers: int) -> None:
     for i in range(4):
-        _bn(sd, p[f"norm_{i}"], s[f"norm_{i}"], f"layer_norm_{i}")
+        if f"norm_{i}" in p:           # norm_0 is absent once folded
+            _bn(sd, p[f"norm_{i}"], s[f"norm_{i}"], f"layer_norm_{i}")
     for i in range(3):
         _conv2d(sd, p[f"conv_{i}"], f"layer_cnn_2d_{i}")
     _linear(sd, p["head"], "layer_linear")

@@ -56,7 +56,8 @@
 // jnp.round), or x as bf16 (the w8 operand), zeros at the padded positions
 // and in the row pad. It quantizes each input value once, into a window in
 // shared memory from which the columns are written, and reads x through
-// its strides (a transposed view is not copied).
+// its strides (a transposed view is not copied). A window too wide for
+// shared memory (above 200 KB for one row) is written straight from x.
 // The 3-D prologue (mmcsi_int8_columns3d) does the same for a 3-D
 // convolution of a channels-last (B, T, H, W, C) activation with symmetric
 // zero padding, writing (B To Ho Wo, Kp) rows in the weight's (channel,
@@ -602,6 +603,47 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// The prologue for a window too wide for shared memory (a Linear over
+// hundreds of thousands of features, MLP's layer_0): no window. A block
+// takes kDirectCols columns of one row at a time, each thread 8 of them
+// 256 apart, straight from x, so a channels-last row is read once at
+// consecutive addresses for k = 1, 8 loads in flight a thread. Bit-equal
+// to the windowed kernel (the same column_value).
+constexpr int kDirectCols = 2048;
+
+template <typename In, typename Out>
+__global__ void __launch_bounds__(256)
+    columns_direct_kernel(const In* __restrict__ x, Out* __restrict__ out,
+                          const float* __restrict__ scale, const Columns q) {
+  const int cg = q.channels / q.groups, kg = cg * q.k;
+  const long long chunks = (q.kp + kDirectCols - 1) / kDirectCols;
+  const float s = scale ? *scale : 1.0f;
+  const Out zero = column_value<Out>(0.0f, 1.0f);
+  for (long long t = blockIdx.x; t < q.tiles * chunks; t += gridDim.x) {
+    const long long r = t / chunks;          // (b lout + lo) groups + g
+    const int j0 = (int)(t - r * chunks) * kDirectCols + threadIdx.x;
+    const int g = (int)(r % q.groups);
+    const long long bl = r / q.groups;
+    const long long bi = bl / q.lout;
+    const int p0 = (int)(bl - bi * q.lout) * q.stride - q.pad_lo;
+    const In* xg = x + bi * q.sb + (long long)g * cg * q.sc;
+    Out* o = out + r * q.kp;
+#pragma unroll
+    for (int i = 0; i < kDirectCols / 256; ++i) {
+      const int j = j0 + i * 256;
+      if (j < q.kp) {
+        Out v = zero;
+        if (j < kg) {
+          const int c = j / q.k, tap = j - c * q.k;
+          v = column_value<Out>(
+              input_value(xg, q, p0 + tap * q.dilation, c), s);
+        }
+        o[j] = v;
+      }
+    }
+  }
+}
+
 template <typename In, typename Out>
 int launch_columns(const void* x, void* out, const float* scale,
                    const long long* strides, long long batch,
@@ -619,7 +661,17 @@ int launch_columns(const void* x, void* out, const float* scale,
   long long rows = 64;              // the most rows whose window fits in
   while (rows > 1 && window(rows) > 48 * 1024) rows /= 2;   // 48 KB
   const long long bytes = window(rows);
-  if (bytes > 200 * 1024) return (int)cudaErrorInvalidValue;
+  if (bytes > 200 * 1024) {         // one row's window: no shared memory
+    const Columns q{strides[0], strides[1], strides[2],
+                    batch * lout * groups, (int)length, (int)channels,
+                    (int)lout, k, stride, dilation, pad_lo, groups, (int)kp,
+                    1};
+    const unsigned blocks = (unsigned)std::min(
+        q.tiles * ((kp + kDirectCols - 1) / kDirectCols), 132LL * 16);
+    columns_direct_kernel<In, Out><<<blocks, 256, 0, stream>>>(
+        static_cast<const In*>(x), static_cast<Out*>(out), scale, q);
+    return (int)cudaGetLastError();
+  }
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         columns_kernel<In, Out>, cudaFuncAttributeMaxDynamicSharedMemorySize,

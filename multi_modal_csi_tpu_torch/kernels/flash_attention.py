@@ -24,7 +24,8 @@ bfloat16 on bf16 ``mma.sync``. Both stream their tiles, so any Nq and Nk,
 and take D <= 128. Their launches count apart too,
 ``flash_attention_backward`` (f32) and ``flash_attention_backward_bf16``.
 A CUDA call that the launcher refuses raises; nothing else runs in its
-place.
+place. K1 is the custom op ``mmcsi::flash_attention`` (the package's
+docstring says why); K2, which only training runs, is not.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from typing import Tuple
 
 import torch
 
-from . import build, count_launch
+from . import build, count_launch, define_op, uses_op
 
 NAME = "flash_attention"
 F32_NAME = "flash_attention_f32"    # K1's f32 launches, counted apart
@@ -189,14 +190,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     shapes it takes) or raise.
     """
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v)
+    if uses_op(q.device):
+        return torch.ops.mmcsi.flash_attention(q, k, v)
+    return flash_attention_reference(q, k, v)
+
+
+def _flash_attention_launch(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor) -> torch.Tensor:
+    """K1's launch on q's device (the op's CUDA implementation)."""
     out = torch.empty_like(q)
     if out.numel():
         _launch(NAME, NAME if q.dtype == torch.bfloat16 else F32_NAME,
                 (q, k, v, out), q, k.shape[1],
                 f"the tensor-core kernels take D <= {TC_MAX_HEAD_DIM}")
     return out
+
+
+define_op("flash_attention(Tensor q, Tensor k, Tensor v) -> Tensor",
+          _flash_attention_launch,
+          lambda q, k, v: flash_attention_reference(q, k, v).contiguous(),
+          lambda q, k, v: torch.empty_like(q))
 
 
 def flash_attention_backward(

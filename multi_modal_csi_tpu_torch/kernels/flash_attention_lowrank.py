@@ -33,7 +33,9 @@ bias as 3xTF32), float32 (training's forward) the f32 body (QK^T and P.V
 as 3xTF32, so at f32 precision; the bias as this module's plain version
 forms it, one f32 FMA chain per logit; the weights never rounded). Both
 take D <= 128 and M <= 128 (``lowrank_fits``). A CUDA call that its
-instantiation refuses raises; it never runs the other one.
+instantiation refuses raises; it never runs the other one. K3 is the
+custom op ``mmcsi::flash_attention_lowrank_bias`` (the package's
+docstring says why); K4, which only training runs, is not.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from . import build, count_launch
+from . import build, count_launch, define_op, uses_op
 
 NAME = "flash_attention_lowrank_bias"
 SOURCE = "flash_attention_lowrank"    # csrc/flash_attention_lowrank.cu
@@ -163,9 +165,18 @@ def flash_attention_lowrank_bias(
     the plain version's f32 GEMM forms it.
     """
     _check(q, k, v, r, s)
-    if q.device.type == "cpu":
+    if not uses_op(q.device):
         return flash_attention_lowrank_bias_reference(q, k, v, r, s,
                                                       return_lse)
+    out, lse = torch.ops.mmcsi.flash_attention_lowrank_bias(q, k, v, r, s)
+    return (out, lse) if return_lse else out
+
+
+def _lowrank_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    r: Optional[torch.Tensor], s: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's launch on q's device (the op's CUDA implementation): the
+    output and the row LSE."""
     b, h, nq, d = q.shape
     nk, m = k.shape[2], 0 if r is None else r.shape[3]
     out = torch.empty_like(q)
@@ -187,7 +198,19 @@ def flash_attention_lowrank_bias(
             raise RuntimeError(f"{NAME} kernel launch failed with CUDA error "
                                f"{err}")
         count_launch(NAME)
-    return (out, lse) if return_lse else out
+    return out, lse
+
+
+def _lowrank_plain(q, k, v, r, s):
+    out, lse = flash_attention_lowrank_bias_reference(q, k, v, r, s, True)
+    return out.contiguous(), lse.contiguous()
+
+
+define_op("flash_attention_lowrank_bias(Tensor q, Tensor k, Tensor v, "
+          "Tensor? r, Tensor? s) -> (Tensor, Tensor)", _lowrank_launch,
+          _lowrank_plain,
+          lambda q, k, v, r, s: (torch.empty_like(q), q.new_empty(
+              q.shape[:3], dtype=torch.float32)))
 
 
 # ---------------------------------------------------------------------- #

@@ -40,6 +40,11 @@ On CUDA tensors every entry point launches the hand-written kernels of
 are counted under ``int8_matmul_s8`` and ``int8_matmul_bf16`` (the product
 kernel, bare or fused, by its A operand) and ``int8_quantize_columns``
 (the prologue).
+
+The fused path's three launches are the custom ops
+``mmcsi::quantize_columns``, ``mmcsi::quantize_columns3d`` and
+``mmcsi::quantized_product`` (the package's docstring says why); the bare
+products, which no serving forward reaches, are not.
 """
 
 from __future__ import annotations
@@ -47,12 +52,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from . import build, count_launch
+from . import build, count_launch, define_op, uses_op
 
 SOURCE = "int8_matmul"                # csrc/int8_matmul.cu
 S8_NAME = "int8_matmul_s8"
@@ -301,8 +306,12 @@ def _check(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype,
 
 
 def _aligned(t: torch.Tensor) -> bool:
-    """Rows and base that the kernel's 4-byte copies take."""
-    return (t.shape[-1] * t.element_size()) % 4 == 0 and t.data_ptr() % 4 == 0
+    """Rows and base that the kernel's 4-byte copies take. The base is read
+    from the storage offset (an allocation starts at least 16-byte
+    aligned), so that a traced program decides as eager code does; the
+    launcher refuses a pointer that no copy divides."""
+    size = t.element_size()
+    return (t.shape[-1] * size) % 4 == 0 and (t.storage_offset() * size) % 4 == 0
 
 
 def _matmul(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype,
@@ -378,15 +387,33 @@ def quantize_columns(x: torch.Tensor, input_scale: Optional[torch.Tensor],
         raise ValueError(f"quantize_columns: k={k}, stride={stride}, "
                          f"dilation={dilation}, pads={pads}, groups={groups} "
                          f"for {c} channels")
-    # windows of span (k - 1) dilation + 1 over the padded length
-    lout = (length + sum(pads) - (k - 1) * dilation - 1) // stride + 1
+    lout = _columns_rows(x, k, stride, dilation, pads)
     if lout < 1 or b == 0:
         raise ValueError(f"quantize_columns: no output rows for "
                          f"{tuple(x.shape)}")
     tensors = (x,) if input_scale is None else (x, input_scale)
-    if _check_device(COLUMNS_NAME, *tensors) == "cpu":
+    _check_device(COLUMNS_NAME, *tensors)
+    if not uses_op(x.device):
         return quantize_columns_reference(x, input_scale, k, stride,
                                           dilation, pads, groups)
+    return torch.ops.mmcsi.quantize_columns(x, input_scale, k, stride,
+                                            dilation, list(pads), groups)
+
+
+def _columns_rows(x: torch.Tensor, k: int, stride: int, dilation: int,
+                  pads) -> int:
+    """L_out: windows of span (k - 1) dilation + 1 over the padded
+    length."""
+    return (x.shape[1] + sum(pads) - (k - 1) * dilation - 1) // stride + 1
+
+
+def _columns_launch(x: torch.Tensor, input_scale: Optional[torch.Tensor],
+                    k: int, stride: int, dilation: int, pads: List[int],
+                    groups: int) -> torch.Tensor:
+    """The prologue's launch on x's device (the op's CUDA
+    implementation)."""
+    b, length, c = x.shape
+    lout = _columns_rows(x, k, stride, dilation, pads)
     out_dtype = torch.bfloat16 if input_scale is None else torch.int8
     kp = padded_width(c // groups * k, out_dtype)
     strides = (ctypes.c_longlong * 3)(*x.stride())
@@ -405,6 +432,23 @@ def quantize_columns(x: torch.Tensor, input_scale: Optional[torch.Tensor],
                            f"error {err} at x {tuple(x.shape)}, k={k}")
     count_launch(COLUMNS_NAME)
     return out
+
+
+def _columns_fake(x, input_scale, k, stride, dilation, pads, groups):
+    out_dtype = torch.bfloat16 if input_scale is None else torch.int8
+    lout = _columns_rows(x, k, stride, dilation, pads)
+    return x.new_empty((x.shape[0] * lout, groups,
+                        padded_width(x.shape[2] // groups * k, out_dtype)),
+                       dtype=out_dtype)
+
+
+define_op("quantize_columns(Tensor x, Tensor? input_scale, int k, "
+          "int stride, int dilation, int[] pads, int groups) -> Tensor",
+          _columns_launch,
+          lambda x, input_scale, k, stride, dilation, pads, groups:
+          quantize_columns_reference(x, input_scale, k, stride, dilation,
+                                     tuple(pads), groups),
+          _columns_fake)
 
 
 def quantize_columns3d(x: torch.Tensor, input_scale: Optional[torch.Tensor],
@@ -434,9 +478,21 @@ def quantize_columns3d(x: torch.Tensor, input_scale: Optional[torch.Tensor],
         raise ValueError(f"quantize_columns3d: no output rows for "
                          f"{tuple(x.shape)} at kernel {kernel}")
     tensors = (x,) if input_scale is None else (x, input_scale)
-    if _check_device(COLUMNS3D_NAME, *tensors) == "cpu":
+    _check_device(COLUMNS3D_NAME, *tensors)
+    if not uses_op(x.device):
         return quantize_columns3d_reference(x, input_scale, kernel, stride,
                                             pads)
+    return torch.ops.mmcsi.quantize_columns3d(x, input_scale, list(kernel),
+                                              list(stride), list(pads))
+
+
+def _columns3d_launch(x: torch.Tensor, input_scale: Optional[torch.Tensor],
+                      kernel: List[int], stride: List[int],
+                      pads: List[int]) -> torch.Tensor:
+    """The 3-D prologue's launch on x's device (the op's CUDA
+    implementation)."""
+    b, c = x.shape[0], x.shape[-1]
+    dims = conv3d_output(tuple(x.shape[1:4]), kernel, stride, pads)
     out_dtype = torch.bfloat16 if input_scale is None else torch.int8
     kp = padded_width(c * math.prod(kernel), out_dtype)
     shape = (ctypes.c_longlong * 5)(*x.shape)
@@ -457,6 +513,22 @@ def quantize_columns3d(x: torch.Tensor, input_scale: Optional[torch.Tensor],
                            f"{kernel}, stride {stride}")
     count_launch(COLUMNS3D_NAME)
     return out
+
+
+def _columns3d_fake(x, input_scale, kernel, stride, pads):
+    out_dtype = torch.bfloat16 if input_scale is None else torch.int8
+    dims = conv3d_output(tuple(x.shape[1:4]), kernel, stride, pads)
+    return x.new_empty((x.shape[0] * math.prod(dims),
+                        padded_width(x.shape[-1] * math.prod(kernel),
+                                     out_dtype)), dtype=out_dtype)
+
+
+define_op("quantize_columns3d(Tensor x, Tensor? input_scale, int[] kernel, "
+          "int[] stride, int[] pads) -> Tensor", _columns3d_launch,
+          lambda x, input_scale, kernel, stride, pads:
+          quantize_columns3d_reference(x, input_scale, tuple(kernel),
+                                       tuple(stride), tuple(pads)),
+          _columns3d_fake)
 
 
 def quantized_product(a: torch.Tensor, b: torch.Tensor,
@@ -500,9 +572,24 @@ def quantized_product(a: torch.Tensor, b: torch.Tensor,
                          f"the int32 sum")
     tensors = [a, b, weight_scale] + [t for t in (input_scale, bias)
                                       if t is not None]
-    if _check_device(what, *tensors) == "cpu":
+    _check_device(what, *tensors)
+    if not uses_op(a.device):
         return quantized_product_reference(a, b, weight_scale, input_scale,
                                            bias, out_dtype, k=k)
+    return torch.ops.mmcsi.quantized_product(a, b, weight_scale, input_scale,
+                                             bias, out_dtype, k)
+
+
+def _product_launch(a: torch.Tensor, b: torch.Tensor,
+                    weight_scale: torch.Tensor,
+                    input_scale: Optional[torch.Tensor],
+                    bias: Optional[torch.Tensor], out_dtype: torch.dtype,
+                    k: int) -> torch.Tensor:
+    """P1's fused launch on a's device (the op's CUDA implementation): the
+    s8 instantiation for an int8 A, the bf16 one for a bf16 A."""
+    what = "quantized_product"
+    groups = b.shape[0] if b.dim() == 3 else 1
+    ng = b.shape[-2]
     m = a.shape[0]
     out = torch.empty((m, groups * ng), dtype=out_dtype, device=a.device)
     if m == 0:
@@ -520,3 +607,13 @@ def quantized_product(a: torch.Tensor, b: torch.Tensor,
                          else input_scale.float().reshape(())),
             bias=None if bias is None else bias.contiguous())
     return out
+
+
+define_op("quantized_product(Tensor a, Tensor b, Tensor weight_scale, "
+          "Tensor? input_scale, Tensor? bias, ScalarType out_dtype, int k) "
+          "-> Tensor", _product_launch,
+          lambda a, b, weight_scale, input_scale, bias, out_dtype, k:
+          quantized_product_reference(a, b, weight_scale, input_scale, bias,
+                                      out_dtype, k=k).contiguous(),
+          lambda a, b, weight_scale, input_scale, bias, out_dtype, k:
+          a.new_empty((a.shape[0], weight_scale.shape[0]), dtype=out_dtype))

@@ -63,6 +63,7 @@ from torch import nn
 from ...kernels.flash_attention_lowrank import (
     flash_attention_lowrank_bias, flash_attention_lowrank_bias_trainable,
     lowrank_fits)
+from ...nn.init import lecun_normal_
 from ...nn.layers import (GELU, Conv3d, Dropout, DropPath, LayerNorm, Linear,
                           max_pool3d)
 
@@ -241,7 +242,8 @@ class PoolConv(nn.Module):
         super().__init__()
         self.pool = Conv3d(head_dim, head_dim, kernel, stride=stride,
                            padding=tuple(k // 2 for k in kernel),
-                           groups=head_dim, bias=False, generator=generator)
+                           groups=head_dim, bias=False,
+                           weight_init=lecun_normal_, generator=generator)
         self.norm_act = nn.Sequential(LayerNorm(head_dim))
 
     def forward(self, x: torch.Tensor, thw: THW
@@ -435,7 +437,10 @@ class MViTBackbone(nn.Module):
         self.variant, self.clip = variant, tuple(clip)
         v2 = variant == "v2"
         self.conv_proj = Conv3d(3, EMBED_DIM, (3, 7, 7), stride=(2, 4, 4),
-                                padding=(1, 3, 3), generator=g)
+                                padding=(1, 3, 3), weight_init=lecun_normal_,
+                                generator=g)
+        with torch.no_grad():                  # flax nn.Conv's zero bias
+            self.conv_proj.bias.zero_()
         thw = patchified(self.clip)
         self.pos_encoding = PositionalEncoding(EMBED_DIM, thw, rel_pos=v2,
                                                generator=g)

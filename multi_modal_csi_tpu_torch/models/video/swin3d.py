@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...nn.init import lecun_normal_
 from ...nn.layers import GELU, Conv3d, DropPath, LayerNorm, Linear
 
 Window = Tuple[int, int, int]
@@ -229,7 +230,9 @@ class PatchEmbed3D(nn.Module):
     def __init__(self, embed_dim: int, *, generator: torch.Generator):
         super().__init__()
         self.proj = Conv3d(3, embed_dim, PATCH, stride=PATCH,
-                           generator=generator)
+                           weight_init=lecun_normal_, generator=generator)
+        with torch.no_grad():                  # flax nn.Conv's zero bias
+            self.proj.bias.zero_()
         self.norm = LayerNorm(embed_dim, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -65,3 +65,16 @@ def fan_out_normal_(t: torch.Tensor,
     std = math.sqrt(2.0 / fan_out) / _TRUNCATED_STD
     return torch.nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
                                        generator=generator)
+
+
+@torch.no_grad()
+def lecun_normal_(t: torch.Tensor,
+                  generator: torch.Generator) -> torch.Tensor:
+    """flax's ``lecun_normal`` (``variance_scaling(1.0, "fan_in",
+    "truncated_normal")``, the default kernel init of flax's ``nn.Conv``
+    and ``nn.Dense``): a normal of std sqrt(1 / fan_in) / 0.8796...,
+    truncated at two of its standard deviations."""
+    fan_in, _ = _fans(t)
+    std = math.sqrt(1.0 / fan_in) / _TRUNCATED_STD
+    return torch.nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
+                                       generator=generator)

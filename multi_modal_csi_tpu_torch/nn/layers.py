@@ -16,7 +16,11 @@ values are rounded:
 - LayerNorm and BatchNorm compute in f32 and return the promoted type of
   input and parameters;
 - attention keys its serving dtype on the parameter dtype, since
-  activations may arrive in f32 in bf16 serving.
+  activations may arrive in f32 in bf16 serving;
+- an f32 convolution (``Conv1d``, ``Conv2d``, ``Conv3d``) and the f32
+  ``LSTM`` run in full f32 on the card: cuDNN's TF32 flag is off around
+  each call (``core/device.py::cudnn_f32``), whatever the caller left it
+  at.
 
 Training: BatchNorm uses batch statistics and updates its running ones as
 torch does; dropout draws its masks from the generator that
@@ -48,6 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.device import cudnn_f32
 from ..core.quantize import (conv_forward, conv_nd_forward, dense_forward,
                              mark_weight_only, record_input)
 from ..kernels.flash_attention import (backward_fits, flash_attention,
@@ -162,10 +167,11 @@ class Conv1d(nn.Module):
         if self.bias is not None:
             dtype = torch.promote_types(dtype, self.bias.dtype)
         xt = F.pad(x.transpose(1, 2).to(dtype), self.pads(x.shape[1]))
-        y = F.conv1d(xt, self.weight.to(dtype),
-                     None if self.bias is None else self.bias.to(dtype),
-                     stride=self.stride, dilation=self.dilation,
-                     groups=self.groups)
+        with cudnn_f32():
+            y = F.conv1d(xt, self.weight.to(dtype),
+                         None if self.bias is None else self.bias.to(dtype),
+                         stride=self.stride, dilation=self.dilation,
+                         groups=self.groups)
         return y.transpose(1, 2)
 
 
@@ -212,8 +218,10 @@ class Conv2d(nn.Module):
             record_input(self, x)
         dtype = torch.promote_types(
             torch.promote_types(x.dtype, self.weight.dtype), self.bias.dtype)
-        y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), self.weight.to(dtype),
-                     self.bias.to(dtype), stride=self.stride)
+        with cudnn_f32():
+            y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2),
+                         self.weight.to(dtype), self.bias.to(dtype),
+                         stride=self.stride)
         return y.permute(0, 2, 3, 1)
 
 
@@ -270,11 +278,12 @@ class Conv3d(nn.Module):
         dtype = torch.promote_types(x.dtype, self.weight.dtype)
         if self.bias is not None:
             dtype = torch.promote_types(dtype, self.bias.dtype)
-        y = F.conv3d(x.to(dtype).permute(0, 4, 1, 2, 3).contiguous(),
-                     self.weight.to(dtype),
-                     None if self.bias is None else self.bias.to(dtype),
-                     stride=self.stride, padding=self.padding,
-                     groups=self.groups)
+        with cudnn_f32():
+            y = F.conv3d(x.to(dtype).permute(0, 4, 1, 2, 3).contiguous(),
+                         self.weight.to(dtype),
+                         None if self.bias is None else self.bias.to(dtype),
+                         stride=self.stride, padding=self.padding,
+                         groups=self.groups)
         return y.permute(0, 2, 3, 4, 1)
 
 
@@ -523,8 +532,10 @@ class LSTM(nn.Module):
                 p.dtype == torch.float32 for p in params):
             zeros = x.new_zeros((len(self._suffixes()), x.shape[0],
                                  self.hidden))
-            return torch.lstm(x, (zeros, zeros), params, True, 1, 0.0,
-                              self.training, self.bidirectional, True)[0]
+            with cudnn_f32():
+                return torch.lstm(x, (zeros, zeros), params, True, 1, 0.0,
+                                  self.training, self.bidirectional,
+                                  True)[0]
         out = lstm_steps(x, *self._params("l0"))
         if not self.bidirectional:
             return out

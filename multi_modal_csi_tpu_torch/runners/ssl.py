@@ -27,7 +27,7 @@ import torch
 
 from ..core.checkpoint import save_components
 from ..core.config import CSI_CHANNELS, Config
-from ..core.device import resolve_device
+from ..core.device import cudnn_f32, resolve_device
 from ..metrics.classification import (accuracy_score, classification_report,
                                       predict_labels)
 from ..models.csi.ssl import SSLModel, ssl_loss, two_views
@@ -85,7 +85,8 @@ def run_ssl(cfg: Config, data: Optional[Split] = None,
             with dropout_generator(generator):
                 z1, z2, logits = model(v1, v2)
             loss, _ = ssl_loss(z1, z2, logits, by)
-            loss.backward()
+            with cudnn_f32():          # the convs' backward in full f32
+                loss.backward()
             opt.step()
             return loss.detach()
 

@@ -40,7 +40,7 @@ import torch
 from torch import nn
 
 from ..core.checkpoint import RunCheckpointer
-from ..core.device import resolve_device
+from ..core.device import cudnn_f32, resolve_device
 from ..data.pipeline import chunked, epoch_batches, pad_to, prefetch_batches
 from ..metrics.performance import performance_metrics
 from ..nn.layers import dropout_generator
@@ -92,7 +92,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         with dropout_generator(generator):
             out = model(bx)
         loss = loss_fn(out, by)
-        loss.backward()
+        with cudnn_f32():              # the convs' backward in full f32 too
+            loss.backward()
         optimizer.step()
         if scheduler is not None:
             scheduler.step()

@@ -93,8 +93,8 @@ def test_port_imports_nothing_of_jax():
     name starts with the JAX package's, so names are compared exactly),
     and no pandas, sklearn, cv2, msgpack or matplotlib, which the machine
     with the card does not have. The video, int8, checkpoint, transfer,
-    SSL, dual-band and ST-RF modules are named, so that the test fails if
-    one of them goes missing."""
+    SSL, dual-band, ST-RF and export modules are named, so that the test
+    fails if one of them goes missing."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "multi_modal_csi_tpu_torch").rglob("*.py"))
@@ -106,7 +106,8 @@ def test_port_imports_nothing_of_jax():
                          "models.csi.dual_band", "models.csi.strf",
                          "kernels.spectrogram", "runners.ssl",
                          "runners.dual_band", "cli.inspect_model",
-                         "cli.ssl_inference", "utils.visualize"):
+                         "cli.ssl_inference", "utils.visualize",
+                         "core.export", "cli.export_model"):
         assert f"multi_modal_csi_tpu_torch.{video_module}" in mods
     code = (
         "import importlib, sys\n"
