@@ -94,7 +94,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    bf16 output within accumulation_bound's bound plus the
    epilogue's roundings, with times beside the yardstick (_int_mm or
    matmul plus the eager epilogue) and the bound; a bf16 operand whose
-   rows no 4-byte copy divides must be refused, raising; also every
+   rows no 4-byte copy divides must be refused, raising; the implicit
+   conv (quantized_conv3d) at CONV3D_ODD, w8a8 and w8, held likewise
+   (int8 codes torch.equal), and codes off 16-byte alignment refused,
+   raising; also every
    product of CNN-1D's w8a8 and MLP's w8 forwards, and MLP's layer_0 as
    it runs, bf16 (256, 810000) x int8 (256, 810000) through
    quantized_product, within the long-K accumulation bound (LONG_K_LAMBDA
@@ -136,8 +139,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    forward, no prologue, logits within 0.25 of the bf16 logits' spread)
    and CNN-1D in w8a8 (4 prologue and 4 s8 launches, card vs CPU as
    below; the JAX package has no accuracy bound for it, so its distance
-   from bf16 serving is printed), CNN-2D in w8 (3 3-D prologue and 3 bf16
-   launches: stage 1's bf16 columns in 2 chunks) and w8a8 (2 and 2 s8),
+   from bf16 serving is printed), CNN-2D in w8 and w8a8 (stages 1 and 2
+   one implicit conv each, after a k = 1 prologue unless a w8 bf16 input
+   is read as it is: exact counts from ``int8_conv_launches``),
    then of DETR and THAT_ENCODER in w8a8
    (their QUANT_DEFAULTS),
    bf16, batch 256, calibrated through CSIServer(calib=...) on a seeded
@@ -251,25 +255,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (45, 112, 112) clips and S3D 32 (45, 224, 224) in bf16, Swin 2 in f32):
    ragged requests, no launch, clips/s, peak memory, a profile, the f32
    logits at batch 1 against the CPU (Swin at (16, 224, 224)); ResNet and
-   S3D in w8a8 (--quant auto, calibrated on 8 seeded clips): the exact P1
-   s8, 3-D prologue (int8_quantize_columns3d) and prologue launches of a
-   forward, every 3-D prologue and fused product of a ResNet forward (S3D:
-   its stem temporal conv) held against its plain version bit for bit,
-   rates, a profile with the kernels' shares, the peak memory beside
-   bf16's, the logits against bf16 serving (ResNet within the JAX
-   package's 0.35 of the spread), ResNet's layer1 conv against cuDNN's
-   bf16 conv3d, and card vs CPU on the same int8 weights with the card's
-   int8 codes fed to the CPU; one f32 training step of each at batch 2
+   S3D in w8a8 (--quant auto, calibrated on 8 seeded clips): the exact
+   implicit-conv (int8_conv3d: one a conv of 16 channels or more), P1 s8,
+   3-D prologue (int8_quantize_columns3d: the C = 3 stems' chunks) and
+   prologue (k = 1 and the Linear) launches of a forward, every prologue,
+   fused product and implicit conv of a ResNet and an S3D forward held
+   against its plain version bit for bit and timed (S3D: its stem
+   temporal conv alone), rates, a profile with the kernels' shares, the
+   peak memory beside bf16's, the logits against bf16 serving (ResNet
+   within the JAX package's 0.35 of the spread), ResNet's layer1 conv
+   against cuDNN's bf16 conv3d and its k = 1 prologue against its byte
+   bound, and card vs CPU on the same int8 weights with the card's int8
+   codes fed to the CPU; one f32 training step of each at batch 2
    (no launch, peak memory, clips trained/s, a profile), and one at a
    small clip against the CPU in f32 and float64 with the card's ReLU
    sides and max-pool picks replayed; cli/run_video.py with its default
    model (Swin-T) on the 10 cached clips. CNN-2D's int8 Conv2d (stages 1
-   and 2 on the 3-D prologue) is served in w8 and w8a8 with the other
+   and 2 on the implicit conv) is served in w8 and w8a8 with the other
    baselines (phase 6b);
 16c. serving artifacts (core/export.py): card-only artifacts (the hand
    kernels as mmcsi custom ops in the exported program) of THAT bf16 at
    256 windows (K1), DETR w8a8 at 256 (P1 and the prologue), MViT-v2 bf16
-   at 2 clips (K3) and ResNet w8a8 at 8 clips (the 3-D prologue and P1),
+   at 2 clips (K3) and ResNet w8a8 at 8 clips (the implicit conv, the
+   3-D prologue and P1),
    each exported, saved, reloaded with serve_file and served: the same
    launches a forward as its eager server and logits within 1e-5 of the
    eager server's largest, with the export and load seconds, the size
@@ -284,8 +292,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    row through the prologue's direct path (no shared window) bit for bit
    against its plain version;
 17. the whole run's wall time, one JSON line describing each kernel
-   (every TPU kernel of the repo is ported, and P1's prologue and its
-   3-D prologue; K1, K2 and K3 with one entry per dtype),
+   (every TPU kernel of the repo is ported, and P1's prologue, its 3-D
+   prologue and its implicit conv; K1, K2 and K3 with one entry per
+   dtype),
    then the card's name and power limit, then the result line.
 
 Exits non-zero without a result when no CUDA device is available.
@@ -3115,6 +3124,7 @@ def run_video_phase(clips, annotation, work, key, train_dtype="float32",
 S8, BF16 = "int8_matmul_s8", "int8_matmul_bf16"
 COLUMNS = "int8_quantize_columns"
 COLUMNS3D = "int8_quantize_columns3d"
+CONV3D = "int8_conv3d"
 P1_TILE = (256, 272, 424)            # tools/exp_pallas_int8.py:36
 # (M, K, N) of each product in one bs256 forward at full width, and its
 # launches: the w8a8 layers (int8) and the weight-only attention
@@ -3151,6 +3161,17 @@ ENCODER_COLUMNS = 27 + 26
 # (G, M, K, N): odd sizes, a K with K mod 32 = 14, a grouped product
 P1_ODD = [(None, 1, 1, 1), (None, 17, 33, 65), (None, 300, 810, 270),
           (None, 100, 46, 70), (3, 100, 90, 30)]
+# the implicit conv at odd shapes, (x (B, T, H, W, C), N, kernel, stride,
+# pads): split-K (one row tile, K of 1,728 bytes), C = 24 (codes of 32
+# int8, 24 bf16), two column tiles at S3D's stride-2 (7, 1, 1), a 2-D conv,
+# a 16-byte K, and long K (128-byte stages) over three column tiles
+CONV3D_ODD = [((1, 3, 4, 5, 64), 40, (3, 3, 3), (1, 1, 1), (1, 1, 1)),
+              ((2, 5, 9, 7, 24), 16, (3, 3, 3), (2, 2, 2), (1, 1, 1)),
+              ((2, 9, 3, 5, 64), 100, (7, 1, 1), (2, 1, 1), (3, 0, 0)),
+              ((2, 1, 23, 19, 32), 16, (1, 7, 7), (1, 3, 3), (0, 0, 0)),
+              ((3, 4, 6, 5, 16), 24, (1, 1, 1), (2, 2, 2), (0, 0, 0)),
+              ((2, 6, 10, 12, 128), 200, (3, 3, 3), (1, 2, 2),
+               (1, 1, 1))]
 # MViT-v2 w8 (bf16 serving, batch 2): its Linears of at least 16384
 # weights, each called once a forward: qkv 16, attn.project.0 15 (block 0's
 # 96 x 96 stays float), mlp.0 and mlp.3 32, the widening block projects 3,
@@ -3362,8 +3383,10 @@ def phase_p1():
     check(refused, "P1 s8 launched with a K whose sum could overflow")
     p1_w8_case(gen)
     phase_p1_fused(gen)
-    print(f"P1 phase: {len(shapes)} shapes x 2 and the fused path at "
-          f"{len(P1_ODD)} x 2 in {time.perf_counter() - start:.1f} s")
+    phase_conv3d_odd(gen)
+    print(f"P1 phase: {len(shapes)} shapes x 2, the fused path at "
+          f"{len(P1_ODD)} x 2 and the implicit conv at {len(CONV3D_ODD)} x 2"
+          f" in {time.perf_counter() - start:.1f} s")
 
 
 def p1_w8_case(gen):
@@ -3560,7 +3583,8 @@ def recorded_launches():
 @contextlib.contextmanager
 def recorded_activations():
     """Keeps a CPU copy of every int8 operand that the quantized layers'
-    prologues (1-D and 3-D) make inside the block."""
+    prologues (1-D and 3-D) make inside the block: the implicit conv's
+    codes are the 1-D prologue's at k = 1."""
     from multi_modal_csi_tpu_torch.core import quantize as Q
     real, real3d, out = Q.quantize_columns, Q.quantize_columns3d, []
 
@@ -3587,11 +3611,13 @@ def by_shape(shapes, dtype):
 
 def int8_serve_phase(key, requests, calib_path, s8_table, bf16_table,
                      columns, expect_out, k1_per_forward, quant="auto",
-                     mode="w8a8", columns3d=0):
+                     mode="w8a8"):
     """int8 serving of ``key`` (``quant``: "auto" takes QUANT_DEFAULTS;
     it must resolve to ``mode``) in bf16 at batch 256, calibrated on the
     .npy at ``calib_path`` through CSIServer: exact P1 launches by shape
-    in one batch forward, every prologue and fused product of it held
+    in one batch forward (``columns`` None: a model of int8 convs, whose
+    launches ``int8_conv_launches`` gives), every prologue, fused product
+    and implicit conv of it held
     against its plain version, the ragged requests from host memory,
     rates, a profile with P1's share; the logits against bf16 serving
     (within INT8_SPREAD_BOUND where the JAX package has a bound); then, in
@@ -3621,14 +3647,15 @@ def int8_serve_phase(key, requests, calib_path, s8_table, bf16_table,
 
     batch = torch.from_numpy(requests[0][:server.batch])
     kernels.reset_launch_counts()
-    with recorded_launches() as shapes:
+    with recorded_launches() as shapes, int8_inputs(server.model) as inputs:
         server.forward(batch)
         torch.cuda.synchronize()
     one = dict(kernels.LAUNCH_COUNTS)
     want = {name: count for name, count in (
         (S8, sum(s8_table.values())), (BF16, sum(bf16_table.values())),
-        (COLUMNS, columns), (COLUMNS3D, columns3d),
-        ("flash_attention", k1_per_forward)) if count}
+        (COLUMNS, columns), ("flash_attention", k1_per_forward)) if count}
+    if columns is None:
+        want = int8_conv_launches(server.model, inputs)
     print(f"{key} {mode}: launches in one batch forward: {one}")
     check(one == want, f"{key} {mode} launched {one}, expected {want}")
     check(by_shape(shapes, torch.int8) == s8_table
@@ -3693,7 +3720,7 @@ def int8_serve_phase(key, requests, calib_path, s8_table, bf16_table,
     with recorded_activations() as card_acts:
         got_out = card(x).cpu().numpy()
     card_launches = dict(kernels.LAUNCH_COUNTS)
-    check(card_launches.get(S8) == want[S8],
+    check(all(card_launches.get(n) == want.get(n) for n in (S8, CONV3D)),
           f"{key} f32 int8 on the card launched {card_launches}")
     check(len(card_acts) == len(cpu_acts), f"{key}: {len(card_acts)} "
           f"quantized activations on the card, {len(cpu_acts)} on the CPU")
@@ -3841,13 +3868,13 @@ def video_int8_phase(requests):
 
 @contextlib.contextmanager
 def captured_calls():
-    """Keeps, for each signature of a prologue (1-D or 3-D) or
-    fused-product call that the quantized layers make inside the block
-    (kind, dtypes, shapes, options), the first call's arguments and how
-    often it ran: key -> [args, kwargs, count]."""
+    """Keeps, for each signature of a prologue (1-D or 3-D),
+    fused-product or implicit-conv call that the quantized layers make
+    inside the block (kind, dtypes, shapes, options), the first call's
+    arguments and how often it ran: key -> [args, kwargs, count]."""
     from multi_modal_csi_tpu_torch.core import quantize as Q
     real_columns, real_product = Q.quantize_columns, Q.quantized_product
-    real_columns3d = Q.quantize_columns3d
+    real_columns3d, real_conv3d = Q.quantize_columns3d, Q.quantized_conv3d
     calls = {}
 
     def keep(key, args, kwargs):
@@ -3868,13 +3895,20 @@ def captured_calls():
               out_dtype, bias is not None), (a, b, ws, s, bias, out_dtype),
              {"k": k})
         return real_product(a, b, ws, s, bias, out_dtype, k=k)
+    def conv3d(a, b, ws, s, bias, out_dtype, kernel, stride, pads):
+        keep(("conv3d", a.dtype, tuple(a.shape), tuple(b.shape),
+              tuple(kernel), tuple(stride), tuple(pads), out_dtype,
+              bias is not None),
+             (a, b, ws, s, bias, out_dtype, kernel, stride, pads), {})
+        return real_conv3d(a, b, ws, s, bias, out_dtype, kernel, stride,
+                           pads)
     Q.quantize_columns, Q.quantized_product = columns, product
-    Q.quantize_columns3d = columns3d
+    Q.quantize_columns3d, Q.quantized_conv3d = columns3d, conv3d
     try:
         yield calls
     finally:
         Q.quantize_columns, Q.quantized_product = real_columns, real_product
-        Q.quantize_columns3d = real_columns3d
+        Q.quantize_columns3d, Q.quantized_conv3d = real_columns3d, real_conv3d
 
 
 def columns_bound(x, out):
@@ -3902,6 +3936,43 @@ def fused_bound(a, b, out_dtype, k):
     nbytes = m * k * groups * a.element_size() + n * k + m * n * out
     return (1e3 * nbytes / PEAK_BYTES,
             1e3 * 2.0 * m * n * k / PEAK_FLOPS[a.dtype])
+
+
+def conv3d_shape(a, b, kernel, stride, pads):
+    """(M, K, N) of an implicit conv: M output positions, K = kt kh kw
+    Cp, N features."""
+    from multi_modal_csi_tpu_torch.kernels.int8_matmul import conv3d_output
+    dims = conv3d_output(tuple(a.shape[1:4]), kernel, stride, pads)
+    return (a.shape[0] * math.prod(dims), math.prod(kernel) * a.shape[-1],
+            b.shape[0])
+
+
+def conv3d_bound(a, b, out_dtype, kernel, stride, pads):
+    """The least times (ms) of one implicit conv: the codes (each read
+    once, not once a tap), the weight's K columns and the output over the
+    HBM rate, and 2 M N K operations over the tensor-core peak of the
+    codes' type."""
+    m, k, n = conv3d_shape(a, b, kernel, stride, pads)
+    out = torch.empty((), dtype=out_dtype).element_size()
+    nbytes = a.numel() * a.element_size() + n * k + m * n * out
+    return (1e3 * nbytes / PEAK_BYTES,
+            1e3 * 2.0 * m * n * k / PEAK_FLOPS[a.dtype])
+
+
+def conv3d_bf16_worst(got, a, b, ws, bias, kernel, stride, pads):
+    """``bf16_fused_worst`` of a bf16 implicit conv, over chunks of whole
+    samples of its tap-major columns (the plain version's chunks)."""
+    from multi_modal_csi_tpu_torch.kernels import int8_matmul as K
+    m, k, n = conv3d_shape(a, b, kernel, stride, pads)
+    per = m // a.shape[0]
+    step = max(1, K.REFERENCE_ELEMENTS // (per * k))
+    worst = 0.0
+    for i in range(0, a.shape[0], step):
+        cols = K.conv3d_columns(a[i:i + step], kernel, stride, pads)
+        worst = max(worst, bf16_fused_worst(
+            got[i:i + step].reshape(-1, n), cols, b, ws, bias, k))
+        del cols
+    return worst
 
 
 def fused_library(a, b, ws, s, bias, out_dtype, k):
@@ -3958,19 +4029,20 @@ def bf16_fused_worst(got, a, b, ws, bias, k):
 def check_fused(label, calls, timed=lambda key: True):
     """Each captured prologue call against its plain version on the card
     (torch.equal: quantize_activation or the bf16 cast, unfold, pad), each
-    captured fused product against the eager chain on the card (s8:
-    torch.equal; bf16: ``bf16_fused_worst`` within 1); then per signature
-    for which ``timed(key)`` holds, with CUDA events (plain, kernel,
-    kernel, plain), their times beside the yardstick (prologue: none;
-    product: ``fused_library``) and the bound. Returns the sums of the
-    timed calls per forward (weights: the calls' counts) for the prologue
-    and each product type, with the largest error of all calls (0:
-    equal)."""
+    captured fused product and implicit conv against the eager chain on
+    the card (s8 and int8 codes: torch.equal; bf16: ``bf16_fused_worst``
+    within 1); then per signature for which ``timed(key)`` holds, with
+    CUDA events (plain, kernel, kernel, plain), their times beside the
+    yardstick (prologue and implicit conv: none; product:
+    ``fused_library``) and the bound. Returns the sums of the timed calls
+    per forward (weights: the calls' counts) for the prologue, each
+    product type and the implicit conv, with the largest error of all
+    calls (0: equal)."""
     from multi_modal_csi_tpu_torch.kernels import int8_matmul as K
     fields = ("ms", "plain_ms", "bytes_ms", "ops_ms", "library_ms")
     totals = {name: dict.fromkeys(fields, 0.0)
               | {"err": 0.0, "calls": 0, "checked": 0}
-              for name in ("columns", "columns3d", "s8", "bf16")}
+              for name in ("columns", "columns3d", "s8", "bf16", "conv3d")}
     prologues = {"columns": (K.quantize_columns,
                              K.quantize_columns_reference,
                              "k,stride,dilation,pads,groups"),
@@ -3991,6 +4063,33 @@ def check_fused(label, calls, timed=lambda key: True):
                 f"{options}={args[2:] or (1,)} -> {str(got.dtype)[6:]} "
                 f"{tuple(got.shape)}: equal")
             reps = max(3, min(20, int(4e9 / got.numel())))
+        elif key[0] == "conv3d":
+            kernel, plain = K.quantized_conv3d, K.quantized_conv3d_reference
+            a, b, ws, s, bias, out_dtype, geometry = (*args[:6], args[6:])
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            m, k, n = conv3d_shape(a, b, *geometry)
+            name = "conv3d"
+            if a.dtype == torch.int8:
+                err = 0.0
+                check(torch.equal(got, want), f"{label}: implicit conv {key} "
+                                              f"differs from the eager chain")
+                result = "equal to the eager chain"
+            else:
+                worst = conv3d_bf16_worst(got, a, b, ws, bias, *geometry)
+                check(worst <= 1.0, f"{label}: implicit conv bf16 {key}: "
+                                    f"{worst:.3g} of its bound")
+                err = float((got.float() - want.float()).abs().max())
+                result = (f"max abs err vs eager {err:.3e}, {worst:.3g} of "
+                          f"the bound")
+            bytes_ms, ops_ms = conv3d_bound(a, b, out_dtype, *geometry)
+            lib = None
+            what = (f"implicit conv {str(a.dtype)[6:]} codes "
+                    f"{tuple(a.shape)} kernel {tuple(geometry[0])} stride "
+                    f"{tuple(geometry[1])} pads {tuple(geometry[2])} "
+                    f"M,K,N={(m, k, n)} {'bias ' if bias is not None else ''}"
+                    f"-> {str(out_dtype)[6:]}: {result}")
+            reps = max(3, min(20, int(4e10 / (m * k * n))))
         else:
             kernel, plain = K.quantized_product, K.quantized_product_reference
             a, b, ws, s, bias, out_dtype = args
@@ -4057,7 +4156,8 @@ def check_fused(label, calls, timed=lambda key: True):
         if not t["calls"]:
             continue
         lib = t["library_ms"]
-        what = {"columns": "prologue", "columns3d": "3-D prologue"}
+        what = {"columns": "prologue", "columns3d": "3-D prologue",
+                "conv3d": "implicit conv"}
         calls = (f"{t['calls']} calls" if t["calls"] == t["checked"] else
                  f"the {t['calls']} timed of its {t['checked']} calls")
         print(f"{label} {what.get(name, name)} per "
@@ -4069,17 +4169,21 @@ def check_fused(label, calls, timed=lambda key: True):
 
 
 def int8_shares(label, prof):
-    """P1's (the product and split-K kernels), the prologue's and the
-    remaining elementwise and copy kernels' device ms per forward and
-    shares, from ``profile_device``."""
-    groups = {"P1 (product_kernel, reduce_kernel)": ("product_kernel",
-                                                      "reduce_kernel"),
-              "prologue (columns_kernel)": ("columns_kernel",),
-              "3-D prologue (columns3d_kernel)": ("columns3d_kernel",),
-              "elementwise and copies": ("elementwise", "Copy")}
-    for what, names in groups.items():
-        ms = sum(t for kname, t in prof["kernels"].items()
-                 if any(n in kname for n in names))
+    """P1's (the product and split-K kernels), the implicit conv's, the
+    prologues' and the remaining elementwise and copy kernels' device ms
+    per forward and shares, from ``profile_device``."""
+    groups = {"P1 (product_kernel, reduce_kernel)": (
+                  lambda n: ("product_kernel" in n and "true>" not in n)
+                  or "reduce_kernel" in n),
+              "implicit conv (product_kernel<..., true>)": (
+                  lambda n: "product_kernel" in n and "true>" in n),
+              "prologue (columns_kernel)": lambda n: "columns_kernel" in n,
+              "3-D prologue (columns3d_kernel)": (
+                  lambda n: "columns3d_kernel" in n),
+              "elementwise and copies": (
+                  lambda n: "elementwise" in n or "Copy" in n)}
+    for what, picks in groups.items():
+        ms = sum(t for kname, t in prof["kernels"].items() if picks(kname))
         print(f"{label}: {what} {ms:.3f} ms of {prof['device_ms']:.3f} ms "
               f"device time per forward ({100 * ms / prof['device_ms']:.1f}"
               f"%)")
@@ -4131,6 +4235,47 @@ def phase_p1_fused(gen):
               f" refused ({e})")
         refused = True
     check(refused, "P1 launched a product no copy width divides")
+
+
+def phase_conv3d_odd(gen):
+    """The implicit conv at CONV3D_ODD through core/quantize.py's
+    conv_nd_forward, in w8a8 (f32 input, bf16 output) and w8 (bf16 input,
+    read as it is, f32 output), with a bf16 bias, every call held by
+    ``check_fused``; then codes one byte off 16-byte alignment must be
+    refused by the launcher, raising."""
+    from multi_modal_csi_tpu_torch.core import quantize as Q
+    from multi_modal_csi_tpu_torch.kernels import int8_matmul as K
+    for shape, n, kernel, stride, pads in CONV3D_ODD:
+        x = 3 * torch.randn(shape, generator=gen, device="cuda")
+        w = torch.randint(-127, 128, (n, shape[-1], *kernel), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        ws = 1e-3 + 1e-2 * torch.rand(n, generator=gen, device="cuda")
+        bias = torch.randn(n, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+        s = torch.tensor(0.05, device="cuda")
+        for scale, x_dtype, out_dtype in ((s, torch.float32, torch.bfloat16),
+                                          (None, torch.bfloat16,
+                                           torch.float32)):
+            with captured_calls() as calls:
+                Q.conv_nd_forward(x.to(x_dtype), w, ws, scale,
+                                  stride=stride, padding=pads, bias=bias,
+                                  out_dtype=out_dtype)
+            check(sum(key[0] == "conv3d" for key in calls) == 1,
+                  f"implicit conv {shape}: {sorted(calls, key=str)}")
+            mode = "w8" if scale is None else "w8a8"
+            check_fused(f"CONV3D_ODD {shape} {kernel} {mode}", calls)
+    codes = torch.zeros(2 * 3 * 4 * 5 * 16 + 1, dtype=torch.int8,
+                        device="cuda")[1:].view(2, 3, 4, 5, 16)
+    taps = K.tap_major(torch.zeros((8, 16, 1, 1, 1), dtype=torch.int8,
+                                   device="cuda"), 16)
+    try:
+        K.quantized_conv3d(codes, taps, torch.ones(8, device="cuda"),
+                           torch.tensor(1.0, device="cuda"))
+        refused = False
+    except RuntimeError as e:
+        print(f"implicit conv on codes one byte off alignment: refused ({e})")
+        refused = True
+    check(refused, "the implicit conv launched on misaligned codes")
 
 
 def p1_totals(label, table, dtype):
@@ -4329,14 +4474,10 @@ BACKBONE_CALIB_CLIPS = 8   # seeded calibration clips (amax)
 # float64 where S3D's BatchNorms over few positions leave f32 less
 GRAD_F64_RATIO = 2.0
 # CNN-2D (bf16 serving, batch 256): stages 1 and 2 int8 (stage 0 never
-# announces), each a 2-D conv on the 3-D prologue. w8a8: (256 x 137 x 7,
-# 32 x 15 x 15) int8 columns (1.77 GB, one chunk) and (256 x 131, 64 x 7 x
-# 7). w8: the bf16 columns of stage 1 are 3.5 GB, so 155 + 101 windows
-CNN2D_S8 = {(256 * 959, 7200, 64): 1, (256 * 131, 3136, 128): 1}
-CNN2D_BF16 = {(155 * 959, 7200, 64): 1, (101 * 959, 7200, 64): 1,
-              (256 * 131, 3136, 128): 1}
-# P1 and the prologue against cuDNN at ResNet's layer1 (64 clips of 45 x
-# 56 x 56 x 64, 3x3x3, 64 features)
+# announces), each an implicit conv of 32 and 64 channels over the batch
+# (``int8_conv_launches``): no product, no columns
+# the int8 conv against cuDNN at ResNet's layer1 (64 clips of 45 x 56 x
+# 56 x 64, 3x3x3, 64 features)
 LAYER1_SHAPE = (64, 45, 56, 56, 64)
 
 
@@ -4451,44 +4592,75 @@ def backbone_serve_phase(key):
     return peak
 
 
-def int8_conv_launches(model, shapes):
-    """The launches that one int8 forward must make: for each int8 hooked
-    Conv3d, given its input's shape in ``shapes`` (module -> shape), one
-    3-D prologue and one s8 product a chunk of whole clips whose columns
-    fit in COLUMN_BUDGET; one prologue and one product for each int8
-    Linear."""
+def int8_conv_launches(model, inputs):
+    """The launches that one int8 forward must make, given each int8
+    layer's input in ``inputs`` (``int8_inputs``): for a hooked Conv3d or
+    Conv2d of C >= IMPLICIT_MIN_CHANNELS one implicit conv, after one
+    prologue at k = 1 unless a w8 bf16 input is read as it is (contiguous,
+    C a multiple of 8, 16-byte aligned); for a narrower one, one 3-D
+    prologue and one product (s8 for w8a8, bf16 for w8) a chunk of whole
+    samples whose columns fit in COLUMN_BUDGET; one prologue and one s8
+    product for each w8a8 Linear."""
     from multi_modal_csi_tpu_torch.core.quantize import COLUMN_BUDGET
-    from multi_modal_csi_tpu_torch.kernels.int8_matmul import (conv3d_output,
-                                                               padded_width)
-    from multi_modal_csi_tpu_torch.nn.layers import Conv3d, Linear
-    chunks = linears = 0
+    from multi_modal_csi_tpu_torch.kernels.int8_matmul import (
+        IMPLICIT_MIN_CHANNELS, conv3d_output, padded_width)
+    from multi_modal_csi_tpu_torch.nn.layers import Conv2d, Conv3d, Linear
+    counts = {}
+
+    def add(name, n=1):
+        counts[name] = counts.get(name, 0) + n
     for module in model.modules():
         if getattr(module, "weight", None) is None or (
                 module.weight.dtype != torch.int8):
             continue
+        w8a8 = hasattr(module, "input_scale")
+        shape, dtype, direct = inputs[module]
         if isinstance(module, Linear):
-            linears += 1
+            check(w8a8, "an int8 w8 Linear beside the convs")
+            add(COLUMNS)
+            add(S8)
             continue
-        check(isinstance(module, Conv3d) and module.hooked,
-              f"int8 {type(module).__name__} is not a hooked Conv3d")
-        b, t, h, w, _ = shapes[module]
-        dims = conv3d_output((t, h, w), tuple(module.weight.shape[2:]),
-                             module.stride, module.padding)
-        sample = math.prod(dims) * padded_width(module.weight[0].numel(),
-                                                torch.int8)
-        chunks += -(-b // max(1, COLUMN_BUDGET // sample))
-    return {S8: chunks + linears, COLUMNS3D: chunks, COLUMNS: linears}
+        check(isinstance(module, (Conv2d, Conv3d)) and module.hooked,
+              f"int8 {type(module).__name__} is not a hooked conv")
+        if shape[-1] >= IMPLICIT_MIN_CHANNELS:
+            if w8a8 or not direct:
+                add(COLUMNS)
+            add(CONV3D)
+            continue
+        if isinstance(module, Conv2d):
+            shape = (shape[0], 1, *shape[1:])
+            geometry = ((1, *module.weight.shape[2:]), (1, *module.stride),
+                        (0, 0, 0))
+        else:
+            geometry = (tuple(module.weight.shape[2:]), module.stride,
+                        module.padding)
+        dims = conv3d_output(tuple(shape[1:4]), *geometry)
+        col = torch.int8 if w8a8 else torch.bfloat16
+        sample = (math.prod(dims) * col.itemsize
+                  * padded_width(module.weight[0].numel(), col))
+        chunks = -(-shape[0] // max(1, COLUMN_BUDGET // sample))
+        add(COLUMNS3D, chunks)
+        add(S8 if w8a8 else BF16, chunks)
+    return counts
 
 
 @contextlib.contextmanager
-def input_shapes(model):
-    """module -> the shape of its input in the block's forwards."""
-    shapes = {}
-    hooks = [m.register_forward_pre_hook(
-        lambda mod, args: shapes.__setitem__(mod, tuple(args[0].shape)))
-        for m in model.modules() if getattr(m, "weight", None) is not None]
+def int8_inputs(model):
+    """module -> (shape, dtype, whether a w8 implicit conv reads it as it
+    is) of each int8 layer's input in the block's forwards."""
+    inputs = {}
+
+    def keep(module, args):
+        x = args[0]
+        inputs[module] = (tuple(x.shape), x.dtype,
+                          x.dtype == torch.bfloat16 and x.is_contiguous()
+                          and x.shape[-1] % 8 == 0
+                          and x.storage_offset() % 8 == 0)
+    hooks = [m.register_forward_pre_hook(keep) for m in model.modules()
+             if getattr(m, "weight", None) is not None
+             and m.weight.dtype == torch.int8]
     try:
-        yield shapes
+        yield inputs
     finally:
         for h in hooks:
             h.remove()
@@ -4496,23 +4668,24 @@ def input_shapes(model):
 
 def stem_call(key):
     """Whether a ``captured_calls`` key is S3D's stem temporal (7, 1, 1)
-    conv (its 3-D prologue or its product, K = 64 x 7)."""
-    return ((key[0] == "columns3d" and key[4][0] == (7, 1, 1))
-            or (key[0] == "product" and key[4] == 64 * 7))
+    conv, an implicit conv of C = 64."""
+    return key[0] == "conv3d" and key[4] == (7, 1, 1)
 
 
 def backbone_int8_phase(key, bf16_peak):
     """``key`` (ResNet, S3D) served with --quant auto (w8a8) in bf16 at
     its serving batch, calibrated (amax) on BACKBONE_CALIB_CLIPS seeded
-    clips: exact P1 s8, 3-D prologue and 1-D prologue launches in one
-    batch forward (``int8_conv_launches``), the prologue and the fused
-    products held against their plain versions at every call of a batch
-    forward (timed at every ResNet call and at S3D's stem temporal conv,
-    ``stem_call``), the ragged requests, the rates, serving's peak memory
-    (after the checks) beside bf16's, a profile with the kernels' shares,
-    the logits against bf16 serving (ResNet: the JAX package's 0.35 of
-    the spread; S3D printed); at ResNet's layer1, the int8 conv against
-    cuDNN's bf16 conv3d; then the same int8 weights at f32 on the card
+    clips: exact implicit-conv, P1 s8, 3-D prologue and 1-D prologue
+    launches in one batch forward (``int8_conv_launches``), the prologues,
+    the fused products and the implicit convs held against their plain
+    versions at every call of a batch forward (timed at every ResNet call
+    and at S3D's stem temporal conv, ``stem_call``), the ragged requests,
+    the rates, serving's peak memory (after the checks) beside bf16's, a
+    profile with the kernels' shares, the logits against bf16 serving
+    (ResNet: the JAX package's 0.35 of the spread; S3D printed); at
+    ResNet's layer1, the k = 1 prologue against its byte bound and the
+    int8 conv against cuDNN's bf16 conv3d (another function: the
+    yardstick w8a8 must beat); then the same int8 weights at f32 on the card
     against the CPU: the distance and the int8 codes that the devices' f32
     noise put on the other side of a rounding boundary, per layer, printed
     (they compound over the layers, each flip moving the next layer's
@@ -4549,18 +4722,18 @@ def backbone_int8_phase(key, bf16_peak):
     torch.cuda.synchronize()
     batch = torch.from_numpy(requests[0][:server.batch]).cuda()
     kernels.reset_launch_counts()
-    with input_shapes(server.model) as shapes:
+    with int8_inputs(server.model) as inputs:
         server.forward(batch)
         torch.cuda.synchronize()
     one = dict(kernels.LAUNCH_COUNTS)
-    want = int8_conv_launches(server.model, shapes)
+    want = int8_conv_launches(server.model, inputs)
     print(f"{label}: launches in one batch forward: {one}")
     check(one == want, f"{label} launched {one}, expected {want}")
     with captured_calls() as calls:
         server.forward(batch)
         torch.cuda.synchronize()
     timed = (lambda k: True) if key == "ResNet" else stem_call
-    check(sum(map(timed, calls)) in (2, len(calls)),
+    check(sum(map(timed, calls)) in (1, len(calls)),
           f"{label}: timed {[k for k in calls if timed(k)]}")
     FUSED_TOTALS[key] = check_fused(label, calls, timed)
     del calls
@@ -4583,9 +4756,10 @@ def backbone_int8_phase(key, bf16_peak):
     int8_shares(label, prof)
 
     if key == "ResNet":
-        # the int8 conv (prologue and product over every chunk) against
-        # cuDNN's bf16 conv3d at layer1
+        # the int8 conv (the k = 1 prologue and the implicit conv) against
+        # cuDNN's bf16 conv3d at layer1, and the prologue against its bound
         import torch.nn.functional as F
+        from multi_modal_csi_tpu_torch.core.quantize import conv_codes
         conv = server.model.backbone.layer1[0].conv1[0]
         x = torch.randn(LAYER1_SHAPE, device="cuda", dtype=torch.bfloat16)
         w = torch.randn((64, 64, 3, 3, 3), device="cuda",
@@ -4594,12 +4768,19 @@ def backbone_int8_phase(key, bf16_peak):
         cudnn = cuda_ms(lambda: F.conv3d(xf, w, padding=1), 5, 1)
         port_bf16 = cuda_ms(lambda: F.conv3d(
             x.permute(0, 4, 1, 2, 3).contiguous(), w, padding=1), 5, 1)
-        int8_ms = cuda_ms(lambda: conv(x), 3, 1)
+        int8_ms = cuda_ms(lambda: conv(x), 5, 1)
+        codes = conv_codes(x, conv.input_scale)
+        codes_ms = cuda_ms(lambda: conv_codes(x, conv.input_scale), 5, 1)
+        codes_bound = 1e3 * (x.numel() * 2 + codes.numel()) / PEAK_BYTES
         print(f"ResNet layer1 conv at {LAYER1_SHAPE} (3x3x3 -> 64): w8a8 "
-              f"(3-D prologue and P1 s8, every chunk) {int8_ms:.3f} ms; "
-              f"cuDNN bf16 conv3d {cudnn:.3f} ms (with the port's "
-              f"channels-first copy {port_bf16:.3f} ms)")
-        del x, w, xf
+              f"(the k = 1 prologue and the implicit conv, one launch "
+              f"each) {int8_ms:.3f} ms; cuDNN bf16 conv3d, another "
+              f"function, {cudnn:.3f} ms (with the port's channels-first "
+              f"copy {port_bf16:.3f} ms); the prologue alone, bf16 to "
+              f"{tuple(codes.shape)} int8 codes, {codes_ms:.3f} ms against "
+              f"a byte bound of {codes_bound:.3f} ms "
+              f"({100 * codes_bound / codes_ms:.1f}%)")
+        del x, w, xf, codes
 
     got = outs[1].numpy()
     del server, batch
@@ -4631,7 +4812,8 @@ def backbone_int8_phase(key, bf16_peak):
     card = VideoServer(key, cpu.model, dtype="float32", device="cuda",
                        batch=2)
     kernels.reset_launch_counts()
-    with recorded_activations() as card_codes:
+    with recorded_activations() as card_codes, int8_inputs(
+            card.model) as card_inputs:
         got_out = card(x).cpu().numpy()
     card_launches = dict(kernels.LAUNCH_COUNTS)
     with replayed_activations(card_codes) as own:
@@ -4661,8 +4843,8 @@ def backbone_int8_phase(key, bf16_peak):
           f"{card_codes[worst].numel()} codes (bound {INT8_FLIP_SHARE}); "
           f"logits {err_replayed:.3e} from the card's (tolerance "
           f"{VIDEO_F32_SHARE} x {top:.4f})")
-    check(card_launches.get(COLUMNS3D, 0) > 0 and card_launches.get(S8, 0)
-          == card_launches[COLUMNS3D] + card_launches.get(COLUMNS, 0),
+    check(card_launches == int8_conv_launches(card.model, card_inputs)
+          and card_launches.get(CONV3D, 0) > 0,
           f"{label} f32 card launched {card_launches}")
     check(steps <= 1 and shares[worst] <= INT8_FLIP_SHARE,
           f"{label}: with the card's codes in, the CPU's codes differ by "
@@ -4675,9 +4857,10 @@ def backbone_int8_phase(key, bf16_peak):
 
 @contextlib.contextmanager
 def replayed_activations(codes):
-    """Inside the block the quantized layers' prologues (1-D and 3-D)
-    return ``codes`` in order (``recorded_activations``' CPU copies from
-    another device's run of the same forward) in place of their own int8
+    """Inside the block the quantized layers' prologues (1-D and 3-D;
+    the implicit conv's codes are the 1-D prologue's at k = 1) return
+    ``codes`` in order (``recorded_activations``' CPU copies from another
+    device's run of the same forward) in place of their own int8
     operands, so that a comparison measures the rest of the path. Yields
     the list of the operands that they made themselves (CPU copies)."""
     from multi_modal_csi_tpu_torch.core import quantize as Q
@@ -4964,7 +5147,8 @@ def export_phase(work, calib_path):
     """Serving artifacts (core/export.py, ROADMAP item 13b) on the card:
     card-only artifacts of THAT bf16 at 256 windows (K1), DETR w8a8 at 256
     (P1 and the prologue), MViT-v2 bf16 at 2 clips (K3) and ResNet w8a8 at
-    8 clips (the 3-D prologue and P1), each as ``export_case`` checks it;
+    8 clips (the implicit conv, the 3-D prologue and P1), each as
+    ``export_case`` checks it;
     a Swin-T f32 card-only artifact at batch 1, loaded and run with cuDNN's
     TF32 flag at PyTorch's default (on), against the CPU's f32 forward
     within SWIN_EXPORT_SHARE of the largest logit; a ``cuda,cpu`` MLP w8
@@ -5151,6 +5335,28 @@ def columns3d_entry(launches):
     }
 
 
+def conv3d_entry(launches):
+    """The JSON description of the implicit conv, P1's product kernel
+    with the conv window read by its A loader: its times and bound summed
+    over one ResNet3D-18 w8a8 forward at its serving batch of 64 (45, 112,
+    112) clips, from ``check_fused``. No one PyTorch call computes an int8
+    conv3d (library null; cuDNN's bf16 conv3d at layer1, another function,
+    is printed beside it). It is P1's s8 body (tools/exp_pallas_int8.py:43)
+    on the windows that XLA fuses into the JAX package's int8 conv."""
+    total = FUSED_TOTALS["ResNet"]["conv3d"]
+    bytes_ms, ops_ms = total["bytes_ms"], total["ops_ms"]
+    return {
+        "name": CONV3D, "route": "cuda",
+        "source": "multi_modal_csi_tpu_torch/kernels/csrc/int8_matmul.cu",
+        "replaces": "tools/exp_pallas_int8.py:43",
+        "launches": launches, "max_abs_err": total["err"],
+        "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }
+
+
 RUN_START = time.perf_counter()
 
 
@@ -5212,13 +5418,11 @@ def main() -> int:
             int8_serve_phase("CNN-1D", requests, calib, CNN1D_S8, {},
                              CNN1D_COLUMNS, lambda n: (n, 54), 0,
                              quant="w8a8"),
-            # CNN-2D's int8 Conv2d: stages 1 and 2 on the 3-D prologue
-            int8_serve_phase("CNN-2D", requests, calib, {}, CNN2D_BF16, 0,
-                             lambda n: (n, 54), 0, quant="w8", mode="w8",
-                             columns3d=sum(CNN2D_BF16.values())),
-            int8_serve_phase("CNN-2D", requests, calib, CNN2D_S8, {}, 0,
-                             lambda n: (n, 54), 0, quant="w8a8",
-                             columns3d=sum(CNN2D_S8.values()))]
+            # CNN-2D's int8 Conv2d: stages 1 and 2 on the implicit conv
+            int8_serve_phase("CNN-2D", requests, calib, {}, {}, None,
+                             lambda n: (n, 54), 0, quant="w8", mode="w8"),
+            int8_serve_phase("CNN-2D", requests, calib, {}, {}, None,
+                             lambda n: (n, 54), 0, quant="w8a8")]
         baseline_s = time.perf_counter() - start
         int8_runs += [
             int8_serve_phase("DETR", requests, calib, DETR_S8, DETR_BF16,
@@ -5303,8 +5507,9 @@ def main() -> int:
         print(f"ResNet, S3D, Swin-T and Swin-S phases (serving, int8, "
               f"training, run_video's default): {backbones_s:.1f} s of wall "
               f"time")
-        # serving artifacts: K1 (THAT), P1 and both prologues (DETR and
-        # ResNet in w8a8) and K3 (MViT-v2) inside exported programs
+        # serving artifacts: K1 (THAT), P1, both prologues and the
+        # implicit conv (DETR and ResNet in w8a8) and K3 (MViT-v2) inside
+        # exported programs
         exported = export_phase(work, calib)
         int8_runs.append(exported)
         trained_f32 = steps_f32 + [runs for runs, _ in experiments[:2]]
@@ -5340,8 +5545,10 @@ def main() -> int:
     # runs (MLP w8, CNN-1D, DETR and THAT_ENCODER w8a8, the serve_csi CLI,
     # MViT-v2 w8). The
     # prologue: per DETR w8a8 forward, its 52 calls; launches likewise.
-    # K1 bf16, K3 bf16, P1 and both prologues also count the checked
-    # forward of each card-only artifact of the export phase.
+    # The 3-D prologue and the implicit conv: per ResNet w8a8 forward
+    # (batch 64), over every int8 serving run. K1 bf16, K3 bf16, P1, both
+    # prologues and the implicit conv also count the checked forward of
+    # each card-only artifact of the export phase.
     trace = k5_times["trace"]
     k5_bytes, k5_ops = trace["bytes_ms"], trace["ops_ms"]
     print(f"chip_smoke: the whole run took "
@@ -5429,6 +5636,7 @@ def main() -> int:
                  torch.bfloat16),
         columns_entry(sum(runs.get(COLUMNS, 0) for runs in int8_runs)),
         columns3d_entry(sum(runs.get(COLUMNS3D, 0) for runs in int8_runs)),
+        conv3d_entry(sum(runs.get(CONV3D, 0) for runs in int8_runs)),
     ]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

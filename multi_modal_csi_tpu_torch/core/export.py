@@ -33,10 +33,12 @@ so ``load_serving`` runs each call inside ``core/device.py::cudnn_f32``:
 an f32 artifact's convolutions run in full f32 whatever the caller's
 flag, as the eager layers' do.
 
-Each int8 weight is stored once: the layer reads its padded copy (the
-``<name>_padded`` buffer of ``core/quantize.py::pad_weights``), and before
-tracing the weight becomes a view of that copy, which is made persistent,
-so that the serializer writes their one storage once.
+Each int8 weight is stored once: the layer reads its padded or tap-major
+copy (the ``<name>_padded`` or ``<name>_taps`` buffer of
+``core/quantize.py::pad_weights``), and before tracing the weight becomes
+a view of that copy (of a tap-major one, permuted and cut to its
+channels), which is made persistent, so that the serializer writes their
+one storage once.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from torch import nn
 from torch.export.passes import move_to_device_pass
 
 from ..kernels import ops_everywhere, register_ops
+from ..kernels.int8_matmul import tap_major_view
 from .device import cudnn_f32, resolve_device
 
 _MAGIC = b"MMCSI-SERVE\x00"
@@ -87,19 +90,24 @@ class _Serving(nn.Module):
 
 
 def _store_int8_once(model: nn.Module) -> None:
-    """Make each int8 weight a view of its padded copy, and the copy a
-    persistent buffer, so that both name one storage in the state dict
-    (``torch.export`` lifts every parameter, even one whose data the
-    forward never reads)."""
+    """Make each int8 weight a view of its padded or tap-major copy, and
+    the copy a persistent buffer, so that both name one storage in the
+    state dict (``torch.export`` lifts every parameter, even one whose data
+    the forward never reads)."""
     for module in model.modules():
         for name, param in list(module.named_parameters(recurse=False)):
-            padded = getattr(module, f"{name}_padded", None)
-            if param.dtype != torch.int8 or padded is None:
+            if param.dtype != torch.int8:
                 continue
-            k = param[0].numel()
-            setattr(module, name, nn.Parameter(
-                padded[:, :k].view(param.shape), requires_grad=False))
-            module.register_buffer(f"{name}_padded", padded, persistent=True)
+            for suffix in ("_padded", "_taps"):
+                stored = getattr(module, f"{name}{suffix}", None)
+                if stored is None:
+                    continue
+                view = (stored[:, :param[0].numel()].view(param.shape)
+                        if suffix == "_padded"
+                        else tap_major_view(stored, param.shape))
+                setattr(module, name, nn.Parameter(view, requires_grad=False))
+                module.register_buffer(f"{name}{suffix}", stored,
+                                       persistent=True)
 
 
 def export_serving(model: nn.Module, example_x: Samples, *,

@@ -15,17 +15,30 @@ Two modes, as there:
 There is no mode flag: an int8 weight is the signal, and an
 ``input_scale`` buffer beside it selects w8a8. A layer's product runs in
 ``kernels/int8_matmul.py`` as two launches on the card: the prologue
-(``quantize_columns`` for a Linear or a 1-D conv, ``quantize_columns3d``
-for a 2-D or 3-D conv: the activation quantized, or cast to bf16, and
-unfolded for a conv, at a padded row stride) and the product with the
-rescale, the bias and the cast in its epilogue (``quantized_product``).
-The product reads each int8 weight as (out, in) rows, a conv's (out,
-C kt kh kw), padded to a 16-byte row stride: a non-persistent
-``<name>_padded`` buffer beside it, made once when the model is quantized
-or loaded, so the state dict stays as it is. A 2-D or 3-D conv runs over
-chunks of whole samples whose columns fit in ``COLUMN_BUDGET`` bytes
-(``conv_nd_forward``): ResNet3D's layer1 writes 244 MB of int8 columns a
-(45, 112, 112) clip.
+(``quantize_columns``: the activation quantized, or cast to bf16, and
+unfolded for a 1-D conv, at a padded row stride) and the product with the
+rescale, the bias and the cast in its epilogue. A Linear or a 1-D conv
+takes ``quantized_product``, which reads each int8 weight as (out, in)
+rows, a conv's (out, C k), padded to a 16-byte row stride: a
+non-persistent ``<name>_padded`` buffer beside it, made once when the
+model is quantized or loaded, so the state dict stays as it is.
+
+A 2-D or 3-D conv (``conv_nd_forward``) is routed by its channels C:
+
+- C >= ``IMPLICIT_MIN_CHANNELS`` (16; every conv of ResNet3D and S3D but
+  their stems, CNN-2D's stages 1 and 2): the prologue at k = 1 quantizes
+  the activation once into channels-last codes (B T H W, Cp), C padded
+  with zeros to a multiple of 16 bytes (a bf16 activation whose channels
+  are a multiple of 8 is read as it is in w8), and ``quantized_conv3d``,
+  one launch over the whole batch, reads the conv window from the codes
+  itself, as XLA fuses the windows of JAX's ``conv_general_dilated`` on
+  the codes: no columns are written. Its weight is the tap-major copy
+  (N, kt kh kw Cp), the non-persistent ``<name>_taps`` buffer, made as
+  the padded one is;
+- C < 16 (the stems' C = 3): ``quantize_columns3d`` writes the (B To Ho
+  Wo, C kt kh kw) columns, over chunks of whole samples whose columns fit
+  in ``COLUMN_BUDGET`` bytes (ResNet3D's stem writes 63 MB of int8
+  columns a (45, 112, 112) clip), each chunk's then ``quantized_product``.
 
 Which layers are quantized is decided by discovery, as in JAX: ``Linear``,
 ``Conv1d``, ``Conv2d`` and the hooked ``Conv3d`` (``nn/layers.py``:
@@ -60,10 +73,12 @@ from typing import Dict, Iterable, Iterator, Optional, Tuple
 import torch
 from torch import nn
 
-from ..kernels.int8_matmul import (conv3d_output, direct_operand,
+from ..kernels.int8_matmul import (IMPLICIT_MIN_CHANNELS, ROW_ALIGN,
+                                   conv3d_output, direct_operand,
                                    pad_columns, padded_width,
                                    quantize_columns, quantize_columns3d,
-                                   quantized_product)
+                                   quantized_conv3d, quantized_product,
+                                   tap_major)
 # the activation quantizer lives beside the prologue that fuses it; it is
 # part of this module's interface, as in the JAX package
 from ..kernels.int8_matmul import quantize_activation  # noqa: F401
@@ -73,9 +88,9 @@ from ..kernels.int8_matmul import quantize_activation  # noqa: F401
 DEFAULT_MIN_WEIGHT_SIZE = 16384
 MODES = ("w8", "w8a8")
 STATS = ("amax", "p999")
-# bytes of a 2-D or 3-D conv's columns written at once: whole samples a
-# chunk, so ResNet3D's serving batch of 64 (45, 112, 112) clips, 15.6 GB of
-# layer1 columns, runs in chunks of 8 clips
+# bytes of a narrow 2-D or 3-D conv's columns written at once: whole
+# samples a chunk, so ResNet3D's stem over its serving batch of 64 (45,
+# 112, 112) clips, 4.0 GB of columns, runs in chunks of 33 clips
 COLUMN_BUDGET = 2 * 2 ** 30
 
 Stats = Dict[str, Optional[float]]
@@ -182,20 +197,33 @@ def conv_nd_forward(x: torch.Tensor, weight: torch.Tensor,
                     padding: Tuple[int, int, int],
                     bias: Optional[torch.Tensor] = None,
                     out_dtype: torch.dtype = torch.float32,
-                    padded: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    padded: Optional[torch.Tensor] = None,
+                    taps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A 3-D convolution of channels-last x (B, T, H, W, C) with an int8
     weight (N, C, kt, kh, kw), symmetric zero ``padding``, plus the bias,
     as ``out_dtype`` (B, To, Ho, Wo, N); a 2-D conv is its kt = 1 case on
     frames of T = 1. JAX's ``lax.conv_general_dilated`` on int8 codes (w8a8)
-    or bf16 values (w8): the input's columns (int8 for w8a8, bf16 for w8)
-    in the weight's (channel, kt, kh, kw) order, then one product. The
-    columns of ``COLUMN_BUDGET`` bytes at most are written at a time, a
-    chunk of whole samples (at least one); the chunks' products are
-    concatenated.
-    ``padded``: the weight as (N, C kt kh kw) at the product's padded
-    stride."""
+    or bf16 values (w8). Routed by C (the module docstring says why):
+
+    - C >= IMPLICIT_MIN_CHANNELS: the codes (``conv_codes``) and one
+      ``quantized_conv3d`` over the batch, against ``taps``, the weight's
+      tap-major copy at the codes' width (``pad_weights``; made here when
+      not given);
+    - else the input's columns in the weight's (channel, kt, kh, kw) order
+      (int8 for w8a8, bf16 for w8) and one product, the columns of
+      ``COLUMN_BUDGET`` bytes at most written at a time, a chunk of whole
+      samples (at least one); the chunks' products are concatenated.
+      ``padded``: the weight as (N, C kt kh kw) at the product's padded
+      stride.
+    """
     n = weight.shape[0]
     kernel = tuple(weight.shape[2:])
+    if x.shape[-1] >= IMPLICIT_MIN_CHANNELS:
+        a = conv_codes(x, input_scale)
+        if taps is None:
+            taps = tap_major(weight, a.shape[-1])
+        return quantized_conv3d(a, taps, weight_scale, input_scale, bias,
+                                out_dtype, kernel, stride, padding)
     k = weight[0].numel()
     dims = conv3d_output(tuple(x.shape[1:4]), kernel, stride, padding)
     col_dtype = torch.bfloat16 if input_scale is None else torch.int8
@@ -212,18 +240,46 @@ def conv_nd_forward(x: torch.Tensor, weight: torch.Tensor,
     return y.reshape(x.shape[0], *dims, n)
 
 
+def conv_codes(x: torch.Tensor, input_scale: Optional[torch.Tensor]
+               ) -> torch.Tensor:
+    """The implicit conv's A from channels-last x (B, T, H, W, C): the
+    prologue at k = 1 of its (B, T H W, C) view, int8 codes (w8a8) or bf16
+    values (w8) zero-padded to Cp = ``padded_width(C)``, as (B, T, H, W,
+    Cp); for w8, a contiguous bf16 x whose rows and base the kernel's
+    16-byte copies divide, as it is."""
+    c = x.shape[-1]
+    if (input_scale is None and x.dtype == torch.bfloat16
+            and x.is_contiguous() and (c * 2) % ROW_ALIGN == 0
+            and (x.storage_offset() * 2) % ROW_ALIGN == 0):
+        return x
+    a = quantize_columns(x.reshape(x.shape[0], -1, c), input_scale)
+    return a.reshape(*x.shape[:-1], a.shape[-1])
+
+
 def pad_weights(model: nn.Module) -> nn.Module:
-    """Give every int8 weight of ``model`` its ``<name>_padded`` buffer
-    (non-persistent): the weight as (out, in) rows (a conv's (out, C k),
-    (out, C kh kw) or (out, C kt kh kw)) zero-padded to the
-    product's 16-byte stride, so that no call pads it again. Returns
-    ``model``."""
+    """Give every int8 weight of ``model`` its product's copy, a
+    non-persistent buffer, so that no call makes it again: a 2-D or 3-D
+    conv of C >= IMPLICIT_MIN_CHANNELS its ``<name>_taps`` (``tap_major``
+    at the width of its codes: int8 where the module has an
+    ``input_scale``, w8a8, else bf16), every other its ``<name>_padded``
+    (the weight as (out, in) rows, a conv's (out, C k), (out, C kh kw) or
+    (out, C kt kh kw), zero-padded to the product's 16-byte stride).
+    Returns ``model``."""
     for module in model.modules():
         for name, param in module.named_parameters(recurse=False):
-            if param.dtype == torch.int8:
+            if param.dtype != torch.int8:
+                continue
+            w = param.detach()
+            if w.dim() in (4, 5) and w.shape[1] >= IMPLICIT_MIN_CHANNELS:
+                codes = (torch.int8 if hasattr(module, "input_scale")
+                         else torch.bfloat16)
                 module.register_buffer(
-                    f"{name}_padded",
-                    pad_columns(param.detach().reshape(param.shape[0], -1)),
+                    f"{name}_taps",
+                    tap_major(w, padded_width(w.shape[1], codes)),
+                    persistent=False)
+            else:
+                module.register_buffer(
+                    f"{name}_padded", pad_columns(w.reshape(w.shape[0], -1)),
                     persistent=False)
     return model
 

@@ -8,7 +8,8 @@ through the kernels.
 The kernels that a serving forward launches are ``torch.library`` ops in
 the ``mmcsi`` namespace (``mmcsi::flash_attention``,
 ``mmcsi::flash_attention_lowrank_bias``, ``mmcsi::quantized_product``,
-``mmcsi::quantize_columns``, ``mmcsi::quantize_columns3d``), each defined
+``mmcsi::quantized_conv3d``, ``mmcsi::quantize_columns``,
+``mmcsi::quantize_columns3d``), each defined
 by ``define_op``: its CUDA implementation is the launch, its CPU
 implementation the plain version, and a fake implementation gives the
 output's shape and dtype, so that ``torch.export`` traces it as one

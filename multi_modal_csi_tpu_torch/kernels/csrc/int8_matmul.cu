@@ -66,8 +66,38 @@
 // the kt x kh x span_W x C window they cover once into shared memory,
 // quantized once, and writes the rows from there in 4-byte words.
 //
-// int32 overflow: |sum| <= 128^2 K fits for K <= 131,071; the launcher
-// refuses larger K in mode 0. Offsets are 64-bit. Each launcher returns
+// The implicit conv (mmcsi_int8_conv3d) is the product kernel with another
+// A loader: it reads the conv window itself, so a 2-D or 3-D conv of C >=
+// 16 channels writes no columns. It replaces the 3-D prologue's columns for
+// those convs (the stems' C = 3 keep them), and is what XLA does with the
+// windows of the JAX package's int8 conv (core/quantize.py::conv_forward,
+// lax.conv_general_dilated on the int8 codes, fused). A is the activation's
+// codes (B, T, H, W, Cp), quantized once by the 1-D prologue at k = 1 (or
+// the bf16 activation itself for w8 where C is a multiple of 8): Cp is C
+// with zeros up to a multiple of 16 bytes, cpe = Cp x element bytes. Row m
+// of the product is the output position (b, to, ho, wo), and K runs
+// tap-major, (kt, kh, kw, Cp), as does the weight's copy (N, kt kh kw Cp).
+// A 16-byte copy of A never straddles two taps (cpe is a multiple of 16):
+// it reads Cp's bytes at one tap straight from the codes, with src-size 0
+// where the tap falls in the zero padding. Each loader thread owns fixed
+// rows of the tile and decodes their (b, to, ho, wo) and window corner once
+// a tile; it carries its copies' tap (dt, dh, dw) and byte within the tap
+// from one ring stage to the next with a carry, so no copy costs a
+// division. The rest of the kernel (ring, tiles, split-K, epilogue) is the
+// product's, so a w8a8 output is bit for bit that of the 3-D prologue
+// followed by the product (exact int32 sums, whatever the K order).
+// Bound on an H100 SXM at ResNet3D-18's layer1 conv (64 clips of (45, 56,
+// 56, 64), 3x3x3 to 64, w8a8): 2 M N K = 2 x 9,031,680 x 64 x 1,728 = 2.0
+// TOP, 1.01 ms at 1,979 TOP/s, against 0.52 ms of bytes (578 MB of int8
+// codes read, 1.16 GB of bf16 written), so operations bound it. What the
+// design does about it: the codes are read from L2 by each of the 27 taps
+// and from device memory about once, the 128-row tiles of one row of
+// output tiles are neighbours in the launch order; 96-column tiles spend a
+// third of the tensor-core work on N = 64 convs (ResNet's layer1, S3D's
+// stem), a cost left for a later tile shape.
+//
+// int32 overflow: |sum| <= 128^2 K fits for K <= 131,071; the launchers
+// refuse larger K in mode 0. Offsets are 64-bit. Each launcher returns
 // cudaGetLastError() so a refused launch is seen.
 
 #include <cuda_bf16.h>
@@ -173,6 +203,17 @@ __device__ __forceinline__ unsigned widen_pair(unsigned short v) {
   return *reinterpret_cast<const unsigned*>(&p);
 }
 
+// The implicit conv's geometry (all zero for a plain product): A is the
+// channels-last codes (B, T, H, W, Cp), one position cpe bytes
+struct Conv {
+  int t, h, w;             // the input's sizes
+  int to, ho, wo;          // the output's
+  int kt, kh, kw;          // the kernel
+  int vt, vh, vw;          // the strides
+  int pt, ph, pw;          // the low pads
+  int cpe;                 // bytes of one position's codes, 16 n
+};
+
 struct Product {
   const unsigned char* a;  // group 0's A, rows lda bytes apart
   const unsigned char* b;  // group 0's B, rows ldb bytes apart
@@ -191,6 +232,7 @@ struct Product {
   int groups, splits;
   int kind;                         // 0 raw sums, 1 f32, 2 bf16
   int bias_bf16;                    // the bias is bf16 (else f32)
+  Conv conv;                        // the implicit conv's A (CONV only)
 };
 
 template <int MODE>
@@ -248,19 +290,15 @@ __device__ __forceinline__ void store_value(const Product& p, long long at,
     static_cast<bf16*>(p.c)[at] = __float2bfloat16_rn(x);
 }
 
-// Loads K step s of one tile into ring stage st: A's kBM rows of STEP
-// bytes and B's kBN rows of kBStep bytes, V bytes a copy, zeros past a
-// row's end or past the last row.
-template <int MODE, int V, int STEP>
-__device__ __forceinline__ void load_step(const Product& p,
-                                          const unsigned char* a,
-                                          const unsigned char* b,
-                                          long long m0, long long n0,
-                                          long long s, unsigned char* st) {
-  constexpr int kBStep = STEP >> Traits<MODE>::kBShift;
+// Loads K step s of one tile's A into ring stage st: kBM rows of STEP
+// bytes, V bytes a copy, zeros past a row's end or past the last row.
+template <int V, int STEP>
+__device__ __forceinline__ void load_a(const Product& p,
+                                       const unsigned char* a, long long m0,
+                                       long long s, unsigned char* st) {
   constexpr int kRow = Ring<STEP>::kRow;
-  constexpr int kAPer = STEP / V, kBPer = kBStep / V;
-  const long long ka = s * STEP, kb = s * kBStep;
+  constexpr int kAPer = STEP / V;
+  const long long ka = s * STEP;
 #pragma unroll
   for (int i = 0; i < kBM * kAPer / kThreads; ++i) {
     const int idx = threadIdx.x + i * kThreads;
@@ -269,6 +307,17 @@ __device__ __forceinline__ void load_step(const Product& p,
     const bool ok = row < p.m && at < p.a_bytes;
     cp_async<V>(st + r * kRow + ch, ok ? a + row * p.lda + at : a, ok);
   }
+}
+
+// B's part of K step s: kBN rows of kBStep bytes into the stage after A.
+template <int MODE, int V, int STEP>
+__device__ __forceinline__ void load_b(const Product& p,
+                                       const unsigned char* b, long long n0,
+                                       long long s, unsigned char* st) {
+  constexpr int kBStep = STEP >> Traits<MODE>::kBShift;
+  constexpr int kRow = Ring<STEP>::kRow;
+  constexpr int kBPer = kBStep / V;
+  const long long kb = s * kBStep;
   unsigned char* bs = st + kBM * kRow;
 #pragma unroll
   for (int i = 0; i < (kBN * kBPer + kThreads - 1) / kThreads; ++i) {
@@ -282,7 +331,88 @@ __device__ __forceinline__ void load_step(const Product& p,
   }
 }
 
-template <int MODE, int V, int STEP>
+// The implicit conv's A loader, 16-byte copies. Thread x copies bytes ch =
+// (x % kPer) 16 of each stage's row for kRows rows of the tile, x / kPer +
+// 32 i apart (every copy of the thread at the same K offset, so at one
+// tap); each row's window corner (its byte offset and (t0, h0, w0), the
+// output position times the stride less the pad) is decoded once a tile,
+// and the tap (dt, dh, dw) with the byte cb within it advance by STEP bytes
+// a stage. Stages are loaded in order, from the split's first.
+template <int STEP>
+struct ConvRows {
+  static constexpr int kPer = STEP / 16;                // copies a row
+  static constexpr int kStride = kThreads / kPer;       // rows apart
+  static constexpr int kRows = kBM / kStride;           // rows a thread
+  long long base[kRows];
+  int t0[kRows], h0[kRows], w0[kRows];
+  int ch, cb, dt, dh, dw;
+
+  __device__ __forceinline__ void start(const Product& p, long long m0,
+                                        long long s0) {
+    const Conv& q = p.conv;
+    ch = (threadIdx.x % kPer) * 16;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const long long m = m0 + threadIdx.x / kPer + i * kStride;
+      if (m < p.m) {
+        long long rest = m / q.wo;
+        const int wo = (int)(m - rest * q.wo);
+        long long next = rest / q.ho;
+        const int ho = (int)(rest - next * q.ho);
+        rest = next / q.to;
+        const int to = (int)(next - rest * q.to);
+        t0[i] = to * q.vt - q.pt;
+        h0[i] = ho * q.vh - q.ph;
+        w0[i] = wo * q.vw - q.pw;
+        base[i] = (((rest * q.t + t0[i]) * q.h + h0[i]) * q.w + w0[i]) *
+                  (long long)q.cpe;
+      } else {                       // past the last row: never in bounds
+        t0[i] = -(1 << 30);
+        h0[i] = w0[i] = 0;
+        base[i] = 0;
+      }
+    }
+    const long long k0 = s0 * STEP + ch;
+    const long long tap = k0 / q.cpe;
+    cb = (int)(k0 - tap * q.cpe);
+    const long long plane = (long long)q.kh * q.kw;
+    dt = (int)min(tap / plane, (long long)q.kt);
+    const int rem = (int)(tap - (long long)dt * plane);
+    dh = rem / q.kw;
+    dw = rem - dh * q.kw;
+  }
+
+  __device__ __forceinline__ void load(const Product& p,
+                                       const unsigned char* a,
+                                       unsigned char* st) {
+    constexpr int kRow = Ring<STEP>::kRow;
+    const Conv& q = p.conv;
+    const long long delta =
+        ((long long)(dt * q.h + dh) * q.w + dw) * q.cpe + cb;
+    const bool tap_ok = dt < q.kt;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int r = threadIdx.x / kPer + i * kStride;
+      const bool ok = tap_ok && (unsigned)(t0[i] + dt) < (unsigned)q.t &&
+                      (unsigned)(h0[i] + dh) < (unsigned)q.h &&
+                      (unsigned)(w0[i] + dw) < (unsigned)q.w;
+      cp_async<16>(st + r * kRow + ch, ok ? a + (base[i] + delta) : a, ok);
+    }
+    cb += STEP;                      // the next stage's tap
+    while (cb >= q.cpe) {
+      cb -= q.cpe;
+      if (++dw == q.kw) {
+        dw = 0;
+        if (++dh == q.kh) {
+          dh = 0;
+          ++dt;
+        }
+      }
+    }
+  }
+};
+
+template <int MODE, int V, int STEP, bool CONV>
 __global__ void __launch_bounds__(kThreads)
     product_kernel(const Product p) {
   using Acc = typename Traits<MODE>::Acc;
@@ -325,11 +455,20 @@ __global__ void __launch_bounds__(kThreads)
   // mode 2: this lane's B values, rows n = lane / 4, bytes 2t and 2t + 8
   const int w_off = kBM * kRow + (wn + lane / 4) * kRow + (lane % 4) * 2;
 
+  // K steps are loaded in order, s0 first (the conv loader counts on it)
+  ConvRows<STEP> window;
+  if constexpr (CONV) window.start(p, m0, s0);
+  auto load_step = [&](long long s, unsigned char* st) {
+    if constexpr (CONV)
+      window.load(p, a, st);
+    else
+      load_a<V, STEP>(p, a, m0, s, st);
+    load_b<MODE, V, STEP>(p, b, n0, s, st);
+  };
+
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
-    if (st < steps)
-      load_step<MODE, V, STEP>(p, a, b, m0, n0, s0 + st,
-                               ring + st * kStageBytes);
+    if (st < steps) load_step(s0 + st, ring + st * kStageBytes);
     cp_commit();
   }
   for (long long s = 0; s < steps; ++s) {
@@ -338,8 +477,7 @@ __global__ void __launch_bounds__(kThreads)
     // stage (s - 1) % kStages was read by every warp before the barrier
     const long long next = s + kStages - 1;
     if (next < steps)
-      load_step<MODE, V, STEP>(p, a, b, m0, n0, s0 + next,
-                               ring + (next % kStages) * kStageBytes);
+      load_step(s0 + next, ring + (next % kStages) * kStageBytes);
     cp_commit();
 
     const unsigned char* st = ring + (s % kStages) * kStageBytes;
@@ -455,27 +593,31 @@ __global__ void __launch_bounds__(256) reduce_kernel(const Product p) {
 
 // The ring is dynamic shared memory (more than the 48 KB a launch gets
 // without asking, at STEP = 128).
-template <int MODE, int V, int STEP>
+template <int MODE, int V, int STEP, bool CONV>
 int launch_product(dim3 grid, const Product& p, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      product_kernel<MODE, V, STEP>,
+      product_kernel<MODE, V, STEP, CONV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<STEP>::kBytes);
   if (err != cudaSuccess) return (int)err;
-  product_kernel<MODE, V, STEP>
+  product_kernel<MODE, V, STEP, CONV>
       <<<grid, kThreads, Ring<STEP>::kBytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <int MODE, int STEP>
+// the implicit conv copies 16 bytes only
+template <int MODE, int STEP, bool CONV>
 int launch_width(dim3 grid, const Product& p, int v, cudaStream_t stream) {
-  return v == 16 ? launch_product<MODE, 16, STEP>(grid, p, stream)
-                 : launch_product<MODE, 4, STEP>(grid, p, stream);
+  if constexpr (CONV)
+    return launch_product<MODE, 16, STEP, true>(grid, p, stream);
+  else
+    return v == 16 ? launch_product<MODE, 16, STEP, false>(grid, p, stream)
+                   : launch_product<MODE, 4, STEP, false>(grid, p, stream);
 }
 
 // Long K (kLongK A bytes or more) takes stages of 128 bytes a row, so that
 // one barrier serves four mma k-steps; short K takes stages of 32 bytes,
 // so that little of the last stage is padding.
-template <int MODE>
+template <int MODE, bool CONV = false>
 int launch_mode(Product p, long long k_bytes, int v, cudaStream_t stream) {
   const int step = k_bytes >= kLongK ? 128 : kSub;
   p.steps = (k_bytes + step - 1) / step;
@@ -487,8 +629,9 @@ int launch_mode(Product p, long long k_bytes, int v, cudaStream_t stream) {
   if (tiles > 2147483647LL || z > 65535)
     return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)tiles, 1, (unsigned)z);
-  const int err = step == kSub ? launch_width<MODE, kSub>(grid, p, v, stream)
-                               : launch_width<MODE, 128>(grid, p, v, stream);
+  const int err = step == kSub
+                      ? launch_width<MODE, kSub, CONV>(grid, p, v, stream)
+                      : launch_width<MODE, 128, CONV>(grid, p, v, stream);
   if (err || !p.work) return err;
   const long long total = (long long)p.groups * p.m * p.n;
   const unsigned blocks = (unsigned)std::min((total + 255) / 256, 132LL * 16);
@@ -870,7 +1013,7 @@ int mmcsi_int8_matmul(const void* a, const void* b, void* c, void* work,
             static_cast<const unsigned char*>(b),
             c, splits > 1 ? work : nullptr, scale, input_scale, bias, m, n,
             a_bytes, lda, a_group, b_bytes, ldb, b_group, ldc, c_group,
-            0, 0, groups, splits, kind, bias_bf16};
+            0, 0, groups, splits, kind, bias_bf16, Conv{}};
   if (groups <= 0 || m <= 0 || n <= 0 || k_bytes <= 0 || splits <= 0 ||
       kind < 0 || kind > 2 || (kind && !scale) ||
       (splits > 1 && !work) || mode < 0 || mode > 2)
@@ -888,6 +1031,58 @@ int mmcsi_int8_matmul(const void* a, const void* b, void* c, void* work,
     default:
       return launch_mode<2>(p, k_bytes, v, s);
   }
+}
+
+// The implicit conv: the product of the codes a (shape[0..4] = B, T, H,
+// W, Cp; contiguous; int8 in mode 0, bf16 in mode 2) under a kernel
+// (kt, kh, kw) at strides stride[0..2] with symmetric zero pads pads[0..2],
+// whose output sizes dims[0..2] the caller computed, and the tap-major
+// int8 weight b (N rows ldb bytes apart, kt kh kw Cp values of each read),
+// with ``kind``'s epilogue into c (B To Ho Wo, N) as mmcsi_int8_matmul's;
+// splits > 1 as there. Returns a cudaError_t; cudaErrorInvalidValue for a
+// mode other than 0 or 2, a row of codes (Cp bytes of each) that is not 16
+// n bytes with n >= 1, an unaligned a, b or ldb, an int8 K past 131,072
+// bytes, or a shape it does not take.
+int mmcsi_int8_conv3d(const void* a, const void* b, void* c, void* work,
+                      const float* scale, const float* input_scale,
+                      const void* bias, int bias_bf16, int mode, int kind,
+                      int splits, const long long* shape, const int* kernel,
+                      const int* stride, const int* pads, const int* dims,
+                      long long n, long long ldb, void* stream) {
+  const long long ea = mode == 0 ? 1 : 2;
+  const long long cpe = shape[4] * ea;
+  bool bad = (mode != 0 && mode != 2) || kind < 0 || kind > 2 ||
+             (kind && !scale) || splits <= 0 || (splits > 1 && !work) ||
+             n <= 0 || cpe < 16 || cpe % 16 || cpe >= (1LL << 31) ||
+             ldb <= 0 || ldb % 16 ||
+             ((reinterpret_cast<std::uintptr_t>(a) |
+               reinterpret_cast<std::uintptr_t>(b)) & 15);
+  long long taps = 1, rows = shape[0];
+  for (int i = 0; i < 4; ++i)
+    bad = bad || shape[i] <= 0 || shape[i] >= (1LL << 31);
+  for (int i = 0; i < 3; ++i) {
+    bad = bad || kernel[i] <= 0 || stride[i] <= 0 || pads[i] < 0 ||
+          dims[i] <= 0 ||
+          dims[i] != (shape[1 + i] + 2 * pads[i] - kernel[i]) / stride[i] + 1;
+    taps *= kernel[i];
+    rows *= dims[i];
+  }
+  const long long k_bytes = taps * cpe;
+  if (bad || ldb < taps * shape[4] || (mode == 0 && k_bytes > kMaxKS8 + 1))
+    return (int)cudaErrorInvalidValue;
+  Product p{static_cast<const unsigned char*>(a),
+            static_cast<const unsigned char*>(b),
+            c, splits > 1 ? work : nullptr, scale, input_scale, bias, rows, n,
+            k_bytes, cpe, 0, taps * shape[4], ldb, 0, n, 0,
+            0, 0, 1, splits, kind, bias_bf16,
+            Conv{(int)shape[1], (int)shape[2], (int)shape[3],
+                 dims[0], dims[1], dims[2],
+                 kernel[0], kernel[1], kernel[2],
+                 stride[0], stride[1], stride[2],
+                 pads[0], pads[1], pads[2], (int)cpe}};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return mode == 0 ? launch_mode<0, true>(p, k_bytes, 16, s)
+                   : launch_mode<2, true>(p, k_bytes, 16, s);
 }
 
 // The prologue: x (batch, length, channels) at element strides

@@ -23,7 +23,15 @@ The fused path of a quantized layer, two launches:
   Kb) or (G, N/G, Kb) padded once (``pad_columns``), then
   ``float(sum) * (weight_scale * input_scale) + bias`` cast to out_dtype,
   (M, N). An int8 A takes the int8 x int8 -> int32 product (w8a8), a bf16
-  A the bf16 product on the weight widened to bf16 (w8).
+  A the bf16 product on the weight widened to bf16 (w8);
+- ``quantized_conv3d(a, b, weight_scale, input_scale, bias, out_dtype,
+  kernel, stride, pads)``: the implicit conv, the same product and
+  epilogue for a 2-D or 3-D conv of C >= ``IMPLICIT_MIN_CHANNELS``
+  channels, whose A the kernel reads from the conv window itself. a is the
+  activation's codes (B, T, H, W, Cp), ``quantize_columns`` at k = 1 of
+  its (B, T H W, C) view (or a bf16 activation as it is), and b the
+  weight's tap-major copy (``tap_major``: (N, kt kh kw Cp) with Cp = a's
+  width); the output (B, To, Ho, Wo, N).
 
 The bare products, as the TPU kernels compute them:
 
@@ -38,12 +46,13 @@ On CUDA tensors every entry point launches the hand-written kernels of
 ``csrc/int8_matmul.cu`` or raises; CPU tensors take the plain versions
 (``*_reference``), which are the eager chain the kernels replace. Launches
 are counted under ``int8_matmul_s8`` and ``int8_matmul_bf16`` (the product
-kernel, bare or fused, by its A operand) and ``int8_quantize_columns``
-(the prologue).
+kernel, bare or fused, by its A operand), ``int8_conv3d`` (the implicit
+conv, either A), ``int8_quantize_columns`` (the prologue) and
+``int8_quantize_columns3d`` (the 3-D prologue).
 
-The fused path's three launches are the custom ops
-``mmcsi::quantize_columns``, ``mmcsi::quantize_columns3d`` and
-``mmcsi::quantized_product`` (the package's docstring says why); the bare
+The fused path's launches are the custom ops ``mmcsi::quantize_columns``,
+``mmcsi::quantize_columns3d``, ``mmcsi::quantized_product`` and
+``mmcsi::quantized_conv3d`` (the package's docstring says why); the bare
 products, which no serving forward reaches, are not.
 """
 
@@ -64,6 +73,14 @@ S8_NAME = "int8_matmul_s8"
 BF16_NAME = "int8_matmul_bf16"
 COLUMNS_NAME = "int8_quantize_columns"
 COLUMNS3D_NAME = "int8_quantize_columns3d"
+CONV3D_NAME = "int8_conv3d"
+# the implicit conv's fewest channels: a narrower conv (the stems' C = 3)
+# keeps the 3-D prologue's columns, whose window covers W and C together
+IMPLICIT_MIN_CHANNELS = 16
+# elements of tap-major columns that the implicit conv's plain version
+# gathers at a time (whole samples a chunk, at least one): on the card its
+# int32 product runs in float64
+REFERENCE_ELEMENTS = 2 ** 28
 # |sum| <= 128^2 K must fit in int32 (int8 includes -128)
 MAX_K_S8 = (2 ** 31 - 1) // 128 ** 2
 ROW_ALIGN = 16                        # bytes: the kernel's copy width
@@ -116,6 +133,31 @@ def pad_columns(t: torch.Tensor) -> torch.Tensor:
     contiguous (a weight is padded once, when it is quantized or loaded)."""
     k = t.shape[-1]
     return F.pad(t, (0, padded_width(k, t.dtype) - k)).contiguous()
+
+
+def tap_major(weight: torch.Tensor, cp: int) -> torch.Tensor:
+    """A 2-D or 3-D conv's int8 weight (N, C, [kt,] kh, kw) as the
+    implicit conv's B: (N, kt kh kw Cp) in (tap, channel) order, each tap's
+    channels zero-padded to ``cp``, the rows zero-padded to a multiple of
+    16 bytes (``pad_columns``), contiguous."""
+    c = weight.shape[1]
+    w = F.pad(weight.movedim(1, -1), (0, cp - c))
+    return pad_columns(w.reshape(w.shape[0], -1))
+
+
+def tap_major_view(taps: torch.Tensor, shape) -> torch.Tensor:
+    """The weight of ``shape`` (N, C, [kt,] kh, kw) as a view of its
+    tap-major copy ``taps`` (``tap_major``), which it equals. Cp is C
+    padded for int8 codes (w8a8) where the copy is that wide, else for
+    bf16 codes (w8): where the two Cp differ, the w8 copy is the narrower
+    with two taps or more, and holds the same bytes with one."""
+    n, c, *kernel = shape
+    taps_n = math.prod(kernel)
+    cp = padded_width(c, torch.int8)
+    if taps_n * cp > taps.shape[1]:
+        cp = padded_width(c, torch.bfloat16)
+    w = taps[:, :taps_n * cp].view(n, *kernel, cp)[..., :c]
+    return w.movedim(-1, 1)
 
 
 def quantize_columns_reference(x: torch.Tensor,
@@ -204,6 +246,45 @@ def quantized_product_reference(a: torch.Tensor, b: torch.Tensor,
     return y.to(out_dtype)
 
 
+def conv3d_columns(a: torch.Tensor, kernel: Tuple[int, int, int],
+                   stride: Tuple[int, int, int],
+                   pads: Tuple[int, int, int]) -> torch.Tensor:
+    """What the implicit conv reads: the codes a (B, T, H, W, Cp),
+    zero-padded on T, H and W, unfolded into (B To Ho Wo, kt kh kw Cp)
+    columns in (tap, channel) order."""
+    pt, ph, pw = pads
+    cols = F.pad(a, (0, 0, pw, pw, ph, ph, pt, pt))
+    for axis, (k, s) in enumerate(zip(kernel, stride)):
+        cols = cols.unfold(1 + axis, k, s)  # (B, To, Ho, Wo, Cp, kt, kh, kw)
+    cols = cols.permute(0, 1, 2, 3, 5, 6, 7, 4)
+    return cols.reshape(-1, math.prod(kernel) * a.shape[-1])
+
+
+def quantized_conv3d_reference(a: torch.Tensor, b: torch.Tensor,
+                               weight_scale: torch.Tensor,
+                               input_scale: Optional[torch.Tensor] = None,
+                               bias: Optional[torch.Tensor] = None,
+                               out_dtype: torch.dtype = torch.float32,
+                               kernel: Tuple[int, int, int] = (1, 1, 1),
+                               stride: Tuple[int, int, int] = (1, 1, 1),
+                               pads: Tuple[int, int, int] = (0, 0, 0)
+                               ) -> torch.Tensor:
+    """Plain version of ``quantized_conv3d``: the tap-major columns of
+    the codes (``conv3d_columns``) times the tap-major weight with
+    ``quantized_product_reference``'s epilogue, a chunk of whole samples
+    of at most REFERENCE_ELEMENTS columns at a time; (B, To, Ho, Wo, N)."""
+    kernel, stride, pads = tuple(kernel), tuple(stride), tuple(pads)
+    dims = conv3d_output(tuple(a.shape[1:4]), kernel, stride, pads)
+    k = math.prod(kernel) * a.shape[-1]
+    step = max(1, REFERENCE_ELEMENTS // (math.prod(dims) * k))
+    outs = [quantized_product_reference(
+        conv3d_columns(a[i:i + step], kernel, stride, pads), b, weight_scale,
+        input_scale, bias, out_dtype, k=k)
+        for i in range(0, a.shape[0], step)]
+    y = outs[0] if len(outs) == 1 else torch.cat(outs)
+    return y.reshape(a.shape[0], *dims, b.shape[0])
+
+
 # ---------------------------------------------------------------------- #
 # the kernels
 # ---------------------------------------------------------------------- #
@@ -225,6 +306,12 @@ def _library() -> ctypes.CDLL:
         + [ctypes.POINTER(ctypes.c_int)] * 4 + [ctypes.c_int] * 2
         + [ctypes.c_longlong] + [ctypes.c_void_p])
     lib.mmcsi_int8_columns3d.restype = ctypes.c_int
+    lib.mmcsi_int8_conv3d.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+        + [ctypes.POINTER(ctypes.c_longlong)]
+        + [ctypes.POINTER(ctypes.c_int)] * 4 + [ctypes.c_longlong] * 2
+        + [ctypes.c_void_p])
+    lib.mmcsi_int8_conv3d.restype = ctypes.c_int
     return lib
 
 
@@ -617,3 +704,127 @@ define_op("quantized_product(Tensor a, Tensor b, Tensor weight_scale, "
                                       out_dtype, k=k).contiguous(),
           lambda a, b, weight_scale, input_scale, bias, out_dtype, k:
           a.new_empty((a.shape[0], weight_scale.shape[0]), dtype=out_dtype))
+
+
+def quantized_conv3d(a: torch.Tensor, b: torch.Tensor,
+                     weight_scale: torch.Tensor,
+                     input_scale: Optional[torch.Tensor] = None,
+                     bias: Optional[torch.Tensor] = None,
+                     out_dtype: torch.dtype = torch.float32,
+                     kernel: Tuple[int, int, int] = (1, 1, 1),
+                     stride: Tuple[int, int, int] = (1, 1, 1),
+                     pads: Tuple[int, int, int] = (0, 0, 0)) -> torch.Tensor:
+    """The implicit conv: a 3-D convolution (a 2-D one is its T = 1, kt = 1
+    case) of the codes a (B, T, H, W, Cp) with symmetric zero ``pads``,
+    Cp a multiple of 16 bytes of a's type and at least
+    IMPLICIT_MIN_CHANNELS, against the int8 tap-major weight b (N, Kb),
+    Kb = ``padded_width(kt kh kw Cp)`` (``tap_major``), with
+    ``quantized_product``'s epilogue: (B, To, Ho, Wo, N) ``float(sum) * s +
+    bias`` as ``out_dtype``, the sum int32 for an int8 a (w8a8, s =
+    weight_scale * input_scale) and f32 for a bf16 a (w8, s =
+    weight_scale). CPU tensors take the plain version; CUDA tensors launch
+    the kernel or raise."""
+    what = "quantized_conv3d"
+    if a.dtype not in (torch.int8, torch.bfloat16) or b.dtype != torch.int8:
+        raise TypeError(f"{what} takes int8 or bf16 codes and an int8 "
+                        f"weight, got {a.dtype}, {b.dtype}")
+    if (a.dtype == torch.int8) != (input_scale is not None):
+        raise ValueError(f"{what}: int8 codes need the input scale, and only "
+                         f"they")
+    if out_dtype not in _KINDS:
+        raise TypeError(f"{what} writes f32 or bf16, not {out_dtype}")
+    kernel, stride, pads = tuple(kernel), tuple(stride), tuple(pads)
+    if (a.dim() != 5 or b.dim() != 2 or len(kernel) != 3 or len(stride) != 3
+            or len(pads) != 3 or min(kernel + stride) < 1 or min(pads) < 0):
+        raise ValueError(f"{what}: codes {tuple(a.shape)}, weight "
+                         f"{tuple(b.shape)}, kernel={kernel}, "
+                         f"stride={stride}, pads={pads}")
+    cp = a.shape[-1]
+    if cp < IMPLICIT_MIN_CHANNELS or (cp * a.element_size()) % ROW_ALIGN:
+        raise ValueError(f"{what} takes rows of at least "
+                         f"{IMPLICIT_MIN_CHANNELS} codes in a multiple of "
+                         f"{ROW_ALIGN} bytes, got {cp} {a.dtype}")
+    k = math.prod(kernel) * cp
+    n = b.shape[0]
+    if (b.shape[1] != padded_width(k, torch.int8)
+            or weight_scale.shape != (n,)
+            or (bias is not None and bias.shape != (n,))):
+        raise ValueError(f"{what}: weight {tuple(b.shape)} is not the "
+                         f"tap-major copy of {kernel} taps of {cp} codes, or "
+                         f"scale {tuple(weight_scale.shape)} disagrees")
+    if a.dtype == torch.int8 and k > MAX_K_S8:
+        raise ValueError(f"{what}: K = {k} above {MAX_K_S8} could overflow "
+                         f"the int32 sum")
+    dims = conv3d_output(tuple(a.shape[1:4]), kernel, stride, pads)
+    if min(dims) < 1 or a.shape[0] == 0:
+        raise ValueError(f"{what}: no output rows for {tuple(a.shape)} at "
+                         f"kernel {kernel}")
+    tensors = [a, b, weight_scale] + [t for t in (input_scale, bias)
+                                      if t is not None]
+    _check_device(what, *tensors)
+    if not uses_op(a.device):
+        return quantized_conv3d_reference(a, b, weight_scale, input_scale,
+                                          bias, out_dtype, kernel, stride,
+                                          pads)
+    return torch.ops.mmcsi.quantized_conv3d(
+        a, b, weight_scale, input_scale, bias, out_dtype, list(kernel),
+        list(stride), list(pads))
+
+
+def _conv3d_launch(a: torch.Tensor, b: torch.Tensor,
+                   weight_scale: torch.Tensor,
+                   input_scale: Optional[torch.Tensor],
+                   bias: Optional[torch.Tensor], out_dtype: torch.dtype,
+                   kernel: List[int], stride: List[int],
+                   pads: List[int]) -> torch.Tensor:
+    """The implicit conv's launch on a's device (the op's CUDA
+    implementation): mode 0 for int8 codes, mode 2 for bf16."""
+    what = "quantized_conv3d"
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{what} needs contiguous codes and weight")
+    dims = conv3d_output(tuple(a.shape[1:4]), kernel, stride, pads)
+    n = b.shape[0]
+    m = a.shape[0] * math.prod(dims)
+    out = torch.empty((a.shape[0], *dims, n), dtype=out_dtype,
+                      device=a.device)
+    k_bytes = math.prod(kernel) * a.shape[-1] * a.element_size()
+    splits = split_count(1, m, n, k_bytes)
+    acc = torch.int32 if a.dtype == torch.int8 else torch.float32
+    work = (torch.empty((splits, m, n), dtype=acc, device=a.device)
+            if splits > 1 else None)
+    if bias is not None:
+        bias = (bias if bias.dtype in _KINDS else bias.float()).contiguous()
+    ws = weight_scale.float().contiguous()
+    s = None if input_scale is None else input_scale.float().reshape(())
+    shape = (ctypes.c_longlong * 5)(*a.shape)
+    args = [(ctypes.c_int * 3)(*v) for v in (kernel, stride, pads, dims)]
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = _library().mmcsi_int8_conv3d(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), _ptr(work),
+            ws.data_ptr(), _ptr(s), _ptr(bias),
+            int(bias is not None and bias.dtype == torch.bfloat16),
+            _MODES[(a.dtype, b.dtype)], _KINDS[out_dtype], splits, shape,
+            *args, n, b.stride(0), stream)
+    if err != 0:
+        raise RuntimeError(f"{CONV3D_NAME} kernel launch failed with CUDA "
+                           f"error {err} at codes {tuple(a.shape)}, kernel "
+                           f"{kernel}, stride {stride}, N={n}")
+    count_launch(CONV3D_NAME)
+    return out
+
+
+def _conv3d_fake(a, b, weight_scale, input_scale, bias, out_dtype, kernel,
+                 stride, pads):
+    dims = conv3d_output(tuple(a.shape[1:4]), kernel, stride, pads)
+    return a.new_empty((a.shape[0], *dims, b.shape[0]), dtype=out_dtype)
+
+
+define_op("quantized_conv3d(Tensor a, Tensor b, Tensor weight_scale, "
+          "Tensor? input_scale, Tensor? bias, ScalarType out_dtype, "
+          "int[] kernel, int[] stride, int[] pads) -> Tensor", _conv3d_launch,
+          lambda a, b, weight_scale, input_scale, bias, out_dtype, kernel,
+          stride, pads: quantized_conv3d_reference(
+              a, b, weight_scale, input_scale, bias, out_dtype,
+              tuple(kernel), tuple(stride), tuple(pads)).contiguous(),
+          _conv3d_fake)

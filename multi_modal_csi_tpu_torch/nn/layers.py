@@ -189,10 +189,11 @@ class Conv2d(nn.Module):
     BatchNorm normalises the trailing axis. A hooked Conv2d (the default,
     JAX's ``Conv2d`` through ``_ConvCore``) records its input under
     calibration, and with an int8 weight (``core/quantize.py``) the
-    convolution is the quantized product over the input's 2-D columns (a
-    3-D window of one frame), in f32, plus the bias, cast to the input's
-    dtype. ``hooked=False`` never announces (CNN-2D's stage 0, whose JAX
-    parameters are raw).
+    convolution is the quantized one of a 3-D window of one frame
+    (``conv_nd_forward``: the implicit conv from 16 channels, else the
+    product over the input's 2-D columns), in f32, plus the bias, cast to
+    the input's dtype. ``hooked=False`` never announces (CNN-2D's stage 0,
+    whose JAX parameters are raw).
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel: Pair,
@@ -213,7 +214,8 @@ class Conv2d(nn.Module):
                 getattr(self, "input_scale", None),
                 stride=(1, *self.stride), padding=(0, 0, 0), bias=self.bias,
                 out_dtype=x.dtype,
-                padded=getattr(self, "weight_padded", None))[:, 0]
+                padded=getattr(self, "weight_padded", None),
+                taps=getattr(self, "weight_taps", None))[:, 0]
         if self.hooked:
             record_input(self, x)
         dtype = torch.promote_types(
@@ -243,8 +245,9 @@ class Conv3d(nn.Module):
     ``hooked=True`` (ResNet3D's and S3D's convs, which JAX runs through its
     int8-hookable ``Conv3D`` wrapper) records the input under calibration,
     and with an int8 weight (``core/quantize.py``) the convolution is the
-    quantized product over the input's 3-D columns, in f32, plus the bias,
-    cast to the input's dtype. Only ungrouped convs are hooked.
+    quantized one (``conv_nd_forward``: the implicit conv from 16
+    channels, else the product over the input's 3-D columns), in f32, plus
+    the bias, cast to the input's dtype. Only ungrouped convs are hooked.
     ``weight_init`` draws the weight (PyTorch's default unless given).
     """
 
@@ -273,7 +276,8 @@ class Conv3d(nn.Module):
                     x, self.weight, self.weight_scale,
                     getattr(self, "input_scale", None), stride=self.stride,
                     padding=self.padding, bias=self.bias, out_dtype=x.dtype,
-                    padded=getattr(self, "weight_padded", None))
+                    padded=getattr(self, "weight_padded", None),
+                    taps=getattr(self, "weight_taps", None))
             record_input(self, x)
         dtype = torch.promote_types(x.dtype, self.weight.dtype)
         if self.bias is not None:

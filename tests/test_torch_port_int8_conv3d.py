@@ -14,7 +14,9 @@ against the JAX package's int8 serving (core/quantize.py and the
   unfolded.
 - ``core/quantize.py::conv_nd_forward`` with the column budget so small
   that every sample is a chunk equals the unchunked product bit for bit,
-  in w8a8 and w8.
+  in w8a8 and w8, at ResNet3D's stem (C = 3: a conv of 16 channels or
+  more takes the implicit conv, which writes no columns;
+  test_torch_port_int8_conv3d_implicit.py holds it).
 - ResNet3D-18 in w8 within 0.35 of the float logits' spread (the JAX
   package's bound, tests/test_quantize.py::test_resnet3d_quantized_close,
   at its input), with at least 10 int8 convs.
@@ -132,8 +134,9 @@ def test_columns3d_match_jax(name):
 @pytest.mark.parametrize("mode", ["w8a8", "w8"])
 def test_column_budget_chunks_bit_for_bit(mode, monkeypatch):
     """Chunks of one sample (a budget below one sample's columns) against
-    one chunk, with a bias and a bf16 output."""
-    x, w, kernel, stride, pads = operands("resnet-3x3x3-s2", seed=1)
+    one chunk, with a bias and a bf16 output, at the stem, whose three
+    channels keep the columns."""
+    x, w, kernel, stride, pads = operands("resnet-stem", seed=1)
     xt = torch.from_numpy(x)
     if mode == "w8":
         xt = xt.to(torch.bfloat16)
