@@ -291,6 +291,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    artifact on the CPU within 2e-3; before it, layer_0's 810,000-wide f32
    row through the prologue's direct path (no shared window) bit for bit
    against its plain version;
+16d. the data-parallel layer at world size 1 (parallel_phase): a real
+   NCCL group joined from torchrun's environment on a free local port, a
+   ("data", "model") mesh over it; THAT_ENCODER at full width through fit
+   for 3 steps at batch 16 and a validation chunk, plain, with the
+   gradient all-reduce and with FSDP2, from one seed with dropout and
+   augmentation on: each wrapped run's losses within PARALLEL_REL (1e-5)
+   of the plain run's and the same K1 and K2 launches; MViT-v2 at
+   (45, 224, 224) through fit_video, 2 steps at batch 2, plain and with
+   FSDP2: the loss within 1e-5, the accuracies equal, the same K3 and K4
+   launches; one step of each way profiled (device ms beside the plain
+   step's, the hand kernels' launches equal to the plain step's, the NCCL
+   kernels and collectives counted); InfoNCE with the gather through NCCL
+   against the plain loss; the group destroyed;
 17. the whole run's wall time, one JSON line describing each kernel
    (every TPU kernel of the repo is ported, and P1's prologue, its 3-D
    prologue and its implicit conv; K1, K2 and K3 with one entry per
@@ -1165,7 +1178,9 @@ def serve_phase(key, requests, expect_out, launches_per_forward,
     SERVE_RATES[key] = (n / host_s, rates)
     batch = resident[0][:server.batch]
     attention_share(key, "K1", profile_device(
-        key, lambda: server.forward(batch), PROFILED_FORWARDS, "forward"))
+        key, lambda: server.forward(batch),
+        STEP_LOOP_PROFILED if key in STEP_LOOPS else PROFILED_FORWARDS,
+        "forward"))
     del resident
 
     # f32 on the card (default flags) against the CPU, where the plain
@@ -1895,7 +1910,7 @@ def resume_phase(data, work):
     from multi_modal_csi_tpu_torch.core.config import Config
     from multi_modal_csi_tpu_torch.runners.csi import CSI_MODELS, build_model
     from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch, fit,
-                                                      resume)
+                                                      restore_model, resume)
     from multi_modal_csi_tpu_torch.train.schedules import cosine_warmup
     pytorch_defaults()
     phase_start = time.perf_counter()
@@ -1929,7 +1944,8 @@ def resume_phase(data, work):
     schedule = cosine_warmup(steps, 3 * steps,
                              cfg.nn.scheduler.min_lr_ratio)
     scheduler = torch.optim.lr_scheduler.LambdaLR(opt, schedule)
-    epoch = resume(state, other, opt, scheduler)
+    restore_model(state, other)
+    epoch = resume(state, opt, scheduler)
     restored = other.state_dict()
     moments = opt.state_dict()["state"]
     saved_moments = state["optimizer"]["state"]
@@ -3232,6 +3248,8 @@ BASELINES = ("MLP", "CNN-1D", "CNN-2D", "LSTM", "CLSTM", "ABLSTM")
 # calls a forward, host-paced): served one request (one batch forward)
 # each, at full width, to keep the phase's time
 STEP_LOOPS = ("LSTM", "ABLSTM")
+STEP_LOOP_PROFILED = 2     # their bf16 forwards profiled (host-paced, 4,823
+                           # and 12,042 launch calls a forward)
 CALIB_WINDOWS = 64         # seeded calibration windows, one .npy
 P1_TIMES = {}              # (dtype, (G, M, K, N)) -> error, times, bound
 FUSED_TOTALS = {}          # model -> check_fused's sums per forward
@@ -5357,6 +5375,327 @@ def conv3d_entry(launches):
     }
 
 
+# the parallel phase: the data-parallel layer at world
+# size 1 through a real NCCL group, each wrapped run against the plain run
+# from the same seed
+PARALLEL_TRAIN = 64        # THAT_ENCODER windows: 3 steps at TRAIN_BATCH
+PARALLEL_VALID = 16        # one validation chunk
+PARALLEL_CLIPS = (4, 2)    # MViT-v2 training and test clips: 2 steps at
+                           # VIDEO_TRAIN_BATCH
+PARALLEL_NCE = (256, 256)  # InfoNCE rows and width (SSL's projection)
+PARALLEL_PROFILED = 2      # steps profiled after the profiler's warm-up
+# a wrapped run's losses against the plain run's, relative: at world size
+# 1 the wrapped run does the plain run's arithmetic (the all-reduce and
+# FSDP2's gather and reduce-scatter over one rank copy), so the expected
+# difference is 0, and f32 rounding at most
+PARALLEL_REL = 1e-5
+K3_F32_MARKS = ("attention_f32_kernel",)
+K4_MARKS = {"dQ/dR": ("attention_bwd_dq_lowrank",),
+            "dK/dV/dS": ("attention_bwd_dkv",)}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def settle(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def kernels_named(kernels, marks):
+    return sum(n for name, n in kernels.items()
+               if any(mark in name for mark in marks))
+
+
+def nccl_kernels(kernels):
+    return {name[:60]: n for name, n in kernels.items()
+            if "nccl" in name.lower()}
+
+
+def largest_rel(history, plain, keys):
+    return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+               for a, b in zip(history, plain) for k in keys)
+
+
+def step_profile(fn, marks):
+    """``fn()`` under torch.profiler, one warm-up call and then
+    PARALLEL_PROFILED counted calls (the profiler's schedule: a window that
+    opened on the call lost kernel records, one K1 of five and one conv in
+    a THAT_ENCODER step). Returns per call the device ms, each hand
+    kernel's launches (``marks``: name -> kernel-name marks), the NCCL
+    kernels and the collectives the host issued (``nccl:*`` and
+    ``c10d::*`` operations)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1,
+                                   active=PARALLEL_PROFILED,
+                                   repeat=1)) as prof:
+        for _ in range(1 + PARALLEL_PROFILED):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    events = prof.key_averages()
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and not e.key.startswith("Optimizer.")]
+    device_us = sum(e.self_device_time_total for e in device)
+    check(device_us > 0, "a parallel-phase profile holds no device time")
+    launches = {e.key: e.count / PARALLEL_PROFILED for e in device}
+    host = {e.key: e.count / PARALLEL_PROFILED for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and e.key.startswith(("nccl:", "c10d::"))}
+    return (device_us / 1e3 / PARALLEL_PROFILED,
+            {name: kernels_named(launches, m) for name, m in marks.items()},
+            nccl_kernels(launches), host)
+
+
+def profiled_steps(label, steps, bx, by, marks, device):
+    """Profile the steps of each way (plain first) at ``bx``
+    (``step_profile``): device ms beside the plain step's, the hand
+    kernels' launches, the NCCL kernels and collectives; each way must
+    launch the plain step's hand kernels."""
+    ms, counted = {}, {}
+    for way, step in steps.items():
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        ms[way], counted[way], nccl, host = step_profile(
+            lambda: step(bx, by, gen), marks)
+        print(f"{label} {way} step: {ms[way]:.3f} device ms (plain "
+              f"{ms['plain']:.3f}); hand kernels a step {counted[way]}; "
+              f"NCCL kernels {nccl}; collectives issued {host}")
+        check(all(counted[way].values()), f"{label} {way} step ran no "
+                                          f"{counted[way]}")
+        check(counted[way] == counted["plain"],
+              f"{label} {way} step launched {counted[way]}, the plain step "
+              f"{counted['plain']}")
+
+
+def parallel_that(sharding, device):
+    """THAT_ENCODER at full width: ``fit`` for one epoch (3 steps at
+    TRAIN_BATCH, one validation chunk) plain, with ``sharding`` (the
+    gradient all-reduce) and with ``sharding`` and ``fsdp``, from one seed,
+    dropout and augmentation on: each wrapped run's losses within
+    PARALLEL_REL of the plain run's and its launches the plain run's; then
+    one step of each way profiled. Returns the wrapped runs' launches."""
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.core.config import Config
+    from multi_modal_csi_tpu_torch.runners.csi import CSI_MODELS, build_model
+    from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch, fit,
+                                                      make_train_step)
+    cfg = Config().override({"data.length": LENGTH})
+    spec = CSI_MODELS["THAT_ENCODER"]
+    loss_fn = spec.make_loss(cfg, 10)
+    rng = np.random.default_rng(SEED + 11)
+
+    def windows(n):
+        x = rng.standard_normal((n, LENGTH, CHANNELS), dtype=np.float32)
+        return x, np.eye(10, dtype=np.float32)[rng.integers(0, 10, (n, 5))]
+
+    (x_tr, y_tr), (x_va, y_va) = windows(PARALLEL_TRAIN), windows(
+        PARALLEL_VALID)
+    settings = dict(loss_fn=loss_fn, mode=spec.mode, lr=cfg.nn.lr, epochs=1,
+                    batch_size=TRAIN_BATCH, seed=SEED,
+                    weight_decay=spec.weight_decay,
+                    threshold=cfg.nn.threshold, batch_axis=spec.batch_axis,
+                    device=device)
+    ways = {"plain": {}, "sharded": {"sharding": sharding},
+            "fsdp": {"sharding": sharding, "fsdp": True}}
+    start = build_model("THAT_ENCODER", seed=SEED, cfg=cfg)
+    runs, wrapped = {}, {}
+    for way, kwargs in ways.items():
+        model = copy.deepcopy(start)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fit(model, x_tr, y_tr, x_va, y_va, **settings, **kwargs)
+        settle(device)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCH_COUNTS)
+        runs[way] = (res, launches, model)
+        h = res.history[0]
+        print(f"THAT_ENCODER fit {way}: train loss {h['train_loss']!r}, "
+              f"validation loss {h['test_loss']!r}, {wall:.2f} s wall; "
+              f"launches {launches}")
+        check(math.isfinite(h["train_loss"]) and math.isfinite(
+            h["test_loss"]), f"THAT_ENCODER fit {way}: loss not finite")
+        if way == "plain":
+            continue
+        wrapped[way] = launches
+        rel = largest_rel(res.history, runs["plain"][0].history,
+                          ("train_loss", "test_loss"))
+        weights = max((res.best_state[k].float()
+                       - runs["plain"][0].best_state[k].float()).abs().max()
+                      .item() for k in res.best_state)
+        print(f"THAT_ENCODER fit {way} against plain: largest relative loss "
+              f"difference {rel:.3e} (bound {PARALLEL_REL:g}), largest "
+              f"best-weight difference {weights:.3e}")
+        check(rel <= PARALLEL_REL, f"THAT_ENCODER fit {way}: losses "
+                                   f"{rel:.3e} from the plain run's")
+        check(res.best_state.keys() == runs["plain"][0].best_state.keys(),
+              f"THAT_ENCODER fit {way}: the best weights' keys")
+        check(launches == runs["plain"][1]
+              and launches.get("flash_attention_f32", 0) > 0
+              and launches.get("flash_attention_backward", 0) > 0,
+              f"THAT_ENCODER fit {way} launched {launches}, the plain run "
+              f"{runs['plain'][1]}")
+    bx = torch.from_numpy(x_tr[:TRAIN_BATCH]).to(device)
+    by = torch.from_numpy(y_tr[:TRAIN_BATCH]).to(device)
+    steps = {way: make_train_step(
+        runs[way][2], adam_like_torch(runs[way][2].parameters(), cfg.nn.lr,
+                                      spec.weight_decay), loss_fn, **kwargs)
+             for way, kwargs in ways.items()}
+    profiled_steps("THAT_ENCODER", steps, bx, by,
+                   {"K1": (K1_F32,),
+                    "K2": tuple(K2_PASSES[torch.float32].values())}, device)
+    return wrapped
+
+
+def parallel_mvit(sharding, device):
+    """MViT-v2 at its clip: ``fit_video`` for one epoch (2 steps at
+    VIDEO_TRAIN_BATCH, f32) plain and with ``sharding`` and ``fsdp``, from
+    one seed: the loss within PARALLEL_REL of the plain run's, the
+    accuracies equal, the same launches; then one step of each profiled.
+    Returns the FSDP2 run's launches."""
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.data.video_io import ArrayClips
+    from multi_modal_csi_tpu_torch.losses.basic import bce_with_logits
+    from multi_modal_csi_tpu_torch.runners.video import (build_video_model,
+                                                         fit_video)
+    from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch,
+                                                      make_train_step)
+    rng = np.random.default_rng(SEED + 12)
+    n_tr, n_te = PARALLEL_CLIPS
+    x = rng.standard_normal((n_tr + n_te, *VIDEO_CLIP, 3), dtype=np.float32)
+    y = (rng.random((n_tr + n_te, VIDEO_OUT)) < 0.5).astype(np.float32)
+    train, test = ArrayClips(x[:n_tr], y[:n_tr]), ArrayClips(x[n_tr:],
+                                                              y[n_tr:])
+    ways = {"plain": {}, "fsdp": {"sharding": sharding, "fsdp": True}}
+    start = build_video_model("MViT-v2", VIDEO_OUT, VIDEO_CLIP, seed=SEED)
+    runs = {}
+    for way, kwargs in ways.items():
+        model, history = copy.deepcopy(start), []
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, acc = fit_video(model, train, test, lr=1e-4, epochs=1,
+                           batch_size=VIDEO_TRAIN_BATCH, seed=SEED,
+                           threshold=0.5, verbose=False, num_workers=2,
+                           history=history, device=device, **kwargs)
+        settle(device)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCH_COUNTS)
+        runs[way] = (history, launches, model)
+        print(f"MViT-v2 fit_video {way}: {history[0]}, best accuracy {acc}, "
+              f"{wall:.2f} s wall; launches {launches}")
+    history, launches, _ = runs["fsdp"]
+    plain_history, plain_launches, _ = runs["plain"]
+    rel = largest_rel(history, plain_history, ("train_loss",))
+    print(f"MViT-v2 fit_video fsdp against plain: relative loss difference "
+          f"{rel:.3e} (bound {PARALLEL_REL:g})")
+    check(rel <= PARALLEL_REL, f"MViT-v2 fit_video fsdp: loss {rel:.3e} "
+                               f"from the plain run's")
+    check(all(a[k] == b[k] for a, b in zip(history, plain_history)
+              for k in ("train_acc", "test_acc")),
+          "MViT-v2 fit_video fsdp: accuracies differ from the plain run's")
+    check(launches == plain_launches and launches.get(K3, 0) > 0
+          and launches.get(DQ, 0) > 0 and launches.get(DKV, 0) > 0,
+          f"MViT-v2 fit_video fsdp launched {launches}, the plain run "
+          f"{plain_launches}")
+    bx = torch.from_numpy(x[:VIDEO_TRAIN_BATCH]).to(device)
+    by = torch.from_numpy(y[:VIDEO_TRAIN_BATCH]).to(device)
+    steps = {way: make_train_step(
+        runs[way][2], adam_like_torch(runs[way][2].parameters(), 1e-4),
+        bce_with_logits, augment=False, **kwargs)
+             for way, kwargs in ways.items()}
+    profiled_steps("MViT-v2", steps, bx, by,
+                   dict(K3=K3_F32_MARKS, **{f"K4 {part}": marks for part,
+                                             marks in K4_MARKS.items()}),
+                   device)
+    return launches
+
+
+def parallel_info_nce(mesh, device):
+    """SSL's InfoNCE with the gather over the mesh's data axis (NCCL
+    all-gather, its backward a reduce-scatter) against the plain loss:
+    the loss and both gradients within PARALLEL_REL."""
+    from multi_modal_csi_tpu_torch.models.csi.ssl import info_nce
+    from multi_modal_csi_tpu_torch.parallel.collectives import axis_scope
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    z = [torch.randn(PARALLEL_NCE, generator=gen, device=device,
+                     requires_grad=True) for _ in range(2)]
+    plain = info_nce(*z)
+    plain_grads = torch.autograd.grad(plain, z)
+    with axis_scope(mesh):
+        gathered = info_nce(*z, gather_axis="data")
+        grads = torch.autograd.grad(gathered, z)
+        _, _, nccl, host = step_profile(
+            lambda: torch.autograd.grad(info_nce(*z, gather_axis="data"), z),
+            {})
+    rel = abs(gathered.item() - plain.item()) / abs(plain.item())
+    grad_rel = max(((g - p).abs().max() / p.abs().max()).item()
+                   for g, p in zip(grads, plain_grads))
+    print(f"info_nce with the gather: {gathered.item()!r} against the plain "
+          f"{plain.item()!r} (relative {rel:.3e}), gradients {grad_rel:.3e} "
+          f"of their largest; NCCL kernels {nccl}, collectives issued "
+          f"{host}")
+    check(rel <= PARALLEL_REL and grad_rel <= PARALLEL_REL,
+          "info_nce with the gather differs from the plain loss")
+
+
+def parallel_phase(device="cuda"):
+    """The data-parallel layer on the card at world size 1: a real NCCL
+    group joined as torchrun describes one (``initialize_distributed``
+    with no arguments, a free local port), a ("data", "model") mesh over
+    it, THAT_ENCODER's ``fit`` plain, with the gradient all-reduce and
+    with FSDP2 (``parallel_that``), MViT-v2's ``fit_video`` plain and
+    with FSDP2 (``parallel_mvit``), InfoNCE with the gather
+    (``parallel_info_nce``); the group is destroyed at the end. Returns
+    the wrapped runs' launches: THAT_ENCODER's (sharded, fsdp), MViT-v2's
+    (fsdp)."""
+    import torch.distributed as dist
+    from multi_modal_csi_tpu_torch.parallel.mesh import (batch_sharding,
+                                                         create_mesh,
+                                                         initialize_distributed)
+    pytorch_defaults()
+    start = time.perf_counter()
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
+           "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"}
+    before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        initialize_distributed(device=device)
+        backend = dist.get_backend()
+        check(backend == ("nccl" if device == "cuda" else "gloo"),
+              f"the parallel phase's group runs {backend}")
+        mesh = create_mesh()
+        sharding = batch_sharding(mesh)
+        print(f"parallel phase: a {backend} group of "
+              f"{dist.get_world_size()} rank, mesh {mesh}, batch split "
+              f"{sharding.size} ways")
+        def timed(name, part, *args):
+            t0 = time.perf_counter()
+            out = part(*args, device)
+            print(f"parallel phase: {name} {time.perf_counter() - t0:.1f} s")
+            return out
+
+        that = timed("THAT_ENCODER", parallel_that, sharding)
+        mvit = timed("MViT-v2", parallel_mvit, sharding)
+        timed("InfoNCE", parallel_info_nce, mesh)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"parallel phase: {card_line()}; "
+          f"{time.perf_counter() - start:.1f} s")
+    return [that["sharded"], that["fsdp"]], mvit
+
+
 RUN_START = time.perf_counter()
 
 
@@ -5512,6 +5851,9 @@ def main() -> int:
         # exported programs
         exported = export_phase(work, calib)
         int8_runs.append(exported)
+        # the data-parallel layer: K1 and K2 (THAT_ENCODER), K3 and K4
+        # (MViT-v2) inside the gradient all-reduce and FSDP2
+        parallel_that_runs, parallel_mvit_run = parallel_phase()
         trained_f32 = steps_f32 + [runs for runs, _ in experiments[:2]]
         trained_bf16 = ([step for _, step in served] + [step_bf16]
                         + [experiments[2][0]])
@@ -5526,17 +5868,18 @@ def main() -> int:
     # right-stream launches each; launches summed over every main path
     # that ran them (each kernel's two dtypes are counted apart; K2 bf16's
     # main path is the bf16 fit epoch; K1 and K2 f32 also count the
-    # THAT_ENCODER feature_encoder run and both resume fits, K1 bf16 that
-    # run's test pass). K5:
+    # THAT_ENCODER feature_encoder run, both resume fits and the parallel
+    # phase's wrapped THAT_ENCODER fits, K1 bf16 that run's test pass). K5:
     # per WiMANS trace (3000, 270). K3 in bf16: per MViT-v2 forward
     # (batch 2, the bias on), its 16 launches; launches summed over the
     # video serving, evaluate and bf16 training runs of both variants and
     # run_video's bf16 test passes. K3 in f32: per MViT-v2 f32 training
     # step (batch 2, blocks 0-2 with the bias), its 3 launches; launches
-    # k3_f32.
+    # k3_f32 and the parallel phase's FSDP2 fit_video.
     # K4's two kernels in each dtype: per MViT-v2 training step of the
     # dtype (batch 2), 3 each; launches summed over the dtype's training
-    # runs (f32: fit_video, the card-vs-CPU step and two run_video runs;
+    # runs (f32: fit_video, the card-vs-CPU step, two run_video runs and
+    # the parallel phase's FSDP2 fit_video;
     # bf16: the serving phases' steps, the profiled bf16 step and one
     # run_video run). P1's two instantiations: per DETR w8a8 forward (bf16
     # serving, batch 256), 22 s8 and 54 bf16 products, as bare products
@@ -5566,7 +5909,8 @@ def main() -> int:
         kernel_entry("flash_attention_f32", "tc_attention.cuh",
                      "multi_modal_csi_tpu/kernels/flash_attention.py:108",
                      sum(runs.get("flash_attention_f32", 0) for runs in
-                         (trained, experiment, transfer, resumed)),
+                         (trained, experiment, transfer, resumed,
+                          *parallel_that_runs)),
                      fwd_times,
                      {"that-left-16": 4, "that-right-16": 1},
                      torch.float32, as_3xtf32=True),
@@ -5576,7 +5920,8 @@ def main() -> int:
         kernel_entry("flash_attention_backward", "tc_attention_bwd.cuh",
                      "multi_modal_csi_tpu/kernels/flash_attention.py:271",
                      sum(runs["flash_attention_backward"] for runs in
-                         (trained, experiment, transfer, resumed)),
+                         (trained, experiment, transfer, resumed,
+                          *parallel_that_runs)),
                      bwd_times,
                      {"that-left-16": 4, "that-right-16": 1},
                      torch.float32, as_3xtf32=True),
@@ -5606,7 +5951,7 @@ def main() -> int:
         kernel_entry("flash_attention_lowrank_bias_f32",
                      "flash_attention_lowrank.cu",
                      "multi_modal_csi_tpu/kernels/flash_attention.py:377",
-                     k3_f32, k3_times,
+                     k3_f32 + parallel_mvit_run[K3], k3_times,
                      {f"{name}+bias": 1 for name in LOWRANK_BWD_SHAPES},
                      torch.float32, as_3xtf32=True),
         # every body of both dtypes (the query pass with the bias, and
@@ -5614,12 +5959,12 @@ def main() -> int:
         # flash_attention_lowrank_bwd.cu
         k4_entry(DQ, "tc_attention_bwd.cuh",
                  "multi_modal_csi_tpu/kernels/flash_attention.py:480",
-                 sum(runs[DQ] for runs in trained_f32), k4_times, "dq",
-                 torch.float32),
+                 sum(runs[DQ] for runs in trained_f32 + [parallel_mvit_run]),
+                 k4_times, "dq", torch.float32),
         k4_entry(DKV, "tc_attention_bwd.cuh",
                  "multi_modal_csi_tpu/kernels/flash_attention.py:492",
-                 sum(runs[DKV] for runs in trained_f32), k4_times, "dkv",
-                 torch.float32),
+                 sum(runs[DKV] for runs in trained_f32 + [parallel_mvit_run]),
+                 k4_times, "dkv", torch.float32),
         k4_entry(f"{DQ}_bf16", "tc_attention_bwd.cuh",
                  "multi_modal_csi_tpu/kernels/flash_attention.py:480",
                  sum(runs[DQ] for runs in trained_bf16), k4_times, "dq",

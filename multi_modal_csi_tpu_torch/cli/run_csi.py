@@ -19,8 +19,18 @@ config_modifier.py knob set) applies automatically; ``--set`` takes any
 dotted-path override. The run reads
 ``path.data_y`` (annotation.csv) and the amplitude cache ``path.data_x``,
 trains on the card unless ``--device cpu``, and writes the result JSON to
-``path.save``. The JAX CLI's ``--mesh`` and ``--distributed`` wait for the
-parallel layer (ROADMAP item 14).
+``path.save``.
+
+Data parallel, one process a device (``--mesh``: batches split over the
+mesh ``--set mesh.data=N --set mesh.model=M``, every rank on data by
+default; ``--set mesh.fsdp=true`` shards the parameters and Adam's
+moments too; ``--distributed``: join the process group that ``torchrun``
+describes, NCCL on the card, gloo with ``--device cpu``)::
+
+  torchrun --nproc-per-node 2 -m multi_modal_csi_tpu_torch.cli.run_csi \
+      --distributed --mesh --model THAT_ENCODER ... --device cpu
+
+Only rank 0 prints the result and writes ``path.save``.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from __future__ import annotations
 import argparse
 
 from ..core.config import load_config
+from ..parallel.mesh import initialize_distributed, is_main_process
 from ..runners.csi import run_experiment
 
 
@@ -41,12 +52,21 @@ def parse_args(argv=None):
     p.add_argument("--config", default=None, help="JSON config file")
     p.add_argument("--set", action="append", default=[],
                    metavar="KEY=VALUE", help="dotted-path override")
+    p.add_argument("--mesh", action="store_true",
+                   help="shard batches over the device mesh (data "
+                        "parallel; cfg.mesh.fsdp adds FSDP)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group torchrun describes before "
+                        "anything runs (parallel/mesh.py::"
+                        "initialize_distributed)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return p.parse_args(argv)
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    if args.distributed:
+        initialize_distributed(device=args.device)
     overrides = {}
     for kv in args.set:
         key, _, value = kv.partition("=")
@@ -61,8 +81,9 @@ def main(argv=None) -> dict:
         overrides["data.num_users"] = [u.strip()
                                        for u in args.users.split(",")]
     cfg = load_config(args.config, overrides)
-    result = run_experiment(cfg, device=args.device)
-    print(result)
+    result = run_experiment(cfg, device=args.device, use_mesh=args.mesh)
+    if is_main_process():
+        print(result)
     return result
 
 

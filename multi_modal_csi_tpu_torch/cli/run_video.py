@@ -13,8 +13,16 @@ then ``--set`` takes any dotted-path override. The run reads
 ``path.video_pre_x``, trains on the card unless ``--device cpu``, prints
 the result and writes it as JSON to ``path.save``. ``--model`` is any of
 the six video backbones; the default is Swin-T, as the JAX CLI's.
-``--mesh`` and ``--distributed`` wait for the parallel layer (ROADMAP item
-14).
+
+``--mesh`` trains data-parallel over the config's mesh (``mesh.data``,
+``mesh.model``, ``mesh.fsdp`` by ``--set``), one process a device;
+``--distributed`` joins the process group that ``torchrun`` describes
+(NCCL on the card, gloo with ``--device cpu``)::
+
+  torchrun --nproc-per-node 2 -m multi_modal_csi_tpu_torch.cli.run_video \
+      --distributed --mesh --model ResNet ... --device cpu
+
+Only rank 0 prints the result and writes ``path.save``.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import json
 import os
 
 from ..core.config import load_config
+from ..parallel.mesh import initialize_distributed, is_main_process
 from ..runners.video import run_video_model
 from ..utils.results import NumpyJSONEncoder
 
@@ -37,19 +46,20 @@ def parse_args(argv=None):
     p.add_argument("--set", action="append", default=[],
                    metavar="KEY=VALUE", help="dotted-path override")
     p.add_argument("--mesh", action="store_true",
-                   help="data parallel over a device mesh (not ported)")
+                   help="shard batches over the device mesh (data "
+                        "parallel; cfg.mesh.fsdp adds FSDP)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host initialisation (not ported)")
+                   help="join the process group torchrun describes before "
+                        "anything runs (parallel/mesh.py::"
+                        "initialize_distributed)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return p.parse_args(argv)
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.mesh or args.distributed:
-        raise NotImplementedError("--mesh and --distributed (data-parallel "
-                                  "and multi-host runs) are not ported yet "
-                                  "(ROADMAP item 14)")
+    if args.distributed:
+        initialize_distributed(device=args.device)
     overrides = {"model": args.model, "task": args.task,
                  "nn.lr": 1e-4, "nn.epoch": 20, "nn.batch_size": 8,
                  "repeat": args.repeat if args.repeat is not None else 10}
@@ -57,9 +67,11 @@ def main(argv=None) -> dict:
         key, _, value = kv.partition("=")
         overrides[key] = value
     cfg = load_config(args.config, overrides)
-    result = run_video_model(cfg, device=args.device)
+    result = run_video_model(cfg, use_mesh=args.mesh, device=args.device)
     result["model"] = cfg.model
     result["task"] = cfg.task
+    if not is_main_process():
+        return result
     if cfg.path.save:
         os.makedirs(os.path.dirname(cfg.path.save) or ".", exist_ok=True)
         with open(cfg.path.save, "w") as f:

@@ -14,9 +14,12 @@ JAX package's ``core/config.py`` (which the port does not import).
   package's tables differ per model only for video models (MViT serves in
   bf16 at batch 2); every CSI model serves in bf16 at batch 256.
 - the int8 serving mode per model (``QUANT_DEFAULTS``, ``resolve_quant``).
+- ``MeshConfig``: the device mesh's axes for data-parallel runs
+  (``parallel/mesh.py::config_batch_sharding``), with ``mesh.*`` dotted
+  overrides.
 
-Left out until their ROADMAP items: the device mesh (item 14) and the
-metric writers (W&B, JSONL, profile directory; item 15).
+Left out until ROADMAP item 15: the metric writers (W&B, JSONL, profile
+directory).
 """
 
 from __future__ import annotations
@@ -137,6 +140,23 @@ class NNConfig:
 
 
 @dataclass
+class MeshConfig:
+    """The device mesh's axes: ``data`` ranks split each global batch
+    (-1: every rank not on ``model``), ``model`` ranks replicate it (its
+    tensor-parallel rules wait for ROADMAP item 14b), and ``fsdp`` shards
+    the parameters and Adam's moments over the data axis
+    (``parallel/partition.py``)."""
+    data: int = -1
+    model: int = 1
+    fsdp: bool = False
+
+    def resolved(self, n_devices: int) -> Dict[str, int]:
+        model = max(1, self.model)
+        data = self.data if self.data > 0 else max(1, n_devices // model)
+        return {"data": data, "model": model}
+
+
+@dataclass
 class Config:
     """Root experiment config."""
     model: str = "DETR"
@@ -148,6 +168,7 @@ class Config:
     # run_dualband.py:34-129)
     data_band2: DataConfig = field(default_factory=DataConfig)
     nn: NNConfig = field(default_factory=NNConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     encoding_activity: Dict[str, List[int]] = field(
         default_factory=lambda: dict(ACTIVITY_ENCODING))
     encoding_location: Dict[str, List[int]] = field(

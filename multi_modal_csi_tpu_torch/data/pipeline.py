@@ -1,7 +1,10 @@
 """Host-side input pipeline (counterpart of the JAX package's
 ``data/pipeline.py``): shuffled full batches, each epoch skipping the last
 batch as the reference engine does, and one batch copied ahead to the
-device from pinned host memory.
+device from pinned host memory. Under a data-parallel ``BatchSharding``
+every rank builds the same index matrix from the same seed and uploads
+only its own rows of each global batch (``parallel/mesh.py::
+shard_batch``), as the JAX package's ``_multihost_batches`` does.
 """
 
 from __future__ import annotations
@@ -11,6 +14,8 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import shard_batch
 
 
 def epoch_batches(n: int, batch_size: int, rng: np.random.Generator,
@@ -29,10 +34,11 @@ def epoch_batches(n: int, batch_size: int, rng: np.random.Generator,
 
 
 def prefetch_batches(x: np.ndarray, y: np.ndarray, index_matrix: np.ndarray,
-                     device: torch.device
+                     device: torch.device, sharding=None
                      ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
     """Yield (x_batch, y_batch) on ``device`` for each row of
-    ``index_matrix``.
+    ``index_matrix``; with ``sharding`` (a ``BatchSharding``), this rank's
+    rows of each.
 
     On a CUDA device each batch is gathered into one of two pinned host
     buffers and copied on a side stream, one batch ahead of the one
@@ -41,6 +47,7 @@ def prefetch_batches(x: np.ndarray, y: np.ndarray, index_matrix: np.ndarray,
     buffer is refilled only after its previous copy has finished. On the
     CPU the gathered arrays are yielded as they are.
     """
+    index_matrix = shard_batch(sharding, index_matrix, axis=1)
     if device.type != "cuda":
         for idx in index_matrix:
             yield torch.from_numpy(x[idx]), torch.from_numpy(y[idx])

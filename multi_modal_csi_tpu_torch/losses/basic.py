@@ -2,6 +2,13 @@
 there), which are torch's: BCEWithLogitsLoss(pos_weight), MSELoss,
 SmoothL1Loss and CrossEntropyLoss(weight, label_smoothing), all reduced to
 a mean, computed in f32.
+
+Inside a data-parallel step (``parallel/collectives.py::axis_scope``) each
+rank returns its term of the global loss times the "data" axis's size, so
+that the mean over ranks, which the gradient average takes, is the global
+batch's loss. A mean over rows is that already (every rank holds as many
+rows); CrossEntropyLoss's weighted mean divides by the weights' sum over
+the global batch, all-reduced.
 """
 
 from __future__ import annotations
@@ -10,6 +17,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.collectives import axis_size, psum
+from ..parallel.mesh import DATA_AXIS
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
@@ -47,7 +57,8 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     """torch.nn.CrossEntropyLoss over integer class targets.
 
     Per sample: (1 - eps) w_y nll + eps / K sum_c w_c (-log p_c); "mean"
-    divides by sum_n w_{y_n} (not by N) when weights are given.
+    divides by sum_n w_{y_n} (not by N) when weights are given, summed over
+    the global batch inside a data-parallel step.
     """
     logits = logits.float()
     num_classes = logits.shape[-1]
@@ -66,6 +77,8 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     loss = (1.0 - eps) * nll_term + (eps / num_classes) * smooth_term
     if reduction == "none":
         return loss
+    ranks = axis_size(DATA_AXIS)
     if reduction == "sum":
-        return loss.sum()
-    return loss.sum() / wy.sum()
+        return loss.sum() * ranks
+    # the global batch's denominator; the weights carry no gradient
+    return loss.sum() * ranks / psum(wy.sum().detach())

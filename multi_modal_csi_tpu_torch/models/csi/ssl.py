@@ -10,8 +10,11 @@ JAX package's ``models/csi/ssl.py``; reference
   maps them).
 - ``info_nce`` and ``ssl_loss``: InfoNCE at temperature 0.1 over
   L2-normalised projections (the norm clipped at 1e-12), symmetric and
-  halved, plus the online head's BCE. On one device there is no gather
-  (the gather over a mesh waits for ROADMAP item 14).
+  halved, plus the online head's BCE. With ``gather_axis`` ("data")
+  inside a data-parallel step the normalised rows of every rank are
+  gathered first (``parallel/collectives.py::gather_from_all``), so every
+  rank takes the loss over the global batch; outside one there is no
+  gather, as in JAX.
 - ``two_views``: the reference's TimeSeriesTransform as per-sample gated
   jitter (0.05 x N(0, 1)), elementwise scale (U(0.9, 1.1)) and a 10-step
   segment mask, with the probabilities (.8, .7, .6) for view 1 and
@@ -33,6 +36,7 @@ from torch import nn
 
 from ...losses.basic import bce_with_logits
 from ...nn.layers import BatchNorm, Linear
+from ...parallel.collectives import gather_from_all
 from .cnn_1d import CNN1D
 
 VIEW_PROBS = ((0.8, 0.7, 0.6), (0.9, 0.8, 0.5))   # jitter, scale, mask
@@ -82,18 +86,30 @@ def _normalise(a: torch.Tensor) -> torch.Tensor:
         1e-12)
 
 
-def info_nce(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """InfoNCE(a -> b) of L2-normalised rows, in f32."""
+def info_nce(a: torch.Tensor, b: torch.Tensor,
+             gather_axis: Optional[str] = None) -> torch.Tensor:
+    """InfoNCE(a -> b) of L2-normalised rows, in f32, after the rows of
+    every rank along ``gather_axis`` are gathered (none outside a
+    data-parallel step).
+
+    Gathered, every rank holds the same global loss. The gather's backward
+    sums the ranks' equal gradients of a rank's rows, and the step's
+    gradient average divides that sum back out, so the gradient is the
+    single-process gradient on the whole batch."""
     a, b = _normalise(a.float()), _normalise(b.float())
+    a = gather_from_all(a, gather_axis)
+    b = gather_from_all(b, gather_axis)
     logits = a @ b.T / TEMPERATURE
     return -torch.log_softmax(logits, dim=-1).diagonal().mean()
 
 
 def ssl_loss(z1: torch.Tensor, z2: torch.Tensor, logits: torch.Tensor,
-             labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+             labels: torch.Tensor, gather_axis: Optional[str] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(total, contrastive part): symmetric InfoNCE / 2 plus the online
     head's BCE against the flattened labels."""
-    loss_ssl = info_nce(z1, z2) / 2 + info_nce(z2, z1) / 2
+    loss_ssl = (info_nce(z1, z2, gather_axis) / 2
+                + info_nce(z2, z1, gather_axis) / 2)
     labels = labels.reshape(-1, logits.shape[-1])
     return loss_ssl + bce_with_logits(logits, labels), loss_ssl
 

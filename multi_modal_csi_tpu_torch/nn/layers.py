@@ -25,6 +25,11 @@ values are rounded:
 Training: BatchNorm uses batch statistics and updates its running ones as
 torch does; dropout draws its masks from the generator that
 ``dropout_generator`` installs for the step (the global one outside it).
+Inside a data-parallel step (``parallel/collectives.py::axis_scope`` with a
+"data" axis) both are the global batch's: BatchNorm averages its
+statistics over the axis's ranks, and every mask is drawn at the global
+batch's shape, then cut to this rank's rows, so N ranks compute what one
+rank computes on the whole batch.
 
 int8 serving (``core/quantize.py``): an int8 weight is the signal, as in
 JAX. ``Linear``, ``Conv1d``, ``Conv2d`` and a hooked ``Conv3d``
@@ -58,6 +63,9 @@ from ..core.quantize import (conv_forward, conv_nd_forward, dense_forward,
 from ..kernels.flash_attention import (backward_fits, flash_attention,
                                        flash_attention_trainable,
                                        forward_fits)
+from ..parallel.collectives import (axis_present, axis_size, global_rows,
+                                    local_rows, pmean)
+from ..parallel.mesh import DATA_AXIS
 from .init import torch_bias_, torch_linear_weight_, xavier_uniform_
 
 
@@ -325,8 +333,11 @@ class BatchNorm(nn.Module):
     JAX package's torch-exact core (``_TorchBNCore``): batch mean and
     E[x^2] - E[x]^2 in f32 over every axis but the last, normalisation with
     that biased variance, and running statistics updated with the
-    momentum, the variance unbiased (x n / (n - 1)). The output takes the
-    promoted dtype of input and parameters in both modes.
+    momentum, the variance unbiased (x n / (n - 1)). Inside a
+    data-parallel step the mean and E[x^2] are averaged over the "data"
+    ranks (with autograd) and n is the global count, as
+    ``SyncBatchNorm`` does. The output takes the promoted dtype of input
+    and parameters in both modes.
     """
 
     def __init__(self, features: int, *, momentum: float = 0.1,
@@ -344,7 +355,12 @@ class BatchNorm(nn.Module):
             axes = tuple(range(x.dim() - 1))
             n = math.prod(x.shape[a] for a in axes)
             mean = xf.mean(dim=axes)
-            var = (xf * xf).mean(dim=axes) - mean * mean
+            square = (xf * xf).mean(dim=axes)
+            if axis_present(DATA_AXIS):
+                # the global batch's: every rank holds as many rows
+                mean, square = pmean(torch.stack([mean, square]))
+                n *= axis_size(DATA_AXIS)
+            var = square - mean * mean
             with torch.no_grad():
                 m = self.momentum
                 unbiased = var * (n / max(n - 1, 1))
@@ -379,13 +395,16 @@ def dropout(x: torch.Tensor, p: float,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Inverted dropout as flax's: keep each element with probability
     1 - p and divide the kept ones by 1 - p in x's dtype. ``F.dropout``
-    takes no generator, hence this."""
+    takes no generator, hence this. The batch is dimension 0; inside a
+    data-parallel step the mask is this rank's rows of the global
+    batch's."""
     if p == 0.0:
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = local_rows(torch.rand(global_rows(x.shape), generator=generator,
+                                 device=x.device)) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -418,8 +437,9 @@ class DropPath(nn.Module):
         if self.rate == 0.0 or not self.training:
             return x
         keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, generator=_GENERATOR, device=x.device) < keep
+        shape = global_rows((x.shape[0],) + (1,) * (x.dim() - 1))
+        mask = local_rows(torch.rand(shape, generator=_GENERATOR,
+                                     device=x.device)) < keep
         return x * mask.to(x.dtype) / keep
 
 

@@ -25,9 +25,15 @@ package, or a reference ``.pt``) is restored once into the weights of
 seed 0 in ``cfg.transfer_scenario`` (``core/checkpoint.py``), and every
 repeat starts from it and trains with ``train/transfer.py``'s optimizer.
 ``cfg.save_model`` saves each repeat's best weights to
-``component_path(cfg.saving_path, cfg.data.environment, model)``. Metric
-writers and device meshes wait for ROADMAP items 15 and 14 and raise
-NotImplementedError.
+``component_path(cfg.saving_path, cfg.data.environment, model)``.
+
+``use_mesh`` trains each repeat data-parallel over the config's mesh
+(``cfg.mesh``; ``parallel/mesh.py::config_batch_sharding``, with
+``cfg.mesh.fsdp``), one process a device as ``torchrun`` starts them;
+every rank runs the same repeats and returns the same result, and rank 0
+alone saves the component files and writes the JSON. As in JAX, SSL,
+dual_band and ST-RF run unsharded. Metric writers wait for ROADMAP item 15
+and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from torch import nn
 from ..core.checkpoint import component_path, restore_scenario, save_components
 from ..core.config import CSI_CHANNELS, Config, resolve_serving_dtype
 from ..core.device import resolve_device
+from ..parallel.mesh import barrier, config_batch_sharding, is_main_process
 from ..data.annotation import filter_annotation, label_list, load_annotation
 from ..data.csi_io import flatten_features, load_csi_windows
 from ..data.encoders import encode_labels, reduce_dataset
@@ -317,13 +324,10 @@ def _count_round_metrics(logits: np.ndarray, y_test: np.ndarray) -> dict:
 # the runner
 # ---------------------------------------------------------------------- #
 
-def _check_options(cfg: Config, writer_factory, use_mesh: bool) -> None:
+def _check_options(writer_factory) -> None:
     if writer_factory is not None:
         raise NotImplementedError("metric writers are not ported yet "
                                   "(ROADMAP item 15)")
-    if use_mesh:
-        raise NotImplementedError("data-parallel runs over a device mesh "
-                                  "are not ported yet (ROADMAP item 14)")
 
 
 def run_csi_model(cfg: Config, data: Optional[Split] = None,
@@ -336,9 +340,10 @@ def run_csi_model(cfg: Config, data: Optional[Split] = None,
     reference's run_main.py would write. ``data`` is (x_tr, x_te, y_tr,
     y_te) as ``master_split`` returns it; by default it is read from
     ``cfg.path``. The complexity report's forward runs on the CPU. ST-RF,
-    SSL and dual_band go to their own runners."""
+    SSL and dual_band go to their own runners. ``use_mesh`` trains over
+    the config's device mesh (module docstring)."""
     key = cfg.model
-    _check_options(cfg, writer_factory, use_mesh)
+    _check_options(writer_factory)
     if key == "ST-RF":
         return _run_strf(cfg, data, device)
     if key == "SSL":
@@ -348,6 +353,9 @@ def run_csi_model(cfg: Config, data: Optional[Split] = None,
         from .dual_band import run_dual_band
         return run_dual_band(cfg, data, device=device)
     spec = _spec(key)
+    sharding = (config_batch_sharding(cfg, resolve_device(device))
+                if use_mesh else None)
+    fsdp = sharding is not None and cfg.mesh.fsdp
 
     if data is None:
         x_tr, x_te, y_tr, y_te = master_split(cfg, spec.target)
@@ -412,14 +420,21 @@ def run_csi_model(cfg: Config, data: Optional[Split] = None,
                      warmup_epochs=cfg.nn.scheduler.num_warmup_epochs,
                      min_lr_ratio=cfg.nn.scheduler.min_lr_ratio,
                      batch_axis=spec.batch_axis, train_dtype=cfg.train_dtype,
-                     optimizer=optimizer, device=device)
+                     optimizer=optimizer, sharding=sharding, fsdp=fsdp,
+                     device=device)
         t1 = time.time()
-        if cfg.save_model:
+        if cfg.save_model and is_main_process():
             save_components(component_path(cfg.saving_path,
                                            cfg.data.environment, key),
                             fitres.best_state)
+        if sharding is not None:
+            barrier()
 
-        # the final test pass: the serving path, in the serving dtype
+        # the final test pass: the serving path, in the serving dtype,
+        # every rank on the whole test set (as JAX's); FSDP left the
+        # trained model's parameters sharded, so it serves from a copy
+        if fsdp:
+            model = build(seed).to(resolve_device(device))
         model.load_state_dict(fitres.best_state)
         if eval_dtype is not None:
             cast_for_serving(model, eval_dtype)
@@ -495,17 +510,17 @@ def _run_strf(cfg: Config, data: Optional[Split],
 
 def run_experiment(cfg: Config, data: Optional[Split] = None,
                    save: bool = True,
-                   device: Optional[Union[str, torch.device]] = None
-                   ) -> Dict[str, Any]:
+                   device: Optional[Union[str, torch.device]] = None,
+                   use_mesh: bool = False) -> Dict[str, Any]:
     """``run_csi_model`` plus the config's model, task, data and nn
     sections (reference run_main.py:88-160), written as JSON to
-    ``cfg.path.save`` when ``save``."""
-    result = run_csi_model(cfg, data, device=device)
+    ``cfg.path.save`` when ``save`` (by rank 0 alone)."""
+    result = run_csi_model(cfg, data, device=device, use_mesh=use_mesh)
     result["model"] = cfg.model
     result["task"] = cfg.task
     result["data"] = dataclasses.asdict(cfg.data)
     result["nn"] = dataclasses.asdict(cfg.nn)
-    if save and cfg.path.save:
+    if save and cfg.path.save and is_main_process():
         os.makedirs(os.path.dirname(cfg.path.save) or ".", exist_ok=True)
         with open(cfg.path.save, "w") as f:
             json.dump(result, f, indent=4, cls=NumpyJSONEncoder)

@@ -29,8 +29,15 @@ repeat starts from that component file when it exists (fresh weights when
 it does not) and saves its best weights there, so a repeat warm-starts
 from the one before. The port writes a torch state dict
 (``core/checkpoint.py``); the JAX runner's warm start reads only its own
-msgpack. Data-parallel runs over a mesh (ROADMAP item 14) raise
-NotImplementedError.
+msgpack.
+
+Data parallelism (JAX's ``sharding`` and ``fsdp``): ``fit_video`` and
+``evaluate`` take a ``parallel.mesh.BatchSharding``, and
+``run_video_model(use_mesh=True)`` the config's mesh. Each rank loads and
+trains on its rows of every global batch (``train/loop.py``'s step: the
+gradients averaged over the ranks, BatchNorm's statistics and the draws
+the global batch's), and evaluation splits each chunk, padded to a
+multiple of the data axis, over the ranks and gathers the logits.
 """
 
 from __future__ import annotations
@@ -50,14 +57,18 @@ from ..core.device import resolve_device
 from ..core.weights import resize_mvit_tables
 from ..data.annotation import filter_annotation, label_list, load_annotation
 from ..data.encoders import encode_labels
-from ..data.pipeline import epoch_batches, pad_to
+from ..data.pipeline import epoch_batches
 from ..data.splits import train_test_split
 from ..data.video_io import ArrayClips, ClipDataset, prefetch_batches
 from ..losses.basic import bce_with_logits
 from ..metrics.classification import accuracy_score, classification_report
 from ..models import video as video_models
+from ..parallel.collectives import axis_scope, pmean
+from ..parallel.mesh import (BatchSharding, barrier, config_batch_sharding,
+                             is_main_process, shard_batch)
 from ..train.loop import (TRAIN_DTYPES, StateDict, adam_like_torch,
-                          cast_for_serving, cast_parameters, make_train_step,
+                          cast_for_serving, cast_parameters, data_parallel,
+                          eval_chunk, forward_chunk, make_train_step,
                           state_snapshot)
 from ..utils.complexity import complexity_report
 
@@ -140,28 +151,26 @@ def _eval_rows(n: int, chunk: int) -> Sequence[np.ndarray]:
 @torch.no_grad()
 def evaluate(model: nn.Module, dataset, threshold: float, *,
              chunk: int = 16, num_workers: int = 4,
-             dtype: Optional[torch.dtype] = None
+             dtype: Optional[torch.dtype] = None,
+             sharding: Optional[BatchSharding] = None
              ) -> Tuple[float, np.ndarray, np.ndarray]:
     """(subset accuracy, 0/1 predictions, f32 logits) of ``model`` over
     every sample of ``dataset`` (a ClipDataset or ArrayClips).
 
     The model runs in eval mode on its own device, already cast for
     serving (``train.loop.cast_for_serving``) when ``dtype`` is given;
-    each chunk of clips is cast to ``dtype`` on the way in.
+    each chunk of clips is cast to ``dtype`` on the way in. With
+    ``sharding`` each rank loads every chunk, padded to the data axis,
+    and runs its rows of it (``train/loop.py::eval_chunk``,
+    ``forward_chunk``), so every rank returns the same result.
     """
     model.eval()
-    device = next(model.parameters()).device
     n = len(dataset)
-    chunk = min(chunk, max(1, n))
-    outs = []
-    for bx, _ in prefetch_batches(dataset, _eval_rows(n, chunk),
-                                  num_workers=num_workers):
-        size = bx.shape[0]
-        x = torch.from_numpy(pad_to(bx, chunk)).to(device)
-        if dtype is not None:
-            x = x.to(dtype)
-        outs.append(model(x).float()[:size].cpu().numpy())
-    logits = np.concatenate(outs, axis=0)
+    chunk = eval_chunk(n, chunk, sharding)
+    logits = np.concatenate(
+        [forward_chunk(model, bx, chunk, dtype=dtype, sharding=sharding)
+         for bx, _ in prefetch_batches(dataset, _eval_rows(n, chunk),
+                                       num_workers=num_workers)], axis=0)
     pred = (1 / (1 + np.exp(-logits)) > threshold).astype(int)
     acc = accuracy_score(dataset.y.astype(int),
                          pred.reshape(-1, dataset.y.shape[-1]))
@@ -245,43 +254,50 @@ def fit_video(model: nn.Module, train_ds, test_ds, *, lr: float,
     replaced only by a strictly higher test accuracy. ``history``, if
     given, receives one record an epoch: the last batch's loss and both
     accuracies. ``train_dtype="bfloat16"`` keeps the parameters and Adam's
-    moments in bf16, casts each batch and evaluates in bf16. ``sharding``
-    and ``fsdp`` (data-parallel training) are not ported (ROADMAP item
-    14)."""
-    if sharding is not None or fsdp:
-        raise NotImplementedError("data-parallel video training (sharding, "
-                                  "fsdp) is not ported yet (ROADMAP item 14)")
+    moments in bf16, casts each batch and evaluates in bf16.
+
+    ``sharding`` (every rank calls alike) trains data-parallel: each rank
+    loads its rows of every global batch of ``batch_size``, which the data
+    axis must divide, and ``fsdp`` shards the parameters and Adam's
+    moments over it (``train/loop.py``); evaluation is split over the
+    ranks, and only rank 0 prints."""
     if train_dtype not in TRAIN_DTYPES:
         raise ValueError(f"unsupported train_dtype {train_dtype!r}")
     batch_dtype = TRAIN_DTYPES[train_dtype]
     device = resolve_device(device)
     np_rng = np.random.default_rng(seed)
     generator = torch.Generator(device=device).manual_seed(seed)
+    if sharding is not None:
+        sharding.rows(batch_size)               # the batch must split
     model.to(device)
     cast_parameters(model, batch_dtype)
+    data_parallel(model, sharding, fsdp)
     step = make_train_step(model, adam_like_torch(model.parameters(), lr),
                            bce_with_logits, augment=False,
-                           batch_dtype=batch_dtype)
+                           batch_dtype=batch_dtype, sharding=sharding,
+                           fsdp=fsdp)
 
     best_acc = 0.0
     best = state_snapshot(model)
     n = len(train_ds)
     for epoch in range(epochs):
         t0 = time.time()
-        loss = torch.zeros(())
-        for bx, by in prefetch_batches(
-                train_ds, epoch_batches(n, batch_size, np_rng,
-                                        skip_last=False),
-                num_workers=num_workers):
+        loss = torch.zeros((), device=device)
+        idx = shard_batch(sharding, epoch_batches(n, batch_size, np_rng,
+                                                  skip_last=False), axis=1)
+        for bx, by in prefetch_batches(train_ds, idx,
+                                       num_workers=num_workers):
             loss, _ = step(torch.from_numpy(bx).to(device),
                            torch.from_numpy(by).to(device), generator)
+        with axis_scope(None if sharding is None else sharding.mesh):
+            loss = pmean(loss)         # the global batch's
         train_acc, _, _ = evaluate(model, train_ds, threshold,
                                    chunk=batch_size, num_workers=num_workers,
-                                   dtype=batch_dtype)
+                                   dtype=batch_dtype, sharding=sharding)
         test_acc, _, _ = evaluate(model, test_ds, threshold,
                                   chunk=batch_size, num_workers=num_workers,
-                                  dtype=batch_dtype)
-        if verbose:
+                                  dtype=batch_dtype, sharding=sharding)
+        if verbose and is_main_process():
             print(f"Epoch {epoch}/{epochs} - {time.time() - t0:.3f}s "
                   f"- Loss {float(loss):.6f} - Accuracy {train_acc:.6f} "
                   f"- Test Accuracy {test_acc:.6f}")
@@ -314,11 +330,14 @@ def run_video_model(cfg: Config,
     seed and scores the test set in the serving dtype (``compute_dtype``,
     "auto" the model's own), and saves its best weights to ``cfg.path.save_model`` when set,
     where the next repeat warm-starts. The complexity report's forward
-    runs on the CPU."""
+    runs on the CPU. ``use_mesh`` trains each repeat data-parallel over
+    the config's mesh (``cfg.mesh``, with ``cfg.mesh.fsdp``); every rank
+    returns the same result, and rank 0 alone saves
+    ``cfg.path.save_model``."""
     make_model = video_spec(cfg.model)
-    if use_mesh:
-        raise NotImplementedError("data-parallel runs over a device mesh "
-                                  "are not ported yet (ROADMAP item 14)")
+    sharding = (config_batch_sharding(cfg, resolve_device(device))
+                if use_mesh else None)
+    fsdp = sharding is not None and cfg.mesh.fsdp
     if data is None:
         train_ds, test_ds = load_video_data(cfg)
     else:
@@ -353,9 +372,14 @@ def run_video_model(cfg: Config,
         best, _ = fit_video(model, train_ds, test_ds, lr=cfg.nn.lr,
                             epochs=cfg.nn.epoch, batch_size=cfg.nn.batch_size,
                             seed=r + 39, threshold=cfg.nn.threshold,
-                            train_dtype=cfg.train_dtype, device=device)
+                            train_dtype=cfg.train_dtype, sharding=sharding,
+                            fsdp=fsdp, device=device)
         t1 = time.time()
-        # the final test pass: the serving path, in the serving dtype
+        # the final test pass: the serving path, in the serving dtype,
+        # every rank on the whole test set (as JAX's); FSDP left the
+        # trained model's parameters sharded, so it serves from a copy
+        if fsdp:
+            model = build(r + 39).to(resolve_device(device))
         model.load_state_dict(best)
         if dtype is not None:
             cast_for_serving(model, dtype)
@@ -366,8 +390,10 @@ def run_video_model(cfg: Config,
         accuracies.append(acc)
         times_train.append(t1 - t0)
         times_test.append(time.time() - t1)
-        if cfg.path.save_model:
+        if cfg.path.save_model and is_main_process():
             save_components(cfg.path.save_model, best)
+        if sharding is not None:
+            barrier()       # the next repeat's warm start reads it
 
     for name, values in (("accuracy", accuracies),
                          ("time_train", times_train),

@@ -26,6 +26,25 @@ buffers, the optimizer's state and the epoch, and here also the
 schedule's state, which JAX's optimizer state carries. As in JAX, a
 resumed run draws its shuffles, augmentation and dropout afresh from
 ``seed`` and keeps its best weights from the epochs it runs.
+
+Data parallelism (``sharding``, a ``parallel.mesh.BatchSharding``; JAX's
+``fit(sharding=..., fsdp=...)``): one process a device, each training on
+its rows of every global batch, with the numbers of one process on the
+whole batch (BatchNorm's statistics, the random draws and the losses'
+denominators are the global batch's, ``nn/layers.py``). The gradients
+are averaged over the ranks by one all-reduce after the backward
+(``parallel/collectives.py::average_gradients``) rather than by
+``DistributedDataParallel``: the model stays the module the runners
+built (its state dict, its attributes, no wrapper), parameters without a
+gradient need no flag, and at the reference's model sizes the overlap
+DDP's buckets would buy is small. ``fsdp=True`` shards the parameters
+and Adam's moments over the data axis with FSDP2 instead
+(``parallel/partition.py::apply_fsdp``), which averages the gradients
+itself. Validation is split over the ranks and its logits gathered, so
+every rank computes the same metrics and takes the same best-weight and
+early-stop decisions. The best weights, ``FitResult``'s and a
+checkpoint's are whole tensors on every rank; rank 0 writes the
+checkpoint, the state dicts an unsharded run writes.
 """
 
 from __future__ import annotations
@@ -44,6 +63,11 @@ from ..core.device import cudnn_f32, resolve_device
 from ..data.pipeline import chunked, epoch_batches, pad_to, prefetch_batches
 from ..metrics.performance import performance_metrics
 from ..nn.layers import dropout_generator
+from ..parallel.collectives import (average_gradients, axis_scope,
+                                    gather_rows, pmean)
+from ..parallel.mesh import (BatchSharding, barrier, batch_divisor,
+                             is_main_process, shard_batch)
+from ..parallel.partition import apply_fsdp
 from .augment import apply_augmentation
 from .schedules import cosine_warmup
 
@@ -70,30 +94,55 @@ def adam_like_torch(params, lr: float,
                             weight_decay=weight_decay)
 
 
+def data_parallel(model: nn.Module, sharding: Optional[BatchSharding],
+                  fsdp: bool) -> None:
+    """Check the data-parallel options and, with ``fsdp``, shard the
+    model's parameters over the data axis in place (before its optimizer
+    is built). ``fsdp`` without ``sharding`` raises ValueError, as JAX's
+    ``aot_train_step`` does."""
+    if fsdp and sharding is None:
+        raise ValueError("fsdp=True requires a batch `sharding` (the mesh "
+                         "whose 'data' axis the state shards over)")
+    if fsdp:
+        apply_fsdp(model, sharding.mesh)
+
+
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     loss_fn: Loss, *,
                     scheduler: Optional[torch.optim.lr_scheduler.LRScheduler]
                     = None,
                     augment: bool = True,
-                    batch_dtype: Optional[torch.dtype] = None):
+                    batch_dtype: Optional[torch.dtype] = None,
+                    sharding: Optional[BatchSharding] = None,
+                    fsdp: bool = False):
     """One training step ``step(bx, by, generator) -> (loss, out)``: cast
     the batch to ``batch_dtype``, augment it, forward in training mode
     with dropout drawn from ``generator``, backward, update, step the
-    schedule. ``loss`` and ``out`` come back detached, on the device."""
+    schedule. ``loss`` and ``out`` come back detached, on the device.
+
+    With ``sharding`` the batch is this rank's rows of the global one:
+    the forward and backward run inside ``axis_scope`` of its mesh, and
+    the gradients are averaged over the ranks (by FSDP2 when the model
+    was sharded with ``fsdp``, ``data_parallel``); ``loss`` is then this
+    rank's term, whose mean over the data axis is the global loss."""
+    mesh = None if sharding is None else sharding.mesh
 
     def step(bx: torch.Tensor, by: torch.Tensor,
              generator: torch.Generator):
         model.train()
         if batch_dtype is not None:
             bx = bx.to(batch_dtype)
-        if augment:
-            bx = apply_augmentation(bx, generator)
-        optimizer.zero_grad(set_to_none=True)
-        with dropout_generator(generator):
-            out = model(bx)
-        loss = loss_fn(out, by)
-        with cudnn_f32():              # the convs' backward in full f32 too
-            loss.backward()
+        with axis_scope(mesh):
+            if augment:
+                bx = apply_augmentation(bx, generator)
+            optimizer.zero_grad(set_to_none=True)
+            with dropout_generator(generator):
+                out = model(bx)
+            loss = loss_fn(out, by)
+            with cudnn_f32():          # the convs' backward in full f32 too
+                loss.backward()
+        if sharding is not None and not fsdp:
+            average_gradients(model.parameters())
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
@@ -102,26 +151,54 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     return step
 
 
+def eval_chunk(n: int, chunk: int,
+               sharding: Optional[BatchSharding] = None) -> int:
+    """The evaluation chunk for ``n`` rows: ``chunk``, at most ``n``,
+    rounded up to a multiple of ``batch_divisor`` (a set smaller than the
+    data axis included)."""
+    div = batch_divisor(sharding)
+    return -(-min(chunk, max(1, n)) // div) * div
+
+
+@torch.no_grad()
+def forward_chunk(model: nn.Module, rows: np.ndarray, chunk: int, *,
+                  batch_axis: int = 0, dtype: Optional[torch.dtype] = None,
+                  sharding: Optional[BatchSharding] = None) -> np.ndarray:
+    """Eval forward of ``rows`` zero-padded to ``chunk`` rows, each cast
+    to ``dtype``, on the model's device: with ``sharding`` this rank runs
+    its rows of the chunk and the outputs are gathered over the data
+    axis. Returns the f32 outputs of the real rows (``batch_axis`` is
+    where the batch lies in the output)."""
+    device = next(model.parameters()).device
+    bx = torch.from_numpy(shard_batch(sharding, pad_to(rows, chunk)))
+    bx = bx.to(device)
+    if dtype is not None:
+        bx = bx.to(dtype)
+    out = gather_rows(model(bx), sharding, batch_axis)
+    return np.take(out.float().cpu().numpy(), np.arange(rows.shape[0]),
+                   axis=batch_axis)
+
+
 @torch.no_grad()
 def eval_dataset(model: nn.Module, x: np.ndarray, *, chunk: int = 512,
-                 batch_axis: int = 0, dtype: Optional[torch.dtype] = None
-                 ) -> np.ndarray:
+                 batch_axis: int = 0, dtype: Optional[torch.dtype] = None,
+                 sharding: Optional[BatchSharding] = None) -> np.ndarray:
     """Eval-mode forward over all of ``x`` in fixed chunks (the last one
     zero-padded), on the model's device. ``batch_axis`` is where the batch
     lies in the OUTPUT (1 for DETR's (L, B, Q, C)); ``dtype`` casts each
-    chunk. Returns float32 logits."""
-    device = next(model.parameters()).device
+    chunk. Returns float32 logits.
+
+    With ``sharding`` each rank runs its rows of every chunk, padded to
+    the data axis (``eval_chunk``, ``forward_chunk``), so every rank
+    returns all the logits."""
     model.eval()
     n = x.shape[0]
-    chunk = min(chunk, max(1, n))
-    outs = []
-    for start, size in chunked(n, chunk):
-        bx = torch.from_numpy(pad_to(x[start:start + size], chunk)).to(device)
-        if dtype is not None:
-            bx = bx.to(dtype)
-        out = model(bx).float().cpu().numpy()
-        outs.append(np.take(out, np.arange(size), axis=batch_axis))
-    return np.concatenate(outs, axis=batch_axis)
+    chunk = eval_chunk(n, chunk, sharding)
+    return np.concatenate(
+        [forward_chunk(model, x[start:start + size], chunk,
+                       batch_axis=batch_axis, dtype=dtype,
+                       sharding=sharding)
+         for start, size in chunked(n, chunk)], axis=batch_axis)
 
 
 @torch.no_grad()
@@ -151,18 +228,33 @@ def cast_parameters(model: nn.Module, dtype: Optional[torch.dtype]) -> None:
             param.data = param.data.to(dtype)
 
 
+def host_value(t: torch.Tensor) -> torch.Tensor:
+    """The whole tensor: a DTensor (FSDP's shards) is gathered from every
+    rank, so every rank must call this alike (JAX's ``host_value``)."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def state_snapshot(model: nn.Module) -> StateDict:
-    """A CPU copy of the model's state dict."""
-    return {k: v.detach().to("cpu", copy=True)
+    """A CPU copy of the model's state dict, whole tensors also where
+    FSDP shards them."""
+    return {k: host_value(v.detach()).to("cpu", copy=True)
             for k, v in model.state_dict().items()}
 
 
-def resume(state: Dict, model: nn.Module, opt: torch.optim.Optimizer,
-           scheduler: Optional[torch.optim.lr_scheduler.LambdaLR]) -> int:
-    """Load a run checkpoint into the live run and return its epoch. The
-    schedule keeps the live run's length: the step count is restored and
-    the learning rate recomputed from it, as JAX evaluates its schedule at
-    the restored count."""
+def optimizer_snapshot(opt: torch.optim.Optimizer) -> Dict:
+    """The optimizer's state dict with whole tensors where FSDP shards
+    them: what an unsharded run's optimizer holds."""
+    state = opt.state_dict()
+    state["state"] = {i: {k: host_value(v) if torch.is_tensor(v) else v
+                          for k, v in per.items()}
+                      for i, per in state["state"].items()}
+    return state
+
+
+def restore_model(state: Dict, model: nn.Module) -> None:
+    """Load a run checkpoint's model state into a model not yet sharded;
+    a checkpoint restores only into a run of its own dtypes."""
     live = model.state_dict()
     wrong = [k for k, v in state["model"].items()
              if v.dtype != live[k].dtype]
@@ -171,7 +263,25 @@ def resume(state: Dict, model: nn.Module, opt: torch.optim.Optimizer,
                          f"run's (e.g. {wrong[0]}): a checkpoint restores "
                          f"only into a run of its own train_dtype")
     model.load_state_dict(state["model"], strict=True)
+
+
+def resume(state: Dict, opt: torch.optim.Optimizer,
+           scheduler: Optional[torch.optim.lr_scheduler.LambdaLR]) -> int:
+    """Load a run checkpoint's optimizer and schedule into the live run
+    (the model's state is ``restore_model``'s) and return its epoch.
+    Moments of parameters that FSDP shards are sharded alike. The
+    schedule keeps the live run's length: the step count is restored and
+    the learning rate recomputed from it, as JAX evaluates its schedule at
+    the restored count."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
     opt.load_state_dict(state["optimizer"])
+    for param, per in opt.state.items():
+        if isinstance(param, DTensor):
+            for k, v in per.items():
+                if torch.is_tensor(v) and v.dim() and not isinstance(
+                        v, DTensor):
+                    per[k] = distribute_tensor(v, param.device_mesh,
+                                               param.placements)
     if (scheduler is None) != (state["scheduler"] is None):
         raise ValueError("the run checkpoint's schedule does not match the "
                          "run's")
@@ -207,6 +317,8 @@ def fit(model: nn.Module,
                                      torch.optim.Optimizer]] = None,
         checkpoint_dir: Optional[str] = None,
         checkpoint_every: int = 0,
+        sharding: Optional[BatchSharding] = None,
+        fsdp: bool = False,
         device: Optional[Union[str, torch.device]] = None) -> FitResult:
     """Train ``model`` (moved to ``device``, the card by default) and return
     the best weights by the reference's rule.
@@ -227,6 +339,11 @@ def fit(model: nn.Module,
     is saved after every ``checkpoint_every``-th epoch, and a run that
     finds one there resumes from the newest at the epoch after it. A
     checkpoint restores only into a run of its own dtype.
+
+    ``sharding`` (every rank calls ``fit`` alike, with the same seed)
+    trains data-parallel on this rank's rows of each global batch of
+    ``batch_size``, which the data axis must divide; ``fsdp`` shards the
+    parameters and Adam's moments over it too (module docstring).
     """
     if train_dtype not in TRAIN_DTYPES:
         raise ValueError(f"unsupported train_dtype {train_dtype!r}")
@@ -240,8 +357,17 @@ def fit(model: nn.Module,
     if steps_per_epoch < 1:
         raise ValueError(f"{n} training windows at batch {batch_size} give "
                          f"no full batch once the last one is skipped")
+    if sharding is not None:
+        sharding.rows(batch_size)               # the batch must split
     model.to(device)
     cast_parameters(model, batch_dtype)
+    ckpt, state = None, None
+    if checkpoint_dir and checkpoint_every > 0:
+        ckpt = RunCheckpointer(checkpoint_dir)
+        if ckpt.latest_step() is not None:
+            state = ckpt.restore()
+            restore_model(state, model)
+    data_parallel(model, sharding, fsdp)
     scheduler = None
     if optimizer is not None:
         opt = optimizer(model)
@@ -254,12 +380,10 @@ def fit(model: nn.Module,
                 opt, cosine_warmup(warmup_epochs * steps_per_epoch,
                                    epochs * steps_per_epoch, min_lr_ratio))
     step = make_train_step(model, opt, loss_fn, scheduler=scheduler,
-                           augment=augment, batch_dtype=batch_dtype)
-    ckpt, start_epoch = None, 0
-    if checkpoint_dir and checkpoint_every > 0:
-        ckpt = RunCheckpointer(checkpoint_dir)
-        if ckpt.latest_step() is not None:
-            start_epoch = resume(ckpt.restore(), model, opt, scheduler) + 1
+                           augment=augment, batch_dtype=batch_dtype,
+                           sharding=sharding, fsdp=fsdp)
+    start_epoch = 0 if state is None else resume(state, opt, scheduler) + 1
+    mesh = None if sharding is None else sharding.mesh
 
     best_f1 = best_ppp = 0.0
     best_state = state_snapshot(model)
@@ -271,9 +395,15 @@ def fit(model: nn.Module,
     for epoch in range(start_epoch, epochs):
         t0 = time.time()
         idx = epoch_batches(n, batch_size, np_rng, skip_last=True)
-        for bx, by in prefetch_batches(x_train, y_train, idx, device):
+        for bx, by in prefetch_batches(x_train, y_train, idx, device,
+                                       sharding):
             loss_train, out = step(bx, by, generator)
             last_by, last_out = by, out
+        # the global batch's loss and last batch
+        with axis_scope(mesh):
+            loss_train = pmean(loss_train)
+        last_by = gather_rows(last_by, sharding)
+        last_out = gather_rows(last_out, sharding, batch_axis)
 
         # train-side metrics on the last trained batch, with the
         # reference's astype(int) truncation of the logits
@@ -283,7 +413,8 @@ def fit(model: nn.Module,
             var_mode=mode, var_threshold=threshold)
 
         logits_valid = eval_dataset(model, x_valid, chunk=eval_chunk,
-                                    batch_axis=batch_axis, dtype=batch_dtype)
+                                    batch_axis=batch_axis, dtype=batch_dtype,
+                                    sharding=sharding)
         loss_valid = float(loss_fn(torch.from_numpy(logits_valid),
                                    torch.from_numpy(y_valid_np)))
         valid_metrics = performance_metrics(
@@ -317,12 +448,17 @@ def fit(model: nn.Module,
         else:
             counter += 1
         if ckpt and (epoch + 1) % checkpoint_every == 0:
-            ckpt.save(epoch, {
-                "model": state_snapshot(model),
-                "optimizer": opt.state_dict(),
-                "scheduler": (None if scheduler is None
-                              else scheduler.state_dict()),
-                "epoch": epoch})
+            saved = {"model": state_snapshot(model),
+                     "optimizer": optimizer_snapshot(opt),
+                     "scheduler": (None if scheduler is None
+                                   else scheduler.state_dict()),
+                     "epoch": epoch}
+            if sharding is None:
+                ckpt.save(epoch, saved)
+            else:                      # one file for the ranks' one run
+                if is_main_process():
+                    ckpt.save(epoch, saved)
+                barrier()
         if counter >= patience:
             break
 

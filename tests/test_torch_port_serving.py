@@ -93,8 +93,10 @@ def test_port_imports_nothing_of_jax():
     name starts with the JAX package's, so names are compared exactly),
     and no pandas, sklearn, cv2, msgpack or matplotlib, which the machine
     with the card does not have. The video, int8, checkpoint, transfer,
-    SSL, dual-band, ST-RF and export modules are named, so that the test
-    fails if one of them goes missing."""
+    SSL, dual-band, ST-RF, export and parallel modules are named, so that
+    the test fails if one of them goes missing; the parallel modules,
+    imported first, load nothing of the port outside ``parallel`` (they
+    import torch.distributed only)."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "multi_modal_csi_tpu_torch").rglob("*.py"))
@@ -107,10 +109,19 @@ def test_port_imports_nothing_of_jax():
                          "kernels.spectrogram", "runners.ssl",
                          "runners.dual_band", "cli.inspect_model",
                          "cli.ssl_inference", "utils.visualize",
-                         "core.export", "cli.export_model"):
+                         "core.export", "cli.export_model",
+                         "parallel.mesh", "parallel.collectives",
+                         "parallel.partition"):
         assert f"multi_modal_csi_tpu_torch.{video_module}" in mods
     code = (
         "import importlib, sys\n"
+        "for m in ('mesh', 'collectives', 'partition'):\n"
+        "    importlib.import_module('multi_modal_csi_tpu_torch.parallel.'"
+        " + m)\n"
+        "own = [m for m in sys.modules if m.startswith(\n"
+        "       'multi_modal_csi_tpu_torch.') and not m.startswith(\n"
+        "       'multi_modal_csi_tpu_torch.parallel')]\n"
+        "assert not own, own\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m.removesuffix('.__init__'))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"

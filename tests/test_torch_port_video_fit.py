@@ -16,9 +16,12 @@ and cli/run_video.py) on the CPU.
   MViT-v2 clip, repeat 1, epoch 1, batch 2, on the CPU: the result JSON
   has the JAX runner's keys (``runners/video.py:392-406`` there, with the
   CLI's model and task);
-- the options that wait for other ROADMAP items raise
-  NotImplementedError; a backbone the JAX package does not have (every
-  one it has is ported) raises KeyError.
+- the data-parallel options refuse what they cannot run: ``fsdp``
+  without a ``sharding`` (ValueError, as JAX's), and ``use_mesh``,
+  ``--mesh`` and ``--distributed`` on the card where there is none
+  (RuntimeError, never a quiet run on the CPU); their 2-rank runs are
+  tests/test_torch_port_data_parallel.py's. A backbone the JAX package
+  does not have (every one it has is ported) raises KeyError.
 """
 
 import csv
@@ -176,7 +179,7 @@ def test_run_video_cli_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("option", ["mesh", "backbone", "sharding",
                                     "cli-mesh", "cli-distributed"])
-def test_unported_options_raise(option):
+def test_unported_options_raise(option, monkeypatch):
     cfg = Config().override({"model": "MViT-v1"})
     x = np.zeros((2, *CLIP, 3), np.float32)
     y = np.zeros((2, 6), np.float32)
@@ -186,13 +189,18 @@ def test_unported_options_raise(option):
             run_video_model(cfg.override({"model": "Swin-B"}), data,
                             device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1[24]"):
-        if option == "mesh":
-            run_video_model(cfg, data, use_mesh=True, device="cpu")
-        elif option == "sharding":
+    if option == "sharding":
+        with pytest.raises(ValueError, match="fsdp=True requires"):
             fit_video(TorchTiny(JaxTiny().init(
                 jax.random.PRNGKey(0), jnp.asarray(x[:1]))["params"]),
                 ArrayClips(x, y[:, :2]), ArrayClips(x, y[:, :2]),
                 fsdp=True, device="cpu", **SETTINGS)
+        return
+    # torchrun's environment for two ranks: --distributed joins it
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if option == "mesh":
+            run_video_model(cfg, data, use_mesh=True, device="cuda")
         else:
-            run_video.main(["--" + option[4:], "--device", "cpu"])
+            run_video.main(["--" + option[4:], "--device", "cuda"])
