@@ -267,7 +267,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    against cuDNN's bf16 conv3d and its k = 1 prologue against its byte
    bound, and card vs CPU on the same int8 weights with the card's int8
    codes fed to the CPU; one f32 training step of each at batch 2
-   (no launch, peak memory, clips trained/s, a profile), and one at a
+   (no launch, peak memory; ResNet and Swin-T also clips trained/s and a
+   profile), and one at a
    small clip against the CPU in f32 and float64 with the card's ReLU
    sides and max-pool picks replayed; cli/run_video.py with its default
    model (Swin-T) on the 10 cached clips. CNN-2D's int8 Conv2d (stages 1
@@ -291,19 +292,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    artifact on the CPU within 2e-3; before it, layer_0's 810,000-wide f32
    row through the prologue's direct path (no shared window) bit for bit
    against its plain version;
-16d. the data-parallel layer at world size 1 (parallel_phase): a real
-   NCCL group joined from torchrun's environment on a free local port, a
-   ("data", "model") mesh over it; THAT_ENCODER at full width through fit
-   for 3 steps at batch 16 and a validation chunk, plain, with the
-   gradient all-reduce and with FSDP2, from one seed with dropout and
+16d. the parallel layer at world size 1 (parallel_phase): a real NCCL
+   group joined from torchrun's environment on a free local port, a
+   ("data", "model") = (1, 1) mesh over it; THAT_ENCODER at full width
+   through fit for 3 steps at batch 16 and a validation chunk, plain, with
+   the gradient all-reduce, with FSDP2 and with the tensor-parallel rules
+   applied (K1/K2 on the rank's heads), from one seed with dropout and
    augmentation on: each wrapped run's losses within PARALLEL_REL (1e-5)
    of the plain run's and the same K1 and K2 launches; MViT-v2 at
-   (45, 224, 224) through fit_video, 2 steps at batch 2, plain and with
-   FSDP2: the loss within 1e-5, the accuracies equal, the same K3 and K4
-   launches; one step of each way profiled (device ms beside the plain
-   step's, the hand kernels' launches equal to the plain step's, the NCCL
-   kernels and collectives counted); InfoNCE with the gather through NCCL
-   against the plain loss; the group destroyed;
+   (45, 224, 224) through fit_video, 2 steps at batch 2, plain, with FSDP2
+   and with the rules (K3/K4 on the rank's heads): the loss within 1e-5,
+   the accuracies equal, the same K3 and K4 launches; one step of each
+   way profiled (device ms beside the plain step's, the hand kernels'
+   launches equal to the plain step's, the NCCL kernels and collectives
+   counted); DETR at entry's shape, (8, 3000, 270), two steps plain and
+   with the rules: both losses within 1e-5 and the first step's gradients
+   within 1e-4 of each tensor's largest; ring attention at (16, 10, 150,
+   27) f32 against full attention within 1e-5; InfoNCE with the gather
+   through NCCL against the plain loss; dryrun_multichip(1) in the same
+   group, which prints its line; the group destroyed, and the phase's
+   seconds;
 17. the whole run's wall time, one JSON line describing each kernel
    (every TPU kernel of the repo is ported, and P1's prologue, its 3-D
    prologue and its implicit conv; K1, K2 and K3 with one entry per
@@ -4485,6 +4493,10 @@ BACKBONE_STEP_CLIPS = {"ResNet": (8, 56, 56), "S3D": (8, 96, 96),
 # product is a plain int32 matmul, so short clips
 INT8_BACKBONE_CPU_CLIPS = {"ResNet": (8, 56, 56), "S3D": (8, 64, 64)}
 BACKBONE_PROFILED = 3      # forwards (steps) under the profiler
+# the backbones whose training step is also timed and profiled on the
+# card; S3D's and Swin-S's steps (no hand kernel) run with every check but
+# untimed, which made room for the parallel phase's tensor-parallel ways
+BACKBONES_TIMED = ("ResNet", "Swin-T")
 BACKBONE_CALIB_CLIPS = 8   # seeded calibration clips (amax)
 # the gradient of a card step against float64 (the CPU's, with the card's
 # kink sides and max-pool picks): within GRAD_F32_TOL of each tensor's
@@ -4908,8 +4920,9 @@ def replayed_activations(codes):
 def backbone_train_phase(key):
     """One f32 training step of ``key`` at batch 2 at full width on the
     card (PyTorch's default TF32 settings, dropout as built): no hand
-    kernel (exactly no launch), the peak memory, clips trained per second,
-    a profile of BACKBONE_PROFILED steps; then one step at
+    kernel (exactly no launch), the peak memory, and for BACKBONES_TIMED
+    clips trained per second and a profile of BACKBONE_PROFILED steps;
+    then one step at
     BACKBONE_STEP_CLIPS with dropout and drop-path off on the card (TF32
     off), on the CPU in f32 and in float64, the CPU taking the card's ReLU
     sides and max-pool picks (``KinkReplay``): the loss within
@@ -4950,9 +4963,10 @@ def backbone_train_phase(key):
     print(f"{key} f32 training step at batch {VIDEO_TRAIN_BATCH}, clip "
           f"{clip}: launches {launches}; peak memory {peak:.2f} GiB")
     check(not launches, f"{key} training step launched {launches}")
-    train_rate(f"{key} f32 training", step, bx, by, gen, unit="clips")
-    profile_device(f"{key} f32 training", lambda: step(bx, by, gen),
-                   BACKBONE_PROFILED, "step")
+    if key in BACKBONES_TIMED:
+        train_rate(f"{key} f32 training", step, bx, by, gen, unit="clips")
+        profile_device(f"{key} f32 training", lambda: step(bx, by, gen),
+                       BACKBONE_PROFILED, "step")
     del model, step, bx, by
     torch.cuda.empty_cache()
 
@@ -5389,16 +5403,14 @@ PARALLEL_PROFILED = 2      # steps profiled after the profiler's warm-up
 # FSDP2's gather and reduce-scatter over one rank copy), so the expected
 # difference is 0, and f32 rounding at most
 PARALLEL_REL = 1e-5
+# a wrapped step's gradients against the plain step's, relative to each
+# plain tensor's largest: f32 sums in another order
+PARALLEL_GRAD_REL = 1e-4
+RING_SHAPE = (16, 10, 150, 27)   # THAT's time tokens, (B, H, N, D)
+RING_TOL = 1e-5
 K3_F32_MARKS = ("attention_f32_kernel",)
 K4_MARKS = {"dQ/dR": ("attention_bwd_dq_lowrank",),
             "dK/dV/dS": ("attention_bwd_dkv",)}
-
-
-def free_port() -> int:
-    import socket
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def settle(device):
@@ -5465,8 +5477,9 @@ def profiled_steps(label, steps, bx, by, marks, device):
         ms[way], counted[way], nccl, host = step_profile(
             lambda: step(bx, by, gen), marks)
         print(f"{label} {way} step: {ms[way]:.3f} device ms (plain "
-              f"{ms['plain']:.3f}); hand kernels a step {counted[way]}; "
-              f"NCCL kernels {nccl}; collectives issued {host}")
+              f"{ms['plain']:.3f}; {card_line()}); hand kernels a step "
+              f"{counted[way]}; NCCL kernels {nccl}; collectives issued "
+              f"{host}")
         check(all(counted[way].values()), f"{label} {way} step ran no "
                                           f"{counted[way]}")
         check(counted[way] == counted["plain"],
@@ -5477,12 +5490,16 @@ def profiled_steps(label, steps, bx, by, marks, device):
 def parallel_that(sharding, device):
     """THAT_ENCODER at full width: ``fit`` for one epoch (3 steps at
     TRAIN_BATCH, one validation chunk) plain, with ``sharding`` (the
-    gradient all-reduce) and with ``sharding`` and ``fsdp``, from one seed,
-    dropout and augmentation on: each wrapped run's losses within
-    PARALLEL_REL of the plain run's and its launches the plain run's; then
-    one step of each way profiled. Returns the wrapped runs' launches."""
+    gradient all-reduce), with ``sharding`` and ``fsdp``, and with
+    ``sharding`` and the tensor-parallel rules applied (K1/K2 on the
+    rank's heads), from one seed, dropout and augmentation on: each
+    wrapped run's losses within PARALLEL_REL of the plain run's and its
+    launches the plain run's; then one step of each way profiled. Returns
+    the wrapped runs' launches."""
     from multi_modal_csi_tpu_torch import kernels
     from multi_modal_csi_tpu_torch.core.config import Config
+    from multi_modal_csi_tpu_torch.parallel.partition import (
+        apply_tensor_parallel)
     from multi_modal_csi_tpu_torch.runners.csi import CSI_MODELS, build_model
     from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch, fit,
                                                       make_train_step)
@@ -5503,11 +5520,14 @@ def parallel_that(sharding, device):
                     threshold=cfg.nn.threshold, batch_axis=spec.batch_axis,
                     device=device)
     ways = {"plain": {}, "sharded": {"sharding": sharding},
-            "fsdp": {"sharding": sharding, "fsdp": True}}
+            "fsdp": {"sharding": sharding, "fsdp": True},
+            "tensor-parallel": {"sharding": sharding}}
     start = build_model("THAT_ENCODER", seed=SEED, cfg=cfg)
     runs, wrapped = {}, {}
     for way, kwargs in ways.items():
         model = copy.deepcopy(start)
+        if way == "tensor-parallel":
+            apply_tensor_parallel(model.to(device), sharding.mesh)
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         res = fit(model, x_tr, y_tr, x_va, y_va, **settings, **kwargs)
@@ -5555,13 +5575,17 @@ def parallel_that(sharding, device):
 
 def parallel_mvit(sharding, device):
     """MViT-v2 at its clip: ``fit_video`` for one epoch (2 steps at
-    VIDEO_TRAIN_BATCH, f32) plain and with ``sharding`` and ``fsdp``, from
-    one seed: the loss within PARALLEL_REL of the plain run's, the
-    accuracies equal, the same launches; then one step of each profiled.
-    Returns the FSDP2 run's launches."""
+    VIDEO_TRAIN_BATCH, f32) plain, with ``sharding`` and ``fsdp``, and with
+    ``sharding`` and the tensor-parallel rules applied (K3/K4 on the
+    rank's heads), from one seed: each wrapped run's loss within
+    PARALLEL_REL of the plain run's, the accuracies equal, the same
+    launches; then one step of each profiled. Returns the wrapped runs'
+    launches."""
     from multi_modal_csi_tpu_torch import kernels
     from multi_modal_csi_tpu_torch.data.video_io import ArrayClips
     from multi_modal_csi_tpu_torch.losses.basic import bce_with_logits
+    from multi_modal_csi_tpu_torch.parallel.partition import (
+        apply_tensor_parallel)
     from multi_modal_csi_tpu_torch.runners.video import (build_video_model,
                                                          fit_video)
     from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch,
@@ -5572,11 +5596,14 @@ def parallel_mvit(sharding, device):
     y = (rng.random((n_tr + n_te, VIDEO_OUT)) < 0.5).astype(np.float32)
     train, test = ArrayClips(x[:n_tr], y[:n_tr]), ArrayClips(x[n_tr:],
                                                               y[n_tr:])
-    ways = {"plain": {}, "fsdp": {"sharding": sharding, "fsdp": True}}
+    ways = {"plain": {}, "fsdp": {"sharding": sharding, "fsdp": True},
+            "tensor-parallel": {"sharding": sharding}}
     start = build_video_model("MViT-v2", VIDEO_OUT, VIDEO_CLIP, seed=SEED)
-    runs = {}
+    runs, wrapped = {}, {}
     for way, kwargs in ways.items():
         model, history = copy.deepcopy(start), []
+        if way == "tensor-parallel":
+            apply_tensor_parallel(model.to(device), sharding.mesh)
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         _, acc = fit_video(model, train, test, lr=1e-4, epochs=1,
@@ -5589,20 +5616,23 @@ def parallel_mvit(sharding, device):
         runs[way] = (history, launches, model)
         print(f"MViT-v2 fit_video {way}: {history[0]}, best accuracy {acc}, "
               f"{wall:.2f} s wall; launches {launches}")
-    history, launches, _ = runs["fsdp"]
-    plain_history, plain_launches, _ = runs["plain"]
-    rel = largest_rel(history, plain_history, ("train_loss",))
-    print(f"MViT-v2 fit_video fsdp against plain: relative loss difference "
-          f"{rel:.3e} (bound {PARALLEL_REL:g})")
-    check(rel <= PARALLEL_REL, f"MViT-v2 fit_video fsdp: loss {rel:.3e} "
-                               f"from the plain run's")
-    check(all(a[k] == b[k] for a, b in zip(history, plain_history)
-              for k in ("train_acc", "test_acc")),
-          "MViT-v2 fit_video fsdp: accuracies differ from the plain run's")
-    check(launches == plain_launches and launches.get(K3, 0) > 0
-          and launches.get(DQ, 0) > 0 and launches.get(DKV, 0) > 0,
-          f"MViT-v2 fit_video fsdp launched {launches}, the plain run "
-          f"{plain_launches}")
+        if way == "plain":
+            continue
+        wrapped[way] = launches
+        plain_history, plain_launches, _ = runs["plain"]
+        rel = largest_rel(history, plain_history, ("train_loss",))
+        print(f"MViT-v2 fit_video {way} against plain: relative loss "
+              f"difference {rel:.3e} (bound {PARALLEL_REL:g})")
+        check(rel <= PARALLEL_REL, f"MViT-v2 fit_video {way}: loss "
+                                   f"{rel:.3e} from the plain run's")
+        check(all(a[k] == b[k] for a, b in zip(history, plain_history)
+                  for k in ("train_acc", "test_acc")),
+              f"MViT-v2 fit_video {way}: accuracies differ from the plain "
+              f"run's")
+        check(launches == plain_launches and launches.get(K3, 0) > 0
+              and launches.get(DQ, 0) > 0 and launches.get(DKV, 0) > 0,
+              f"MViT-v2 fit_video {way} launched {launches}, the plain run "
+              f"{plain_launches}")
     bx = torch.from_numpy(x[:VIDEO_TRAIN_BATCH]).to(device)
     by = torch.from_numpy(y[:VIDEO_TRAIN_BATCH]).to(device)
     steps = {way: make_train_step(
@@ -5613,7 +5643,93 @@ def parallel_mvit(sharding, device):
                    dict(K3=K3_F32_MARKS, **{f"K4 {part}": marks for part,
                                              marks in K4_MARKS.items()}),
                    device)
-    return launches
+    return wrapped
+
+
+def parallel_detr(sharding, device):
+    """DETR at ``entry``'s shape, (8, 3000, 270) windows (``entry.py``):
+    two training steps as ``dryrun_multichip`` takes them (augmentation,
+    dropout, the Hungarian loss, ``adam_like_torch(5e-4, 2e-4)``) plain
+    and with the tensor-parallel rules applied over ``sharding``'s mesh,
+    from one seed: both losses within PARALLEL_REL of the plain steps'
+    (the second one after the first update) and the first step's
+    gradients within PARALLEL_GRAD_REL of each plain tensor's largest
+    (and at least a hundredth of the largest of all)."""
+    from multi_modal_csi_tpu_torch.entry import entry
+    from multi_modal_csi_tpu_torch.losses.matching import (
+        HungarianMatchingLoss)
+    from multi_modal_csi_tpu_torch.parallel.partition import (
+        apply_tensor_parallel, full_tensor)
+    from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch,
+                                                      make_train_step)
+    forward, (x,) = entry(device)
+    rng = np.random.default_rng(SEED + 14)
+    bx = torch.from_numpy(rng.standard_normal(
+        tuple(x.shape), dtype=np.float32)).to(device)
+    by = torch.from_numpy(np.eye(10, dtype=np.float32)[
+        rng.integers(0, 10, (x.shape[0], 5))]).to(device)
+    got = {}
+    for way, kwargs in (("plain", {}),
+                        ("tensor-parallel", {"sharding": sharding})):
+        model = copy.deepcopy(forward.model)
+        if kwargs:
+            apply_tensor_parallel(model.to(device), sharding.mesh)
+        step = make_train_step(
+            model, adam_like_torch(model.parameters(), 5e-4, 2e-4),
+            HungarianMatchingLoss(), augment=True, **kwargs)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        t0 = time.perf_counter()
+        losses = [step(bx, by, gen)[0].item()]
+        grads = {name: full_tensor(p.grad).clone()
+                 for name, p in model.named_parameters()}
+        losses.append(step(bx, by, gen)[0].item())
+        settle(device)
+        wall = time.perf_counter() - t0
+        got[way] = (losses, grads)
+        print(f"DETR {tuple(bx.shape)} training steps {way}: losses "
+              f"{losses!r}, {wall:.2f} s wall for both ({card_line()})")
+        check(all(map(math.isfinite, losses)), f"DETR steps {way}: loss "
+                                              f"not finite")
+    (plain, before), (sharded, after) = got["plain"], got["tensor-parallel"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(sharded, plain))
+    check(before.keys() == after.keys(), "DETR steps: the parameters differ")
+    floor = 1e-2 * max(g.abs().max().item() for g in before.values())
+    grad_rel, worst = max(
+        ((after[k] - g).abs().max().item() / max(g.abs().max().item(), floor),
+         k) for k, g in before.items())
+    print(f"DETR tensor-parallel steps against plain: largest relative loss "
+          f"difference {rel:.3e} (bound {PARALLEL_REL:g}); first step's "
+          f"gradients {grad_rel:.3e} of their tensor's largest, in {worst} "
+          f"(bound {PARALLEL_GRAD_REL:g})")
+    check(rel <= PARALLEL_REL, f"DETR tensor-parallel steps: losses "
+                               f"{rel:.3e} from the plain steps'")
+    check(grad_rel <= PARALLEL_GRAD_REL, f"DETR tensor-parallel step: "
+                                         f"gradients {grad_rel:.3e} from "
+                                         f"the plain step's in {worst}")
+
+
+def parallel_ring(mesh, device):
+    """Ring attention (``kernels/ring_attention.py``) over the mesh's data
+    axis of one rank at THAT's time-token shape, (16, 10, 150, 27) f32,
+    against ``full_attention_reference``: error under RING_TOL; both
+    timed."""
+    from multi_modal_csi_tpu_torch.kernels.ring_attention import (
+        full_attention_reference, ring_attention)
+    from multi_modal_csi_tpu_torch.parallel.collectives import axis_scope
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    q, k, v = (torch.randn(RING_SHAPE, generator=gen, device=device)
+               for _ in range(3))
+    with axis_scope(mesh):
+        out = ring_attention(q, k, v, "data")
+        ring_ms = cuda_ms(lambda: ring_attention(q, k, v, "data"))
+    ref = full_attention_reference(q, k, v)
+    err = (out - ref).abs().max().item()
+    full_ms = cuda_ms(lambda: full_attention_reference(q, k, v))
+    print(f"ring attention {RING_SHAPE} f32 over a data axis of 1: error "
+          f"{err:.3e} against full attention (bound {RING_TOL:g}); "
+          f"{ring_ms:.4f} ms, full attention {full_ms:.4f} ms "
+          f"({card_line()})")
+    check(err < RING_TOL, f"ring attention error {err:.3e}")
 
 
 def parallel_info_nce(mesh, device):
@@ -5645,27 +5761,27 @@ def parallel_info_nce(mesh, device):
 
 
 def parallel_phase(device="cuda"):
-    """The data-parallel layer on the card at world size 1: a real NCCL
-    group joined as torchrun describes one (``initialize_distributed``
-    with no arguments, a free local port), a ("data", "model") mesh over
-    it, THAT_ENCODER's ``fit`` plain, with the gradient all-reduce and
-    with FSDP2 (``parallel_that``), MViT-v2's ``fit_video`` plain and
-    with FSDP2 (``parallel_mvit``), InfoNCE with the gather
-    (``parallel_info_nce``); the group is destroyed at the end. Returns
-    the wrapped runs' launches: THAT_ENCODER's (sharded, fsdp), MViT-v2's
-    (fsdp)."""
+    """The parallel layer on the card at world size 1: a real NCCL group
+    joined as torchrun describes one (``one_rank_group``: a free local
+    port), a ("data", "model") = (1, 1) mesh over
+    it, THAT_ENCODER's ``fit`` plain, with the gradient all-reduce, with
+    FSDP2 and with the tensor-parallel rules (``parallel_that``),
+    MViT-v2's ``fit_video`` plain, with FSDP2 and with the rules
+    (``parallel_mvit``), DETR's step at ``entry``'s shape plain and with
+    the rules (``parallel_detr``), ring attention (``parallel_ring``),
+    InfoNCE with the gather (``parallel_info_nce``) and
+    ``dryrun_multichip(1)`` in the same group, which prints its line; the
+    group is destroyed at the end. Returns the wrapped runs' launches:
+    THAT_ENCODER's (sharded, fsdp, tensor-parallel), MViT-v2's (fsdp,
+    tensor-parallel)."""
     import torch.distributed as dist
+    from multi_modal_csi_tpu_torch.entry import dryrun_multichip
     from multi_modal_csi_tpu_torch.parallel.mesh import (batch_sharding,
                                                          create_mesh,
-                                                         initialize_distributed)
+                                                         one_rank_group)
     pytorch_defaults()
     start = time.perf_counter()
-    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
-           "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"}
-    before = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        initialize_distributed(device=device)
+    with one_rank_group(device):
         backend = dist.get_backend()
         check(backend == ("nccl" if device == "cuda" else "gloo"),
               f"the parallel phase's group runs {backend}")
@@ -5677,23 +5793,20 @@ def parallel_phase(device="cuda"):
         def timed(name, part, *args):
             t0 = time.perf_counter()
             out = part(*args, device)
-            print(f"parallel phase: {name} {time.perf_counter() - t0:.1f} s")
+            print(f"parallel phase: {name} {time.perf_counter() - t0:.1f} s "
+                  f"({card_line()})")
             return out
 
         that = timed("THAT_ENCODER", parallel_that, sharding)
         mvit = timed("MViT-v2", parallel_mvit, sharding)
+        timed("DETR", parallel_detr, sharding)
+        timed("ring attention", parallel_ring, mesh)
         timed("InfoNCE", parallel_info_nce, mesh)
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-        for k, v in before.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+        timed("dryrun_multichip(1)", lambda device: dryrun_multichip(
+            1, device))
     print(f"parallel phase: {card_line()}; "
           f"{time.perf_counter() - start:.1f} s")
-    return [that["sharded"], that["fsdp"]], mvit
+    return list(that.values()), list(mvit.values())
 
 
 RUN_START = time.perf_counter()
@@ -5853,7 +5966,7 @@ def main() -> int:
         int8_runs.append(exported)
         # the data-parallel layer: K1 and K2 (THAT_ENCODER), K3 and K4
         # (MViT-v2) inside the gradient all-reduce and FSDP2
-        parallel_that_runs, parallel_mvit_run = parallel_phase()
+        parallel_that_runs, parallel_mvit_runs = parallel_phase()
         trained_f32 = steps_f32 + [runs for runs, _ in experiments[:2]]
         trained_bf16 = ([step for _, step in served] + [step_bf16]
                         + [experiments[2][0]])
@@ -5875,11 +5988,11 @@ def main() -> int:
     # video serving, evaluate and bf16 training runs of both variants and
     # run_video's bf16 test passes. K3 in f32: per MViT-v2 f32 training
     # step (batch 2, blocks 0-2 with the bias), its 3 launches; launches
-    # k3_f32 and the parallel phase's FSDP2 fit_video.
+    # k3_f32 and the parallel phase's FSDP2 and tensor-parallel fit_video.
     # K4's two kernels in each dtype: per MViT-v2 training step of the
     # dtype (batch 2), 3 each; launches summed over the dtype's training
     # runs (f32: fit_video, the card-vs-CPU step, two run_video runs and
-    # the parallel phase's FSDP2 fit_video;
+    # the parallel phase's FSDP2 and tensor-parallel fit_video;
     # bf16: the serving phases' steps, the profiled bf16 step and one
     # run_video run). P1's two instantiations: per DETR w8a8 forward (bf16
     # serving, batch 256), 22 s8 and 54 bf16 products, as bare products
@@ -5951,7 +6064,8 @@ def main() -> int:
         kernel_entry("flash_attention_lowrank_bias_f32",
                      "flash_attention_lowrank.cu",
                      "multi_modal_csi_tpu/kernels/flash_attention.py:377",
-                     k3_f32 + parallel_mvit_run[K3], k3_times,
+                     k3_f32 + sum(runs[K3] for runs in parallel_mvit_runs),
+                     k3_times,
                      {f"{name}+bias": 1 for name in LOWRANK_BWD_SHAPES},
                      torch.float32, as_3xtf32=True),
         # every body of both dtypes (the query pass with the bias, and
@@ -5959,11 +6073,11 @@ def main() -> int:
         # flash_attention_lowrank_bwd.cu
         k4_entry(DQ, "tc_attention_bwd.cuh",
                  "multi_modal_csi_tpu/kernels/flash_attention.py:480",
-                 sum(runs[DQ] for runs in trained_f32 + [parallel_mvit_run]),
+                 sum(runs[DQ] for runs in trained_f32 + parallel_mvit_runs),
                  k4_times, "dq", torch.float32),
         k4_entry(DKV, "tc_attention_bwd.cuh",
                  "multi_modal_csi_tpu/kernels/flash_attention.py:492",
-                 sum(runs[DKV] for runs in trained_f32 + [parallel_mvit_run]),
+                 sum(runs[DKV] for runs in trained_f32 + parallel_mvit_runs),
                  k4_times, "dkv", torch.float32),
         k4_entry(f"{DQ}_bf16", "tc_attention_bwd.cuh",
                  "multi_modal_csi_tpu/kernels/flash_attention.py:480",

@@ -142,10 +142,12 @@ class NNConfig:
 @dataclass
 class MeshConfig:
     """The device mesh's axes: ``data`` ranks split each global batch
-    (-1: every rank not on ``model``), ``model`` ranks replicate it (its
-    tensor-parallel rules wait for ROADMAP item 14b), and ``fsdp`` shards
-    the parameters and Adam's moments over the data axis
-    (``parallel/partition.py``)."""
+    (-1: every rank not on ``model``), ``model`` ranks replicate it (``fit``
+    and ``fit_video`` replicate over "model", as JAX's do; the
+    tensor-parallel rules are reached through
+    ``parallel/partition.py::apply_tensor_parallel`` and
+    ``entry.py::dryrun_multichip``), and ``fsdp`` shards the parameters
+    and Adam's moments over the data axis (``parallel/partition.py``)."""
     data: int = -1
     model: int = 1
     fsdp: bool = False

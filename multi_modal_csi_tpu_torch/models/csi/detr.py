@@ -106,7 +106,11 @@ class TransformerDecoderLayer(nn.Module):
     ``query_pos`` added to its queries and the temperature dividing its
     output, then the FFN. In training, dropout 0.1 applies to both
     attentions' weights, after each of the three sublayers before its
-    residual, and after the FFN's ReLU."""
+    residual, and after the FFN's ReLU. Under the tensor-parallel rules
+    the FFN is a column-parallel ``ffn.0`` and a row-parallel ``ffn.3``,
+    with the dropout between them on this rank's features."""
+
+    TENSOR_PARALLEL_PAIRS = (("ffn.0.weight", "ffn.3.weight"),)
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  temperature: float = 1.0, *, generator: torch.Generator):

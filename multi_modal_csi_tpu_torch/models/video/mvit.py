@@ -65,7 +65,10 @@ from ...kernels.flash_attention_lowrank import (
     lowrank_fits)
 from ...nn.init import lecun_normal_
 from ...nn.layers import (GELU, Conv3d, Dropout, DropPath, LayerNorm, Linear,
-                          max_pool3d)
+                          call_shared, max_pool3d)
+from ...parallel.collectives import (copy_to_region, gather_features,
+                                     local_slice)
+from ...parallel.mesh import MODEL_AXIS
 
 THW = Tuple[int, int, int]
 
@@ -235,7 +238,9 @@ def _table(shape, generator: torch.Generator) -> nn.Parameter:
 class PoolConv(nn.Module):
     """torchvision's Pool with a depthwise conv: the class token is split
     off, the tokens conv-pooled per head, the token re-attached, then
-    LayerNorm(head_dim). Names: ``pool`` (the conv), ``norm_act.0``."""
+    LayerNorm(head_dim). Names: ``pool`` (the conv), ``norm_act.0``.
+    ``shared``: the heads are sharded over the model axis, so the conv's
+    and the norm's parameters enter through ``copy_to_region``."""
 
     def __init__(self, head_dim: int, kernel: THW, stride: THW, *,
                  generator: torch.Generator):
@@ -246,15 +251,16 @@ class PoolConv(nn.Module):
                            weight_init=lecun_normal_, generator=generator)
         self.norm_act = nn.Sequential(LayerNorm(head_dim))
 
-    def forward(self, x: torch.Tensor, thw: THW
+    def forward(self, x: torch.Tensor, thw: THW, shared: bool = False
                 ) -> Tuple[torch.Tensor, THW]:
         # x: (B, heads, 1 + T*H*W, d)
+        call = call_shared if shared else (lambda module, t: module(t))
         b, heads, _, d = x.shape
         cls, tok = x[:, :, :1], x[:, :, 1:]
-        tok = self.pool(tok.reshape(b * heads, *thw, d))
+        tok = call(self.pool, tok.reshape(b * heads, *thw, d))
         new_thw = tuple(tok.shape[1:4])
         x = torch.cat([cls, tok.reshape(b, heads, -1, d)], dim=2)
-        return self.norm_act(x), new_thw
+        return call(self.norm_act, x), new_thw
 
 
 def use_train_flash(q: torch.Tensor) -> bool:
@@ -277,7 +283,20 @@ def _pool_skip(x: torch.Tensor, thw: THW, stride: THW) -> torch.Tensor:
 
 class MultiscaleAttention(nn.Module):
     """Pooling attention. ``input_thw`` is the block's input size at the
-    clip the model is built for; v2's relative tables are sized from it."""
+    clip the model is built for; v2's relative tables are sized from it.
+
+    Under the tensor-parallel rules (``parallel/partition.py``;
+    ``model_shards`` set) ``qkv`` is column-parallel and ``project.0``
+    row-parallel: K3/K4 (or the eager path) run on this rank's heads, with
+    R and S cut to them. The relative tables and the pooling convs and
+    norms, shared by every head, stay whole on every rank and enter
+    through ``copy_to_region``. Where the axis does not divide the heads
+    (MViT-v2's first stage: one head), q, k and v are gathered over the
+    axis, the attention runs whole, and ``project.0`` takes this rank's
+    columns of its output."""
+
+    TENSOR_PARALLEL_PAIRS = (("qkv.weight", "project.0.weight"),)
+    model_shards: Optional[int] = None
 
     def __init__(self, embed_dim: int, output_dim: int, num_heads: int,
                  q_stride: THW, kv_stride: THW, has_pool_q: bool,
@@ -310,15 +329,27 @@ class MultiscaleAttention(nn.Module):
         b, n, _ = x.shape
         heads = self.num_heads
         d = self.output_dim // heads
-        qkv = self.qkv(x).reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]            # (B, heads, N, d)
-        k, k_thw = self.pool_k(k, thw)
-        v, _ = self.pool_v(v, thw)
-        q_thw = thw
-        if self.pool_q is not None:
-            q, q_thw = self.pool_q(q, thw)
+        qkv = self.qkv(x)
         tables = (None if self.rel_pos_h is None else
                   (self.rel_pos_h, self.rel_pos_w, self.rel_pos_t))
+        shared = self.model_shards is not None
+        whole = False
+        if shared:
+            ol = qkv.shape[-1] // 3          # this rank's features of each
+            whole = heads % (self.output_dim // ol) != 0
+            if whole:
+                qkv = gather_features(qkv.reshape(b, n, 3, ol), MODEL_AXIS)
+            else:
+                heads = heads * ol // self.output_dim
+            if tables is not None:
+                tables = tuple(copy_to_region(t, MODEL_AXIS) for t in tables)
+        qkv = qkv.reshape(b, n, 3, heads, d).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]            # (B, heads, N, d)
+        k, k_thw = self.pool_k(k, thw, shared)
+        v, _ = self.pool_v(v, thw, shared)
+        q_thw = thw
+        if self.pool_q is not None:
+            q, q_thw = self.pool_q(q, thw, shared)
 
         nq = q.shape[2]
         rank = 0 if tables is None else sum(k_thw)  # _rel_factors' columns
@@ -346,11 +377,15 @@ class MultiscaleAttention(nn.Module):
                 out = out + q
             else:        # out of place: the flash path saved ``out``
                 out = out + F.pad(q[:, :, 1:], (0, 0, 1, 0))
-        out = out.transpose(1, 2).reshape(b, -1, self.output_dim)
+        out = out.transpose(1, 2).reshape(b, -1, heads * d)
+        if whole:
+            out = local_slice(out, -1, MODEL_AXIS)
         return self.project(out), q_thw
 
 
 class MViTBlock(nn.Module):
+    TENSOR_PARALLEL_PAIRS = (("mlp.0.weight", "mlp.3.weight"),)
+
     def __init__(self, cfg: BlockCfg, residual_pool: bool,
                  residual_with_cls: bool, rel_pos: bool,
                  proj_after_attn: bool, input_thw: THW, drop_path: float = 0.0,

@@ -46,6 +46,9 @@ from torch import nn
 
 from ...nn.init import lecun_normal_
 from ...nn.layers import GELU, Conv3d, DropPath, LayerNorm, Linear
+from ...parallel.collectives import (copy_to_region, gather_features,
+                                     local_slice)
+from ...parallel.mesh import MODEL_AXIS
 
 Window = Tuple[int, int, int]
 
@@ -126,7 +129,19 @@ class WindowAttention3D(nn.Module):
     """Multi-head self-attention within each window, with the relative
     position bias of the full ``window`` (the table's size) cut to the
     windows' token count, and the shifted layout's mask where ``ids`` are
-    given. Names: ``qkv``, ``proj``, ``relative_position_bias_table``."""
+    given. Names: ``qkv``, ``proj``, ``relative_position_bias_table``.
+
+    Under the tensor-parallel rules (``parallel/partition.py``;
+    ``model_shards`` set) ``qkv`` is column-parallel and ``proj``
+    row-parallel: the core runs on this rank's heads, reading their
+    columns of the bias table, which stays whole on every rank and enters
+    through ``copy_to_region`` (its gradient is each rank's heads' part).
+    Where the axis does not divide the heads, q, k and v are gathered over
+    the axis, the core runs whole, and ``proj`` takes this rank's columns
+    of its output."""
+
+    TENSOR_PARALLEL_PAIRS = (("qkv.weight", "proj.weight"),)
+    model_shards: Optional[int] = None
 
     def __init__(self, dim: int, num_heads: int, window: Window, *,
                  generator: torch.Generator):
@@ -145,27 +160,46 @@ class WindowAttention3D(nn.Module):
         bn, n, c = x.shape
         h = self.num_heads
         d = c // h
-        qkv = self.qkv(x).reshape(bn, n, 3, h, d).permute(2, 0, 3, 1, 4)
+        qkv = self.qkv(x)
+        table = self.relative_position_bias_table
+        hl, whole = h, False
+        if self.model_shards is not None:
+            table = copy_to_region(table, MODEL_AXIS)
+            cl = qkv.shape[-1] // 3          # this rank's features of each
+            whole = h % (c // cl) != 0
+            if whole:
+                qkv = gather_features(qkv.reshape(bn, n, 3, cl), MODEL_AXIS)
+            else:
+                hl = h * cl // c
+        qkv = qkv.reshape(bn, n, 3, hl, d).permute(2, 0, 3, 1, 4)
         acc = torch.promote_types(qkv.dtype, torch.float32)   # f32 or f64
         q, k, v = qkv[0].to(acc), qkv[1].to(acc), qkv[2].to(acc)
         attn = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(d)
         idx = torch.from_numpy(_relative_position_index(self.window)
                                [:n, :n].reshape(-1)).to(x.device)
-        bias = self.relative_position_bias_table[idx]
-        attn = attn + bias.reshape(n, n, h).permute(2, 0, 1)[None]
+        bias = table[idx]
+        if hl != h:
+            bias = local_slice(bias, 1, MODEL_AXIS)
+        attn = attn + bias.reshape(n, n, hl).permute(2, 0, 1)[None]
         if ids is not None:
             nw = ids.shape[0]
             mask = torch.where(ids[:, None, :] == ids[:, :, None], 0.0, MASK)
-            attn = (attn.reshape(bn // nw, nw, h, n, n)
-                    + mask[None, :, None]).reshape(bn, h, n, n)
+            attn = (attn.reshape(bn // nw, nw, hl, n, n)
+                    + mask[None, :, None]).reshape(bn, hl, n, n)
         out = torch.matmul(torch.softmax(attn, dim=-1), v)
-        return self.proj(out.transpose(1, 2).reshape(bn, n, c))
+        out = out.transpose(1, 2).reshape(bn, n, hl * d)
+        if whole:
+            out = local_slice(out, -1, MODEL_AXIS)
+        return self.proj(out)
 
 
 class SwinBlock3D(nn.Module):
     """One Swin block: (shifted) window attention and the MLP, each a
     pre-LayerNorm residual with stochastic depth. Names: ``norm1``,
-    ``attn``, ``norm2``, ``mlp.0``, ``mlp.3``."""
+    ``attn``, ``norm2``, ``mlp.0``, ``mlp.3`` (column- and row-parallel
+    under the tensor-parallel rules)."""
+
+    TENSOR_PARALLEL_PAIRS = (("mlp.0.weight", "mlp.3.weight"),)
 
     def __init__(self, dim: int, num_heads: int, window: Window,
                  shifted: bool, drop_path: float, *,

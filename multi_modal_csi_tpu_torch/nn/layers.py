@@ -56,6 +56,7 @@ from typing import Iterator, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..core.device import cudnn_f32
 from ..core.quantize import (conv_forward, conv_nd_forward, dense_forward,
@@ -63,9 +64,11 @@ from ..core.quantize import (conv_forward, conv_nd_forward, dense_forward,
 from ..kernels.flash_attention import (backward_fits, flash_attention,
                                        flash_attention_trainable,
                                        forward_fits)
-from ..parallel.collectives import (axis_present, axis_size, global_rows,
-                                    local_rows, pmean)
-from ..parallel.mesh import DATA_AXIS
+from ..parallel.collectives import (axis_present, axis_size,
+                                    copy_to_region, gather_features,
+                                    global_rows, local_rows, local_slice,
+                                    pmean, reduce_from_region)
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from .init import torch_bias_, torch_linear_weight_, xavier_uniform_
 
 
@@ -86,11 +89,60 @@ def dense(x: torch.Tensor, weight: torch.Tensor,
     return y.to(out_dtype)
 
 
+def local_tensor(p: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a tensor-parallel parameter (a DTensor that
+    ``parallel/partition.py::shard_params`` placed on the "model" axis),
+    else ``p``. A shard runs only inside ``axis_scope`` of a mesh whose
+    "model" axis has as many ranks as the parameter has shards (else
+    RuntimeError: unbound, the sums over the axis would be skipped)."""
+    if not isinstance(p, DTensor):
+        return p
+    local = p.to_local()
+    shards = p.numel() // max(local.numel(), 1)
+    if axis_size(MODEL_AXIS) != shards:
+        raise RuntimeError(
+            f"a tensor-parallel parameter of {shards} shards runs inside "
+            f"axis_scope of the mesh it was placed on (the model axis has "
+            f"{axis_size(MODEL_AXIS)} ranks here)")
+    return local
+
+
+def call_shared(module: nn.Module, *args):
+    """``module(*args)`` with each of its parameters routed through
+    ``copy_to_region``: a parameter replicated over the model axis but
+    used inside a sharded region (a table or a pooling conv shared by
+    every head), whose gradient on each rank is its shard's part, so the
+    sum over the axis makes it whole and equal on every rank."""
+    from torch.func import functional_call
+    params = {name: copy_to_region(p, MODEL_AXIS)
+              for name, p in module.named_parameters()}
+    return functional_call(module, params, args)
+
+
+def row_parallel(x: torch.Tensor, weight: torch.Tensor,
+                 bias: Optional[torch.Tensor], out_dtype: torch.dtype
+                 ) -> torch.Tensor:
+    """A row-parallel product: this rank's columns of ``weight`` times its
+    part of x, summed over the model axis, then the bias, added once."""
+    y = reduce_from_region(dense(x, local_tensor(weight), None, out_dtype),
+                           MODEL_AXIS)
+    return y if bias is None else (y + bias).to(out_dtype)
+
+
 class Linear(nn.Module):
     """torch.nn.Linear's parameters, xavier-uniform or torch-default weight,
     torch-default bias; the output keeps the input's dtype. With an int8
     weight (``core/quantize.py``) the product is the quantized one, in f32,
-    plus the bias, cast to the input's dtype."""
+    plus the bias, cast to the input's dtype.
+
+    Under the tensor-parallel rules (``parallel/partition.py``)
+    ``parallel`` is "column" (the weight's rows and the bias sharded: the
+    input enters the region through ``copy_to_region``, the output is
+    this rank's features) or "row" (the weight's columns sharded: the
+    input is this rank's features, the output the sum over the axis plus
+    the whole bias)."""
+
+    parallel: Optional[str] = None
 
     def __init__(self, in_features: int, out_features: int, *,
                  bias: bool = True, xavier: bool = True,
@@ -111,6 +163,12 @@ class Linear(nn.Module):
                                  self.bias, x.dtype,
                                  getattr(self, "weight_padded", None))
         record_input(self, x)
+        if self.parallel == "column":
+            return dense(copy_to_region(x, MODEL_AXIS),
+                         local_tensor(self.weight), local_tensor(self.bias),
+                         x.dtype)
+        if self.parallel == "row":
+            return row_parallel(x, self.weight, self.bias, x.dtype)
         return dense(x, self.weight, self.bias, x.dtype)
 
 
@@ -392,26 +450,41 @@ def dropout_generator(generator: Optional[torch.Generator]
 
 
 def dropout(x: torch.Tensor, p: float,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            model_dim: Optional[int] = None) -> torch.Tensor:
     """Inverted dropout as flax's: keep each element with probability
     1 - p and divide the kept ones by 1 - p in x's dtype. ``F.dropout``
     takes no generator, hence this. The batch is dimension 0; inside a
     data-parallel step the mask is this rank's rows of the global
-    batch's."""
+    batch's. ``model_dim`` is the dimension of x sharded over the model
+    axis (a column-parallel activation's features, or the heads): the
+    mask is drawn at the unsharded shape and cut there too, so a step
+    under the rules draws what one process draws."""
     if p == 0.0:
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - p
-    mask = local_rows(torch.rand(global_rows(x.shape), generator=generator,
-                                 device=x.device)) < keep
+    shape = list(global_rows(x.shape))
+    if model_dim is not None:
+        shape[model_dim] *= axis_size(MODEL_AXIS)
+    mask = local_rows(torch.rand(shape, generator=generator,
+                                 device=x.device))
+    if model_dim is not None:
+        mask = local_slice(mask, model_dim, MODEL_AXIS)
+    mask = mask < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
 
 class Dropout(nn.Module):
     """``dropout`` in training mode, with the generator that
-    ``dropout_generator`` installed; the identity in eval mode."""
+    ``dropout_generator`` installed; the identity in eval mode.
+    ``model_dim`` is set by the tensor-parallel rules on a dropout between
+    a column- and a row-parallel Linear (its input's features are
+    sharded)."""
+
+    model_dim: Optional[int] = None
 
     def __init__(self, p: float):
         super().__init__()
@@ -420,7 +493,7 @@ class Dropout(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return x
-        return dropout(x, self.p, _GENERATOR)
+        return dropout(x, self.p, _GENERATOR, self.model_dim)
 
 
 class DropPath(nn.Module):
@@ -592,6 +665,18 @@ class MultiheadAttention(nn.Module):
     rounds logits and weights to bf16 as the JAX package does (whose K2
     takes XLA's backward where a row does not fit).
 
+    Under the tensor-parallel rules (``parallel/partition.py``;
+    ``model_shards`` is the model axis's size) this rank holds the rows
+    of q, k and v of its heads and the matching columns of ``out_proj``:
+    the inputs enter through ``copy_to_region``, the attention core (K1/K2
+    through the same gate, or the eager branch with its dropout drawn at
+    all the heads and cut to this rank's) runs on this rank's heads, and
+    ``out_proj``'s product is summed over the axis before its bias is
+    added once. Where the axis does not divide the heads, q, k and v are
+    gathered over the axis and the core runs whole on every rank, then
+    ``out_proj`` takes this rank's columns of its output. The ``kv`` of
+    the weight-shared decoder holds what the core takes.
+
     int8 serving: ``in_proj_weight`` and ``out_proj.weight`` are
     weight-only quantizable (never an ``input_scale``; ``out_proj`` never
     records an input). With int8 weights each projection is the bf16 x
@@ -599,6 +684,9 @@ class MultiheadAttention(nn.Module):
     serving dtype is the bias's, as in JAX (``nn/layers.py:377-396``,
     ``:441-445``).
     """
+
+    TENSOR_PARALLEL_PAIRS = (("in_proj_weight", "out_proj.weight"),)
+    model_shards: Optional[int] = None
 
     def __init__(self, embed_dim: int, num_heads: int, *,
                  dropout: float = 0.0, output_scale: float = 1.0,
@@ -628,6 +716,14 @@ class MultiheadAttention(nn.Module):
         quantized = w.dtype == torch.int8
         if not quantized:
             mark_weight_only(self, "in_proj_weight", "out_proj.weight")
+        sharded = self.model_shards is not None
+        if sharded:
+            w, b = local_tensor(w), local_tensor(b)
+            query, key, value = (copy_to_region(t, MODEL_AXIS)
+                                 for t in (query, key, value))
+        el = w.shape[0] // 3           # this rank's rows of each of q, k, v
+        whole = h % (e // el) != 0     # heads the model axis cuts
+        hl = h if whole else h * el // e
         # the serving dtype is the parameters' dtype (the bias's under int8
         # weights)
         act = (torch.bfloat16 if (b if quantized else w).dtype
@@ -644,7 +740,8 @@ class MultiheadAttention(nn.Module):
         # eager branch keeps q, k, v in f32
         proj_dtype = act if fused is not None else torch.float32
 
-        def project(x, lo, hi):
+        def project(x, part):
+            lo, hi = part * el, (part + 1) * el
             if quantized:
                 padded = getattr(self, "in_proj_weight_padded", None)
                 return dense_forward(
@@ -654,28 +751,35 @@ class MultiheadAttention(nn.Module):
             return dense(x, w[lo:hi], b[lo:hi], proj_dtype)
 
         def split(t):
-            return t.reshape(*t.shape[:-1], h, d)
+            if whole:
+                t = gather_features(t, MODEL_AXIS)
+            return t.reshape(*t.shape[:-1], hl, d)
 
-        q = split(project(query, 0, e))
+        q = split(project(query, 0))
         if kv is None:
-            kv = (split(project(key, e, 2 * e)),
-                  split(project(value, 2 * e, 3 * e)))
+            kv = (split(project(key, 1)), split(project(value, 2)))
         k, v = kv
         if fused is not None:
             ctx = fused(q, k.to(act).contiguous(), v.to(act).contiguous())
         else:
             p = self.dropout if self.training else 0.0
-            ctx = _eager_attention(q, k, v, act, p)
-        ctx = ctx.reshape(*query.shape[:-1], e)
+            ctx = _eager_attention(q, k, v, act, p,
+                                   1 if sharded and not whole else None)
+        ctx = ctx.reshape(*query.shape[:-1], hl * d)
+        if whole and sharded:
+            ctx = local_slice(ctx, -1, MODEL_AXIS)
 
         wo, bo = self.out_proj.weight, self.out_proj.bias
         scaled = self.output_scale != 1.0
+        out_dtype = torch.float32 if scaled else query.dtype
         if wo.dtype == torch.int8:
             out = dense_forward(ctx, wo, self.out_proj.weight_scale, None, bo,
-                                torch.float32 if scaled else query.dtype,
+                                out_dtype,
                                 getattr(self.out_proj, "weight_padded", None))
+        elif sharded:
+            out = row_parallel(ctx, wo, bo, out_dtype)
         else:
-            out = dense(ctx, wo, bo, torch.float32 if scaled else query.dtype)
+            out = dense(ctx, wo, bo, out_dtype)
         if scaled:
             out = out * (1.0 / self.output_scale)
         out = out.to(query.dtype)
@@ -683,12 +787,14 @@ class MultiheadAttention(nn.Module):
 
 
 def _eager_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     act: torch.dtype, p: float = 0.0) -> torch.Tensor:
+                     act: torch.dtype, p: float = 0.0,
+                     model_dim: Optional[int] = None) -> torch.Tensor:
     """The gate's other branch, for short sequences (DETR's 10 memory
     tokens and 5 queries). f32 q, k, v; in bf16 the (B, H, Nq, Nk) logits,
     exp and weights are rounded to bf16, the row sum accumulates in f32,
-    and P.V runs in f32. ``p`` is the training dropout on the weights; the
-    row max takes no gradient, as in JAX."""
+    and P.V runs in f32. ``p`` is the training dropout on the weights
+    (``model_dim`` 1 where the heads are this rank's of the model axis);
+    the row max takes no gradient, as in JAX."""
     d = q.shape[-1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()).to(act)
     logits = logits / math.sqrt(d)
@@ -696,5 +802,5 @@ def _eager_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     weights = unnorm / unnorm.sum(dim=-1, keepdim=True,
                                   dtype=torch.float32).to(act)
     if p > 0.0:
-        weights = dropout(weights, p, _GENERATOR)
+        weights = dropout(weights, p, _GENERATOR, model_dim)
     return torch.einsum("bhqk,bkhd->bqhd", weights.float(), v.float())

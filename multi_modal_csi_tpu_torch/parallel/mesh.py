@@ -4,12 +4,14 @@
 One process ("rank") drives one device, as ``torchrun`` launches them. The
 mesh names its axes ("data", "model"). A global batch splits over "data";
 ranks along "model" take the same rows, as JAX's batch sharding
-replicates over "model". The tensor-parallel rules that would split the
-model over that axis wait for ROADMAP item 14b, so here it only
-replicates.
+replicates over "model". ``fit`` and ``fit_video`` replicate the model
+over that axis, as JAX's do; the tensor-parallel rules that split it
+there are reached through ``parallel/partition.py::apply_tensor_parallel``
+and ``entry.py::dryrun_multichip``.
 
 - ``initialize_distributed``: the default process group, NCCL on the card
-  and gloo only when the caller asks for the CPU;
+  and gloo only when the caller asks for the CPU; ``one_rank_group``: a
+  group of this process alone, joined as torchrun would describe it;
 - ``create_mesh``: a ``DeviceMesh`` named ("data", "model") over every
   rank;
 - ``BatchSharding`` (``batch_sharding``, ``config_batch_sharding``): a
@@ -18,10 +20,12 @@ replicates.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
-from typing import Dict, Optional, Union
+import socket
+from typing import Dict, Iterator, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -64,6 +68,37 @@ def initialize_distributed(num_processes: Optional[int] = None, *,
     if backend == "nccl":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
     dist.init_process_group(backend, init_method="env://")
+
+
+def free_port() -> int:
+    """A free TCP port on this machine (a group's address is localhost)."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def one_rank_group(device: Union[str, torch.device] = "cuda"
+                   ) -> Iterator[None]:
+    """A process group of this process alone (NCCL on the card, gloo for
+    the CPU), joined through ``initialize_distributed`` with torchrun's
+    environment for one rank on a free local port; the group is left and
+    the environment restored when the block ends."""
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
+           "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"}
+    before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        initialize_distributed(device=device)
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def is_main_process() -> bool:

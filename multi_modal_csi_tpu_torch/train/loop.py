@@ -65,9 +65,9 @@ from ..metrics.performance import performance_metrics
 from ..nn.layers import dropout_generator
 from ..parallel.collectives import (average_gradients, axis_scope,
                                     gather_rows, pmean)
-from ..parallel.mesh import (BatchSharding, barrier, batch_divisor,
-                             is_main_process, shard_batch)
-from ..parallel.partition import apply_fsdp
+from ..parallel.mesh import (DATA_AXIS, BatchSharding, barrier,
+                             batch_divisor, is_main_process, shard_batch)
+from ..parallel.partition import apply_fsdp, full_tensor
 from .augment import apply_augmentation
 from .schedules import cosine_warmup
 
@@ -89,7 +89,18 @@ def adam_like_torch(params, lr: float,
                     weight_decay: float = 0.0) -> torch.optim.Adam:
     """torch.optim.Adam as the reference trains: betas (0.9, 0.999), eps
     1e-8, coupled L2 (grad += wd * param before the moments), which is
-    what the JAX package's optax chain reproduces."""
+    what the JAX package's optax chain reproduces. Where some parameters
+    are DTensors and some are not (a model under the tensor-parallel
+    rules), each kind is a parameter group of its own: a foreach step
+    refuses a list that mixes them; the update of each parameter is the
+    same."""
+    from torch.distributed.tensor import DTensor
+    params = list(params)
+    placed = [p for p in params if isinstance(p, DTensor)]
+    if placed and len(placed) < len(params):
+        params = [{"params": placed},
+                  {"params": [p for p in params
+                              if not isinstance(p, DTensor)]}]
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=weight_decay)
 
@@ -122,9 +133,12 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
 
     With ``sharding`` the batch is this rank's rows of the global one:
     the forward and backward run inside ``axis_scope`` of its mesh, and
-    the gradients are averaged over the ranks (by FSDP2 when the model
-    was sharded with ``fsdp``, ``data_parallel``); ``loss`` is then this
-    rank's term, whose mean over the data axis is the global loss."""
+    the gradients are averaged over the mesh's "data" axis (by FSDP2 when
+    the model was sharded with ``fsdp``, ``data_parallel``); ``loss`` is
+    then this rank's term, whose mean over the data axis is the global
+    loss. A model under the tensor-parallel rules
+    (``parallel/partition.py::apply_tensor_parallel``) runs on its shards
+    over the mesh's "model" axis, whose ranks take the same rows."""
     mesh = None if sharding is None else sharding.mesh
 
     def step(bx: torch.Tensor, by: torch.Tensor,
@@ -141,8 +155,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             loss = loss_fn(out, by)
             with cudnn_f32():          # the convs' backward in full f32 too
                 loss.backward()
-        if sharding is not None and not fsdp:
-            average_gradients(model.parameters())
+            if sharding is not None and not fsdp:
+                average_gradients(model.parameters(), DATA_AXIS)
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
@@ -166,15 +180,17 @@ def forward_chunk(model: nn.Module, rows: np.ndarray, chunk: int, *,
                   sharding: Optional[BatchSharding] = None) -> np.ndarray:
     """Eval forward of ``rows`` zero-padded to ``chunk`` rows, each cast
     to ``dtype``, on the model's device: with ``sharding`` this rank runs
-    its rows of the chunk and the outputs are gathered over the data
-    axis. Returns the f32 outputs of the real rows (``batch_axis`` is
-    where the batch lies in the output)."""
+    its rows of the chunk inside ``axis_scope`` of its mesh (a model under
+    the tensor-parallel rules sums over its "model" axis) and the outputs
+    are gathered over the data axis. Returns the f32 outputs of the real
+    rows (``batch_axis`` is where the batch lies in the output)."""
     device = next(model.parameters()).device
     bx = torch.from_numpy(shard_batch(sharding, pad_to(rows, chunk)))
     bx = bx.to(device)
     if dtype is not None:
         bx = bx.to(dtype)
-    out = gather_rows(model(bx), sharding, batch_axis)
+    with axis_scope(None if sharding is None else sharding.mesh):
+        out = gather_rows(model(bx), sharding, batch_axis)
     return np.take(out.float().cpu().numpy(), np.arange(rows.shape[0]),
                    axis=batch_axis)
 
@@ -229,10 +245,10 @@ def cast_parameters(model: nn.Module, dtype: Optional[torch.dtype]) -> None:
 
 
 def host_value(t: torch.Tensor) -> torch.Tensor:
-    """The whole tensor: a DTensor (FSDP's shards) is gathered from every
-    rank, so every rank must call this alike (JAX's ``host_value``)."""
-    from torch.distributed.tensor import DTensor
-    return t.full_tensor() if isinstance(t, DTensor) else t
+    """The whole tensor: a DTensor (FSDP's shards, or a tensor-parallel
+    parameter's) is gathered from every rank, so every rank must call
+    this alike (JAX's ``host_value``)."""
+    return full_tensor(t)
 
 
 def state_snapshot(model: nn.Module) -> StateDict:

@@ -93,8 +93,8 @@ def test_port_imports_nothing_of_jax():
     name starts with the JAX package's, so names are compared exactly),
     and no pandas, sklearn, cv2, msgpack or matplotlib, which the machine
     with the card does not have. The video, int8, checkpoint, transfer,
-    SSL, dual-band, ST-RF, export and parallel modules are named, so that
-    the test fails if one of them goes missing; the parallel modules,
+    SSL, dual-band, ST-RF, export, parallel and entry modules are named,
+    so that the test fails if one of them goes missing; the parallel modules,
     imported first, load nothing of the port outside ``parallel`` (they
     import torch.distributed only)."""
     mods = sorted(
@@ -111,11 +111,12 @@ def test_port_imports_nothing_of_jax():
                          "cli.ssl_inference", "utils.visualize",
                          "core.export", "cli.export_model",
                          "parallel.mesh", "parallel.collectives",
-                         "parallel.partition"):
+                         "parallel.partition", "parallel.pipeline",
+                         "kernels.ring_attention", "entry"):
         assert f"multi_modal_csi_tpu_torch.{video_module}" in mods
     code = (
         "import importlib, sys\n"
-        "for m in ('mesh', 'collectives', 'partition'):\n"
+        "for m in ('mesh', 'collectives', 'partition', 'pipeline'):\n"
         "    importlib.import_module('multi_modal_csi_tpu_torch.parallel.'"
         " + m)\n"
         "own = [m for m in sys.modules if m.startswith(\n"
