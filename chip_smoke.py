@@ -182,7 +182,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    pass in bf16; the result JSON read back with the JAX runner's keys;
    THAT_ENCODER's exact K1 (f32 and bf16) and K2 launch counts, none for
    DETR; then MLP (flat windows) and CNN-1D (count_round) for one epoch
-   each, with no kernel launch;
+   each, with no kernel launch; every run reads its windows through the
+   C++ loader (data/native_loader.py, built with g++ from the checkout),
+   and THAT_ENCODER's run logs through JSONL MetricWriters, read back: an
+   epoch record per epoch equal to fit's history, the repeat's summary and
+   the aggregate equal to the result's;
+10a. the ops layer (ops_phase) at full width: the C++ loader against the
+   numpy loader on 10's dataset bit for bit, each timed at 8 and 1
+   threads; THAT_ENCODER training steps at batch 16: a warm-up step, 3
+   steps timed by StepTimer, 3 under utils/profiling.py::trace with
+   StepTimer (the written Chrome trace parsed: its K1 f32 kernels and
+   K2's two passes equal to the launch counts of those steps), a forward
+   and backward under nan_guard (no raise, logits bit-equal to the
+   unguarded pass, its cost), a NaN in one input window raising
+   FloatingPointError at a named op, and a NaN in the gradient fed to K2
+   named at K2's launch (the backward runs on the autograd engine's
+   thread); explore's packet_loss_stats and label_distribution on 10's
+   dataset, and csi_heatmap raising an ImportError naming matplotlib
+   where the machine lacks it (else writing its PNG);
 10b. transfer learning from the component files that 10's THAT_ENCODER
    and DETR runs saved (save_model): each restored under feature_encoder
    into the weights of seed 0 (feature extractor and encoder the file's
@@ -1661,12 +1678,17 @@ def run_csi_phase(work, converted_amp):
     THAT_ENCODER's K1 and K2). Returns THAT_ENCODER's launch counts."""
     from multi_modal_csi_tpu_torch import kernels
     from multi_modal_csi_tpu_torch.core.config import Config
+    from multi_modal_csi_tpu_torch.data.native_loader import native_available
     from multi_modal_csi_tpu_torch.data.splits import (env_split,
                                                        valid_test_split)
+    from multi_modal_csi_tpu_torch.runners import csi as csi_runner
     from multi_modal_csi_tpu_torch.runners.csi import (CSI_MODELS,
                                                        run_experiment)
+    from multi_modal_csi_tpu_torch.utils.logging import MetricWriter
     pytorch_defaults()
+    check(native_available(), "the C++ window loader did not build")
     amp_dir = write_run_dataset(work, converted_amp)
+    metrics_dir = os.path.join(work, "metrics")
     idx = np.arange(RUN_WINDOWS)
     out = {}
     for key, epochs in (("THAT_ENCODER", RUN_EPOCHS), ("DETR", RUN_EPOCHS),
@@ -1699,12 +1721,26 @@ def run_csi_phase(work, converted_amp):
             # the transfer phase starts from these two runs' best weights
             "save_model": key in TRANSFER_KEYS,
             "saving_path": os.path.join(work, "saved")})
+        writers = None
+        if key == "THAT_ENCODER":
+            os.makedirs(metrics_dir)
+
+            def writers(name):
+                return MetricWriter(os.path.join(metrics_dir,
+                                                 f"{name}.jsonl"))
         kernels.reset_launch_counts()
         start = time.perf_counter()
-        result = run_experiment(cfg)
+        with recorded(csi_runner, ("fit", "load_csi_windows_native")) as calls:
+            result = run_experiment(cfg, writer_factory=writers)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
         launches = dict(kernels.LAUNCH_COUNTS)
+        check(len(calls["load_csi_windows_native"]) == 1,
+              f"{key} read its windows {len(calls['load_csi_windows_native'])}"
+              f" times through the C++ loader, expected once")
+        if writers is not None:
+            check_metric_files(metrics_dir, key, result,
+                               [res.history for res in calls["fit"]])
         with open(save) as f:
             written = json.load(f)
         fit_s = result["time_train"]["avg"]
@@ -1729,6 +1765,292 @@ def run_csi_phase(work, converted_amp):
                                 f"{want}")
         out[key] = launches
     return out["THAT_ENCODER"]
+
+
+@contextlib.contextmanager
+def recorded(module, names):
+    """Record what each named function of ``module`` returns while the
+    block runs (``calls[name]``), then restore the functions."""
+    calls = {name: [] for name in names}
+    saved = {name: getattr(module, name) for name in names}
+
+    def recording(name):
+        def call(*args, **kwargs):
+            calls[name].append(saved[name](*args, **kwargs))
+            return calls[name][-1]
+        return call
+
+    for name in names:
+        setattr(module, name, recording(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+# the keys of fit's epoch record, JAX's (train/loop.py:425-439)
+EPOCH_KEYS = {"epoch", "epoch_time", "train_loss", "test_loss",
+              "total_error_test", "perfect_prediction_percentage_test",
+              "perfect_prediction_percentage_train", "accuracy_test",
+              "precision", "recall", "f1_score"}
+AGGREGATE_KEYS = {"aggregate/accuracy_avg", "aggregate/accuracy_std",
+                  "aggregate/time_train_avg", "aggregate/time_test_avg"}
+
+
+def as_json(value):
+    """``value`` as the JSONL file holds it (NaN compares equal there)."""
+    return json.dumps(value, sort_keys=True,
+                      default=lambda v: v.item())
+
+
+def check_metric_files(metrics_dir, key, result, histories):
+    """The JSONL files of a one-repeat run: ``<key>_0`` with an epoch
+    record per epoch (``step`` the epoch, the rest fit's history entry)
+    and then the summary, ``<key>_aggregate`` with the aggregate."""
+    def read(name):
+        with open(os.path.join(metrics_dir, f"{name}.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    files = sorted(os.listdir(metrics_dir))
+    check(files == [f"{key}_0.jsonl", f"{key}_aggregate.jsonl"],
+          f"{key} metric files {files}")
+    check(len(histories) == 1, f"{key} ran fit {len(histories)} times")
+    *epochs, summary = read(f"{key}_0")
+    check(len(epochs) == RUN_EPOCHS
+          and all(set(r) == EPOCH_KEYS | {"_time", "step"} and
+                  r["step"] == i for i, r in enumerate(epochs)),
+          f"{key} epoch records {[sorted(r) for r in epochs]}")
+    logged = [{k: v for k, v in r.items() if k in EPOCH_KEYS}
+              for r in epochs]
+    check(as_json(logged) == as_json(histories[0]),
+          f"{key} epoch records {logged} differ from fit's history "
+          f"{histories[0]}")
+    check(summary.get("summary/test_accuracy") == result["accuracy"]["avg"]
+          and "step" not in summary,
+          f"{key} summary record {summary}, result accuracy "
+          f"{result['accuracy']}")
+    aggregate = read(f"{key}_aggregate")
+    check(len(aggregate) == 1 and set(aggregate[0]) == AGGREGATE_KEYS
+          | {"_time"} and aggregate[0]["aggregate/accuracy_avg"]
+          == result["accuracy"]["avg"],
+          f"{key} aggregate records {aggregate}")
+    print(f"{key} metric writers: {len(epochs)} epoch records equal to "
+          f"fit's history, summary test accuracy "
+          f"{summary['summary/test_accuracy']!r}, aggregate accuracy "
+          f"{aggregate[0]['aggregate/accuracy_avg']!r}; files {files}")
+
+
+# ---------------------------------------------------------------------- #
+# the ops layer: the C++ loader, the profiler trace, nan_guard, explore
+# ---------------------------------------------------------------------- #
+
+OPS_STEPS = 3              # THAT_ENCODER steps timed, and traced
+
+
+def loader_seconds(load, amp_dir, labels):
+    """Seconds of ``load(amp_dir, labels, LENGTH, threads)`` at 8 and at 1
+    threads (the files already read: a warm page cache), and the
+    windows."""
+    times = {}
+    for threads in (8, 1):
+        start = time.perf_counter()
+        out = load(amp_dir, labels, LENGTH, threads)
+        times[threads] = time.perf_counter() - start
+    return times, out
+
+
+def trace_kernels(trace_dir):
+    """The CUDA kernel events of the one Chrome trace under
+    ``trace_dir``: their names and the device microseconds they sum to."""
+    import glob
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    check(len(files) == 1, f"trace wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return [e["name"] for e in kernels], sum(e["dur"] for e in kernels)
+
+
+def guarded_pass(model, x, y, loss_fn, seed):
+    """One THAT_ENCODER forward and backward in training mode, dropout
+    drawn from ``seed``: the logits, detached."""
+    from multi_modal_csi_tpu_torch.core.device import cudnn_f32
+    from multi_modal_csi_tpu_torch.nn.layers import dropout_generator
+    model.zero_grad(set_to_none=True)
+    with dropout_generator(torch.Generator(device="cuda").manual_seed(seed)):
+        out = model(x)
+    with cudnn_f32():
+        loss_fn(out, y).backward()
+    return out.detach()
+
+
+def ops_phase(work):
+    """The ops layer on the card at full width (module docstring, 10a).
+    Returns the K1 f32 and K2 launches of its traced steps."""
+    from multi_modal_csi_tpu_torch import kernels
+    from multi_modal_csi_tpu_torch.core.config import Config
+    from multi_modal_csi_tpu_torch.data.annotation import load_annotation
+    from multi_modal_csi_tpu_torch.data.csi_io import load_csi_windows
+    from multi_modal_csi_tpu_torch.data.native_loader import (
+        load_csi_windows_native, native_available)
+    from multi_modal_csi_tpu_torch.kernels.flash_attention import (
+        flash_attention_trainable)
+    from multi_modal_csi_tpu_torch.runners.csi import CSI_MODELS, build_model
+    from multi_modal_csi_tpu_torch.train.loop import (adam_like_torch,
+                                                      make_train_step)
+    from multi_modal_csi_tpu_torch.utils import explore
+    from multi_modal_csi_tpu_torch.utils.profiling import (StepTimer,
+                                                           nan_guard, trace)
+    phase_start = time.perf_counter()
+    pytorch_defaults()
+    amp_dir = os.path.join(work, "amp")
+    annotation = load_annotation(os.path.join(work, "annotation.csv"))
+    labels = list(annotation["label"])
+
+    # the C++ loader against the numpy loader, bit for bit
+    check(native_available(), "the C++ window loader did not build")
+    native_s, native = loader_seconds(load_csi_windows_native, amp_dir,
+                                      labels)
+    numpy_s, plain = loader_seconds(load_csi_windows, amp_dir, labels)
+    check(native.shape == plain.shape == (len(labels), LENGTH, 3, 3, 30)
+          and np.array_equal(native, plain),
+          f"C++ loader {native.shape} against numpy {plain.shape}: not "
+          f"bit for bit")
+    print(f"window loaders, {len(labels)} windows of ({LENGTH}, 3, 3, 30) "
+          f"f32 ({native.nbytes / 2 ** 20:.1f} MiB, warm page cache): C++ "
+          f"{native_s[8]:.4f} s at 8 threads, {native_s[1]:.4f} s at 1; "
+          f"numpy {numpy_s[8]:.4f} s at 8, {numpy_s[1]:.4f} s at 1; bit for "
+          f"bit equal ({card_line()})")
+    del native, plain
+
+    # THAT_ENCODER steps: a warm-up, OPS_STEPS timed, OPS_STEPS traced
+    cfg = Config().override({"data.length": LENGTH})
+    spec = CSI_MODELS["THAT_ENCODER"]
+    loss_fn = spec.make_loss(cfg, 10)
+    rng = np.random.default_rng(SEED + 13)
+    bx = torch.from_numpy(rng.standard_normal(
+        (TRAIN_BATCH, LENGTH, CHANNELS), dtype=np.float32)).cuda()
+    by = torch.from_numpy(np.eye(10, dtype=np.float32)[
+        rng.integers(0, 10, (TRAIN_BATCH, 5))]).cuda()
+    model = build_model("THAT_ENCODER", seed=SEED, cfg=cfg).cuda()
+    step = make_train_step(model, adam_like_torch(
+        model.parameters(), cfg.nn.lr, spec.weight_decay), loss_fn)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    step(bx, by, gen)                                       # warm-up
+    torch.cuda.synchronize()
+    plain_timer = StepTimer()
+    for _ in range(OPS_STEPS):
+        plain_timer.start()
+        plain_timer.stop(step(bx, by, gen))
+    trace_dir = os.path.join(work, "trace")
+    traced_timer = StepTimer()
+    kernels.reset_launch_counts()
+    with trace(trace_dir):
+        for _ in range(OPS_STEPS):
+            traced_timer.start()
+            traced_timer.stop(step(bx, by, gen))
+    launches = dict(kernels.LAUNCH_COUNTS)
+    names, device_us = trace_kernels(trace_dir)
+    seen = {"flash_attention_f32": sum(K1_F32 in n for n in names)}
+    seen.update({f"flash_attention_backward ({part})":
+                 sum(kernel in n for n in names)
+                 for part, kernel in K2_PASSES[torch.float32].items()})
+    plain, traced = plain_timer.summary(), traced_timer.summary()
+    print(f"THAT_ENCODER steps at batch {TRAIN_BATCH}: StepTimer outside the"
+          f" trace {plain}; inside {traced} (profiler overhead "
+          f"{traced['mean_s'] / plain['mean_s'] - 1:+.1%} of the mean); the"
+          f" trace's {len(names)} kernels {device_us / 1e3 / OPS_STEPS:.3f} "
+          f"device ms a step; hand kernels in the trace {seen}, launches "
+          f"counted {launches} ({card_line()})")
+    want = {"flash_attention_f32": 5 * OPS_STEPS,
+            "flash_attention_backward": 5 * OPS_STEPS}
+    check(launches == want, f"traced steps launched {launches}, expected "
+                            f"{want}")
+    check(seen == {"flash_attention_f32": want["flash_attention_f32"],
+                   **{f"flash_attention_backward ({part})":
+                      want["flash_attention_backward"]
+                      for part in K2_PASSES[torch.float32]}},
+          f"the trace holds {seen} hand kernels, the steps launched "
+          f"{launches}")
+
+    # nan_guard: a clean forward and backward, bit-equal and timed
+    x, y = bx[:TRAIN_BATCH], by[:TRAIN_BATCH]
+    times = {}
+    for label in ("plain", "guarded", "plain again"):
+        with nan_guard() if label == "guarded" else contextlib.nullcontext():
+            guarded_pass(model, x, y, loss_fn, SEED)          # warm
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            logits = guarded_pass(model, x, y, loss_fn, SEED)
+            torch.cuda.synchronize()
+        times[label] = time.perf_counter() - start
+        if label == "plain":
+            want_logits = logits
+        check(torch.equal(logits, want_logits),
+              f"nan_guard: {label} logits differ from the plain pass's")
+    print(f"nan_guard on a THAT_ENCODER forward and backward at batch "
+          f"{TRAIN_BATCH}: logits bit-equal to the plain pass; "
+          f"{times['guarded'] * 1e3:.1f} ms against "
+          f"{times['plain'] * 1e3:.1f} / {times['plain again'] * 1e3:.1f} ms"
+          f" plain (+{(times['guarded'] - times['plain']) * 1e3:.1f} ms a "
+          f"step; {card_line()})")
+    # a NaN in one input window: raised at the first op that reads it
+    x_nan = x.clone()
+    x_nan[3, LENGTH // 2, 100] = float("nan")
+    try:
+        with nan_guard():
+            guarded_pass(model, x_nan, y, loss_fn, SEED)
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    print(f"nan_guard with a NaN in window 3: {raised!r}")
+    check(raised is not None and "output of aten." in raised,
+          f"nan_guard let a NaN input through ({raised!r})")
+    # a NaN in the gradient fed to K2: named at K2's launch, which runs on
+    # the autograd engine's device thread
+    q, k, v = (torch.randn((TRAIN_BATCH, 270, 10, 27), device="cuda",
+                           requires_grad=True) for _ in range(3))
+    do = torch.randn((TRAIN_BATCH, 270, 10, 27), device="cuda")
+    do[0, 0, 0, 0] = float("nan")
+    kernels.reset_launch_counts()
+    try:
+        with nan_guard():
+            flash_attention_trainable(q, k, v).backward(do)
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    print(f"nan_guard with a NaN in K2's output gradient: {raised!r}; "
+          f"launches {dict(kernels.LAUNCH_COUNTS)}")
+    check(raised == "nan_guard: NaN in the output of the "
+                    "flash_attention_backward kernel",
+          f"nan_guard did not name K2 ({raised!r})")
+
+    # explore on 10's dataset
+    stats = explore.packet_loss_stats(amp_dir, labels, LENGTH)
+    dist = explore.label_distribution(annotation)
+    print(f"explore: packet_loss_stats {stats}; label_distribution {dist}")
+    check(stats["num_windows"] == len(labels)
+          and stats["max_length"] <= LENGTH
+          and sum(dist["number_of_users"].values()) == len(labels),
+          f"explore: {stats}, {dist}")
+    import importlib.util
+    heatmap = os.path.join(work, "plots", "heatmap.png")
+    window = np.load(os.path.join(amp_dir, f"{labels[0]}.npy"))
+    if importlib.util.find_spec("matplotlib") is None:
+        try:
+            explore.csi_heatmap(window, heatmap)
+            raised = None
+        except ImportError as e:
+            raised = str(e)
+        print(f"explore.csi_heatmap without matplotlib: {raised!r}")
+        check(raised is not None and "matplotlib" in raised,
+              f"csi_heatmap without matplotlib raised {raised!r}")
+    else:
+        explore.csi_heatmap(window, heatmap)
+        check(os.path.getsize(heatmap) > 0, "csi_heatmap wrote no PNG")
+        print(f"explore.csi_heatmap wrote {heatmap}")
+    print(f"ops phase: {time.perf_counter() - phase_start:.1f} s")
 
 
 # ---------------------------------------------------------------------- #
@@ -5072,7 +5394,7 @@ def run_video_default_phase(clips, annotation, work):
 EXPORT_SHARE = 1e-5        # artifact vs eager server, of the largest logit
 SWIN_EXPORT_SHARE = 2e-6   # Swin-T f32 artifact vs the CPU, of the largest
 SWIN_EXPORT_CLIP = (16, 224, 224)   # batch 1, as the backbone's CPU check
-EXPORT_PROFILED = 3        # forwards timed by the profiler, each side
+EXPORT_PROFILED = 2        # forwards timed by the profiler, each side
 EXPORT_WINDOWS = 256       # the CSI artifacts' batch (the serving batch)
 EXPORT_GRAPH_BYTES = 2 ** 25   # an artifact's bytes beside its weights
 # the MLP w8 cuda,cpu artifact, card vs CPU, of the largest logit: w8 rounds
@@ -5905,6 +6227,7 @@ def main() -> int:
         experiment = run_csi_phase(work, converted_amp)
         print(f"run_experiment phase (THAT_ENCODER, DETR, MLP, CNN-1D): "
               f"{time.perf_counter() - start:.1f} s")
+        ops_phase(work)
         print("WiMANS baselines: serving (bf16, int8), training and the "
               f"card-vs-CPU steps took {baseline_s:.1f} s of wall time")
         # checkpoints, transfer, resume and the last three CSI keys

@@ -17,9 +17,11 @@ JAX package's ``core/config.py`` (which the port does not import).
 - ``MeshConfig``: the device mesh's axes for data-parallel runs
   (``parallel/mesh.py::config_batch_sharding``), with ``mesh.*`` dotted
   overrides.
-
-Left out until ROADMAP item 15: the metric writers (W&B, JSONL, profile
-directory).
+- the observability fields ``wandb_project``, ``log_jsonl`` and
+  ``profile_dir``, as in JAX (``None`` by default), so that a JAX config
+  file that sets them loads; the writers themselves are
+  ``utils/logging.py::MetricWriter``, which a caller hands to the runner
+  (``runners/csi.py::run_csi_model(writer_factory=...)``).
 """
 
 from __future__ import annotations
@@ -181,6 +183,10 @@ class Config:
                                       # feature_encoder
     save_model: bool = False
     saving_path: str = "results/"
+    # observability
+    wandb_project: Optional[str] = None   # None => stdout/JSONL only
+    log_jsonl: Optional[str] = None
+    profile_dir: Optional[str] = None
     # dtype of the final test-set pass: "float32" (the reference's
     # numerics), "bfloat16", or "auto" (resolve_serving_dtype)
     compute_dtype: str = "float32"

@@ -4,9 +4,9 @@ of the JAX package's ``data/csi_io.py``.
 Each label's (T, 3, 3, 30) float32 amplitude is left-padded with zeros to
 ``length`` time steps (reference ``wifi_csi/load_data.py:48-78``); a
 window longer than ``length`` keeps its LAST ``length`` steps. The output
-is allocated once and filled in place by a thread pool. The JAX runner
-reads the same arrays through its C++ loader (``data/native_loader.py``),
-which the port has not taken over.
+is allocated once and filled in place by a thread pool. The runner reads
+the same arrays through the C++ loader (``data/native_loader.py``), which
+falls back to this one.
 """
 
 from __future__ import annotations

@@ -24,15 +24,19 @@ dispatch by device when the program runs, the launch on the card and the
 plain version on the CPU. Outside it a wrapper calls its op on CUDA
 tensors and its plain version on CPU tensors; a CUDA tensor never takes a
 plain version.
+
+``check_launch`` shows what a kernel launched through ctypes outside an
+op (K2's and K4's backward, K5) wrote to an active ``nan_guard``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Callable, Dict, Iterator
+from typing import Callable, Dict, Iterable, Iterator
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 LAUNCH_COUNTS: Dict[str, int] = {}
 _LIBRARY = torch.library.Library("mmcsi", "DEF")
@@ -46,6 +50,16 @@ def count_launch(name: str) -> None:
 
 def reset_launch_counts() -> None:
     LAUNCH_COUNTS.clear()
+
+
+def check_launch(name: str, outputs: Iterable[torch.Tensor]) -> None:
+    """Hand the tensors a launch through ctypes wrote to each active
+    dispatch mode that checks them (``utils/profiling.py::nan_guard``):
+    such a launch is no op the dispatcher sees."""
+    for mode in _get_current_dispatch_mode_stack():
+        check = getattr(mode, "check_launch", None)
+        if check is not None:
+            check(name, outputs)
 
 
 @contextlib.contextmanager

@@ -6,7 +6,9 @@ compiled alone with ``nvcc`` (no PyTorch headers, so a build takes seconds)
 into ``_build/lib<name>-<hash>.so``, where the hash covers the source, every
 ``csrc/`` header it includes (``#include "x.cuh"``, followed through headers)
 and the flags: an unchanged source is not rebuilt, a changed one or one
-whose header changed never loads a stale library.
+whose header changed never loads a stale library. The C++ window loader
+(``data/native_loader.py``) builds with g++ into the same directory by the
+same rule (``hashed_target``, ``compile_library``).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -68,13 +70,19 @@ def _flags(name: str) -> List[str]:
                          else [])
 
 
-def _target(name: str) -> Path:
+def hashed_target(name: str, sources: List[Path], flags: List[str]) -> Path:
+    """``_build/lib<name>-<hash>.so``, the hash over each source's name and
+    bytes and the flags: the rule every library the port builds follows."""
     digest = hashlib.sha256()
-    for path in _sources(name):
+    for path in sources:
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
-    digest.update(" ".join(_flags(name)).encode())
+    digest.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def _target(name: str) -> Path:
+    return hashed_target(name, _sources(name), _flags(name))
 
 
 def _command(name: str, out: str) -> List[str]:
@@ -84,20 +92,29 @@ def _command(name: str, out: str) -> List[str]:
             str(CSRC / f"{name}.cu")]
 
 
+def compile_library(target: Path, command: Callable[[str], List[str]],
+                    what: str) -> str:
+    """Run ``command(tmp)``, which compiles into the file ``tmp``, and move
+    the result to ``target`` (so a library another process is building is
+    never loaded half written). Returns the compiler's output; raises
+    RuntimeError with it when the compiler fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run(command(tmp), stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"{what} failed:\n{proc.stdout}")
+    os.replace(tmp, target)
+    return proc.stdout
+
+
 def load(name: str) -> ctypes.CDLL:
     """The library of ``csrc/<name>.cu``, built first if needed. Each
     kernel module loads its library once and sets its C signatures."""
     target = _target(name)
     if not target.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        proc = subprocess.run(
-            _command(name, tmp),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
-        os.replace(tmp, target)
-        LOGS[name] = proc.stdout
+        LOGS[name] = compile_library(
+            target, lambda out: _command(name, out), f"nvcc for {name}.cu")
     return ctypes.CDLL(str(target))

@@ -17,7 +17,7 @@ from typing import Tuple
 
 import torch
 
-from . import build, count_launch
+from . import build, check_launch, count_launch
 
 NAME = "csi_amplitude_phase"
 SOURCE = "csi_preprocess"              # csrc/csi_preprocess.cu
@@ -85,4 +85,5 @@ def amplitude_phase(re: torch.Tensor, im: torch.Tensor
             raise RuntimeError(f"{NAME} kernel launch failed with CUDA "
                                f"error {err}")
         count_launch(NAME)
+        check_launch(NAME, (amp, phase))
     return amp, phase

@@ -37,7 +37,7 @@ from typing import Tuple
 
 import torch
 
-from . import build, count_launch, define_op, uses_op
+from . import build, check_launch, count_launch, define_op, uses_op
 
 NAME = "flash_attention"
 F32_NAME = "flash_attention_f32"    # K1's f32 launches, counted apart
@@ -237,10 +237,11 @@ def flash_attention_backward(
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     work = torch.empty((2, b * h, nq), dtype=torch.float32, device=q.device)
     if dq.numel():
-        _launch(BWD_SOURCE,
-                BWD_NAME if q.dtype == torch.float32 else BWD_BF16_NAME,
-                (q, k, v, do, dq, dk, dv, work), q, k.shape[1],
+        name = BWD_NAME if q.dtype == torch.float32 else BWD_BF16_NAME
+        _launch(BWD_SOURCE, name, (q, k, v, do, dq, dk, dv, work), q,
+                k.shape[1],
                 f"the tensor-core kernels take D <= {TC_MAX_HEAD_DIM}")
+        check_launch(name, (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -47,7 +47,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from . import build, count_launch, define_op, uses_op
+from . import build, check_launch, count_launch, define_op, uses_op
 
 NAME = "flash_attention_lowrank_bias"
 SOURCE = "flash_attention_lowrank"    # csrc/flash_attention_lowrank.cu
@@ -356,6 +356,7 @@ def lowrank_backward_dq(q, k, v, r, s, do, lse, delta):
     dr = None if r is None else torch.empty_like(r)
     _bwd_launch("dq", DQ_NAME, (q, k, v, r, s, do, lse, delta, dq, dr),
                 (b * h, nq, nk, d, m), q)
+    check_launch(DQ_NAME, (dq, dr))
     return dq, dr
 
 
@@ -381,6 +382,7 @@ def lowrank_backward_dkv(q, k, v, r, s, do, lse, delta):
     ds = None if r is None else torch.empty((splits, b * h, m, nk), **f32)
     _bwd_launch("dkv", DKV_NAME, (q, k, v, r, s, do, lse, delta, dk, dv, ds),
                 (b * h, nq, nk, d, m, splits), q)
+    check_launch(DKV_NAME, (dk, dv, ds))
     dk, dv = dk.sum(dim=0).to(k.dtype), dv.sum(dim=0).to(v.dtype)
     return dk, dv, None if ds is None else ds.sum(dim=(0, 1))
 

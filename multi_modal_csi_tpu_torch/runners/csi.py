@@ -3,7 +3,8 @@
 repeats and results, as the reference's ``run_main.py`` runs them.
 
 - ``master_split`` (reference ``run_main.py:20-66``): per environment, the
-  annotation filter, the amplitude windows, label encoding, the model's
+  annotation filter, the amplitude windows (read by the C++ loader,
+  ``data/native_loader.py``), label encoding, the model's
   target reduction (``:39-47``) and the seeded 80/20 split, concatenated
   over environments;
 - ``run_csi_model``: the 50/50 validation/test split of the THAT and DETR
@@ -32,8 +33,16 @@ repeat starts from it and trains with ``train/transfer.py``'s optimizer.
 ``cfg.mesh.fsdp``), one process a device as ``torchrun`` starts them;
 every rank runs the same repeats and returns the same result, and rank 0
 alone saves the component files and writes the JSON. As in JAX, SSL,
-dual_band and ST-RF run unsharded. Metric writers wait for ROADMAP item 15
-and raise NotImplementedError.
+dual_band and ST-RF run unsharded.
+
+Metric writers (``writer_factory``, a callable from a run name to a
+``utils/logging.py::MetricWriter`` or anything with its ``log`` and
+``finish``), as JAX's runner logs them: the writer of repeat ``r``,
+named ``f"{key}_{r}"``, gets ``fit``'s epoch records, then the repeat's
+``summary/*`` record after its final test pass, and is finished; the
+``f"{key}_aggregate"`` writer gets the ``aggregate/*`` record over the
+repeats. Under ``use_mesh`` only rank 0 builds writers. ST-RF, SSL and
+dual_band log nothing, as in JAX.
 """
 
 from __future__ import annotations
@@ -54,8 +63,9 @@ from ..core.config import CSI_CHANNELS, Config, resolve_serving_dtype
 from ..core.device import resolve_device
 from ..parallel.mesh import barrier, config_batch_sharding, is_main_process
 from ..data.annotation import filter_annotation, label_list, load_annotation
-from ..data.csi_io import flatten_features, load_csi_windows
+from ..data.csi_io import flatten_features
 from ..data.encoders import encode_labels, reduce_dataset
+from ..data.native_loader import load_csi_windows_native
 from ..data.splits import concat_env_splits, env_split, valid_test_split
 from ..losses.basic import bce_with_logits, mse, smooth_l1
 from ..losses.matching import (HungarianMatchingLoss, count_based_loss,
@@ -69,6 +79,7 @@ from ..train.loop import (cast_for_serving, eval_dataset, fit,
                           state_snapshot)
 from ..train.transfer import transfer_optimizer
 from ..utils.complexity import complexity_report
+from ..utils.logging import MetricWriter
 from ..utils.results import NumpyJSONEncoder
 
 Loss = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -282,8 +293,8 @@ def master_split(cfg: Config, target: str = "raw", data_cfg=None) -> Split:
         df = filter_annotation(annotation, environment=[env],
                                wifi_band=data_cfg.wifi_band,
                                num_users=data_cfg.num_users)
-        x = load_csi_windows(cfg.path.data_x, label_list(df),
-                             length=data_cfg.length)
+        x = load_csi_windows_native(cfg.path.data_x, label_list(df),
+                                    length=data_cfg.length)
         y = encode_labels(df, cfg.task, cfg.encoding_activity,
                           cfg.encoding_location)
         per_env.append(env_split(x, apply_target_reduction(y, target, cfg)))
@@ -324,14 +335,9 @@ def _count_round_metrics(logits: np.ndarray, y_test: np.ndarray) -> dict:
 # the runner
 # ---------------------------------------------------------------------- #
 
-def _check_options(writer_factory) -> None:
-    if writer_factory is not None:
-        raise NotImplementedError("metric writers are not ported yet "
-                                  "(ROADMAP item 15)")
-
-
 def run_csi_model(cfg: Config, data: Optional[Split] = None,
-                  writer_factory: Optional[Callable[[str], Any]] = None,
+                  writer_factory: Optional[Callable[[str], MetricWriter]]
+                  = None,
                   use_mesh: bool = False,
                   device: Optional[Union[str, torch.device]] = None
                   ) -> Dict[str, Any]:
@@ -341,9 +347,9 @@ def run_csi_model(cfg: Config, data: Optional[Split] = None,
     y_te) as ``master_split`` returns it; by default it is read from
     ``cfg.path``. The complexity report's forward runs on the CPU. ST-RF,
     SSL and dual_band go to their own runners. ``use_mesh`` trains over
-    the config's device mesh (module docstring)."""
+    the config's device mesh, and ``writer_factory`` names the metric
+    writers (module docstring)."""
     key = cfg.model
-    _check_options(writer_factory)
     if key == "ST-RF":
         return _run_strf(cfg, data, device)
     if key == "SSL":
@@ -356,6 +362,8 @@ def run_csi_model(cfg: Config, data: Optional[Split] = None,
     sharding = (config_batch_sharding(cfg, resolve_device(device))
                 if use_mesh else None)
     fsdp = sharding is not None and cfg.mesh.fsdp
+    if not is_main_process():
+        writer_factory = None
 
     if data is None:
         x_tr, x_te, y_tr, y_te = master_split(cfg, spec.target)
@@ -410,6 +418,7 @@ def run_csi_model(cfg: Config, data: Optional[Split] = None,
         model = build(seed)
         if pretrained is not None:
             model.load_state_dict(pretrained, strict=True)
+        writer = writer_factory(f"{key}_{r}") if writer_factory else None
         t0 = time.time()
         fitres = fit(model, x_tr, y_tr_fit, x_va, y_va_fit,
                      loss_fn=spec.make_loss(cfg, out_dim), mode=spec.mode,
@@ -421,7 +430,7 @@ def run_csi_model(cfg: Config, data: Optional[Split] = None,
                      min_lr_ratio=cfg.nn.scheduler.min_lr_ratio,
                      batch_axis=spec.batch_axis, train_dtype=cfg.train_dtype,
                      optimizer=optimizer, sharding=sharding, fsdp=fsdp,
-                     device=device)
+                     writer=writer, device=device)
         t1 = time.time()
         if cfg.save_model and is_main_process():
             save_components(component_path(cfg.saving_path,
@@ -462,11 +471,30 @@ def run_csi_model(cfg: Config, data: Optional[Split] = None,
                                      if k != "counting_error_perPerson"}
         times_train.append(t1 - t0)
         times_test.append(t2 - t1)
+        if writer is not None:
+            # the repeat's summary (reference detr.py:788-804)
+            summary = {"summary/test_accuracy": float(accuracies[-1]),
+                       "summary/time_train": times_train[-1],
+                       "summary/time_test": times_test[-1]}
+            if spec.final_eval != "report" and last_metrics:
+                summary.update(
+                    {f"summary/{k}": float(v)
+                     for k, v in last_metrics.items() if np.isscalar(v)})
+            writer.log(summary)
+            writer.finish()
 
     summarize(result, accuracies, times_train, times_test)
     if last_metrics:
         result["final_metrics"] = {k: v for k, v in last_metrics.items()
                                    if k != "counting_error_perPerson"}
+    if writer_factory:
+        # the aggregates over repeats (reference detr.py:806-829)
+        agg = writer_factory(f"{key}_aggregate")
+        agg.log({"aggregate/accuracy_avg": result["accuracy"]["avg"],
+                 "aggregate/accuracy_std": result["accuracy"]["std"],
+                 "aggregate/time_train_avg": result["time_train"]["avg"],
+                 "aggregate/time_test_avg": result["time_test"]["avg"]})
+        agg.finish()
     return result
 
 
@@ -511,11 +539,15 @@ def _run_strf(cfg: Config, data: Optional[Split],
 def run_experiment(cfg: Config, data: Optional[Split] = None,
                    save: bool = True,
                    device: Optional[Union[str, torch.device]] = None,
-                   use_mesh: bool = False) -> Dict[str, Any]:
+                   use_mesh: bool = False,
+                   writer_factory: Optional[Callable[[str], MetricWriter]]
+                   = None) -> Dict[str, Any]:
     """``run_csi_model`` plus the config's model, task, data and nn
     sections (reference run_main.py:88-160), written as JSON to
-    ``cfg.path.save`` when ``save`` (by rank 0 alone)."""
-    result = run_csi_model(cfg, data, device=device, use_mesh=use_mesh)
+    ``cfg.path.save`` when ``save`` (by rank 0 alone). ``writer_factory``
+    goes to ``run_csi_model``."""
+    result = run_csi_model(cfg, data, writer_factory=writer_factory,
+                           device=device, use_mesh=use_mesh)
     result["model"] = cfg.model
     result["task"] = cfg.task
     result["data"] = dataclasses.asdict(cfg.data)

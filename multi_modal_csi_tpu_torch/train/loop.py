@@ -68,6 +68,7 @@ from ..parallel.collectives import (average_gradients, axis_scope,
 from ..parallel.mesh import (DATA_AXIS, BatchSharding, barrier,
                              batch_divisor, is_main_process, shard_batch)
 from ..parallel.partition import apply_fsdp, full_tensor
+from ..utils.logging import MetricWriter
 from .augment import apply_augmentation
 from .schedules import cosine_warmup
 
@@ -335,6 +336,7 @@ def fit(model: nn.Module,
         checkpoint_every: int = 0,
         sharding: Optional[BatchSharding] = None,
         fsdp: bool = False,
+        writer: Optional[MetricWriter] = None,
         device: Optional[Union[str, torch.device]] = None) -> FitResult:
     """Train ``model`` (moved to ``device``, the card by default) and return
     the best weights by the reference's rule.
@@ -360,6 +362,11 @@ def fit(model: nn.Module,
     trains data-parallel on this rank's rows of each global batch of
     ``batch_size``, which the data axis must divide; ``fsdp`` shards the
     parameters and Adam's moments over it too (module docstring).
+
+    ``writer`` (a ``utils.logging.MetricWriter`` or anything with its
+    ``log``) gets each epoch's record, the dict appended to ``history``,
+    with ``step=epoch``; under ``sharding`` only rank 0 logs, as only rank
+    0 writes a run's files.
     """
     if train_dtype not in TRAIN_DTYPES:
         raise ValueError(f"unsupported train_dtype {train_dtype!r}")
@@ -436,7 +443,7 @@ def fit(model: nn.Module,
         valid_metrics = performance_metrics(
             y_valid_np, logits_valid, var_mode=mode, var_threshold=threshold)
 
-        history.append({
+        record = {
             "epoch": epoch,
             "epoch_time": time.time() - t0,
             "train_loss": float(loss_train),
@@ -450,7 +457,10 @@ def fit(model: nn.Module,
             "precision": valid_metrics["precision"],
             "recall": valid_metrics["recall"],
             "f1_score": valid_metrics["f1_score"],
-        })
+        }
+        history.append(record)
+        if writer is not None and is_main_process():
+            writer.log(record, step=epoch)
 
         # best weights only when f1 AND PPP both strictly improve
         if (valid_metrics["f1_score"] > best_f1

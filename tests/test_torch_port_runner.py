@@ -18,8 +18,8 @@ the JAX package's, on the CPU.
   analysis against PyTorch's FLOP counter).
 - ``cli/run_csi.py`` end to end with ``--device cpu``, writing the JSON.
 - Restored weights train with plain Adam at lr (no weight decay, no
-  schedule), and what the port does not take over yet (metric writers,
-  device meshes) raises.
+  schedule); metric writers get a run's summary and aggregate, and a
+  device mesh asked for on the card where there is none raises.
 """
 
 import csv
@@ -242,16 +242,37 @@ def test_run_cli_on_cpu_writes_json(tmp_path):
 
 @pytest.mark.parametrize("what", ["writer", "mesh"])
 def test_what_is_not_ported_raises(what):
-    """Metric writers wait for ROADMAP item 15. The mesh is ported (the
-    2-rank runs are tests/test_torch_port_data_parallel.py's); asked for
-    on the card where there is none, it raises rather than run on the
-    CPU."""
+    """Metric writers are ported: a DETR run logs its repeat's summary and
+    the aggregate (the epoch records and JAX's run are
+    tests/test_torch_port_ops.py's). The mesh is ported (the 2-rank runs
+    are tests/test_torch_port_data_parallel.py's); asked for on the card
+    where there is none, it raises rather than run on the CPU."""
     cfg = Config().override({"model": "DETR"})
     if what == "writer":
-        with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-            runner.run_csi_model(cfg, set_data(NARROW["DETR"]),
-                                 device="cpu",
-                                 writer_factory=lambda name: None)
+        logged = {}
+
+        class Writer:
+            def __init__(self, name):
+                self.records = logged.setdefault(name, [])
+
+            def log(self, metrics, step=None):
+                self.records.append((step, dict(metrics)))
+
+            def finish(self):
+                self.records.append("finished")
+
+        cfg = cfg.override({"repeat": 1, "nn.epoch": 0, "nn.batch_size": 4,
+                            "nn.num_decoder_layers": 2, "nn.dim_ffn": 64})
+        result = runner.run_csi_model(cfg, set_data(NARROW["DETR"]),
+                                      device="cpu", writer_factory=Writer)
+        assert list(logged) == ["DETR_0", "DETR_aggregate"]
+        (step, summary), finished = logged["DETR_0"]
+        assert step is None and finished == "finished"
+        assert summary["summary/test_accuracy"] == result["accuracy"]["avg"]
+        assert {f"summary/{k}" for k, v in result["final_metrics"].items()
+                if np.isscalar(v)} <= set(summary)
+        assert logged["DETR_aggregate"][0][1]["aggregate/accuracy_avg"] \
+            == result["accuracy"]["avg"]
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             runner.run_csi_model(cfg, set_data(NARROW["DETR"]),
