@@ -24,9 +24,10 @@
   It joins the process group that torchrun's environment describes (or
   the one already joined); without one it starts the ``n_devices`` ranks
   itself, one process each (a single rank runs in this process). On the
-  card ("cuda") every rank takes a card of its own, so ``n_devices`` may
-  not exceed the cards visible; the group is NCCL, and gloo only for
-  ``device="cpu"``.
+  card ("cuda") every rank takes the card of its ``LOCAL_RANK``
+  (``parallel/mesh.py::local_device``), so ranks this call starts may
+  not outnumber the cards visible, while a group torchrun started may
+  span nodes; the group is NCCL, and gloo only for ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -110,11 +111,6 @@ def dryrun_multichip(n_devices: int, device: DeviceLike = "cuda") -> None:
     from .parallel.mesh import (_backend, initialize_distributed,
                                 one_rank_group)
     _backend(device)                 # no card, no NCCL: raise, never the CPU
-    if torch.device(device).type == "cuda" and (
-            n_devices > torch.cuda.device_count()):
-        raise ValueError(f"dryrun_multichip({n_devices}) on the card needs "
-                         f"{n_devices} cards, {torch.cuda.device_count()} "
-                         f"are visible")
     if dist.is_initialized() or "WORLD_SIZE" in os.environ:
         initialize_distributed(device=device)
         if dist.get_world_size() != n_devices:
@@ -126,6 +122,13 @@ def dryrun_multichip(n_devices: int, device: DeviceLike = "cuda") -> None:
                                f"{torch.device(device).type!r} needs "
                                f"{_backend(device)}")
         _dryrun(n_devices, torch.device(device))
+    elif torch.device(device).type == "cuda" and (
+            n_devices > torch.cuda.device_count()):
+        # the ranks this call starts share this node's cards; a group
+        # torchrun started may span nodes, each rank on its LOCAL_RANK
+        raise ValueError(f"dryrun_multichip({n_devices}) on the card needs "
+                         f"{n_devices} cards, {torch.cuda.device_count()} "
+                         f"are visible")
     elif n_devices == 1:
         with one_rank_group(device):
             _dryrun(1, torch.device(device))
@@ -143,7 +146,8 @@ def _dryrun(n: int, device: torch.device) -> None:
     from .models.csi.mlp import MLP
     from .models.video import ResNet3D18
     from .parallel.collectives import axis_index, axis_scope, pmean
-    from .parallel.mesh import batch_sharding, create_mesh, shard_batch
+    from .parallel.mesh import (batch_sharding, create_mesh, local_device,
+                                shard_batch)
     from .parallel.partition import apply_tensor_parallel, fsdp_spec
     from .parallel.pipeline import (pipeline_apply, serial_reference,
                                     stack_stage_params)
@@ -151,8 +155,8 @@ def _dryrun(n: int, device: torch.device) -> None:
     from .train.loop import adam_like_torch, fit, make_train_step
 
     if device.type == "cuda":
-        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
-        device = torch.device("cuda", torch.cuda.current_device())
+        device = torch.device("cuda", local_device())
+        torch.cuda.set_device(device)
 
     def largest(err: float) -> float:
         """The largest of every rank's ``err``."""

@@ -10,8 +10,9 @@ there are reached through ``parallel/partition.py::apply_tensor_parallel``
 and ``entry.py::dryrun_multichip``.
 
 - ``initialize_distributed``: the default process group, NCCL on the card
-  and gloo only when the caller asks for the CPU; ``one_rank_group``: a
-  group of this process alone, joined as torchrun would describe it;
+  and gloo only when the caller asks for the CPU; ``local_device``: the
+  card torchrun gave this process; ``one_rank_group``: a group of this
+  process alone, joined as torchrun would describe it;
 - ``create_mesh``: a ``DeviceMesh`` named ("data", "model") over every
   rank;
 - ``BatchSharding`` (``batch_sharding``, ``config_batch_sharding``): a
@@ -51,6 +52,14 @@ def _backend(device: Union[str, torch.device]) -> str:
     return "nccl"
 
 
+def local_device() -> int:
+    """The card torchrun gave this process: ``LOCAL_RANK``, its rank among
+    the ranks of its node (0 outside torchrun). Never the global
+    ``RANK``: on the second node of a multi-node run it counts past the
+    node's cards."""
+    return int(os.environ.get("LOCAL_RANK", 0))
+
+
 def initialize_distributed(num_processes: Optional[int] = None, *,
                            device: Union[str, torch.device] = "cuda"
                            ) -> None:
@@ -60,13 +69,13 @@ def initialize_distributed(num_processes: Optional[int] = None, *,
     raises where NCCL or the card is missing), gloo for "cpu". Does
     nothing where that environment is absent (a single process) or for
     ``num_processes=1``. Idempotent. On the card the process takes device
-    ``LOCAL_RANK`` before anything runs there."""
+    ``local_device()`` before anything runs there."""
     if (num_processes == 1 or dist.is_initialized()
             or "WORLD_SIZE" not in os.environ):
         return
     backend = _backend(device)
     if backend == "nccl":
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(local_device())
     dist.init_process_group(backend, init_method="env://")
 
 
